@@ -1,0 +1,88 @@
+"""trident_tpu_torch imports and renders without jax, pins TF32 off, and
+never moves a CUDA request to the CPU."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import trident_tpu_torch
+from trident_tpu_torch.render.renderer import Renderer
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_NO_JAX_RENDER = """
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+import importlib, pkgutil
+import trident_tpu_torch
+for m in pkgutil.walk_packages(trident_tpu_torch.__path__, "trident_tpu_torch."):
+    importlib.import_module(m.name)
+from trident_tpu_torch.render.renderer import build_entry_renderer
+r = build_entry_renderer(64, 64, device="cpu")
+frame = r.read_frame()
+assert frame.shape == (64, 64, 4), frame.shape
+assert (frame[..., :3] != frame[0, 0, :3]).any(), "all clear color"
+assert sys.modules["jax"] is None
+print("rendered", frame.shape)
+"""
+
+
+def test_renders_with_jax_blocked():
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_RENDER], env=env,
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "rendered (64, 64, 4)" in proc.stdout
+
+
+def test_sources_never_import_jax():
+    banned = re.compile(
+        r"^\s*(import jax|from jax|from trident_tpu\.(mathx|render|ops)"
+        r"|import trident_tpu\.(mathx|render|ops))", re.M)
+    files = sorted((ROOT / "trident_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    offenders = [str(f) for f in files if banned.search(f.read_text())]
+    assert not offenders
+
+
+def test_tf32_pinned_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_cuda_request_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert trident_tpu_torch.default_device() == "cpu"
+    with pytest.raises(RuntimeError, match="cuda"):
+        Renderer(device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        trident_tpu_torch.resolve_device("cuda:0")
+
+
+def test_unported_features_raise():
+    from trident_tpu.core.config import EngineConfig, RenderConfig
+
+    for kw in ({"shadows": True}, {"bloom": True}, {"supersample": 2},
+               {"sampling": "trilinear"}, {"bands": 2}):
+        with pytest.raises(NotImplementedError):
+            Renderer(EngineConfig(render=RenderConfig(**kw)), device="cpu")
+
+
+def test_chip_smoke_fails_without_card():
+    """With no CUDA device visible the smoke test must exit non-zero and
+    print no result line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

@@ -1,0 +1,109 @@
+"""Deferred shading of the resolved attribute image → RGBA frame.
+
+Port of trident_tpu/ops/deferred.py (the forward path: deferred_shade_attrs
+with the forward branch of _shade_common folded in). Per pixel: one
+bilinear texel quad fetch (ops/texel.py), world position reconstructed
+from depth through the inverse view-projection, Cook-Torrance PBR,
+Reinhard tonemap + gamma, clear-color background, then the frame's final
+blend and clamp. Skybox, shadows, custom shaders and the AI blend are not
+part of the ported slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from trident_tpu_torch.ops import resolve as rp
+from trident_tpu_torch.ops import shading
+from trident_tpu_torch.ops.texel import sample_bilinear
+from trident_tpu_torch.render.types import (
+    CameraParams,
+    GBuffer,
+    LightParams,
+    TextureArrays,
+)
+
+Tensor = torch.Tensor
+
+
+def _background(width: int, height: int, clear_color, device) -> Tensor:
+    """The clear color as an (H, W, 3) image (the skybox is not ported)."""
+    return torch.tensor(clear_color[:3], dtype=torch.float32,
+                        device=device).expand(height, width, 3)
+
+
+def texel_lookup(attrs: Tensor, covered: Tensor, max_level: Tensor):
+    """(idx, fx, fy) of each pixel's bilinear quad fetch from the resolved
+    attributes: the mip level clamped and rounded half to even, the
+    texture geometry from the attribute image, idx −1 where uncovered."""
+    w0 = attrs[..., rp.CH_TSX].to(torch.int32)
+    h0 = attrs[..., rp.CH_TSY].to(torch.int32)
+    base8 = attrs[..., rp.CH_BASE8].to(torch.int32)
+    # per-slot pow2 edge = bit-smeared pow2 ceil of max(w, h), exactly the
+    # packing of render/textures.py
+    m = torch.clamp_min(torch.maximum(w0, h0), 1) - 1
+    for shift_k in (1, 2, 4, 8, 16):
+        m = m | (m >> shift_k)
+    mip = torch.clamp(attrs[..., rp.CH_MIP], 0.0, max_level.float())
+    idx, fx, fy = shading.bilinear_index(
+        attrs[..., rp.CH_U:rp.CH_V + 1], torch.round(mip).to(torch.int32),
+        (w0, h0, base8, m + 1))
+    idx = torch.where(covered, idx, -1)
+    return idx.contiguous(), fx.contiguous(), fy.contiguous()
+
+
+def deferred_shade_attrs(gbuffer: GBuffer, attrs: Tensor,
+                         textures: TextureArrays, camera: CameraParams,
+                         lights: LightParams, width: int, height: int,
+                         clear_color=(0.05, 0.05, 0.08, 1.0)) -> Tensor:
+    """Shade from the resolved attribute image (ops/resolve.py channel
+    layout) → (H, W, 4) f32 display-space frame in [0, 1]."""
+    dev = attrs.device
+    covered = gbuffer.tri_id >= 0
+    sampled = sample_bilinear(textures.quads,
+                              *texel_lookup(attrs, covered,
+                                            textures.max_level))
+    color_factor = attrs[..., rp.CH_CF:rp.CH_CF + 4]
+    albedo = sampled[..., :3] * color_factor[..., :3]
+    alpha = color_factor[..., 3:4] * sampled[..., 3:4]
+
+    # world position from depth: world_h = (P·V)⁻¹ · (ndc, 1), in f32 with
+    # TF32 off (pinned in the package __init__)
+    ys = torch.arange(height, dtype=torch.float32, device=dev) + 0.5
+    xs = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
+    py, px = torch.meshgrid(ys, xs, indexing="ij")
+    vp_inv = torch.linalg.inv(camera.proj @ camera.view)
+    ndc_x = px * (2.0 / width) - 1.0
+    ndc_y = py * (2.0 / height) - 1.0
+    ndc = torch.stack([ndc_x, ndc_y, gbuffer.depth, torch.ones_like(ndc_x)],
+                      dim=-1)
+    world_h = ndc @ vp_inv.T
+    wh = world_h[..., 3:4]
+    world = world_h[..., :3] / torch.where(wh.abs() < 1e-20, 1e-20, wh)
+
+    lit = shading.shade_pbr(
+        world, shading._normalize(attrs[..., rp.CH_NX:rp.CH_NZ + 1]), albedo,
+        attrs[..., rp.CH_MET:rp.CH_MET + 1],
+        attrs[..., rp.CH_ROUGH:rp.CH_ROUGH + 1],
+        attrs[..., rp.CH_AMB:rp.CH_AMB + 1], camera.position, lights)
+    background = _background(width, height, clear_color, dev)
+    a_out = torch.where(covered[..., None], alpha, clear_color[3])
+    rgb = torch.where(covered[..., None], shading.tonemap_reinhard_gamma(lit),
+                      background)
+    out = apply_ai_blend(torch.cat([rgb, a_out], dim=-1), None)
+    return torch.clamp(out, 0.0, 1.0)
+
+
+def apply_ai_blend(out: Tensor, ai: Optional[object]) -> Tensor:
+    """The final display-space AI-frame mix; only its disabled form (ai is
+    None) is part of the ported slice."""
+    if ai is not None:
+        raise NotImplementedError(
+            "the AI-frame blend is not ported to trident_tpu_torch yet")
+    return out
+
+
+def pack_rgba8(frame: Tensor) -> Tensor:
+    return torch.round(frame * 255.0).to(torch.uint8)

@@ -1,0 +1,42 @@
+"""Resolve records: per-triangle interpolation planes + shading constants.
+
+Port of trident_tpu/ops/planes.py (the column-native builder of the
+forward path). For homogeneous rasterization a vertex attribute A
+interpolates as A(p) = (gA·p)/(g1·p) with p = (px, py, 1), where
+gA = Σ_k A_k·edge_k and g1 = Σ_k edge_k are per-triangle constants. The
+table is the unchunked (RW, T) column layout: the resolve kernel
+(ops/resolve.py) loads its winner's column directly, so the TPU's chunked
+sentinel-prefixed layout has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from trident_tpu_torch.ops.corner import CornerCols
+
+# resolve-record row layout: plane g-vectors (3 rows each), then per-draw
+# shading constants (shade row + texture row: w, h, base>>8, pow2 edge)
+RR_G1, RR_NX, RR_NY, RR_NZ, RR_U, RR_V = 0, 3, 6, 9, 12, 15
+RR_CF, RR_MET, RR_ROUGH, RR_AMB, RR_SLOT = 18, 22, 23, 24, 25
+RR_TSX, RR_TSY, RR_BASE8, RR_EDGE = 26, 27, 28, 29
+RR_WIDTH = 32
+
+
+def build_resolve_cols_planar(cc: CornerCols) -> torch.Tensor:
+    """(RW, T) records from the corner stage's planar columns, with the
+    reference's fixed association: g1 = (e0 + e1) + e2 and
+    gA = (A0·e0 + A1·e1) + A2·e2 per coefficient."""
+    e = cc.setup.e
+
+    def plane_cols(a0, a1, a2):
+        return [(a0 * e[c] + a1 * e[3 + c]) + a2 * e[6 + c] for c in range(3)]
+
+    parts = [(e[c] + e[3 + c]) + e[6 + c] for c in range(3)]
+    for c in range(3):                                 # nx, ny, nz
+        parts += plane_cols(cc.nrm[c], cc.nrm[3 + c], cc.nrm[6 + c])
+    for j in range(2):                                 # u, v
+        parts += plane_cols(cc.uv[j], cc.uv[2 + j], cc.uv[4 + j])
+    parts += list(cc.consts)
+    cols = torch.stack(parts, dim=0)                   # (30, T)
+    return torch.nn.functional.pad(cols, (0, 0, 0, RR_WIDTH - cols.shape[0]))

@@ -1,0 +1,182 @@
+"""Fragment shading: Cook-Torrance PBR, bilinear texturing, tonemap.
+
+Port of trident_tpu/ops/shading.py (the forward slice). Math is the
+reference's GLSL (Default.frag): GGX distribution, Smith geometry with
+k = (r+1)²/8, Schlick Fresnel, one directional + up to 8 point lights with
+squared edge falloff, roughness clamped to [0.045, 1], F0 = mix(0.04,
+albedo, metallic), Reinhard tonemap + gamma 2.2. Texture sampling is the
+flat quad-pyramid addressing of render/textures.py; only the bilinear
+mode is part of the ported slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from trident_tpu_torch.render.types import LightParams, TextureArrays
+
+Tensor = torch.Tensor
+PI = 3.14159265359
+
+
+def _dot(a: Tensor, b: Tensor) -> Tensor:
+    return torch.sum(a * b, dim=-1, keepdim=True)
+
+
+def _normalize(v: Tensor, eps: float = 1e-8) -> Tensor:
+    return v * torch.rsqrt(torch.clamp_min(torch.sum(v * v, dim=-1,
+                                                     keepdim=True), eps))
+
+
+def distribution_ggx(n: Tensor, h: Tensor, roughness: Tensor) -> Tensor:
+    a = roughness * roughness
+    a2 = a * a
+    ndoth = torch.clamp_min(_dot(n, h), 0.0)
+    denom = ndoth * ndoth * (a2 - 1.0) + 1.0
+    return a2 / (PI * denom * denom)
+
+
+def geometry_schlick_ggx(ndotv: Tensor, roughness: Tensor) -> Tensor:
+    r = roughness + 1.0
+    k = (r * r) / 8.0
+    denom = ndotv * (1.0 - k) + k
+    return ndotv / torch.clamp_min(denom, 1e-4)
+
+
+def geometry_smith(n: Tensor, v: Tensor, l: Tensor,
+                   roughness: Tensor) -> Tensor:
+    ndotv = torch.clamp_min(_dot(n, v), 0.0)
+    ndotl = torch.clamp_min(_dot(n, l), 0.0)
+    return (geometry_schlick_ggx(ndotv, roughness)
+            * geometry_schlick_ggx(ndotl, roughness))
+
+
+def fresnel_schlick(cos_theta: Tensor, f0: Tensor) -> Tensor:
+    return f0 + (1.0 - f0) * torch.pow(torch.clamp(1.0 - cos_theta, 0.0, 1.0),
+                                       5.0)
+
+
+def evaluate_pbr_light(light_dir: Tensor, radiance: Tensor, normal: Tensor,
+                       view_dir: Tensor, albedo: Tensor, metallic: Tensor,
+                       roughness: Tensor, f0: Tensor) -> Tensor:
+    """One light's contribution (Default.frag EvaluatePBRLighting)."""
+    h = _normalize(view_dir + light_dir)
+    ndf = distribution_ggx(normal, h, roughness)
+    geom = geometry_smith(normal, view_dir, light_dir, roughness)
+    fresnel = fresnel_schlick(torch.clamp_min(_dot(h, view_dir), 0.0), f0)
+    numerator = ndf * geom * fresnel
+    denominator = torch.clamp_min(
+        4.0 * torch.clamp_min(_dot(normal, view_dir), 0.0)
+        * torch.clamp_min(_dot(normal, light_dir), 0.0), 1e-4)
+    specular = numerator / denominator
+    kd = (1.0 - fresnel) * (1.0 - metallic)
+    ndotl = torch.clamp_min(_dot(normal, light_dir), 0.0)
+    return (kd * albedo / PI + specular) * radiance * ndotl
+
+
+def shade_pbr(world: Tensor, normal: Tensor, albedo: Tensor, metallic: Tensor,
+              roughness: Tensor, ambient_strength: Tensor, camera_pos: Tensor,
+              lights: LightParams) -> Tensor:
+    """Full lighting sum → linear HDR color. world/normal/albedo (...,3);
+    metallic/roughness/ambient_strength (...,1)."""
+    metallic = torch.clamp(metallic, 0.0, 1.0)
+    roughness = torch.clamp(roughness, 0.045, 1.0)
+    ambient_strength = torch.clamp(ambient_strength, 0.0, 1.0)
+
+    view_dir = _normalize(camera_pos - world)
+    f0 = 0.04 * (1.0 - metallic) + albedo * metallic
+
+    dir_on = (lights.dir_count > 0).to(albedo.dtype)
+    l_dir = _normalize(-lights.dir_direction).expand(world.shape)
+    radiance = lights.dir_color[:3] * lights.dir_color[3]
+    direct = dir_on * evaluate_pbr_light(
+        l_dir, radiance, normal, view_dir, albedo, metallic, roughness, f0)
+
+    # point lights: one pass per (bucketed) slot, masked by point_count
+    for i in range(lights.point_pos_range.shape[0]):
+        on = (i < lights.point_count).to(albedo.dtype)
+        to_light = lights.point_pos_range[i, :3] - world
+        dist = torch.sqrt(torch.clamp_min(
+            torch.sum(to_light * to_light, dim=-1, keepdim=True), 1e-12))
+        near_zero = dist <= 1e-4
+        l_vec = to_light / torch.where(near_zero, 1.0, dist)
+        radius = torch.clamp_min(lights.point_pos_range[i, 3], 1e-4)
+        norm_dist = torch.clamp(dist / radius, 0.0, 1.0)
+        atten = (1.0 - norm_dist) ** 2
+        radiance = (lights.point_color_intensity[i, :3]
+                    * lights.point_color_intensity[i, 3] * atten)
+        contrib = evaluate_pbr_light(
+            l_vec, radiance, normal, view_dir, albedo, metallic, roughness, f0)
+        direct = direct + on * torch.where(near_zero, 0.0, contrib)
+
+    ambient = lights.ambient[:3] * lights.ambient[3] * albedo * ambient_strength
+    return ambient + direct
+
+
+def tonemap_reinhard_gamma(color: Tensor) -> Tensor:
+    """color/(color+1) then gamma 1/2.2 (Default.frag:176-178)."""
+    c = color / (color + 1.0)
+    return torch.pow(torch.clamp_min(c, 0.0), 1.0 / 2.2)
+
+
+# -- texture sampling ---------------------------------------------------------
+# entry(s,l,y,x) = quads[slot_base + level_base(E_s,l) + y·((E_s>>l)+1) + x]
+# holding the 2×2 block; a bilinear tap is ONE quad fetch (ops/texel.py).
+
+def _level_geom(level: Tensor, size_hint):
+    """(lw, lh, stride, base) for per-pixel integer mip levels, closed form:
+    a slot's level offset for pow2 edge E is Σ_{j<l}((E>>j)+1)²
+    = (E²−(E>>l)²)·4/3 + 4(E−(E>>l)) + l. `size_hint` is the per-pixel
+    (w0, h0, base>>8, edge) i32 rows (from the resolved attributes)."""
+    w0, h0, base8, edge = size_hint
+    lw = torch.clamp_min(torch.bitwise_right_shift(w0, level), 1)
+    lh = torch.clamp_min(torch.bitwise_right_shift(h0, level), 1)
+    es = torch.clamp_min(torch.bitwise_right_shift(edge, level), 1)
+    stride = es + 1
+    # clamp the additive level term to the slot's OWN pyramid depth (edge
+    # is pow2, so log2 in f32 is exact)
+    tail = torch.log2(torch.clamp_min(edge, 1).float()).to(level.dtype)
+    base = ((base8 << 8)
+            + torch.div((edge * edge - es * es) * 4, 3, rounding_mode="floor")
+            + (edge - es) * 4 + torch.minimum(level, tail))
+    return lw, lh, stride, base
+
+
+def bilinear_index(uv: Tensor, level: Tensor, size_hint):
+    """(idx, fx, fy) of the REPEAT-wrap bilinear quad fetch at integer mip
+    `level`: the index math the texel kernel's callers share."""
+    lw, lh, stride, base = _level_geom(level, size_hint)
+    x = uv[..., 0] * lw.float() - 0.5
+    y = uv[..., 1] * lh.float() - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    # floor modulo (jnp.mod) for the REPEAT wrap of negative coordinates
+    x0i = torch.remainder(x0.to(torch.int32), lw)
+    y0i = torch.remainder(y0.to(torch.int32), lh)
+    return base + y0i * stride + x0i, fx, fy
+
+
+def _bilinear_flat(tex: TextureArrays, uv: Tensor, level: Tensor,
+                   size_hint) -> Tensor:
+    """Bilinear sample with REPEAT wrap at integer mip `level`, one quad
+    gather, plain PyTorch (the texel kernel's callers use ops/texel.py)."""
+    from trident_tpu_torch.ops.texel import sample_bilinear_plain
+
+    idx, fx, fy = bilinear_index(uv, level, size_hint)
+    return sample_bilinear_plain(tex.quads, idx, fx, fy)
+
+
+def sample_texture(tex: TextureArrays, uv: Tensor, mip_level: Tensor,
+                   mode: str = "bilinear", size_hint=None) -> Tensor:
+    """Bilinear sample at the rounded, clamped mip level (gather path)."""
+    if mode != "bilinear":
+        raise NotImplementedError(
+            f"sampling mode {mode!r} is not ported to trident_tpu_torch yet")
+    if size_hint is None:
+        raise NotImplementedError("per-slot size lookups are not ported; "
+                                  "pass the resolved size_hint rows")
+    mip = torch.clamp(mip_level, 0.0, tex.max_level.float())
+    return _bilinear_flat(tex, uv, torch.round(mip).to(torch.int32),
+                          size_hint)
