@@ -6,13 +6,14 @@
 Phases (any failure exits non-zero before the final line is printed):
   1. print the card (nvidia-smi name, power limit) and the torch build;
      require a CUDA device
-  2. build the three kernels from trident_tpu_torch/csrc (nvcc, timed)
+  2. build the kernels from trident_tpu_torch/csrc (one nvcc per source,
+     in parallel, timed)
   3. on the spheres1080_1m frame (1920×1080, 36×36 spheres ≈ 995k
      triangles, 128² checker — the bench.py default scene), hold each
-     kernel against its plain PyTorch version on that frame's own
-     intermediates, and time both (CUDA events, median of 10 after
-     warm-up): visibility ids equal and depth bit-equal, resolve
-     channels within RESOLVE_TOL, texel bit-equal
+     main-pass kernel against its plain PyTorch version on that frame's
+     own intermediates, and time both (CUDA events, median of 10 after
+     warm-up): visibility ids equal and depth bit-equal, resolve channels
+     within RESOLVE_TOL, texel bit-equal
   4. render that scene through the port's Renderer for 12 frames while
      rotating the entities as bench.py does: aux == [0, 0] every frame,
      every kernel's launch count rose, the frame is not all clear color;
@@ -20,14 +21,35 @@ Phases (any failure exits non-zero before the final line is printed):
   5. render the 256² cube of render_frame_entry() and hold it against the
      JAX package's frame (tests/goldens/torch_slice_cube256.npy) under the
      golden gate: < 0.2% of channel values off by > 3 LSB, mean < 0.35
+  6. shadows1080 (bench.py's scene: 12×12 spheres before a backdrop, a
+     shadow-casting sun, 1920×1080, a 1024² hard shadow map): on that
+     frame's own light-pass bins, hold the depth-only visibility kernel
+     against its plain version and against the colour kernel's depth (bit-
+     equal, ±0 equal); hold the shadow-taps kernel against its plain
+     version at 1 and 4 taps (bits equal); time each and the stages of the
+     light pass and the shadowed shading; render 12 rotating frames and one
+     PCF frame through the Renderer: aux [0, 0] on the main and the light
+     pass, every kernel of the path launched, and > 1% of covered pixels
+     shadowed
+  7. ultra4k (36×36 spheres, 3840×2160, bloom): three frames through the
+     Renderer, aux [0, 0], the frame time
+  8. the post and shadow flavors of the golden-flavor scene at 128²
+     (shadows hard and PCF at a 256² map, bloom, 2× supersampling) against
+     the JAX package's frames tests/goldens/torch_slice_<flavor>.npy under
+     the golden gate
 Then it prints the kernels as one JSON line, the card line, and as the
 last line {"ok": true, "device": {...}}.
+
+bound_ms is the least time the card could take for a kernel's work: the
+larger of its bytes (each input read once, each output written once,
+counted from this run's data) over 3.35 TB/s and its f32 operations over
+67 TFLOP/s (H100 SXM data sheet; the card's power limit is printed
+beside).
 """
 
 from __future__ import annotations
 
 import json
-import os
 import statistics
 import subprocess
 import sys
@@ -37,15 +59,25 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-GOLDEN = ROOT / "tests" / "goldens" / "torch_slice_cube256.npy"
+GOLDENS = ROOT / "tests" / "goldens"
 BENCH_GRID = 36
+SHADOW_GRID = 12
 RESOLVE_TOL = 1e-6       # max |kernel − plain| per channel (log2 may differ
                          # by an ulp between libms; everything else is exact)
 GOLDEN_LSB, GOLDEN_FRAC, GOLDEN_MEAN = 3, 0.002, 0.35
-
-# trident_tpu/__init__ imports jax when JAX_PLATFORMS=cpu; this script and
-# the port run without jax, so the variable must not reach that import
-os.environ.pop("JAX_PLATFORMS", None)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 multiplies and adds per evaluated (triangle, pixel) pair of the
+# visibility kernels: three edge functions (2 mul + 2 add each), zi and wi
+# (3 mul + 2 add each); compares and the merge are not counted
+VIS_OPS_PER_PAIR = 22
+# the golden-flavor scene's configs (tests/test_torch_frame.py FLAVORS)
+FLAVORS = {
+    "shadows_hard": dict(shadows=True, shadow_map_size=256),
+    "shadows_pcf": dict(shadows=True, shadow_map_size=256, shadow_pcf=True),
+    "bloom": dict(bloom=True, bloom_threshold=0.35, bloom_strength=0.8),
+    "ssaa": dict(supersample=2),
+}
 
 
 def fail(msg: str) -> None:
@@ -72,21 +104,65 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def build_bench_scene(grid: int, device):
-    """The bench.py build_scene("spheres1080_1m") scene on the port."""
-    from trident_tpu.core.config import EngineConfig, RenderConfig
-    from trident_tpu.ecs.components import (
+def device_busy(fn, reps: int = 5):
+    """(ms, launches) per fn() call of device activity — kernels, copies
+    and fills as torch.profiler's CUDA activity records them — after one
+    warm-up call: the card's busy time without the gaps between launches
+    that CUDA events around a host-bound call also count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        fail("torch.profiler recorded no device activity")
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    return busy_us / reps / 1e3, len(events) / reps
+
+
+def print_stages(what: str, stages: dict, card: str) -> None:
+    """Each stage alone: CUDA-event ms (median of 10) and device busy ms
+    (torch.profiler)."""
+    print(f"{what} (ms, events / device busy): " + ", ".join(
+        f"{name} {cuda_ms(fn):.4f} / {device_busy(fn)[0]:.4f}"
+        for name, fn in stages.items()) + f" ({card})", flush=True)
+
+
+def bound(bytes_moved: float, ops: float = 0.0):
+    """(bound_ms, bound_by) of a kernel's work on the card."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def build_bench_scene(grid: int, device, config: str = "spheres1080_1m"):
+    """bench.py's build_scene(config) on the port: a grid × grid sphere
+    grid with the 128² checker at 1920×1080 (spheres1080_1m) or 3840×2160
+    with bloom (ultra4k); shadows1080 adds the backdrop slab and the
+    shadow-casting sun."""
+    from trident_tpu_torch.core.config import EngineConfig, RenderConfig
+    from trident_tpu_torch.ecs.components import (
+        LightComponent,
         MeshComponent,
         TextureComponent,
         TransformComponent,
     )
-    from trident_tpu.ecs.registry import Registry
-    from trident_tpu.geometry.primitives import PrimitiveType
-    from trident_tpu.io.image import checkerboard
+    from trident_tpu_torch.ecs.registry import Registry
+    from trident_tpu_torch.geometry.primitives import PrimitiveType
+    from trident_tpu_torch.io.image import checkerboard
     from trident_tpu_torch.render.renderer import Renderer
 
-    r = Renderer(EngineConfig(render=RenderConfig(width=1920, height=1080)),
-                 device=device)
+    w, h = (3840, 2160) if config == "ultra4k" else (1920, 1080)
+    r = Renderer(EngineConfig(render=RenderConfig(
+        width=w, height=h, bloom=config == "ultra4k",
+        shadows=config == "shadows1080")), device=device)
     reg = Registry()
     r.set_active_registry(reg)
     slot = r.acquire_texture("checker", checkerboard(128, 8))
@@ -100,17 +176,105 @@ def build_bench_scene(grid: int, device):
             reg.add(e, MeshComponent(mesh_index=mesh_idx))
             reg.add(e, TextureComponent(path="checker", slot=slot))
     r.editor_camera.set_position([0, 0, grid * 1.1 + 2])
+    if config == "shadows1080":
+        backdrop = reg.create()
+        bt = reg.add(backdrop, TransformComponent())
+        bt.position = np.array([0.0, 0.0, -2.0], np.float32)
+        bt.scale = np.array([grid * 1.4, grid * 1.4, 0.2], np.float32)
+        cube_idx = r.ensure_primitive(PrimitiveType.CUBE)
+        reg.add(backdrop, MeshComponent(mesh_index=cube_idx))
+        reg.add(backdrop, TextureComponent(path="checker", slot=slot))
+        sun = reg.create()
+        reg.add(sun, TransformComponent())
+        reg.add(sun, LightComponent(
+            direction=np.array([0.35, -0.3, -1.0], np.float32),
+            intensity=2.5, cast_shadows=True))
     r.editor_camera.look_at_target([0, 0, 0])
     return r, reg
 
 
 def rotate(reg, k: int) -> None:
     """bench.py's per-frame rotation of every entity."""
-    from trident_tpu.ecs.components import TransformComponent
+    from trident_tpu_torch.ecs.components import TransformComponent
 
     angle = 25.0 + k * 3.0
     for _e, (t,) in reg.view(TransformComponent):
         t.rotation = np.array([angle * 0.4, angle, 0.0], np.float32)
+
+
+def base_scene(device, **render_kw):
+    """tests/test_golden_flavors.py's `_base` scene (a textured cube over a
+    ground slab, a shadow-casting sun) at 128² on the Pallas path."""
+    from trident_tpu_torch.core.config import EngineConfig, RenderConfig
+    from trident_tpu_torch.ecs.components import (
+        LightComponent,
+        LightType,
+        MeshComponent,
+        TextureComponent,
+        TransformComponent,
+    )
+    from trident_tpu_torch.ecs.registry import Registry
+    from trident_tpu_torch.geometry.primitives import PrimitiveType
+    from trident_tpu_torch.io.image import checkerboard
+    from trident_tpu_torch.render.renderer import Renderer
+
+    r = Renderer(EngineConfig(render=RenderConfig(
+        width=128, height=128, texture_size=64, use_pallas=True,
+        **render_kw)), device=device)
+    reg = Registry()
+    r.set_active_registry(reg)
+    slot = r.acquire_texture("checker", checkerboard(64, 8))
+    cube_idx = r.ensure_primitive(PrimitiveType.CUBE)
+    cube = reg.create()
+    t = reg.add(cube, TransformComponent())
+    t.rotation = np.array([20.0, 35.0, 0.0], np.float32)
+    reg.add(cube, MeshComponent(mesh_index=cube_idx))
+    reg.add(cube, TextureComponent(path="checker", slot=slot))
+    ground = reg.create()
+    tg = reg.add(ground, TransformComponent())
+    tg.position = np.array([0, -0.9, 0], np.float32)
+    tg.scale = np.array([5, 0.1, 5], np.float32)
+    reg.add(ground, MeshComponent(mesh_index=cube_idx))
+    sun = reg.create()
+    reg.add(sun, TransformComponent())
+    reg.add(sun, LightComponent(
+        light_type=LightType.DIRECTIONAL,
+        direction=np.array([-0.35, -1.0, -0.25], np.float32),
+        intensity=4.0, cast_shadows=True))
+    r.editor_camera.set_position([1.8, 1.3, 2.8])
+    r.editor_camera.look_at_target([0, 0, 0])
+    return r
+
+
+def golden_gate(frame: np.ndarray, ref: np.ndarray, what: str) -> None:
+    if frame.shape != ref.shape:
+        fail(f"{what} frame shape {frame.shape} vs reference {ref.shape}")
+    diff = np.abs(frame.astype(np.int32) - ref.astype(np.int32))
+    frac, mean = float((diff > GOLDEN_LSB).mean()), float(diff.mean())
+    print(f"{what} vs JAX reference: {frac:.6f} of values > {GOLDEN_LSB} "
+          f"LSB, mean {mean:.6f}, max {int(diff.max())}", flush=True)
+    if not (frac < GOLDEN_FRAC and mean < GOLDEN_MEAN):
+        fail(f"{what} frame outside the golden gate")
+
+
+def vis_work(bins, n_tiles: int, out_bytes_per_px: int):
+    """(bytes, ops) of a visibility kernel on `bins`: every hit 16-triangle
+    sub-block's 1 KB of records once, the pair lists, the outputs; 22 f32
+    ops per evaluated (triangle, pixel) pair."""
+    import torch
+
+    from trident_tpu_torch.ops import raster
+
+    n = int(bins.n_real)
+    q = torch.arange(raster.NSUB, device=bins.pair_mask.device)
+    hit = ((bins.pair_mask[:n, None] >> q) & 1) != 0
+    n_hit = int(hit.sum())
+    subs = (bins.pair_chunk[:n, None].long() * raster.NSUB + q)[hit]
+    n_unique = int(torch.unique(subs).numel())
+    bytes_moved = (n_unique * raster.SUB * raster.REC * 4 + n * 12
+                   + (n_tiles + 1) * 4 + n_tiles * raster.TILE_PX
+                   * out_bytes_per_px)
+    return bytes_moved, n_hit * raster.SUB * raster.TILE_PX * VIS_OPS_PER_PAIR
 
 
 def main() -> None:
@@ -143,21 +307,40 @@ def main() -> None:
           f"(nvcc {_build.build_seconds} s; library {_build.BUILD_DIR})",
           flush=True)
 
-    from trident_tpu_torch.ops import raster, resolve, texel
+    from trident_tpu_torch.ops import raster, resolve, shadow_taps, texel
+    from trident_tpu_torch.ops.corner import build_draw_rows, corner_stage
     from trident_tpu_torch.ops.deferred import (
         deferred_shade_attrs,
         texel_lookup,
+        world_positions,
     )
+    from trident_tpu_torch.ops.shadow import shadow_factor, tap_indices
     from trident_tpu_torch.render.renderer import (
         frame_geometry,
         render_frame,
         render_frame_entry,
+        shadow_params,
     )
     from trident_tpu_torch.render.types import GBuffer
 
-    kernels_fns = {"visibility": raster.visibility_tiles,
-                   "resolve": resolve.resolve_attrs,
-                   "texel": texel.sample_bilinear}
+    kernel_fns = {"visibility": raster.visibility_tiles,
+                  "visibility_depth": raster.visibility_depth_tiles,
+                  "resolve": resolve.resolve_attrs,
+                  "texel": texel.sample_bilinear,
+                  "shadow_taps": shadow_taps.shadow_tap_bits}
+
+    def drive(path, needed):
+        """Run `path` with every launch count set to 0 just before; the
+        counts just after, failing if a kernel in `needed` never ran."""
+        for fn in kernel_fns.values():
+            fn.launches = 0
+        out = path()
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in kernel_fns.items()}
+        for name in needed:
+            if counts[name] < 1:
+                fail(f"the main path never launched the {name} kernel")
+        return out, counts
 
     # -- phase 3: each kernel against its plain version -----------------------
     r, reg = build_bench_scene(BENCH_GRID, dev)
@@ -193,7 +376,10 @@ def main() -> None:
         max_abs_err=float((d_k - d_p).abs().max()),
         ms=cuda_ms(lambda: raster.visibility_tiles(bins, ntx, n_tiles)),
         plain_ms=cuda_ms(
-            lambda: raster.visibility_tiles_plain(bins, ntx, n_tiles)))
+            lambda: raster.visibility_tiles_plain(bins, ntx, n_tiles)),
+        library_ms=None)
+    results["visibility"].update(zip(("bound_ms", "bound_by"), bound(
+        *vis_work(bins, n_tiles, 8))))
     covered = int((t_k >= 0).sum())
     print(f"visibility: {covered} covered pixels", flush=True)
 
@@ -204,12 +390,17 @@ def main() -> None:
     if not bool(torch.isfinite(a_k).all()) or float(err_ch.max()) > RESOLVE_TOL:
         fail(f"resolve kernel disagrees: per-channel {err_ch.tolist()}")
     print(f"resolve per-channel max err: {err_ch.tolist()}", flush=True)
+    n_winners = int(torch.unique(tri[tri >= 0]).numel())
     results["resolve"] = dict(
         route="cuda", source="trident_tpu_torch/csrc/resolve.cu",
         replaces="trident_tpu/ops/resolve_pallas.py:412",
         max_abs_err=float(err_ch.max()),
         ms=cuda_ms(lambda: resolve.resolve_attrs(tri, records)),
-        plain_ms=cuda_ms(lambda: resolve.resolve_attrs_plain(tri, records)))
+        plain_ms=cuda_ms(lambda: resolve.resolve_attrs_plain(tri, records)),
+        library_ms=None)
+    results["resolve"].update(zip(("bound_ms", "bound_by"), bound(
+        w * h * (4 + 4 * resolve.CHANNELS)
+        + n_winners * records.shape[0] * 4)))
 
     q = inp["textures"].quads
     idx, fx, fy = texel_lookup(a_k, tri >= 0, inp["textures"].max_level)
@@ -218,15 +409,24 @@ def main() -> None:
     bad_tx = int((x_k.view(torch.int32) != x_p.view(torch.int32)).sum())
     if bad_tx:
         fail(f"texel kernel disagrees on {bad_tx} values")
+    n_quads = int(torch.unique(idx[idx >= 0]).numel())
     results["texel"] = dict(
         route="cuda", source="trident_tpu_torch/csrc/texel.cu",
         replaces="trident_tpu/ops/texel_pallas.py:118",
         max_abs_err=float((x_k - x_p).abs().max()),
         ms=cuda_ms(lambda: texel.sample_bilinear(q, idx, fx, fy)),
-        plain_ms=cuda_ms(lambda: texel.sample_bilinear_plain(q, idx, fx, fy)))
+        plain_ms=cuda_ms(lambda: texel.sample_bilinear_plain(q, idx, fx, fy)),
+        library_ms=None)
+    results["texel"].update(zip(("bound_ms", "bound_by"), bound(
+        w * h * (12 + 16) + n_quads * 16)))
+    busy = {"visibility": lambda: raster.visibility_tiles(bins, ntx, n_tiles),
+            "resolve": lambda: resolve.resolve_attrs(tri, records),
+            "texel": lambda: texel.sample_bilinear(q, idx, fx, fy)}
     for name, res in results.items():
-        print(f"{name}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f}"
-              f" ms ({card})", flush=True)
+        print(f"{name}: kernel {res['ms']:.4f} ms (device busy "
+              f"{device_busy(busy[name])[0]:.4f} ms), plain "
+              f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+              f"({res['bound_by']}) ({card})", flush=True)
 
     # where the frame's device time goes: each stage of render_frame alone,
     # on this frame's intermediates
@@ -250,34 +450,31 @@ def main() -> None:
             gbuf, a_k, inp["textures"], inp["camera"], inp["lights"], w, h,
             clear_color=inp["clear_color"]),
     }
-    stage_ms = {name: cuda_ms(fn) for name, fn in stages.items()}
-    print("stages (ms): " + ", ".join(f"{k} {v:.4f}"
-                                      for k, v in stage_ms.items())
-          + f" ({card})", flush=True)
+    print_stages("stages", stages, card)
 
     # -- phase 4: the main path through the Renderer --------------------------
-    for fn in kernels_fns.values():
-        fn.launches = 0
     frame_ms, host_ms = [], []
-    out = None
-    for k in range(12):
-        rotate(reg, k)
-        t0 = time.perf_counter()
-        out = r.render_viewport()
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-        if out.aux.tolist() != [0, 0]:
-            fail(f"frame {k}: raster overflow aux {out.aux.tolist()}")
-        # the host share of the same frame: its draw gathering alone, on
-        # the transforms just rendered (frame_inputs launches no kernel)
-        t0 = time.perf_counter()
-        r.frame_inputs()
-        torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {name: fn.launches for name, fn in kernels_fns.items()}
-    for name, n in launches.items():
-        if n < 1:
-            fail(f"the main path never launched the {name} kernel")
+
+    def spheres_frames():
+        out = None
+        for k in range(12):
+            rotate(reg, k)
+            t0 = time.perf_counter()
+            out = r.render_viewport()
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            if out.aux.tolist() != [0, 0]:
+                fail(f"frame {k}: raster overflow aux {out.aux.tolist()}")
+            # the host share of the same frame: its draw gathering alone,
+            # on the transforms just rendered (frame_inputs launches no
+            # kernel)
+            t0 = time.perf_counter()
+            r.frame_inputs()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    out, launches4 = drive(spheres_frames, ("visibility", "resolve", "texel"))
     color = out.color
     if tuple(color.shape) != (1080, 1920, 4) or color.dtype != torch.uint8:
         fail(f"frame shape {tuple(color.shape)} {color.dtype}")
@@ -287,26 +484,264 @@ def main() -> None:
         fail("the frame is all clear color")
     wall = statistics.median(frame_ms[2:])
     dev_ms = cuda_ms(lambda: render_frame(**inp))
+    busy_ms, n_launch = device_busy(lambda: render_frame(**inp))
     print(f"frame: median {wall:.3f} ms wall per render_viewport, of which "
           f"{statistics.median(host_ms[2:]):.3f} ms host draw gathering "
           f"(frame_inputs); {dev_ms:.3f} ms render_frame device time, "
-          f"{n_fg} non-clear pixels, launches {launches} ({card})",
-          flush=True)
+          f"{busy_ms:.3f} ms of it busy in {n_launch:.0f} device "
+          f"activities (idle {1 - busy_ms / dev_ms:.3f}); {n_fg} non-clear "
+          f"pixels, launches {launches4} ({card})", flush=True)
+    del r, reg, inp, cs, records, bins, d_k, t_k, d_p, t_p, tri, a_k, a_p
+    del gbuf, idx, fx, fy, x_k, x_p, stages
+    torch.cuda.empty_cache()
 
     # -- phase 5: the cube against the JAX package's frame --------------------
-    ref = np.load(GOLDEN)
     cube = render_frame_entry(dev).cpu().numpy()
-    if cube.shape != ref.shape:
-        fail(f"cube frame shape {cube.shape} vs reference {ref.shape}")
-    diff = np.abs(cube.astype(np.int32) - ref.astype(np.int32))
-    frac, mean = float((diff > GOLDEN_LSB).mean()), float(diff.mean())
-    print(f"cube vs JAX reference: {frac:.6f} of values > {GOLDEN_LSB} LSB, "
-          f"mean {mean:.6f}, max {int(diff.max())}", flush=True)
-    if not (frac < GOLDEN_FRAC and mean < GOLDEN_MEAN):
-        fail("cube frame outside the golden gate")
+    golden_gate(cube, np.load(GOLDENS / "torch_slice_cube256.npy"), "cube")
 
-    kernels = [dict(name=name, launches=launches[name], **res)
-               for name, res in results.items()]
+    # -- phase 6: shadows1080 -------------------------------------------------
+    r, reg = build_bench_scene(SHADOW_GRID, dev, "shadows1080")
+    rotate(reg, 0)
+    r.editor_camera.set_viewport_size(1920, 1080)
+    inp = r.frame_inputs()
+    s = inp["shadow_size"]
+    lcam = inp["light_camera"]
+    stride = dict(draw_stride=inp["draw_stride"],
+                  real_draws=inp["real_draws"])
+    n_tri = int(inp["plan"].tri_valid.sum())
+    print(f"shadows1080: {n_tri} triangles (plan "
+          f"{inp['plan'].tri_valid.shape[0]}), {w}x{h}, map {s}², "
+          f"draw_stride {inp['draw_stride']}", flush=True)
+
+    def light_geometry():
+        rows = build_draw_rows(inp["params"], lcam, s, s)
+        return corner_stage(inp["corner_t"], rows, inp["tri_draw"],
+                            inp["plan"].tri_valid, s, s, **stride)
+
+    lcs = light_geometry()
+    lbins = raster.build_bins(lcs.setup, s, s, setup_cols=lcs.cols.setup)
+    if lbins.aux.tolist() != [0, 0]:
+        fail(f"light-pass binning overflow: aux {lbins.aux.tolist()}")
+    lntx = -(-s // raster.TILE)
+    ln_tiles = lntx * lntx
+    dd_k = raster.visibility_depth_tiles(lbins, lntx, ln_tiles)
+    dd_p = raster.visibility_tiles_plain(lbins, lntx, ln_tiles,
+                                         depth_only=True)
+    dc_k, _tc = raster.visibility_tiles(lbins, lntx, ln_tiles)
+    torch.cuda.synchronize()
+    bad_p, bad_c = int((dd_k != dd_p).sum()), int((dd_k != dc_k).sum())
+    if bad_p or bad_c:
+        fail(f"depth-only kernel disagrees: {bad_p} depths with its plain "
+             f"version, {bad_c} with the colour kernel's")
+    print(f"light pass: {int(lbins.n_real)} pairs, "
+          f"{int((dd_k < 1.0).sum())} map texels covered", flush=True)
+    results["visibility_depth"] = dict(
+        route="cuda", source="trident_tpu_torch/csrc/visibility.cu",
+        replaces="trident_tpu/ops/raster_pallas.py:1149",
+        max_abs_err=float((dd_k - dd_p).abs().max()),
+        ms=cuda_ms(lambda: raster.visibility_depth_tiles(lbins, lntx,
+                                                         ln_tiles)),
+        plain_ms=cuda_ms(lambda: raster.visibility_tiles_plain(
+            lbins, lntx, ln_tiles, depth_only=True)),
+        colour_ms=cuda_ms(lambda: raster.visibility_tiles(lbins, lntx,
+                                                          ln_tiles)),
+        library_ms=None)
+    results["visibility_depth"].update(zip(("bound_ms", "bound_by"), bound(
+        *vis_work(lbins, ln_tiles, 4))))
+    del dd_p, dc_k, _tc
+
+    shadow, _saux = shadow_params(inp["plan"], inp["params"],
+                                  inp["tri_draw"], inp["corner_t"], lcam, s,
+                                  2e-3, **stride)
+    cs, records = frame_geometry(
+        inp["plan"], inp["tri_draw"], inp["params"], inp["shade_table"],
+        inp["camera"], inp["textures"], inp["corner_t"], width=w, height=h,
+        **stride)
+    bins = raster.build_bins(cs.setup, w, h, setup_cols=cs.cols.setup)
+    d_k, t_k = raster.visibility_tiles(bins, ntx, n_tiles)
+    gbuf = GBuffer(tri_id=raster.untile_frame(t_k, ntx, nty)[:h, :w]
+                   .contiguous(), depth=raster.untile_frame(
+                       d_k, ntx, nty)[:h, :w].contiguous(), aux=bins.aux)
+    world = world_positions(gbuf.depth, inp["camera"], w, h)
+    map_bits = shadow.depth.view(torch.int32)
+    for pcf, key in ((False, "shadow_taps"), (True, "shadow_taps_pcf")):
+        ti = tap_indices(shadow, world, pcf)
+        b_k = shadow_taps.shadow_tap_bits(shadow.depth, *ti)
+        b_p = shadow_taps.shadow_tap_bits_plain(shadow.depth, *ti)
+        torch.cuda.synchronize()
+        bad = int((b_k != b_p).sum())
+        if bad:
+            fail(f"shadow-taps kernel ({'PCF' if pcf else 'hard'}) disagrees "
+                 f"on {bad} taps")
+        # taps (y0,x0)[, (y0,x1), (y1,x0), (y1,x1)] as index pairs into ti
+        pairs = [(0, 1)] if not pcf else [(0, 1), (0, 3), (2, 1), (2, 3)]
+        ys = torch.stack([ti[a].clamp_min(0).long() for a, _b in pairs])
+        xs = torch.stack([ti[b].clamp_min(0).long() for _a, b in pairs])
+        results[key] = dict(
+            route="cuda", source="trident_tpu_torch/csrc/shadow_taps.cu",
+            replaces="trident_tpu/ops/shadow_pallas.py:80",
+            max_abs_err=float((b_k - b_p).abs().max()),
+            ms=cuda_ms(lambda: shadow_taps.shadow_tap_bits(shadow.depth,
+                                                           *ti)),
+            plain_ms=cuda_ms(lambda: shadow_taps.shadow_tap_bits_plain(
+                shadow.depth, *ti)),
+            # one PyTorch indexing call for the same fetch (no −1 mask)
+            library_ms=cuda_ms(lambda: map_bits[ys, xs]))
+        # per pixel: the i32 indices in, one i32 per tap out; the map once
+        results[key].update(zip(("bound_ms", "bound_by"), bound(
+            w * h * 4 * (len(ti) + len(pairs)) + s * s * 4)))
+    busy = {"visibility_depth": lambda: raster.visibility_depth_tiles(
+        lbins, lntx, ln_tiles)}
+    for pcf, key in ((False, "shadow_taps"), (True, "shadow_taps_pcf")):
+        ti = tap_indices(shadow, world, pcf)
+        busy[key] = (lambda ti=ti: shadow_taps.shadow_tap_bits(shadow.depth,
+                                                               *ti))
+    for name in ("visibility_depth", "shadow_taps", "shadow_taps_pcf"):
+        res = results[name]
+        print(f"{name}: kernel {res['ms']:.4f} ms (device busy "
+              f"{device_busy(busy[name])[0]:.4f} ms), plain "
+              f"{res['plain_ms']:.4f} ms, library {res['library_ms']} ms, "
+              f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})"
+              + (f", colour kernel on the same bins {res['colour_ms']:.4f}"
+                 " ms" if "colour_ms" in res else "") + f" ({card})",
+              flush=True)
+
+    attrs = resolve.resolve_attrs(gbuf.tri_id, records)
+
+    def shade(sh, pcf=False):
+        return deferred_shade_attrs(
+            gbuf, attrs, inp["textures"], inp["camera"], inp["lights"], w, h,
+            clear_color=inp["clear_color"], shadow=sh, shadow_pcf=pcf)
+
+    lstages = {
+        "light_geometry": light_geometry,
+        "light_binning": lambda: raster.build_bins(
+            lcs.setup, s, s, setup_cols=lcs.cols.setup),
+        "light_visibility": lambda: raster.visibility_depth_tiles(
+            lbins, lntx, ln_tiles),
+        "light_untile": lambda: raster.untile_frame(dd_k, lntx, lntx)
+        .contiguous(),
+        "geometry": lambda: frame_geometry(
+            inp["plan"], inp["tri_draw"], inp["params"], inp["shade_table"],
+            inp["camera"], inp["textures"], inp["corner_t"], width=w,
+            height=h, **stride),
+        "binning": lambda: raster.build_bins(cs.setup, w, h,
+                                             setup_cols=cs.cols.setup),
+        "visibility": lambda: raster.visibility_tiles(bins, ntx, n_tiles),
+        "resolve": lambda: resolve.resolve_attrs(gbuf.tri_id, records),
+        "shadow_factor": lambda: shadow_factor(shadow, world),
+        "shading_shadowed": lambda: shade(shadow),
+        "shading_pcf": lambda: shade(shadow, True),
+        "shading_unshadowed": lambda: shade(None),
+    }
+    print_stages("shadows1080 stages", lstages, card)
+    del lstages, lcs, lbins, dd_k, cs, records, bins, d_k, t_k, world, attrs
+
+    frame_ms, host_ms = [], []
+
+    def shadow_frames():
+        out = None
+        for k in range(12):
+            rotate(reg, k)
+            t0 = time.perf_counter()
+            out = r.render_viewport()
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            if out.aux.tolist() != [0, 0] or out.shadow_aux.tolist() != [0, 0]:
+                fail(f"shadows1080 frame {k}: aux {out.aux.tolist()}, light "
+                     f"pass aux {out.shadow_aux.tolist()}")
+            t0 = time.perf_counter()
+            r.frame_inputs()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        r.config.render.shadow_pcf = True
+        t0 = time.perf_counter()
+        pcf_out = r.render_viewport()
+        torch.cuda.synchronize()
+        pcf_ms = (time.perf_counter() - t0) * 1e3
+        r.config.render.shadow_pcf = False
+        if (pcf_out.aux.tolist() != [0, 0]
+                or pcf_out.shadow_aux.tolist() != [0, 0]):
+            fail(f"shadows1080 PCF frame: aux {pcf_out.aux.tolist()}, light "
+                 f"pass aux {pcf_out.shadow_aux.tolist()}")
+        return out, pcf_ms
+
+    (out, pcf_ms), launches6 = drive(shadow_frames, kernel_fns)
+    # the last hard frame's shadow factor: the share of its covered pixels
+    # in shadow
+    inp = r.frame_inputs()
+    shadow, _saux = shadow_params(inp["plan"], inp["params"],
+                                  inp["tri_draw"], inp["corner_t"],
+                                  inp["light_camera"], s, 2e-3, **stride)
+    covered_px = out.tri_id >= 0
+    factor = shadow_factor(shadow, world_positions(
+        out.depth, inp["camera"], w, h))[..., 0]
+    shadowed = float((factor[covered_px] < 1.0).float().mean())
+    print(f"shadows1080: {shadowed:.4f} of {int(covered_px.sum())} covered "
+          "pixels shadowed", flush=True)
+    if not shadowed > 0.01:
+        fail("the shadows1080 frame has no shadow")
+    wall = statistics.median(frame_ms[2:])
+    dev_ms = cuda_ms(lambda: render_frame(**inp))
+    busy_ms, n_launch = device_busy(lambda: render_frame(**inp))
+    print(f"shadows1080 frame: median {wall:.3f} ms wall per render_viewport,"
+          f" of which {statistics.median(host_ms[2:]):.3f} ms host draw "
+          f"gathering (frame_inputs); {dev_ms:.3f} ms render_frame device "
+          f"time, {busy_ms:.3f} ms of it busy in {n_launch:.0f} device "
+          f"activities (idle {1 - busy_ms / dev_ms:.3f}); PCF frame "
+          f"{pcf_ms:.3f} ms wall; launches {launches6} ({card})", flush=True)
+    del r, reg, inp, shadow, out, factor
+    torch.cuda.empty_cache()
+
+    # -- phase 7: ultra4k (bloom) --------------------------------------------
+    r, reg = build_bench_scene(BENCH_GRID, dev, "ultra4k")
+    frame_ms = []
+
+    def ultra_frames():
+        out = None
+        for k in range(3):
+            rotate(reg, k)
+            t0 = time.perf_counter()
+            out = r.render_viewport()
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            if out.aux.tolist() != [0, 0]:
+                fail(f"ultra4k frame {k}: raster overflow aux "
+                     f"{out.aux.tolist()}")
+        return out
+
+    out, launches7 = drive(ultra_frames, ("visibility", "resolve", "texel"))
+    if tuple(out.color.shape) != (2160, 3840, 4):
+        fail(f"ultra4k frame shape {tuple(out.color.shape)}")
+    inp = r.frame_inputs()
+    dev_ms = cuda_ms(lambda: render_frame(**inp), reps=3, warmup=1)
+    busy_ms, n_launch = device_busy(lambda: render_frame(**inp), reps=3)
+    print(f"ultra4k frame: {[round(t, 3) for t in frame_ms]} ms wall per "
+          f"render_viewport, {dev_ms:.3f} ms render_frame device time, "
+          f"{busy_ms:.3f} ms of it busy in {n_launch:.0f} device activities "
+          f"(idle {1 - busy_ms / dev_ms:.3f}), launches {launches7} "
+          f"({card})", flush=True)
+    del r, reg, inp, out
+    torch.cuda.empty_cache()
+
+    # -- phase 8: post and shadow flavors against the JAX package -------------
+    for name, kw in FLAVORS.items():
+        fr = base_scene(dev, **kw).render_viewport()
+        aux = [fr.aux.tolist()] + ([fr.shadow_aux.tolist()]
+                                   if fr.shadow_aux is not None else [])
+        if any(a != [0, 0] for a in aux):
+            fail(f"{name} frame aux {aux}")
+        golden_gate(fr.color.cpu().numpy(),
+                    np.load(GOLDENS / f"torch_slice_{name}.npy"), name)
+
+    # launches: each kernel's count in the main-path run of the frame it
+    # was held on (phase 4 for the main pass, phase 6 for the shadow pass)
+    launches = {**launches4, "visibility_depth": launches6["visibility_depth"],
+                "shadow_taps": launches6["shadow_taps"]}
+    kernels = []
+    for name in kernel_fns:
+        res = {k: v for k, v in results[name].items() if k != "colour_ms"}
+        kernels.append(dict(name=name, launches=launches[name], **res))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,17 +3,20 @@ package's `_render_frame_impl(raster="pallas")` (interpreted on CPU).
 
 Both frames are held to the golden gate of test_golden_flavors.py: fewer
 than 0.2% of the RGBA8 values off by more than 3 LSB, and a mean absolute
-difference below 0.35. The committed reference frame
-tests/goldens/torch_slice_cube256.npy — the JAX package's frame of
-__graft_entry__.entry(), which the card's smoke test (chip_smoke.py, no
-jax there) compares against — must still equal the JAX package's output.
-Regenerate it with `python tests/test_torch_frame.py`.
+difference below 0.35. The committed reference frames
+— tests/goldens/torch_slice_cube256.npy, the JAX package's frame of
+__graft_entry__.entry(), and torch_slice_{shadows_hard,shadows_pcf,bloom,
+ssaa}.npy, its op-by-op frames of the post and shadow flavors — are what
+the card's smoke test (chip_smoke.py, no jax there) compares against; they
+must still equal the JAX package's output. Regenerate them with
+`python tests/test_torch_frame.py`.
 """
 
 import os
 import pathlib
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -30,8 +33,9 @@ from trident_tpu.io.image import checkerboard
 from trident_tpu.render.renderer import Renderer as JRenderer
 
 from trident_tpu_torch.ops import raster, resolve, texel
-from trident_tpu_torch.render.renderer import Renderer as PRenderer
 from trident_tpu_torch.render.renderer import render_frame_entry
+
+from test_torch_host import carry_renderer
 
 torch.set_num_threads(1)
 
@@ -68,9 +72,10 @@ def test_entry_cube_matches_jax_and_reference():
     assert ((port != port[0, 0]).any(-1)).sum() > 5000   # the cube is there
 
 
-def _sphere_grid(renderer_cls, **kw):
-    r = renderer_cls(EngineConfig(render=RenderConfig(
-        width=128, height=128, use_pallas=True)), **kw)
+def _sphere_grid():
+    """The bench scene's layout at 3×3, built on the JAX package."""
+    r = JRenderer(EngineConfig(render=RenderConfig(
+        width=128, height=128, use_pallas=True)))
     reg = Registry()
     r.set_active_registry(reg)
     slot = r.acquire_texture("checker", checkerboard(128, 8))
@@ -93,7 +98,11 @@ def _jax_frame_op_by_op(r):
     """The JAX package's forward frame for renderer `r`'s scene:
     `_render_frame_impl(raster="pallas")` evaluated op by op, so every
     elementwise op rounds once, as in the port (the Pallas kernels still
-    run under the interpreter)."""
+    run under the interpreter). Shadows, supersampling and bloom follow
+    the render config, with the light camera chosen as the JAX Renderer
+    chooses it."""
+    from trident_tpu.ecs.components import LightComponent, LightType
+    from trident_tpu.ops.shadow import light_camera, scene_bounds
     from trident_tpu.render.frame import build_draw_params, gather_mesh_draws
     from trident_tpu.render.lights import gather_lights
     from trident_tpu.render.renderer import _render_frame_impl
@@ -105,6 +114,14 @@ def _jax_frame_op_by_op(r):
     plan, tri_draw = r._plan_cache.plan(packed, records, r.geometry.version)
     params, palette, shade = build_draw_params(
         records, plan.num_draws, material_table=r.geometry.material_table())
+    light_cam, shadow_size = None, 0
+    for _e, (lc,) in r.registry.view(LightComponent):
+        if (rc.shadows and lc.enabled and lc.cast_shadows
+                and lc.light_type == LightType.DIRECTIONAL):
+            light_cam = light_camera(lc.direction,
+                                     *scene_bounds(records, packed))
+            shadow_size = rc.shadow_map_size
+            break
     with jax.disable_jit():
         return _render_frame_impl(
             None, plan, tri_draw, params, palette, shade,
@@ -112,7 +129,11 @@ def _jax_frame_op_by_op(r):
             r.textures.device_arrays(), None, None,
             r._plan_cache.corner_table(packed), width=rc.width,
             height=rc.height, clear_color=tuple(rc.clear_color),
-            raster="pallas", chunk=64, skinned=False)
+            raster="pallas", chunk=64, skinned=False,
+            light_camera=light_cam, shadow_size=shadow_size,
+            shadow_pcf=rc.shadow_pcf, supersample=max(int(rc.supersample), 1),
+            bloom=rc.bloom, bloom_threshold=rc.bloom_threshold,
+            bloom_strength=rc.bloom_strength)
 
 
 def test_sphere_grid_matches_jax_frame():
@@ -121,10 +142,11 @@ def test_sphere_grid_matches_jax_frame():
     contracts the corner stage's a*b + c chains into FMAs, which moves the
     edge coefficients of these few-pixel triangles by ulps and flips about
     1% of covered pixels at edges and depth ties (61 of 4704 measured)."""
-    jout = _jax_frame_op_by_op(_sphere_grid(JRenderer))
+    jr = _sphere_grid()
+    tr = carry_renderer(jr)
+    jout = _jax_frame_op_by_op(jr)
     counts = [raster.visibility_tiles.launches, resolve.resolve_attrs.launches,
               texel.sample_bilinear.launches]
-    tr = _sphere_grid(PRenderer, device="cpu")
     out = tr.render_viewport()
     assert out.aux.tolist() == [0, 0]
     assert np.asarray(jout.aux).tolist() == [0, 0]
@@ -138,8 +160,74 @@ def test_sphere_grid_matches_jax_frame():
                       texel.sample_bilinear.launches]
 
 
+# The post and shadow flavors of test_golden_flavors.py's `_base` scene
+# (a textured cube over a ground slab, a shadow-casting sun) at 128² on the
+# Pallas path: name → RenderConfig overrides. Each one's JAX frame is
+# committed as tests/goldens/torch_slice_<name>.npy for the card's smoke
+# test, which has no jax.
+FLAVORS = {
+    "shadows_hard": dict(shadows=True, shadow_map_size=256),
+    "shadows_pcf": dict(shadows=True, shadow_map_size=256, shadow_pcf=True),
+    "bloom": dict(bloom=True, bloom_threshold=0.35, bloom_strength=0.8),
+    "ssaa": dict(supersample=2),
+}
+
+
+def _flavor_reference(name: str) -> pathlib.Path:
+    return REFERENCE.parent / f"torch_slice_{name}.npy"
+
+
+def _flavor_renderer(name: str):
+    """The `_base` scene with the flavor's config, built on the JAX
+    package."""
+    from test_golden_flavors import _base
+
+    rc = dict(width=128, height=128, texture_size=64, use_pallas=True,
+              **FLAVORS[name])
+    r = JRenderer(EngineConfig(render=RenderConfig(**rc)))
+    r.set_active_registry(Registry())
+    _base(r.registry, r)
+    return r
+
+
+def write_flavor_references() -> None:
+    for name in FLAVORS:
+        out = _jax_frame_op_by_op(_flavor_renderer(name))
+        np.save(_flavor_reference(name), np.asarray(out.color))
+
+
+@pytest.mark.parametrize("name", sorted(FLAVORS))
+def test_flavor_matches_jax_frame(name):
+    """Shadows (hard and PCF at a 256² map), bloom and 2× supersampling
+    through the port's Renderer against the JAX frame evaluated op by op:
+    equal triangle ids, depth within 1e-6, aux [0, 0] on the main pass
+    (and the light pass), and the golden gate. The committed reference must still equal the
+    JAX frame."""
+    jr = _flavor_renderer(name)
+    tr = carry_renderer(jr)
+    jout = _jax_frame_op_by_op(jr)
+    jcolor = np.asarray(jout.color)
+    ref = np.load(_flavor_reference(name))
+    assert ref.dtype == np.uint8 and ref.shape == (128, 128, 4)
+    assert (ref == jcolor).all(), "reference frame is stale: regenerate"
+    out = tr.render_viewport()
+    assert out.aux.tolist() == [0, 0]
+    assert np.asarray(jout.aux).tolist() == [0, 0]
+    if FLAVORS[name].get("shadows"):
+        assert out.shadow_aux.tolist() == [0, 0]
+    else:
+        assert out.shadow_aux is None
+    assert (out.tri_id.numpy() == np.asarray(jout.tri_id)).all()
+    # depth within 1e-6: the interpreted JAX kernel body is compiled by
+    # XLA:CPU, which contracts its edge functions into FMAs (ulps here)
+    assert np.abs(out.depth.numpy() - np.asarray(jout.depth)).max() <= 1e-6
+    _assert_golden_gate(tr.read_frame(out), jcolor)
+
+
 if __name__ == "__main__":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     jax.config.update("jax_platforms", "cpu")
     write_reference()
     print("wrote", REFERENCE)
+    write_flavor_references()
+    print("wrote", *(_flavor_reference(n) for n in FLAVORS))

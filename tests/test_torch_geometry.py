@@ -42,14 +42,20 @@ from trident_tpu.render.renderer import Renderer as JRenderer
 from trident_tpu.render.types import CameraParams as JCameraParams
 from trident_tpu.render.types import DrawParams as JDrawParams
 
+from trident_tpu_torch.ecs.registry import Registry as PRegistry
+from trident_tpu_torch.ecs.registry import from_reference
+from trident_tpu_torch.geometry.mesh import GeometryCache as PGeometryCache
+from trident_tpu_torch.geometry.primitives import PrimitiveType as PPrimitiveType
+from trident_tpu_torch.geometry.primitives import build_primitive as p_build_primitive
 from trident_tpu_torch.mathx import transforms as ptf
 from trident_tpu_torch.ops import corner as pcorner
 from trident_tpu_torch.ops import planes as pplanes
 from trident_tpu_torch.ops import vertex as pvertex
 from trident_tpu_torch.render import frame as pframe
 from trident_tpu_torch.render import lights as plights
-from trident_tpu_torch.render.renderer import Renderer as PRenderer
 from trident_tpu_torch.render.types import from_numpy
+
+from test_torch_host import carry_renderer
 
 torch.set_num_threads(1)
 CPU = "cpu"
@@ -76,9 +82,9 @@ def _ulps(a, b) -> int:
     return int(np.abs(a - b.astype(np.float32).view(np.int32)).max())
 
 
-def _scene(renderer_cls, **kw):
-    r = renderer_cls(EngineConfig(render=RenderConfig(width=96, height=64)),
-                     **kw)
+def _scene():
+    """The scene, built once on the JAX package's Renderer."""
+    r = JRenderer(EngineConfig(render=RenderConfig(width=96, height=64)))
     reg = Registry()
     r.set_active_registry(reg)
     slot = r.acquire_texture("checker", checkerboard(32, 4))
@@ -125,8 +131,9 @@ def test_transforms_match():
 def test_host_layers_bitwise():
     """Draw plan, draw params, lights, textures, camera and the corner
     table: the state carried across must be identical."""
-    jr, jreg = _scene(JRenderer)
-    tr, preg = _scene(PRenderer, device=CPU)
+    jr, jreg = _scene()
+    tr = carry_renderer(jr, device=CPU)
+    preg = tr.registry
     jpacked, ppacked = jr.geometry.packed(), tr.geometry.packed()
     jrec = jframe.gather_mesh_draws(jreg, jr.geometry)
     prec = pframe.gather_mesh_draws(preg, tr.geometry)
@@ -166,7 +173,8 @@ def test_default_sun_when_no_lights():
     reg = Registry()
     e = reg.create()
     reg.add(e, TransformComponent())
-    jl, pl_ = jlights.gather_lights(reg), plights.gather_lights(reg, CPU)
+    jl = jlights.gather_lights(reg)
+    pl_ = plights.gather_lights(from_reference(reg), CPU)
     for f in jl._fields:
         _eq(getattr(jl, f), getattr(pl_, f))
     assert int(pl_.dir_count) == 1 and float(pl_.dir_color[3]) == 5.0
@@ -194,8 +202,10 @@ def test_gather_mesh_draws_batched_bitwise():
         if i % 2:
             reg.add(e, TextureComponent(path="t", slot=i % 5,
                                         uv_scale=(2.0, 0.5), tiling=3.0))
+    pcache = PGeometryCache()
+    assert pcache.add_mesh(p_build_primitive(PPrimitiveType.CUBE)) == mesh
     jrec = jframe.gather_mesh_draws(reg, cache)
-    prec = pframe.gather_mesh_draws(reg, cache)
+    prec = pframe.gather_mesh_draws(from_reference(reg), pcache)
     assert 40 < len(prec) == len(jrec) < 64
     for j, p in zip(jrec, prec):
         assert (j.entity, j.mesh_index, j.tiling, j.texture_slot,
@@ -203,7 +213,7 @@ def test_gather_mesh_draws_batched_bitwise():
                                       p.texture_slot, p.material_index)
         for f in ("model", "tint", "uv_scale", "uv_offset"):
             _eq(getattr(j, f), getattr(p, f))
-    assert pframe.gather_mesh_draws(Registry(), cache) == []
+    assert pframe.gather_mesh_draws(PRegistry(), pcache) == []
 
 
 def _geometry_inputs(seed, t=2048, d=8, stride=0):

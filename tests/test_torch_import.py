@@ -20,6 +20,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 _NO_JAX_RENDER = """
 import sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["trident_tpu"] = None  # and so does any import of the JAX package
 import importlib, pkgutil
 import trident_tpu_torch
 for m in pkgutil.walk_packages(trident_tpu_torch.__path__, "trident_tpu_torch."):
@@ -29,14 +30,14 @@ r = build_entry_renderer(64, 64, device="cpu")
 frame = r.read_frame()
 assert frame.shape == (64, 64, 4), frame.shape
 assert (frame[..., :3] != frame[0, 0, :3]).any(), "all clear color"
-assert sys.modules["jax"] is None
+assert sys.modules["jax"] is None and sys.modules["trident_tpu"] is None
 print("rendered", frame.shape)
 """
 
 
 def test_renders_with_jax_blocked():
-    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
-    env["PYTHONPATH"] = str(ROOT)
+    # JAX_PLATFORMS stays set as the tests set it: the port never reads it
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_RENDER], env=env,
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=300)
@@ -45,9 +46,12 @@ def test_renders_with_jax_blocked():
 
 
 def test_sources_never_import_jax():
+    """Neither jax nor anything of the JAX package `trident_tpu`: every
+    `from trident_tpu.` / `from trident_tpu import` and every
+    `import trident_tpu` not followed by `_torch` is banned."""
     banned = re.compile(
-        r"^\s*(import jax|from jax|from trident_tpu\.(mathx|render|ops)"
-        r"|import trident_tpu\.(mathx|render|ops))", re.M)
+        r"^\s*(import jax\b|from jax\b|from trident_tpu(\.|\s)"
+        r"|import trident_tpu(?!_torch))", re.M)
     files = sorted((ROOT / "trident_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     offenders = [str(f) for f in files if banned.search(f.read_text())]
@@ -60,8 +64,14 @@ def test_tf32_pinned_off():
 
 
 def test_cuda_request_without_card_raises(monkeypatch):
+    """The default device is the card: with none, the entry points raise
+    unless the caller asks for the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert trident_tpu_torch.default_device() == "cpu"
+    assert not hasattr(trident_tpu_torch, "default_device")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Renderer()
+    with pytest.raises(RuntimeError, match="cuda"):
+        trident_tpu_torch.resolve_device()
     with pytest.raises(RuntimeError, match="cuda"):
         Renderer(device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
@@ -69,10 +79,10 @@ def test_cuda_request_without_card_raises(monkeypatch):
 
 
 def test_unported_features_raise():
-    from trident_tpu.core.config import EngineConfig, RenderConfig
+    from trident_tpu_torch.core.config import EngineConfig, RenderConfig
 
-    for kw in ({"shadows": True}, {"bloom": True}, {"supersample": 2},
-               {"sampling": "trilinear"}, {"bands": 2}):
+    for kw in ({"sampling": "trilinear"}, {"bands": 2},
+               {"use_pallas": False}, {"ai_upscale": True}):
         with pytest.raises(NotImplementedError):
             Renderer(EngineConfig(render=RenderConfig(**kw)), device="cpu")
 

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-All `csrc/*.cu` sources compile with nvcc into ONE shared library with a
-plain C interface, `build/trident_tpu_torch/libtrident_kernels.so` under the
+All `csrc/*.cu` sources compile with nvcc (one process per source, run
+in parallel) and link into ONE shared library with a plain C interface, `build/trident_tpu_torch/libtrident_kernels.so` under the
 repository root, loaded with ctypes. The build runs at first use (never at
 import) and is cached: a stamp file beside the library holds a hash of the
 sources and flags, and any change rebuilds. A failed build raises with
@@ -29,11 +29,12 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "trident_tpu_torch"
 LIB_NAME = "libtrident_kernels.so"
-NVCC_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-fmad=false", "-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-fmad=false",
+                 "-gencode", "arch=compute_90a,code=sm_90a")
+LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 
 _lib: Optional[ctypes.CDLL] = None
-build_seconds: Optional[float] = None   # wall time of the last nvcc run
+build_seconds: Optional[float] = None   # wall time of the last build
 
 
 def find_nvcc() -> str:
@@ -56,7 +57,7 @@ def _sources() -> list:
 
 def source_key() -> str:
     """Hash of every kernel source and the flags — the build cache key."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -65,7 +66,8 @@ def source_key() -> str:
 
 def build() -> Path:
     """Compile the library if the cached one is missing or stale; return
-    its path."""
+    its path. Each source compiles to an object in its own nvcc process,
+    all started together; one more nvcc links them."""
     global build_seconds
     lib_path = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".key")
@@ -73,16 +75,35 @@ def build() -> Path:
     if lib_path.is_file() and stamp.is_file() and stamp.read_text() == key:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cmd, _obj, proc in jobs:
+        _out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{err}")
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
+    if not failed:
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp),
+               *[str(obj) for _c, obj, _p in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{proc.stderr}")
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    for _c, obj, _p in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, lib_path)
     stamp.write_text(key)
     return lib_path

@@ -3,7 +3,10 @@
 // pipeline's LESS_OR_EQUAL later-draw-wins state.
 //
 // Replaces: trident_tpu/ops/raster_pallas.py _visibility_kernel (reached via
-// visibility_pallas_tiled, pallas_call at raster_pallas.py:1418).
+// visibility_pallas_tiled, pallas_call at raster_pallas.py:1418), in both of
+// its forms: the colour pass (trident_visibility) and the shadow map's
+// depth_only light pass (trident_visibility_depth; raster_pallas.py:1075,
+// 1149, 1212), which keeps only the min depth and writes no id plane.
 //
 // Bound on the card: arithmetic on the covered (triangle, pixel) pairs plus
 // one 1 KB record block per hit 16-triangle sub-block; the per-tile pair
@@ -17,7 +20,9 @@
 // evaluates the 16 triangles in the reference kernel's expression order
 // (raster_pallas.py:1064-1073). No atomics: the merge is a lexicographic
 // compare in registers, so the result is deterministic and independent of
-// pair order. Built with -fmad=false so each product and sum rounds like
+// pair order. The depth-only instance (kDepthOnly) keeps a plain min: the
+// same depths in the same order, so its depth is bit-equal to the colour
+// pass's on the same bins. Built with -fmad=false so each product and sum rounds like
 // PyTorch's eager elementwise ops (the plain version in ops/raster.py).
 
 #include <cuda_runtime.h>
@@ -32,6 +37,7 @@ constexpr int kChunk = 256;
 constexpr int kSub = 16;
 constexpr int kRec = 16;   // floats per record row: e0 e1 e2 (a,b,c), z3, w3, pad
 
+template <bool kDepthOnly>
 __global__ void __launch_bounds__(kThreads)
 visibility_kernel(const float* __restrict__ records,
                   const int* __restrict__ pair_chunk,
@@ -82,7 +88,9 @@ visibility_kernel(const float* __restrict__ records,
             // + 0.0f folds a -0.0 depth to +0.0 (the plain version orders
             // depths by their bit patterns)
             const float d = zi * (1.0f / wi) + 0.0f;
-            if (d < best_d[k] || (d == best_d[k] && tid > best_t[k])) {
+            if (kDepthOnly) {
+              best_d[k] = fminf(best_d[k], d);
+            } else if (d < best_d[k] || (d == best_d[k] && tid > best_t[k])) {
               best_d[k] = d;
               best_t[k] = tid;
             }
@@ -97,7 +105,7 @@ visibility_kernel(const float* __restrict__ records,
   for (int k = 0; k < kPxPerThread; ++k) {
     const size_t o = static_cast<size_t>(tile) * kTilePx + t + k * kThreads;
     depth_out[o] = best_d[k];
-    tri_out[o] = best_t[k];
+    if (!kDepthOnly) tri_out[o] = best_t[k];
   }
 }
 
@@ -108,8 +116,21 @@ extern "C" int trident_visibility(const float* records, const int* pair_chunk,
                                   int n_tiles, int ntx, float* depth_out,
                                   int* tri_out, cudaStream_t stream) {
   if (n_tiles > 0) {
-    visibility_kernel<<<n_tiles, kThreads, 0, stream>>>(
+    visibility_kernel<false><<<n_tiles, kThreads, 0, stream>>>(
         records, pair_chunk, pair_mask, tile_start, ntx, depth_out, tri_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int trident_visibility_depth(const float* records,
+                                        const int* pair_chunk,
+                                        const int* pair_mask,
+                                        const int* tile_start, int n_tiles,
+                                        int ntx, float* depth_out,
+                                        cudaStream_t stream) {
+  if (n_tiles > 0) {
+    visibility_kernel<true><<<n_tiles, kThreads, 0, stream>>>(
+        records, pair_chunk, pair_mask, tile_start, ntx, depth_out, nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }

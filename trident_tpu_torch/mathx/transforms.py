@@ -5,7 +5,7 @@ imports jax whenever jax is installed, so the port keeps its own copy).
 Conventions are the reference's glm ones:
   * model matrix = T · Rx · Ry · Rz · S, euler angles in DEGREES
   * projection = glm::perspectiveRH_ZO (depth in [0,1]) with the Vulkan
-    Y-flip `proj[1][1] *= -1`
+    Y-flip `proj[1][1] *= -1`; the light camera's glm::orthoRH_ZO likewise
   * view = glm::lookAtRH
 Matrices are row-major arrays multiplying COLUMN vectors: clip = P@V@M@p.
 """
@@ -88,6 +88,20 @@ def perspective_rh_zo(fov_y_deg, aspect, near, far,
     m[2, 2] = far / (near - far)
     m[2, 3] = -(far * near) / (far - near)
     m[3, 2] = -1.0
+    return m
+
+
+def ortho_rh_zo(left, right, bottom, top, near, far,
+                flip_y: bool = True) -> np.ndarray:
+    """glm::orthoRH_ZO (+ the Vulkan Y-flip by default)."""
+    m = np.zeros((4, 4), dtype=np.float32)
+    m[0, 0] = 2.0 / (right - left)
+    m[1, 1] = 2.0 / (top - bottom) * (-1.0 if flip_y else 1.0)
+    m[2, 2] = -1.0 / (far - near)
+    m[0, 3] = -(right + left) / (right - left)
+    m[1, 3] = -(top + bottom) / (top - bottom)
+    m[2, 3] = -near / (far - near)
+    m[3, 3] = 1.0
     return m
 
 

@@ -3,10 +3,11 @@
 Port of trident_tpu/ops/deferred.py (the forward path: deferred_shade_attrs
 with the forward branch of _shade_common folded in). Per pixel: one
 bilinear texel quad fetch (ops/texel.py), world position reconstructed
-from depth through the inverse view-projection, Cook-Torrance PBR,
-Reinhard tonemap + gamma, clear-color background, then the frame's final
-blend and clamp. Skybox, shadows, custom shaders and the AI blend are not
-part of the ported slice.
+from depth through the inverse view-projection, the directional light's
+shadow factor (ops/shadow.py) when a shadow map is given, Cook-Torrance
+PBR, Reinhard tonemap + gamma (or linear HDR out for bloom),
+clear-color background, then the frame's final blend and clamp. Skybox,
+custom shaders and the AI blend are not part of the ported slice.
 """
 
 from __future__ import annotations
@@ -17,11 +18,13 @@ import torch
 
 from trident_tpu_torch.ops import resolve as rp
 from trident_tpu_torch.ops import shading
+from trident_tpu_torch.ops.shadow import shadow_factor
 from trident_tpu_torch.ops.texel import sample_bilinear
 from trident_tpu_torch.render.types import (
     CameraParams,
     GBuffer,
     LightParams,
+    ShadowParams,
     TextureArrays,
 )
 
@@ -54,12 +57,36 @@ def texel_lookup(attrs: Tensor, covered: Tensor, max_level: Tensor):
     return idx.contiguous(), fx.contiguous(), fy.contiguous()
 
 
+def world_positions(depth: Tensor, camera: CameraParams, width: int,
+                    height: int) -> Tensor:
+    """(H, W, 3) world position of each pixel centre from its depth:
+    world_h = (P·V)⁻¹ · (ndc, 1), in f32 with TF32 off (pinned in the
+    package __init__)."""
+    dev = depth.device
+    ys = torch.arange(height, dtype=torch.float32, device=dev) + 0.5
+    xs = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
+    py, px = torch.meshgrid(ys, xs, indexing="ij")
+    vp_inv = torch.linalg.inv(camera.proj @ camera.view)
+    ndc_x = px * (2.0 / width) - 1.0
+    ndc_y = py * (2.0 / height) - 1.0
+    ndc = torch.stack([ndc_x, ndc_y, depth, torch.ones_like(ndc_x)], dim=-1)
+    world_h = ndc @ vp_inv.T
+    wh = world_h[..., 3:4]
+    return world_h[..., :3] / torch.where(wh.abs() < 1e-20, 1e-20, wh)
+
+
 def deferred_shade_attrs(gbuffer: GBuffer, attrs: Tensor,
                          textures: TextureArrays, camera: CameraParams,
                          lights: LightParams, width: int, height: int,
-                         clear_color=(0.05, 0.05, 0.08, 1.0)) -> Tensor:
+                         clear_color=(0.05, 0.05, 0.08, 1.0),
+                         shadow: Optional[ShadowParams] = None,
+                         shadow_pcf: bool = False,
+                         tonemap: bool = True) -> Tensor:
     """Shade from the resolved attribute image (ops/resolve.py channel
-    layout) → (H, W, 4) f32 display-space frame in [0, 1]."""
+    layout) → (H, W, 4) f32 display-space frame in [0, 1]. `shadow` (the
+    light pass's map) shadows the directional light, hard or 2×2 PCF.
+    tonemap=False returns linear HDR instead (background treated as
+    linear, no clamp) for bloom to work on."""
     dev = attrs.device
     covered = gbuffer.tri_id >= 0
     sampled = sample_bilinear(textures.quads,
@@ -69,27 +96,20 @@ def deferred_shade_attrs(gbuffer: GBuffer, attrs: Tensor,
     albedo = sampled[..., :3] * color_factor[..., :3]
     alpha = color_factor[..., 3:4] * sampled[..., 3:4]
 
-    # world position from depth: world_h = (P·V)⁻¹ · (ndc, 1), in f32 with
-    # TF32 off (pinned in the package __init__)
-    ys = torch.arange(height, dtype=torch.float32, device=dev) + 0.5
-    xs = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
-    py, px = torch.meshgrid(ys, xs, indexing="ij")
-    vp_inv = torch.linalg.inv(camera.proj @ camera.view)
-    ndc_x = px * (2.0 / width) - 1.0
-    ndc_y = py * (2.0 / height) - 1.0
-    ndc = torch.stack([ndc_x, ndc_y, gbuffer.depth, torch.ones_like(ndc_x)],
-                      dim=-1)
-    world_h = ndc @ vp_inv.T
-    wh = world_h[..., 3:4]
-    world = world_h[..., :3] / torch.where(wh.abs() < 1e-20, 1e-20, wh)
-
+    world = world_positions(gbuffer.depth, camera, width, height)
+    dir_shadow = (None if shadow is None
+                  else shadow_factor(shadow, world, pcf=shadow_pcf))
     lit = shading.shade_pbr(
         world, shading._normalize(attrs[..., rp.CH_NX:rp.CH_NZ + 1]), albedo,
         attrs[..., rp.CH_MET:rp.CH_MET + 1],
         attrs[..., rp.CH_ROUGH:rp.CH_ROUGH + 1],
-        attrs[..., rp.CH_AMB:rp.CH_AMB + 1], camera.position, lights)
+        attrs[..., rp.CH_AMB:rp.CH_AMB + 1], camera.position, lights,
+        dir_shadow=dir_shadow)
     background = _background(width, height, clear_color, dev)
     a_out = torch.where(covered[..., None], alpha, clear_color[3])
+    if not tonemap:
+        rgb = torch.where(covered[..., None], lit, background)
+        return torch.cat([rgb, a_out], dim=-1)
     rgb = torch.where(covered[..., None], shading.tonemap_reinhard_gamma(lit),
                       background)
     out = apply_ai_blend(torch.cat([rgb, a_out], dim=-1), None)

@@ -15,7 +15,8 @@ conservative binning gives the same image; this one is chosen for the card:
      keys merge into one pair whose 16-bit mask has a bit per hit
      sub-block. Shapes are static: no host sync on the frame path.
   3. The kernel (csrc/visibility.cu) runs one CTA per tile over that
-     tile's contiguous pair range (tile_start, from a searchsorted).
+     tile's contiguous pair range (tile_start, from a searchsorted). Its
+     depth-only instance renders the shadow map's light pass.
 
 Capacity: sub-blocks whose claim runs past the pool end lose those tiles
 and their chunks are counted in aux[1]; pairs past `pair_budget` are
@@ -179,13 +180,14 @@ def build_bins(setup: TriangleSetup, width: int, height: int,
 
 
 def visibility_tiles_plain(bins: Bins, ntx: int, n_tiles: int,
-                           batch: int = 2048):
+                           batch: int = 2048, depth_only: bool = False):
     """Plain PyTorch twin of the visibility kernel: the same triangles
     (every hit sub-block of every kept pair), the same per-op rounding, and
     the same lexicographic merge, expressed as an int64 key per candidate
     — depth bits (non-negative, so they order like the values) over
     0x7FFFFFFF − id — reduced with amin. Returns (depth (n_tiles, 1024)
-    f32, tri (n_tiles, 1024) i32)."""
+    f32, tri (n_tiles, 1024) i32). depth_only (the light pass) drops the
+    id half of the key and returns the depth alone."""
     dev = bins.records.device
     q = torch.arange(NSUB, device=dev, dtype=torch.int32)
     hit = ((bins.pair_mask[:, None] >> q) & 1) != 0
@@ -195,8 +197,8 @@ def visibility_tiles_plain(bins: Bins, ntx: int, n_tiles: int,
     r = torch.arange(TILE_PX, device=dev)
     lx, ly = r % TILE, r // TILE
     sub = torch.arange(SUB, device=dev)
-    keys = torch.full((n_tiles, TILE_PX), _BG_KEY, dtype=torch.int64,
-                      device=dev)
+    bg = _BG_KEY & ~0xFFFFFFFF if depth_only else _BG_KEY
+    keys = torch.full((n_tiles, TILE_PX), bg, dtype=torch.int64, device=dev)
     for b in range(0, e_tile.shape[0], batch):
         et, eb = e_tile[b:b + batch], e_base[b:b + batch]
         tid = eb[:, None] + sub                               # (B,16)
@@ -215,11 +217,14 @@ def visibility_tiles_plain(bins: Bins, ntx: int, n_tiles: int,
         cover = ((e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (zi >= 0.0)
                  & (zi <= wi) & (wi > 1e-12))
         d = zi * (1.0 / wi) + 0.0                             # −0 → +0
-        key = ((d.view(torch.int32).long() << 32)
-               | (0x7FFFFFFF - tid)[:, :, None])
+        key = d.view(torch.int32).long() << 32
+        if not depth_only:
+            key = key | (0x7FFFFFFF - tid)[:, :, None]
         key = torch.where(cover, key, _NO_KEY).amin(dim=1)    # (B,1024)
         keys.scatter_reduce_(0, et[:, None].expand_as(key), key, "amin")
     depth = (keys >> 32).to(torch.int32).view(torch.float32)
+    if depth_only:
+        return depth
     tri = (0x7FFFFFFF - (keys & 0xFFFFFFFF)).to(torch.int32)
     return depth, tri
 
@@ -229,12 +234,9 @@ def _require(cond: bool, what: str) -> None:
         raise ValueError(what)
 
 
-def visibility_tiles(bins: Bins, ntx: int, n_tiles: int):
-    """Per-tile (depth, tri) for binned triangles: the CUDA kernel for
-    tensors on the card, the plain version for tensors on the CPU."""
+def _check_bins(bins: Bins, n_tiles: int) -> None:
+    """The kernels' input contract; raises on what they do not take."""
     rec = bins.records
-    if rec.device.type == "cpu":
-        return visibility_tiles_plain(bins, ntx, n_tiles)
     _require(rec.device.type == "cuda", f"unsupported device {rec.device}")
     _require(rec.dtype == torch.float32 and rec.dim() == 2
              and rec.shape[1] == REC and rec.shape[0] % CHUNK == 0
@@ -246,6 +248,20 @@ def visibility_tiles(bins: Bins, ntx: int, n_tiles: int):
                  "on the records' device")
     _require(bins.tile_start.shape[0] == n_tiles + 1,
              "tile_start must have n_tiles + 1 entries")
+
+
+def visibility_tiles(bins: Bins, ntx: int, n_tiles: int,
+                     depth_only: bool = False):
+    """Per-tile (depth, tri) for binned triangles: the CUDA kernel for
+    tensors on the card, the plain version for tensors on the CPU.
+    depth_only returns the light pass's depth alone (visibility_depth_tiles,
+    the kernel's depth-only instance)."""
+    if depth_only:
+        return visibility_depth_tiles(bins, ntx, n_tiles)
+    rec = bins.records
+    if rec.device.type == "cpu":
+        return visibility_tiles_plain(bins, ntx, n_tiles)
+    _check_bins(bins, n_tiles)
     depth = torch.empty((n_tiles, TILE_PX), dtype=torch.float32,
                         device=rec.device)
     tri = torch.empty((n_tiles, TILE_PX), dtype=torch.int32, device=rec.device)
@@ -262,6 +278,31 @@ def visibility_tiles(bins: Bins, ntx: int, n_tiles: int):
 
 
 visibility_tiles.launches = 0
+
+
+def visibility_depth_tiles(bins: Bins, ntx: int, n_tiles: int) -> Tensor:
+    """Per-tile min depth (n_tiles, 1024) f32 of binned triangles, the
+    shadow map's light pass: the depth-only CUDA kernel for tensors on the
+    card, the plain version for tensors on the CPU."""
+    rec = bins.records
+    if rec.device.type == "cpu":
+        return visibility_tiles_plain(bins, ntx, n_tiles, depth_only=True)
+    _check_bins(bins, n_tiles)
+    depth = torch.empty((n_tiles, TILE_PX), dtype=torch.float32,
+                        device=rec.device)
+    fn = _build.kernel("trident_visibility_depth",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p] * 2)
+    err = fn(rec.data_ptr(), bins.pair_chunk.data_ptr(),
+             bins.pair_mask.data_ptr(), bins.tile_start.data_ptr(), n_tiles,
+             ntx, depth.data_ptr(),
+             torch.cuda.current_stream(rec.device).cuda_stream)
+    _build.check_launch("trident_visibility_depth", err)
+    visibility_depth_tiles.launches += 1
+    return depth
+
+
+visibility_depth_tiles.launches = 0
 
 
 def untile_frame(flat: Tensor, ntx: int, nty: int) -> Tensor:

@@ -2,14 +2,16 @@
 
 Port of trident_tpu/ops/shading.py (the forward slice). Math is the
 reference's GLSL (Default.frag): GGX distribution, Smith geometry with
-k = (r+1)²/8, Schlick Fresnel, one directional + up to 8 point lights with
-squared edge falloff, roughness clamped to [0.045, 1], F0 = mix(0.04,
-albedo, metallic), Reinhard tonemap + gamma 2.2. Texture sampling is the
+k = (r+1)²/8, Schlick Fresnel, one (optionally shadowed) directional + up
+to 8 point lights with squared edge falloff, roughness clamped to
+[0.045, 1], F0 = mix(0.04, albedo, metallic), Reinhard tonemap + gamma 2.2. Texture sampling is the
 flat quad-pyramid addressing of render/textures.py; only the bilinear
 mode is part of the ported slice.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -76,9 +78,11 @@ def evaluate_pbr_light(light_dir: Tensor, radiance: Tensor, normal: Tensor,
 
 def shade_pbr(world: Tensor, normal: Tensor, albedo: Tensor, metallic: Tensor,
               roughness: Tensor, ambient_strength: Tensor, camera_pos: Tensor,
-              lights: LightParams) -> Tensor:
+              lights: LightParams, dir_shadow: Optional[Tensor] = None
+              ) -> Tensor:
     """Full lighting sum → linear HDR color. world/normal/albedo (...,3);
-    metallic/roughness/ambient_strength (...,1)."""
+    metallic/roughness/ambient_strength (...,1). `dir_shadow` (...,1)
+    multiplies the directional light (shadow mapping)."""
     metallic = torch.clamp(metallic, 0.0, 1.0)
     roughness = torch.clamp(roughness, 0.045, 1.0)
     ambient_strength = torch.clamp(ambient_strength, 0.0, 1.0)
@@ -91,6 +95,8 @@ def shade_pbr(world: Tensor, normal: Tensor, albedo: Tensor, metallic: Tensor,
     radiance = lights.dir_color[:3] * lights.dir_color[3]
     direct = dir_on * evaluate_pbr_light(
         l_dir, radiance, normal, view_dir, albedo, metallic, roughness, f0)
+    if dir_shadow is not None:
+        direct = direct * dir_shadow
 
     # point lights: one pass per (bucketed) slot, masked by point_count
     for i in range(lights.point_pos_range.shape[0]):

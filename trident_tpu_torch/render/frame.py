@@ -17,14 +17,14 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from trident_tpu.ecs.components import (
+from trident_tpu_torch.ecs.components import (
     AnimationComponent,
     MeshComponent,
     TextureComponent,
     TransformComponent,
 )
-from trident_tpu.ecs.registry import Registry
-from trident_tpu.geometry.mesh import GeometryCache, PackedGeometry
+from trident_tpu_torch.ecs.registry import Registry
+from trident_tpu_torch.geometry.mesh import GeometryCache, PackedGeometry
 from trident_tpu_torch import resolve_device
 from trident_tpu_torch.mathx.transforms import compose_trs
 from trident_tpu_torch.render.types import DrawParams, DrawPlan, GeometryBuffers

@@ -12,12 +12,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from trident_tpu.ecs.components import (
+from trident_tpu_torch.ecs.components import (
     LightComponent,
     LightType,
     TransformComponent,
 )
-from trident_tpu.ecs.registry import Registry
+from trident_tpu_torch.ecs.registry import Registry
 from trident_tpu_torch import resolve_device
 from trident_tpu_torch.render.types import LightParams
 

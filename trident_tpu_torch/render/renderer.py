@@ -1,18 +1,20 @@
 """The renderer: scene in, frames out (port of trident_tpu/render/renderer.py).
 
-The default forward frame of a rigid, textured, lit scene, as the JAX
-package's `_render_frame_impl(raster="pallas", forward_shading=True)` runs
-it with every optional stage off:
+The forward frame of a rigid, textured, lit scene, as the JAX package's
+`_render_frame_impl(raster="pallas", forward_shading=True)` runs it:
 
     draw rows → corner stage (planar setup) → resolve records
+    [→ light pass: draw rows → corner stage → build_bins → depth-only
+       visibility kernel → shadow map]
     → build_bins → visibility kernel → untile
-    → resolve kernel → texel kernel + PBR → RGBA8
+    → resolve kernel → texel kernel + shadow-taps kernel + PBR
+    [→ bloom on linear HDR → tonemap] [→ supersample resolve] → RGBA8
 
 PyTorch runs eagerly, so there is no jit, bundling or idle-frame cache;
-tensors stay on the renderer's device. Shadows, bloom, supersampling,
-bands, the AI upscale and blend, skyboxes, sprites, custom shaders,
-non-bilinear sampling, vertex colors and skinning are not part of the
-ported slice: configuring them raises NotImplementedError.
+tensors stay on the renderer's device. Bands, the AI upscale and blend,
+skyboxes, sprites, custom shaders, non-bilinear sampling, vertex colors
+and skinning are not part of the ported slice: configuring them raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,18 +24,37 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from trident_tpu.core.config import EngineConfig, RenderConfig
-from trident_tpu.core.log import get_logger
-from trident_tpu.ecs.components import SpriteComponent
-from trident_tpu.ecs.registry import Registry
-from trident_tpu.geometry.mesh import GeometryCache
-from trident_tpu.geometry.primitives import PrimitiveType, build_primitive
 from trident_tpu_torch import resolve_device
+from trident_tpu_torch.core.config import EngineConfig, RenderConfig
+from trident_tpu_torch.core.log import get_logger
+from trident_tpu_torch.ecs.components import (
+    LightComponent,
+    LightType,
+    MeshComponent,
+    SpriteComponent,
+    TextureComponent,
+    TransformComponent,
+)
+from trident_tpu_torch.ecs.registry import Registry
+from trident_tpu_torch.geometry.mesh import GeometryCache
+from trident_tpu_torch.geometry.primitives import PrimitiveType, build_primitive
+from trident_tpu_torch.io.image import checkerboard
+from trident_tpu_torch.ops import post
 from trident_tpu_torch.ops.corner import build_draw_rows, corner_stage
-from trident_tpu_torch.ops.deferred import deferred_shade_attrs, pack_rgba8
+from trident_tpu_torch.ops.deferred import (
+    apply_ai_blend,
+    deferred_shade_attrs,
+    pack_rgba8,
+)
 from trident_tpu_torch.ops.planes import build_resolve_cols_planar
 from trident_tpu_torch.ops.raster import visibility
 from trident_tpu_torch.ops.resolve import resolve_attrs
+from trident_tpu_torch.ops.shading import tonemap_reinhard_gamma
+from trident_tpu_torch.ops.shadow import (
+    light_camera,
+    render_shadow_map,
+    scene_bounds,
+)
 from trident_tpu_torch.render.camera import EditorCamera
 from trident_tpu_torch.render.frame import (
     DrawPlanCache,
@@ -42,7 +63,12 @@ from trident_tpu_torch.render.frame import (
 )
 from trident_tpu_torch.render.lights import gather_lights
 from trident_tpu_torch.render.textures import TextureSlots
-from trident_tpu_torch.render.types import FrameOutput
+from trident_tpu_torch.render.types import (
+    CameraParams,
+    FrameOutput,
+    ShadowParams,
+    from_numpy,
+)
 
 logger = get_logger("renderer_torch")
 
@@ -62,39 +88,83 @@ def frame_geometry(plan, tri_draw, params, shade_table, camera, textures,
     return cs, build_resolve_cols_planar(cs.cols)
 
 
+def shadow_params(plan, params, tri_draw, corner_t, light_cam: CameraParams,
+                  size: int, bias: float, *, draw_stride: int = 0,
+                  real_draws: int = 0):
+    """The light pass → (ShadowParams, (2,) i32 light-pass aux), with
+    light_vp = proj @ view in f32 (TF32 is pinned off). The scalars are
+    filled on the device: a host-to-device copy would wait for the work
+    already queued."""
+    depth_map, aux = render_shadow_map(
+        plan, params, light_cam, size, corner_t=corner_t, tri_draw=tri_draw,
+        draw_stride=draw_stride, real_draws=real_draws)
+    dev = depth_map.device
+    shadow = ShadowParams(
+        depth=depth_map, light_vp=light_cam.proj @ light_cam.view,
+        enabled=torch.ones((), dtype=torch.bool, device=dev),
+        bias=torch.full((), bias, dtype=torch.float32, device=dev))
+    return shadow, aux
+
+
 def _visibility_and_shade(setup, setup_cols, records, textures, camera,
-                          lights, *, width: int, height: int, clear_color):
+                          lights, *, width: int, height: int, clear_color,
+                          shadow: Optional[ShadowParams] = None,
+                          shadow_pcf: bool = False, tonemap: bool = True):
     """Rasterize + shade a frame from prebuilt per-triangle inputs →
     (frame (H,W,4) f32, GBuffer)."""
     gbuf = visibility(setup, width, height, setup_cols=setup_cols)
     attrs = resolve_attrs(gbuf.tri_id, records)
     frame = deferred_shade_attrs(gbuf, attrs, textures, camera, lights,
-                                 width, height, clear_color=clear_color)
+                                 width, height, clear_color=clear_color,
+                                 shadow=shadow, shadow_pcf=shadow_pcf,
+                                 tonemap=tonemap)
     return frame, gbuf
 
 
 def render_frame(plan, tri_draw, params, shade_table, camera, lights,
                  textures, corner_t, *, width: int, height: int, clear_color,
-                 draw_stride: int = 0, real_draws: int = 0) -> FrameOutput:
-    """One forward frame (the JAX `_render_frame_impl` forward branch)."""
+                 draw_stride: int = 0, real_draws: int = 0,
+                 light_camera: Optional[CameraParams] = None,
+                 shadow_size: int = 0, shadow_bias: float = 2e-3,
+                 shadow_pcf: bool = False, supersample: int = 1,
+                 bloom: bool = False, bloom_threshold: float = 1.0,
+                 bloom_strength: float = 0.6) -> FrameOutput:
+    """One forward frame (the JAX `_render_frame_impl` forward branch):
+    main-pass geometry at (W·ss, H·ss) → the light pass when
+    `light_camera` and `shadow_size` are given → visibility, resolve and
+    shading (linear HDR when blooming) → bloom + tonemap → supersample
+    resolve → clamp. Depth and ids are each ss × ss block's top-left
+    sample; shadow_aux is the light pass's aux (None without one)."""
+    ss = max(int(supersample), 1)
+    rw, rh = width * ss, height * ss
     cs, records = frame_geometry(
         plan, tri_draw, params, shade_table, camera, textures, corner_t,
-        width=width, height=height, draw_stride=draw_stride,
-        real_draws=real_draws)
+        width=rw, height=rh, draw_stride=draw_stride, real_draws=real_draws)
+    shadow = shadow_aux = None
+    if shadow_size and light_camera is not None:
+        shadow, shadow_aux = shadow_params(
+            plan, params, tri_draw, corner_t, light_camera, shadow_size,
+            shadow_bias, draw_stride=draw_stride, real_draws=real_draws)
     frame, gbuf = _visibility_and_shade(
         cs.setup, cs.cols.setup, records, textures, camera, lights,
-        width=width, height=height, clear_color=clear_color)
-    return FrameOutput(color=pack_rgba8(frame), depth=gbuf.depth,
-                       tri_id=gbuf.tri_id, aux=gbuf.aux)
+        width=rw, height=rh, clear_color=clear_color, shadow=shadow,
+        shadow_pcf=shadow_pcf, tonemap=not bloom)
+    if bloom:
+        hdr = post.bloom(frame[..., :3], bloom_threshold, bloom_strength)
+        frame = torch.cat([tonemap_reinhard_gamma(hdr), frame[..., 3:4]],
+                          dim=-1)
+    frame = post.resolve_supersample(frame, ss)
+    frame = torch.clamp(apply_ai_blend(frame, None), 0.0, 1.0)
+    return FrameOutput(color=pack_rgba8(frame), depth=gbuf.depth[::ss, ::ss],
+                       tri_id=gbuf.tri_id[::ss, ::ss], aux=gbuf.aux,
+                       shadow_aux=shadow_aux)
 
 
 def _check_slice(rc: RenderConfig) -> None:
     unported = {
         "use_pallas=False (reference raster)": rc.use_pallas is False,
         "forward_shading=False": not rc.forward_shading,
-        "shadows": rc.shadows, "bloom": rc.bloom,
-        "supersample": int(rc.supersample) != 1, "bands": rc.bands > 1,
-        "ai_upscale": rc.ai_upscale,
+        "bands": rc.bands > 1, "ai_upscale": rc.ai_upscale,
         f"sampling={rc.sampling!r}": rc.sampling != "bilinear",
     }
     bad = [name for name, on in unported.items() if on]
@@ -104,7 +174,8 @@ def _check_slice(rc: RenderConfig) -> None:
 
 
 class Renderer:
-    """Host-side scene state + the forward frame on one device."""
+    """Host-side scene state + the forward frame on one device (the card
+    unless `device` says otherwise)."""
 
     def __init__(self, config: Optional[EngineConfig] = None,
                  device=None) -> None:
@@ -119,6 +190,9 @@ class Renderer:
         self.editor_camera = EditorCamera()
         self._plan_cache = DrawPlanCache(self.device)
         self._primitive_mesh_indices: Dict[PrimitiveType, int] = {}
+        # scene_bounds' per-mesh bbox corners, valid for one geometry version
+        self._mesh_boxes: Dict[int, Optional[np.ndarray]] = {}
+        self._mesh_boxes_version: Optional[int] = None
 
     def set_active_registry(self, registry: Registry) -> None:
         self.registry = registry
@@ -139,6 +213,26 @@ class Renderer:
         if not stride or stride * nd < 65536:
             return {"draw_stride": 0, "real_draws": 0}
         return {"draw_stride": stride, "real_draws": nd}
+
+    def _shadow_kwargs(self, records, packed) -> dict:
+        """light_camera/shadow_size of the directional shadow pass, when
+        rc.shadows is on: the first enabled directional light that casts
+        shadows, framed on the drawn scene's bounds."""
+        rc = self.config.render
+        if not rc.shadows:
+            return {}
+        for _e, (lc,) in self.registry.view(LightComponent):
+            if (lc.enabled and lc.light_type == LightType.DIRECTIONAL
+                    and lc.cast_shadows):
+                if self._mesh_boxes_version != self.geometry.version:
+                    self._mesh_boxes = {}
+                    self._mesh_boxes_version = self.geometry.version
+                center, radius = scene_bounds(records, packed,
+                                              self._mesh_boxes)
+                cam = light_camera(lc.direction, center, radius)
+                return {"light_camera": from_numpy(cam, self.device),
+                        "shadow_size": rc.shadow_map_size}
+        return {}
 
     def frame_inputs(self) -> dict:
         """render_frame's arguments for the current scene, on the device,
@@ -168,7 +262,10 @@ class Renderer:
             textures=self.textures.device_arrays(self.device),
             corner_t=self._plan_cache.corner_table(packed), width=rc.width,
             height=rc.height, clear_color=tuple(rc.clear_color),
-            **self._stride_kwargs())
+            shadow_pcf=rc.shadow_pcf, supersample=max(int(rc.supersample), 1),
+            bloom=rc.bloom, bloom_threshold=rc.bloom_threshold,
+            bloom_strength=rc.bloom_strength, **self._stride_kwargs(),
+            **self._shadow_kwargs(records, packed))
 
     def render_viewport(self) -> FrameOutput:
         """Render the configured viewport with the editor camera."""
@@ -178,16 +275,18 @@ class Renderer:
 
     def read_frame(self, out: Optional[FrameOutput] = None) -> np.ndarray:
         """Render (unless given a FrameOutput) and read back (H,W,4) uint8,
-        warning when the raster dropped geometry."""
+        warning when the main or the light pass dropped geometry."""
         if out is None:
             out = self.render_viewport()
         frame = out.color.cpu().numpy()
-        if out.aux is not None and self.config.render.raster_drop_checks:
-            aux = out.aux.cpu().numpy()
-            if aux[0] or aux[1]:
-                logger.warning(
-                    "raster capacity overflow: %d pairs truncated, %d chunks "
-                    "dropped — geometry is missing", int(aux[0]), int(aux[1]))
+        if self.config.render.raster_drop_checks:
+            for name, aux in (("", out.aux), ("light pass ", out.shadow_aux)):
+                aux = None if aux is None else aux.cpu().numpy()
+                if aux is not None and (aux[0] or aux[1]):
+                    logger.warning(
+                        "%sraster capacity overflow: %d pairs truncated, %d "
+                        "chunks dropped — geometry is missing", name,
+                        int(aux[0]), int(aux[1]))
         return frame
 
 
@@ -195,13 +294,6 @@ def build_entry_renderer(width: int = 256, height: int = 256,
                          device=None) -> Renderer:
     """The scene of `__graft_entry__._build_example`: one textured cube,
     rotated (20°, 35°, 0°), seen from (0, 0, 3), default sun."""
-    from trident_tpu.ecs.components import (
-        MeshComponent,
-        TextureComponent,
-        TransformComponent,
-    )
-    from trident_tpu.io.image import checkerboard
-
     r = Renderer(EngineConfig(render=RenderConfig(width=width, height=height)),
                  device=device)
     reg = Registry()
@@ -219,7 +311,8 @@ def build_entry_renderer(width: int = 256, height: int = 256,
 
 def render_frame_entry(device=None) -> torch.Tensor:
     """Twin of `__graft_entry__.entry()`: the 256² textured lit cube through
-    the forward frame → (256, 256, 4) uint8 color on `device`. Like entry(),
-    it takes the camera's parameters without sizing it to the frame, so the
-    projection keeps the camera's default 1920×1080 aspect."""
+    the forward frame → (256, 256, 4) uint8 color on `device` (the card
+    unless given). Like entry(), it takes the camera's parameters without
+    sizing it to the frame, so the projection keeps the camera's default
+    1920×1080 aspect."""
     return render_frame(**build_entry_renderer(device=device).frame_inputs()).color

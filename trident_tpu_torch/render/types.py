@@ -92,11 +92,22 @@ class GBuffer(NamedTuple):
     aux: Optional[Tensor] = None  # (2,) i32 [truncated pairs, dropped chunks]
 
 
+class ShadowParams(NamedTuple):
+    """Directional-light shadow map (the two-pass render graph)."""
+
+    depth: Tensor         # (S,S) f32 light-space depth map
+    light_vp: Tensor      # (4,4) f32 light view-projection
+    enabled: Tensor       # () bool
+    bias: Tensor          # () f32 depth bias
+
+
 class FrameOutput(NamedTuple):
     color: Tensor         # (H,W,4) uint8
     depth: Tensor         # (H,W) f32
     tri_id: Tensor        # (H,W) i32
     aux: Optional[Tensor] = None  # (2,) i32 raster drop counters
+    shadow_aux: Optional[Tensor] = None  # (2,) i32 the light pass's (the
+                                         # JAX package drops them)
 
 
 def _twins() -> dict:
@@ -105,8 +116,8 @@ def _twins() -> dict:
 
     return {cls.__name__: cls for cls in (
         GeometryBuffers, DrawPlan, DrawParams, CameraParams, LightParams,
-        TextureArrays, GBuffer, FrameOutput, TriangleSetup, SetupCols,
-        CornerCols, CornerStageOut)}
+        TextureArrays, GBuffer, ShadowParams, FrameOutput, TriangleSetup,
+        SetupCols, CornerCols, CornerStageOut)}
 
 
 def _to_tensor(value, device) -> Tensor:
