@@ -37,6 +37,17 @@ Phases (any failure exits non-zero before the final line is printed):
      (shadows hard and PCF at a 256² map, bloom, 2× supersampling) against
      the JAX package's frames tests/goldens/torch_slice_<flavor>.npy under
      the golden gate
+  9. spheres1080_1m:ai (the spheres1080_1m scene with ai_upscale: a
+     960×540 render, the shipped temporal upscaler, 1920×1080 out): on a
+     frame after rotating the entities and orbiting the camera, hold the
+     warp kernel against its plain version on that frame's own history
+     and block indices (bit-equal over all 518,400 pixels) and time it
+     beside the indexing call; render 12 chained frames through the
+     Renderer: aux [0, 0], the output and history shapes, the raster
+     kernels launched every frame and the warp kernel every frame after
+     the first; print the frame and stage times; then the two AI-upscaled
+     128² frames of the golden-flavor scene against
+     tests/goldens/torch_slice_ai_upscale.npy under the golden gate
 Then it prints the kernels as one JSON line, the card line, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -142,11 +153,13 @@ def bound(bytes_moved: float, ops: float = 0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def build_bench_scene(grid: int, device, config: str = "spheres1080_1m"):
+def build_bench_scene(grid: int, device, config: str = "spheres1080_1m",
+                      ai: bool = False):
     """bench.py's build_scene(config) on the port: a grid × grid sphere
     grid with the 128² checker at 1920×1080 (spheres1080_1m) or 3840×2160
     with bloom (ultra4k); shadows1080 adds the backdrop slab and the
-    shadow-casting sun."""
+    shadow-casting sun. ai=True is bench.py's NAME:ai mode: render at half
+    size and upscale with the shipped net."""
     from trident_tpu_torch.core.config import EngineConfig, RenderConfig
     from trident_tpu_torch.ecs.components import (
         LightComponent,
@@ -162,7 +175,7 @@ def build_bench_scene(grid: int, device, config: str = "spheres1080_1m"):
     w, h = (3840, 2160) if config == "ultra4k" else (1920, 1080)
     r = Renderer(EngineConfig(render=RenderConfig(
         width=w, height=h, bloom=config == "ultra4k",
-        shadows=config == "shadows1080")), device=device)
+        shadows=config == "shadows1080", ai_upscale=ai)), device=device)
     reg = Registry()
     r.set_active_registry(reg)
     slot = r.acquire_texture("checker", checkerboard(128, 8))
@@ -275,6 +288,165 @@ def vis_work(bins, n_tiles: int, out_bytes_per_px: int):
                    + (n_tiles + 1) * 4 + n_tiles * raster.TILE_PX
                    * out_bytes_per_px)
     return bytes_moved, n_hit * raster.SUB * raster.TILE_PX * VIS_OPS_PER_PAIR
+
+
+def phase_ai(dev, card: str, kernel_fns: dict, drive, results: dict) -> dict:
+    """Phase 9, spheres1080_1m:ai: the warp kernel against its plain
+    version, 12 upscaled frames through the Renderer, the stage times and
+    the two 128² AI frames against the JAX package's; adds the warp to
+    `kernel_fns` and `results` and returns the 12 frames' launch counts."""
+    import torch
+
+    from trident_tpu_torch.ai import upscaler as up
+    from trident_tpu_torch.ops import warp
+    from trident_tpu_torch.ops.deferred import pack_rgba8
+    from trident_tpu_torch.render.renderer import render_frame
+
+    kernel_fns["warp"] = warp.warp_fetch
+    r, reg = build_bench_scene(BENCH_GRID, dev, ai=True)
+    w, h = r.config.render.width, r.config.render.height
+    net = r._upscale_params()
+
+    # (a) the kernel on a moving-camera frame's own history and indices
+    rotate(reg, 0)
+    r.render_viewport()
+    prev0 = r.prev_state
+    rotate(reg, 1)
+    r.editor_camera.orbit([0.0, 0.0, 0.0], 3.0, 2.0)
+    out1 = r.render_viewport()
+    torch.cuda.synchronize()
+    hist, prev_vp = prev0
+    cam = r.editor_camera.params(dev)
+    d_half = out1.depth[::2, ::2].contiguous()
+    by, bx, in_bounds, ok = up.warp_indices(
+        hist, d_half, torch.linalg.inv(cam.proj @ cam.view), prev_vp, w, h)
+    bym = torch.where(ok, by, -1).contiguous()
+    bxm = torch.where(ok, bx, -1).contiguous()
+    f_k = warp.warp_fetch(hist, bym, bxm)
+    f_p = warp.warp_fetch_ref(hist, bym, bxm)
+    torch.cuda.synchronize()
+    n_px = bym.numel()
+    bad = int((f_k.view(torch.int32) != f_p.view(torch.int32)).sum())
+    if bad or tuple(f_k.shape) != (h // 2, w // 2, 12):
+        fail(f"warp kernel disagrees on {bad} of {f_k.numel()} values "
+             f"(shape {tuple(f_k.shape)})")
+    n_valid = int(ok.sum())
+    n_dropped = int((in_bounds & ~ok).sum())
+    print(f"spheres1080_1m:ai warp: {n_px} pixels, {n_valid} valid, "
+          f"{n_dropped} band-dropped, {int(in_bounds.sum())} in bounds; "
+          "kernel bit-equal to its plain version", flush=True)
+    if n_valid == 0:
+        fail("the moving-camera frame warped no pixel")
+    n_blocks = int(torch.unique((bym * (w // 2) + bxm)[ok]).numel())
+    res = dict(
+        route="cuda", source="trident_tpu_torch/csrc/warp.cu",
+        replaces="trident_tpu/ops/warp_pallas.py:68",
+        max_abs_err=float((f_k - f_p).abs().max()),
+        ms=cuda_ms(lambda: warp.warp_fetch(hist, bym, bxm)),
+        plain_ms=cuda_ms(lambda: warp.warp_fetch_ref(hist, bym, bxm)),
+        # one PyTorch indexing call for the same fetch (no −1 mask, uint8)
+        library_ms=cuda_ms(lambda: hist[bym.clamp(min=0),
+                                        bxm.clamp(min=0)]))
+    # per pixel the two i32 indices in and 12 f32 out; each fetched block's
+    # 12 history bytes once
+    res.update(zip(("bound_ms", "bound_by"),
+                   bound(n_px * (8 + 48) + n_blocks * 12)))
+    results["warp"] = res
+    busy = [device_busy(fn)[0] for fn in (
+        lambda: warp.warp_fetch(hist, bym, bxm),
+        lambda: warp.warp_fetch_ref(hist, bym, bxm),
+        lambda: hist[bym.clamp(min=0), bxm.clamp(min=0)])]
+    print(f"warp: kernel {res['ms']:.4f} ms (device busy {busy[0]:.4f} ms), "
+          f"plain {res['plain_ms']:.4f} ms (busy {busy[1]:.4f}), indexing "
+          f"call {res['library_ms']:.4f} ms (busy {busy[2]:.4f}), bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']}; {n_blocks} distinct "
+          f"blocks) ({card})", flush=True)
+    del f_k, f_p, by, bx, in_bounds, ok, out1
+
+    # (b) 12 chained frames through the Renderer, the first without history
+    clear = torch.round(torch.tensor(r.config.render.clear_color) * 255.0)
+    frame_ms = []
+    r.prev_state = None
+
+    def ai_frames():
+        out = None
+        for k in range(12):
+            rotate(reg, k)
+            before = {n: fn.launches for n, fn in kernel_fns.items()}
+            t0 = time.perf_counter()
+            out = r.render_viewport()
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            ran = {n: fn.launches - before[n] for n, fn in kernel_fns.items()}
+            if out.aux.tolist() != [0, 0]:
+                fail(f"ai frame {k}: raster overflow aux {out.aux.tolist()}")
+            if (tuple(out.color.shape) != (h, w, 4)
+                    or out.color.dtype != torch.uint8
+                    or tuple(out.history.shape) != (h // 2, w // 2, 12)
+                    or out.history.dtype != torch.uint8):
+                fail(f"ai frame {k}: color {tuple(out.color.shape)} "
+                     f"{out.color.dtype}, history "
+                     f"{tuple(out.history.shape)} {out.history.dtype}")
+            if (min(ran[n] for n in ("visibility", "resolve", "texel")) < 1
+                    or ran["warp"] != (0 if k == 0 else 1)):
+                fail(f"ai frame {k}: kernel launches {ran}")
+            if not bool((out.color.float().cpu() != clear).any()):
+                fail(f"ai frame {k} is all clear color")
+        return out
+
+    out, launches9 = drive(ai_frames, ("visibility", "resolve", "texel",
+                                       "warp"))
+    wall = statistics.median(frame_ms[2:])
+    inp = r.frame_inputs()
+    dev_ms = cuda_ms(lambda: render_frame(**inp))
+    busy_ms, n_launch = device_busy(lambda: render_frame(**inp))
+    print(f"spheres1080_1m:ai frame: median {wall:.3f} ms wall per "
+          f"render_viewport ({[round(t, 3) for t in frame_ms]}); "
+          f"{dev_ms:.3f} ms render_frame device time, {busy_ms:.3f} ms of "
+          f"it busy in {n_launch:.0f} device activities (idle "
+          f"{1 - busy_ms / dev_ms:.3f}); launches {launches9} ({card})",
+          flush=True)
+
+    # where the upscaled frame's time goes, each stage on its own inputs
+    half_inp = {k: v for k, v in inp.items()
+                if k not in ("upscale_params", "prev")}
+    half = render_frame(**half_inp)
+    rgb = (half.color[..., :3].float() / 255.0).contiguous()
+    alpha = half.color[..., 3:4].float() / 255.0
+    d_half = half.depth
+    temporal = up.temporal_from_prev(net, inp["prev"], d_half, inp["camera"],
+                                     w, h)
+    x = up._assemble_inputs(net, rgb, temporal, d_half)
+    blocks = net(x)
+
+    def d2s_pack():
+        frame = torch.cat([up.depth_to_space(blocks),
+                           alpha.repeat_interleave(2, 0).repeat_interleave(
+                               2, 1)], dim=-1)
+        return pack_rgba8(torch.clamp(frame, 0.0, 1.0)), up.blocks_to_u8(
+            blocks)
+
+    print_stages("spheres1080_1m:ai stages", {
+        "half_frame": lambda: render_frame(**half_inp),
+        "warp": lambda: up.temporal_from_prev(net, inp["prev"], d_half,
+                                              inp["camera"], w, h),
+        "net": lambda: net(up._assemble_inputs(net, rgb, temporal, d_half)),
+        "d2s_pack": d2s_pack,
+    }, card)
+    del r, reg, inp, half_inp, half, out, hist, prev0, temporal, x, blocks
+    torch.cuda.empty_cache()
+
+    # (c) the two 128² AI frames against the JAX package's
+    ref = np.load(GOLDENS / "torch_slice_ai_upscale.npy")
+    r = base_scene(dev, ai_upscale=True)
+    for k in range(2):
+        if k:
+            r.editor_camera.orbit([0.0, 0.0, 0.0], 6.0, 4.0)
+        fr = r.render_viewport()
+        if fr.aux.tolist() != [0, 0] or fr.history is None:
+            fail(f"ai flavor frame {k}: aux {fr.aux.tolist()}")
+        golden_gate(fr.color.cpu().numpy(), ref[k], f"ai_upscale frame {k}")
+    return launches9
 
 
 def main() -> None:
@@ -734,10 +906,15 @@ def main() -> None:
         golden_gate(fr.color.cpu().numpy(),
                     np.load(GOLDENS / f"torch_slice_{name}.npy"), name)
 
+    # -- phase 9: spheres1080_1m:ai ------------------------------------------
+    launches9 = phase_ai(dev, card, kernel_fns, drive, results)
+
     # launches: each kernel's count in the main-path run of the frame it
-    # was held on (phase 4 for the main pass, phase 6 for the shadow pass)
+    # was held on (phase 4 for the main pass, phase 6 for the shadow pass,
+    # phase 9 for the warp)
     launches = {**launches4, "visibility_depth": launches6["visibility_depth"],
-                "shadow_taps": launches6["shadow_taps"]}
+                "shadow_taps": launches6["shadow_taps"],
+                "warp": launches9["warp"]}
     kernels = []
     for name in kernel_fns:
         res = {k: v for k, v in results[name].items() if k != "colour_ms"}

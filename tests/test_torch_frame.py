@@ -5,8 +5,9 @@ Both frames are held to the golden gate of test_golden_flavors.py: fewer
 than 0.2% of the RGBA8 values off by more than 3 LSB, and a mean absolute
 difference below 0.35. The committed reference frames
 — tests/goldens/torch_slice_cube256.npy, the JAX package's frame of
-__graft_entry__.entry(), and torch_slice_{shadows_hard,shadows_pcf,bloom,
-ssaa}.npy, its op-by-op frames of the post and shadow flavors — are what
+__graft_entry__.entry(), torch_slice_{shadows_hard,shadows_pcf,bloom,
+ssaa}.npy, its op-by-op frames of the post and shadow flavors, and
+torch_slice_ai_upscale.npy, its two op-by-op AI-upscaled frames — are what
 the card's smoke test (chip_smoke.py, no jax there) compares against; they
 must still equal the JAX package's output. Regenerate them with
 `python tests/test_torch_frame.py`.
@@ -94,13 +95,15 @@ def _sphere_grid():
     return r
 
 
-def _jax_frame_op_by_op(r):
+def _jax_frame_op_by_op(r, upscale_params=None, prev=None):
     """The JAX package's forward frame for renderer `r`'s scene:
     `_render_frame_impl(raster="pallas")` evaluated op by op, so every
     elementwise op rounds once, as in the port (the Pallas kernels still
     run under the interpreter). Shadows, supersampling and bloom follow
     the render config, with the light camera chosen as the JAX Renderer
-    chooses it."""
+    chooses it. With `upscale_params` the scene renders at half size and
+    the upscaler rebuilds the configured size, with `prev` = (previous
+    history, previous view·proj) as its temporal input."""
     from trident_tpu.ecs.components import LightComponent, LightType
     from trident_tpu.ops.shadow import light_camera, scene_bounds
     from trident_tpu.render.frame import build_draw_params, gather_mesh_draws
@@ -122,13 +125,15 @@ def _jax_frame_op_by_op(r):
                                      *scene_bounds(records, packed))
             shadow_size = rc.shadow_map_size
             break
+    half = 2 if upscale_params is not None else 1
     with jax.disable_jit():
         return _render_frame_impl(
             None, plan, tri_draw, params, palette, shade,
             r.editor_camera.params(), gather_lights(r.registry),
             r.textures.device_arrays(), None, None,
-            r._plan_cache.corner_table(packed), width=rc.width,
-            height=rc.height, clear_color=tuple(rc.clear_color),
+            r._plan_cache.corner_table(packed), upscale_params, prev,
+            width=rc.width // half, height=rc.height // half,
+            clear_color=tuple(rc.clear_color),
             raster="pallas", chunk=64, skinned=False,
             light_camera=light_cam, shadow_size=shadow_size,
             shadow_pcf=rc.shadow_pcf, supersample=max(int(rc.supersample), 1),
@@ -224,6 +229,85 @@ def test_flavor_matches_jax_frame(name):
     _assert_golden_gate(tr.read_frame(out), jcolor)
 
 
+# The AI-upscaled frame: the `_base` scene at 128² (rendered at 64²) with
+# the shipped temporal upscaler, frame 0 without history, then frame 1
+# after orbit([0, 0, 0], 6, 4) with frame 0's history. The JAX frames,
+# convs in f32 (its default is bf16) and the Pallas warp interpreted, are
+# committed as tests/goldens/torch_slice_ai_upscale.npy, shape
+# (2, 128, 128, 4).
+AI_REFERENCE = REFERENCE.parent / "torch_slice_ai_upscale.npy"
+AI_ORBIT = ([0.0, 0.0, 0.0], 6.0, 4.0)
+
+
+def _ai_renderer():
+    from test_golden_flavors import _base
+
+    r = JRenderer(EngineConfig(render=RenderConfig(
+        width=128, height=128, texture_size=64, use_pallas=True,
+        ai_upscale=True)))
+    r.set_active_registry(Registry())
+    _base(r.registry, r)
+    return r
+
+
+def _jax_ai_frames(jr):
+    """The JAX package's two AI-upscaled frames of `jr`'s scene (its
+    camera is orbited between them)."""
+    from trident_tpu.ai.upscaler import load_upscaler
+    from trident_tpu.ops import kernel_knobs
+
+    params, _bc = load_upscaler(str(pathlib.Path(__file__).resolve()
+                                    .parents[1] / "assets_out" / "upscaler_2x"))
+    with kernel_knobs.overrides(upscale_v2=True, upscale_dtype="f32",
+                                warp_mxu=True):
+        out0 = _jax_frame_op_by_op(jr, params)
+        p = jr.editor_camera.params()
+        vp0 = jax.numpy.matmul(p.proj, p.view,
+                               precision=jax.lax.Precision.HIGHEST)
+        jr.editor_camera.orbit(*AI_ORBIT)
+        out1 = _jax_frame_op_by_op(jr, params, (out0.history, vp0))
+    return out0, out1
+
+
+def write_ai_reference() -> None:
+    out0, out1 = _jax_ai_frames(_ai_renderer())
+    np.save(AI_REFERENCE, np.stack([np.asarray(out0.color),
+                                    np.asarray(out1.color)]))
+
+
+def test_ai_upscale_matches_jax_frames():
+    """Two chained AI-upscaled frames through the port's Renderer (its
+    default weights, the same checkpoint) against the JAX frames: aux
+    [0, 0], the history's shape and dtype, the golden gate, and a real
+    temporal input on frame 1 (≥ 1% of its pixels valid)."""
+    from trident_tpu_torch.ai import upscaler as up
+
+    jr = _ai_renderer()
+    tr = carry_renderer(jr)
+    jouts = _jax_ai_frames(jr)
+    ref = np.load(AI_REFERENCE)
+    assert ref.dtype == np.uint8 and ref.shape == (2, 128, 128, 4)
+    assert all((ref[k] == np.asarray(o.color)).all()
+               for k, o in enumerate(jouts)), "reference is stale: regenerate"
+    out0 = tr.render_viewport()
+    prev0 = tr.prev_state
+    tr.editor_camera.orbit(*AI_ORBIT)
+    out1 = tr.render_viewport()
+    for k, (out, jout) in enumerate(zip((out0, out1), jouts)):
+        assert out.aux.tolist() == [0, 0], k
+        assert np.asarray(jout.aux).tolist() == [0, 0], k
+        jh = np.asarray(jout.history)
+        assert tuple(out.history.shape) == jh.shape == (64, 64, 12), k
+        assert out.history.dtype == torch.uint8 and jh.dtype == np.uint8, k
+        assert out.color.shape == (128, 128, 4), k
+        _assert_golden_gate(tr.read_frame(out), np.asarray(jout.color))
+    assert (out1.history is tr.prev_state[0]) and prev0[0] is out0.history
+    temporal = up.temporal_from_prev(
+        tr._upscale_params(), prev0, out1.depth[::2, ::2].contiguous(),
+        tr.editor_camera.params("cpu"), 128, 128)
+    assert float(temporal[..., 12].mean()) >= 0.01
+
+
 if __name__ == "__main__":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     jax.config.update("jax_platforms", "cpu")
@@ -231,3 +315,5 @@ if __name__ == "__main__":
     print("wrote", REFERENCE)
     write_flavor_references()
     print("wrote", *(_flavor_reference(n) for n in FLAVORS))
+    write_ai_reference()
+    print("wrote", AI_REFERENCE)

@@ -30,8 +30,13 @@ r = build_entry_renderer(64, 64, device="cpu")
 frame = r.read_frame()
 assert frame.shape == (64, 64, 4), frame.shape
 assert (frame[..., :3] != frame[0, 0, :3]).any(), "all clear color"
+r.config.render.ai_upscale = True          # the upscaler and the warp
+for _ in range(2):
+    out = r.render_viewport()
+    r.editor_camera.orbit([0, 0, 0], 6.0, 4.0)
+assert out.color.shape == (64, 64, 4) and out.history.shape == (32, 32, 12)
 assert sys.modules["jax"] is None and sys.modules["trident_tpu"] is None
-print("rendered", frame.shape)
+print("rendered", frame.shape, "upscaled", tuple(out.color.shape))
 """
 
 
@@ -42,7 +47,7 @@ def test_renders_with_jax_blocked():
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "rendered (64, 64, 4)" in proc.stdout
+    assert "rendered (64, 64, 4) upscaled (64, 64, 4)" in proc.stdout
 
 
 def test_sources_never_import_jax():
@@ -82,7 +87,7 @@ def test_unported_features_raise():
     from trident_tpu_torch.core.config import EngineConfig, RenderConfig
 
     for kw in ({"sampling": "trilinear"}, {"bands": 2},
-               {"use_pallas": False}, {"ai_upscale": True}):
+               {"use_pallas": False}):
         with pytest.raises(NotImplementedError):
             Renderer(EngineConfig(render=RenderConfig(**kw)), device="cpu")
 

@@ -79,8 +79,9 @@ class AiConfig:
     net_resolution: Tuple[int, int] = (256, 256)
     cadence_ms: float = 66.0              # inference throttle (≈15 Hz)
     base_channels: int = 32
-    upscaler_path: Optional[str] = None   # 2x super-resolution checkpoint
-                                          # (default assets_out/upscaler_2x)
+    upscaler_path: Optional[str] = None   # 2x super-resolution weights, an
+                                          # .npz export (default the port's
+                                          # assets/upscaler_2x.npz)
 
 
 @dataclass

@@ -2,8 +2,9 @@
 
 View/projection follow glm RH_ZO conventions with the Vulkan Y-flip;
 matrices are rebuilt lazily on the host in numpy and handed to the device
-by `params(device)`. Orthographic projection and the runtime camera are
-not part of the ported slice.
+by `params(device)`. Of the editor controls only `orbit` is ported;
+orthographic projection and the runtime camera are not part of the
+ported slice.
 """
 
 from __future__ import annotations
@@ -57,6 +58,25 @@ class EditorCamera:
             return
         self._look_target = (target, np.asarray(up, np.float32))
         self._dirty = True
+
+    def orbit(self, pivot, d_yaw_deg: float, d_pitch_deg: float) -> None:
+        """Turn the camera about `pivot` by yaw and pitch (degrees, pitch
+        held within ±89°) at a fixed radius, then aim at the pivot."""
+        pivot = np.asarray(pivot, np.float32)
+        offset = self.position - pivot
+        radius = np.linalg.norm(offset)
+        if radius < 1e-6:
+            return
+        yaw = np.degrees(np.arctan2(offset[0], offset[2])) + d_yaw_deg
+        pitch = np.degrees(np.arcsin(np.clip(offset[1] / radius, -1.0, 1.0))) \
+            + d_pitch_deg
+        pitch = np.clip(pitch, -89.0, 89.0)
+        yr, pr = np.radians(yaw), np.radians(pitch)
+        offset = radius * np.array(
+            [np.cos(pr) * np.sin(yr), np.sin(pr), np.cos(pr) * np.cos(yr)],
+            np.float32)
+        self.set_position(pivot + offset)
+        self.look_at_target(pivot)
 
     def _rebuild(self) -> None:
         aspect = self.viewport[0] / max(self.viewport[1], 1)

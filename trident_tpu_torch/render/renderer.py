@@ -8,10 +8,13 @@ The forward frame of a rigid, textured, lit scene, as the JAX package's
        visibility kernel → shadow map]
     → build_bins → visibility kernel → untile
     → resolve kernel → texel kernel + shadow-taps kernel + PBR
-    [→ bloom on linear HDR → tonemap] [→ supersample resolve] → RGBA8
+    [→ bloom on linear HDR → tonemap] [→ supersample resolve]
+    [→ AI upscale: warp the previous history (warp kernel) → upscaler
+       net → depth-to-space to 2× (the frame above ran at half size)]
+    → RGBA8
 
 PyTorch runs eagerly, so there is no jit, bundling or idle-frame cache;
-tensors stay on the renderer's device. Bands, the AI upscale and blend,
+tensors stay on the renderer's device. Bands, the AI-frame blend,
 skyboxes, sprites, custom shaders, non-bilinear sampling, vertex colors
 and skinning are not part of the ported slice: configuring them raises
 NotImplementedError.
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from trident_tpu_torch import resolve_device
+from trident_tpu_torch.ai import upscaler as up
 from trident_tpu_torch.core.config import EngineConfig, RenderConfig
 from trident_tpu_torch.core.log import get_logger
 from trident_tpu_torch.ecs.components import (
@@ -128,13 +132,24 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
                  shadow_size: int = 0, shadow_bias: float = 2e-3,
                  shadow_pcf: bool = False, supersample: int = 1,
                  bloom: bool = False, bloom_threshold: float = 1.0,
-                 bloom_strength: float = 0.6) -> FrameOutput:
+                 bloom_strength: float = 0.6,
+                 upscale_params: Optional[up.UpscalerNet] = None,
+                 prev=None) -> FrameOutput:
     """One forward frame (the JAX `_render_frame_impl` forward branch):
     main-pass geometry at (W·ss, H·ss) → the light pass when
     `light_camera` and `shadow_size` are given → visibility, resolve and
     shading (linear HDR when blooming) → bloom + tonemap → supersample
-    resolve → clamp. Depth and ids are each ss × ss block's top-left
-    sample; shadow_aux is the light pass's aux (None without one)."""
+    resolve → [2× AI upscale] → clamp. Depth and ids are each ss × ss
+    block's top-left sample; shadow_aux is the light pass's aux (None
+    without one).
+
+    With `upscale_params` (an UpscalerNet) width and height are the half
+    size the scene renders at, and the frame comes out at twice that:
+    the previous (history, view·proj) `prev` is warped into this view at
+    the half-res depth, the net rebuilds the full frame from rgb and that
+    temporal input, alpha, depth and ids are repeated 2×2, and
+    FrameOutput.history holds the net's blocks as uint8 for the next
+    frame."""
     ss = max(int(supersample), 1)
     rw, rh = width * ss, height * ss
     cs, records = frame_geometry(
@@ -154,17 +169,32 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
         frame = torch.cat([tonemap_reinhard_gamma(hdr), frame[..., 3:4]],
                           dim=-1)
     frame = post.resolve_supersample(frame, ss)
+    depth_out, tri_out = gbuf.depth[::ss, ::ss], gbuf.tri_id[::ss, ::ss]
+    history = None
+    if upscale_params is not None:
+        temporal = up.temporal_from_prev(upscale_params, prev, depth_out,
+                                         camera, width * 2, height * 2)
+        rgb, blocks = up.apply_upscaler_v2(upscale_params, frame[..., :3],
+                                           temporal, depth=depth_out)
+        history = up.blocks_to_u8(blocks)
+        frame = torch.cat([rgb, _repeat2(frame[..., 3:4])], dim=-1)
+        depth_out, tri_out = _repeat2(depth_out), _repeat2(tri_out)
     frame = torch.clamp(apply_ai_blend(frame, None), 0.0, 1.0)
-    return FrameOutput(color=pack_rgba8(frame), depth=gbuf.depth[::ss, ::ss],
-                       tri_id=gbuf.tri_id[::ss, ::ss], aux=gbuf.aux,
-                       shadow_aux=shadow_aux)
+    return FrameOutput(color=pack_rgba8(frame), depth=depth_out,
+                       tri_id=tri_out, aux=gbuf.aux, shadow_aux=shadow_aux,
+                       history=history)
+
+
+def _repeat2(a):
+    """Each pixel of (H, W, …) repeated 2×2 → (2H, 2W, …)."""
+    return a.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
 
 
 def _check_slice(rc: RenderConfig) -> None:
     unported = {
         "use_pallas=False (reference raster)": rc.use_pallas is False,
         "forward_shading=False": not rc.forward_shading,
-        "bands": rc.bands > 1, "ai_upscale": rc.ai_upscale,
+        "bands": rc.bands > 1,
         f"sampling={rc.sampling!r}": rc.sampling != "bilinear",
     }
     bad = [name for name, on in unported.items() if on]
@@ -175,7 +205,14 @@ def _check_slice(rc: RenderConfig) -> None:
 
 class Renderer:
     """Host-side scene state + the forward frame on one device (the card
-    unless `device` says otherwise)."""
+    unless `device` says otherwise).
+
+    With `render.ai_upscale` the upscaler's weights load at construction
+    (`config.ai.upscaler_path`, else the port's assets/upscaler_2x.npz),
+    and a file that cannot be loaded raises. The JAX package logs and
+    renders at native size instead; the port does not, so that a run
+    meant to go through the net and the warp kernel cannot quietly skip
+    them."""
 
     def __init__(self, config: Optional[EngineConfig] = None,
                  device=None) -> None:
@@ -183,6 +220,11 @@ class Renderer:
         rc = self.config.render
         _check_slice(rc)
         self.device = resolve_device(device)
+        self._upscaler: Optional[up.UpscalerNet] = None
+        # (history, view·proj) of the last upscaled frame, the next one's
+        # warp input
+        self.prev_state: Optional[tuple] = None
+        self._upscale_params()
         self.geometry = GeometryCache()
         self.textures = TextureSlots(max_slots=rc.max_textures,
                                      edge=rc.texture_size)
@@ -205,6 +247,27 @@ class Renderer:
 
     def acquire_texture(self, key: str, rgba: Optional[np.ndarray] = None) -> int:
         return self.textures.acquire(key, rgba)
+
+    def _upscale_params(self) -> Optional[up.UpscalerNet]:
+        """The upscaler net on the device when ai_upscale is set (loaded
+        once; a load failure raises), else None."""
+        if not self.config.render.ai_upscale:
+            return None
+        if self._upscaler is None:
+            self._upscaler, _bc = up.load_upscaler(
+                self.config.ai.upscaler_path, self.device)
+        return self._upscaler
+
+    def _upscale_kwargs(self) -> dict:
+        """render_frame's size and upscale arguments: the half size, the
+        net and the previous frame's state when upscaling (the target's
+        width and height even), else the target size alone."""
+        rc = self.config.render
+        net = self._upscale_params()
+        if net is None or rc.width % 2 or rc.height % 2:
+            return {"width": rc.width, "height": rc.height}
+        return {"width": rc.width // 2, "height": rc.height // 2,
+                "upscale_params": net, "prev": self.prev_state}
 
     def _stride_kwargs(self) -> dict:
         """draw_stride/real_draws for the uniform-instancing broadcast path
@@ -260,18 +323,25 @@ class Renderer:
             camera=self.editor_camera.params(self.device),
             lights=gather_lights(self.registry, self.device),
             textures=self.textures.device_arrays(self.device),
-            corner_t=self._plan_cache.corner_table(packed), width=rc.width,
-            height=rc.height, clear_color=tuple(rc.clear_color),
+            corner_t=self._plan_cache.corner_table(packed),
+            **self._upscale_kwargs(), clear_color=tuple(rc.clear_color),
             shadow_pcf=rc.shadow_pcf, supersample=max(int(rc.supersample), 1),
             bloom=rc.bloom, bloom_threshold=rc.bloom_threshold,
             bloom_strength=rc.bloom_strength, **self._stride_kwargs(),
             **self._shadow_kwargs(records, packed))
 
     def render_viewport(self) -> FrameOutput:
-        """Render the configured viewport with the editor camera."""
+        """Render the configured viewport with the editor camera; an
+        upscaled frame's (history, view·proj) becomes the next frame's
+        `prev`."""
         rc = self.config.render
         self.editor_camera.set_viewport_size(rc.width, rc.height)
-        return render_frame(**self.frame_inputs())
+        inputs = self.frame_inputs()
+        out = render_frame(**inputs)
+        if out.history is not None:
+            cam = inputs["camera"]
+            self.prev_state = (out.history, cam.proj @ cam.view)
+        return out
 
     def read_frame(self, out: Optional[FrameOutput] = None) -> np.ndarray:
         """Render (unless given a FrameOutput) and read back (H,W,4) uint8,

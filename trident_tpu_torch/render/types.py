@@ -108,6 +108,9 @@ class FrameOutput(NamedTuple):
     aux: Optional[Tensor] = None  # (2,) i32 raster drop counters
     shadow_aux: Optional[Tensor] = None  # (2,) i32 the light pass's (the
                                          # JAX package drops them)
+    history: Optional[Tensor] = None  # (h,w,12) uint8 upscaler output
+                                      # blocks: the next frame's warp
+                                      # history (ai_upscale only)
 
 
 def _twins() -> dict:
