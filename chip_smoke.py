@@ -48,6 +48,23 @@ Phases (any failure exits non-zero before the final line is printed):
      the first; print the frame and stage times; then the two AI-upscaled
      128² frames of the golden-flavor scene against
      tests/goldens/torch_slice_ai_upscale.npy under the golden gate
+ 10. the kernel-knob frame (RenderConfig.kernel) at spheres1080_1m: on the
+     frame's own intermediates hold the compact-bank visibility kernel
+     (ckern) against K1 and its plain version (ids equal, depth bit-equal),
+     the fused visibility + resolve kernel (fuse) against K1 + K2 (depth
+     and ids bit-equal, attributes within RESOLVE_TOL), the tiled resolve
+     against K2 permuted and the planar texel kernel against K3 (bit-
+     equal); time each and the tiled shading stage beside
+     deferred_shade_attrs; render 12 rotating frames each with
+     {"ckern": True, "dynhit": False} and {"fuse": True, "tiled_shade":
+     True}: aux [0, 0], each knob kernel launched once a frame, K1 and K2
+     never under fuse, the ckern frame bit-equal to the default-knob
+     frame and the tiled frame within the tiled-shading gate (max 2 LSB,
+     < 0.2% of values over 1); one shadows1080 PCF frame with
+     tiled_shade (aux [0, 0] on both passes, > 1% of covered pixels
+     shadowed, the same gate against the default-knob frame); the three
+     128² knob frames against tests/goldens/torch_slice_knobs_<name>.npy
+     under the golden gate
 Then it prints the kernels as one JSON line, the card line, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -89,6 +106,20 @@ FLAVORS = {
     "bloom": dict(bloom=True, bloom_threshold=0.35, bloom_strength=0.8),
     "ssaa": dict(supersample=2),
 }
+# the knob flavors of the same scene (tests/test_torch_frame.py
+# KNOB_FLAVORS)
+KNOB_FLAVORS = {
+    "fuse_tiled": dict(kernel={"fuse": True, "tiled_shade": True}),
+    "ckern": dict(shadows=True, shadow_map_size=256,
+                  kernel={"ckern": True, "dynhit": False}),
+    "tiled_pcf": dict(shadows=True, shadow_map_size=256, shadow_pcf=True,
+                      kernel={"tiled_shade": True}),
+}
+CKERN = {"ckern": True, "dynhit": False}
+FUSE_TILED = {"fuse": True, "tiled_shade": True}
+# the tiled-shading gate of tests/test_deferred_tiled.py:69-71 against the
+# legacy shading path: max 2 LSB, fewer than 0.2% of values off by > 1
+TILED_LSB, TILED_FRAC = 2, 0.002
 
 
 def fail(msg: str) -> None:
@@ -154,12 +185,14 @@ def bound(bytes_moved: float, ops: float = 0.0):
 
 
 def build_bench_scene(grid: int, device, config: str = "spheres1080_1m",
-                      ai: bool = False):
+                      ai: bool = False, kernel=None, reg=None):
     """bench.py's build_scene(config) on the port: a grid × grid sphere
     grid with the 128² checker at 1920×1080 (spheres1080_1m) or 3840×2160
     with bloom (ultra4k); shadows1080 adds the backdrop slab and the
     shadow-casting sun. ai=True is bench.py's NAME:ai mode: render at half
-    size and upscale with the shipped net."""
+    size and upscale with the shipped net. `kernel` is RenderConfig.kernel.
+    Given `reg` (a registry this function built for the same config), the
+    new Renderer renders that registry's scene instead of a new one."""
     from trident_tpu_torch.core.config import EngineConfig, RenderConfig
     from trident_tpu_torch.ecs.components import (
         LightComponent,
@@ -175,11 +208,19 @@ def build_bench_scene(grid: int, device, config: str = "spheres1080_1m",
     w, h = (3840, 2160) if config == "ultra4k" else (1920, 1080)
     r = Renderer(EngineConfig(render=RenderConfig(
         width=w, height=h, bloom=config == "ultra4k",
-        shadows=config == "shadows1080", ai_upscale=ai)), device=device)
-    reg = Registry()
-    r.set_active_registry(reg)
+        shadows=config == "shadows1080", ai_upscale=ai, kernel=kernel)),
+        device=device)
     slot = r.acquire_texture("checker", checkerboard(128, 8))
     mesh_idx = r.ensure_primitive(PrimitiveType.SPHERE)
+    r.editor_camera.set_position([0, 0, grid * 1.1 + 2])
+    r.editor_camera.look_at_target([0, 0, 0])
+    if reg is not None:
+        if config == "shadows1080":
+            r.ensure_primitive(PrimitiveType.CUBE)
+        r.set_active_registry(reg)
+        return r, reg
+    reg = Registry()
+    r.set_active_registry(reg)
     for i in range(grid):
         for j in range(grid):
             e = reg.create()
@@ -188,7 +229,6 @@ def build_bench_scene(grid: int, device, config: str = "spheres1080_1m",
                 [(i - grid / 2) * 1.4, (j - grid / 2) * 1.4, 0], np.float32)
             reg.add(e, MeshComponent(mesh_index=mesh_idx))
             reg.add(e, TextureComponent(path="checker", slot=slot))
-    r.editor_camera.set_position([0, 0, grid * 1.1 + 2])
     if config == "shadows1080":
         backdrop = reg.create()
         bt = reg.add(backdrop, TransformComponent())
@@ -202,7 +242,6 @@ def build_bench_scene(grid: int, device, config: str = "spheres1080_1m",
         reg.add(sun, LightComponent(
             direction=np.array([0.35, -0.3, -1.0], np.float32),
             intensity=2.5, cast_shadows=True))
-    r.editor_camera.look_at_target([0, 0, 0])
     return r, reg
 
 
@@ -447,6 +486,326 @@ def phase_ai(dev, card: str, kernel_fns: dict, drive, results: dict) -> dict:
             fail(f"ai flavor frame {k}: aux {fr.aux.tolist()}")
         golden_gate(fr.color.cpu().numpy(), ref[k], f"ai_upscale frame {k}")
     return launches9
+
+
+def tiled_gate(frame, ref, what: str) -> None:
+    """A tiled-shading frame against the legacy path's frame of the same
+    scene and view (uint8 RGBA on the card): max TILED_LSB, fewer than
+    TILED_FRAC of values off by more than 1."""
+    diff = (frame.int() - ref.int()).abs()
+    mx, frac = int(diff.max()), float((diff > 1).float().mean())
+    print(f"{what} vs the default-knob frame: max {mx} LSB, {frac:.6f} of "
+          "values > 1", flush=True)
+    if mx > TILED_LSB or not frac < TILED_FRAC:
+        fail(f"{what} outside the tiled-shading gate")
+
+
+def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
+    """Phase 10, the kernel-knob frame at spheres1080_1m: the four knob
+    kernels against their plain versions and the default kernels they
+    stand in for, their times and bounds, 12 frames each of CKERN and
+    FUSE_TILED through the Renderer, one shadows1080 PCF frame with
+    tiled_shade and the 128² knob goldens; adds the knob kernels to
+    `kernel_fns` and `results` and returns the main-path launch counts."""
+    import torch
+
+    from trident_tpu_torch.ops import deferred_tiled as dtl
+    from trident_tpu_torch.ops import raster, resolve, texel
+    from trident_tpu_torch.ops.deferred import (
+        deferred_shade_attrs,
+        texel_lookup,
+        world_positions,
+    )
+    from trident_tpu_torch.ops.shadow import shadow_factor
+    from trident_tpu_torch.render.renderer import (
+        _visibility_and_shade,
+        frame_geometry,
+        render_frame,
+        shadow_params,
+    )
+    from trident_tpu_torch.render.types import GBuffer
+
+    kernel_fns.update(visibility_ck=raster.visibility_ck_tiles,
+                      visibility_resolve=resolve.fused_visibility_resolve,
+                      resolve_tiled=resolve.resolve_attrs_tiled,
+                      texel_planar=texel.sample_bilinear_planar)
+    bank = 8                                  # the JAX default ck_bank
+
+    # (a) each knob kernel on the spheres1080_1m frame's intermediates
+    r, reg = build_bench_scene(BENCH_GRID, dev)
+    rotate(reg, 0)
+    r.editor_camera.set_viewport_size(1920, 1080)
+    inp = r.frame_inputs()
+    w, h = inp["width"], inp["height"]
+    ntx, nty = -(-w // raster.TILE), -(-h // raster.TILE)
+    n_tiles = ntx * nty
+    cs, records = frame_geometry(
+        inp["plan"], inp["tri_draw"], inp["params"], inp["shade_table"],
+        inp["camera"], inp["textures"], inp["corner_t"], width=w, height=h,
+        draw_stride=inp["draw_stride"], real_draws=inp["real_draws"])
+    bins = raster.build_bins(cs.setup, w, h, setup_cols=cs.cols.setup,
+                             ck_bank=bank)
+    if bins.aux.tolist() != [0, 0]:
+        fail(f"ckern binning overflow on the bench frame: aux "
+             f"{bins.aux.tolist()}")
+    n_live = int(bins.nhit.sum())
+    print(f"knobs: {int(bins.n_real)} pairs of {bins.banks.shape[0]} "
+          f"compact-bank slots ({bins.banks.numel() * 4 / 2**20:.1f} MiB), "
+          f"{n_live} hit sub-blocks", flush=True)
+
+    def same_bits(a, b):
+        return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+    d1, t1 = raster.visibility_tiles(bins, ntx, n_tiles)
+    dc, tc = raster.visibility_ck_tiles(bins, ntx, n_tiles, bank)
+    dcp, tcp = raster.visibility_ck_tiles_plain(bins, ntx, n_tiles, bank)
+    torch.cuda.synchronize()
+    bad = [int((tc != t1).sum()), same_bits(dc, d1), int((tc != tcp).sum()),
+           same_bits(dc, dcp)]
+    if any(bad):
+        fail(f"compact-bank kernel disagrees: ids/depths {bad[:2]} vs K1, "
+             f"{bad[2:]} vs its plain version")
+    print("visibility_ck: ids and depths bit-equal to K1 and to its plain "
+          f"version over {n_tiles * raster.TILE_PX} tile pixels", flush=True)
+
+    tri = raster.untile_frame(t1, ntx, nty)[:h, :w].contiguous()
+    a2 = resolve.resolve_attrs(tri, records)
+
+    def vs_k2(a_t):
+        """Tile-layout attributes against K2's (H, W, 16) image: the frame
+        region (the tile layout also resolves the last tile row's padding
+        pixels, which the frame crops)."""
+        return float((raster.untile_channels(a_t, ntx, nty)[:h, :w]
+                      - a2).abs().max())
+
+    df, tf, af = resolve.fused_visibility_resolve(bins, records, ntx, n_tiles)
+    dfp, tfp, afp = resolve.fused_visibility_resolve_plain(bins, records, ntx,
+                                                           n_tiles)
+    at = resolve.resolve_attrs_tiled(t1, records, ntx)
+    atp = resolve.resolve_attrs_tiled_plain(t1, records, ntx)
+    torch.cuda.synchronize()
+    bad = [int((tf != t1).sum()), same_bits(df, d1), int((tf != tfp).sum()),
+           same_bits(df, dfp)]
+    err = {"fused vs K2": vs_k2(af),
+           "fused vs plain": float((af - afp).abs().max()),
+           "fused vs tiled": float((af - at).abs().max()),
+           "tiled vs K2": vs_k2(at),
+           "tiled vs plain": float((at - atp).abs().max())}
+    finite = bool(torch.isfinite(af).all()) and bool(torch.isfinite(at).all())
+    if any(bad) or not finite or max(err.values()) > RESOLVE_TOL:
+        fail(f"fused/tiled resolve disagree: ids/depths {bad}, attrs {err}, "
+             f"finite {finite}")
+    print(f"visibility_resolve: depth and ids bit-equal to K1 and to its "
+          f"plain version; attribute max errors {err}", flush=True)
+
+    covered_t = t1 >= 0
+    idx, fx, fy = texel_lookup(at.permute(0, 2, 1), covered_t,
+                               inp["textures"].max_level)
+    q = inp["textures"].quads
+    xp = texel.sample_bilinear_planar(q, idx, fx, fy)
+    xpp = texel.sample_bilinear_planar_plain(q, idx, fx, fy)
+    x3 = texel.sample_bilinear(q, idx, fx, fy).permute(0, 2, 1)
+    torch.cuda.synchronize()
+    bad = [same_bits(xp, x3), same_bits(xp, xpp)]
+    if any(bad):
+        fail(f"planar texel kernel disagrees on {bad[0]} values with K3, "
+             f"{bad[1]} with its plain version")
+    print("texel_planar: bit-equal to K3 (permuted) and to its plain version",
+          flush=True)
+
+    # bounds, from this frame's data: the live bank slots (1 KB each) once,
+    # nhit, tile_start and the outputs; 22 f32 ops per evaluated (triangle,
+    # pixel) pair, as vis_work counts
+    ops = n_live * raster.SUB * raster.TILE_PX * VIS_OPS_PER_PAIR
+    n_px_t = n_tiles * raster.TILE_PX
+    bytes_ck = (n_live * raster.SUB * raster.REC * 4
+                + bins.nhit.numel() * 4 + (n_tiles + 1) * 4 + n_px_t * 8)
+    n_winners = int(torch.unique(t1[t1 >= 0]).numel())
+    res_bytes = n_winners * records.shape[0] * 4 + n_px_t * 4 * (1 + 16)
+    vis_bytes, vis_ops = vis_work(bins, n_tiles, 8)
+    n_quads = int(torch.unique(idx[idx >= 0]).numel())
+    work = {
+        "visibility_ck": (
+            bound(bytes_ck, ops), "trident_tpu_torch/csrc/visibility_ck.cu",
+            "trident_tpu/ops/raster_pallas.py:1239",
+            float((dc - d1).abs().max()),
+            lambda: raster.visibility_ck_tiles(bins, ntx, n_tiles, bank),
+            lambda: raster.visibility_ck_tiles_plain(bins, ntx, n_tiles,
+                                                     bank)),
+        "visibility_resolve": (
+            bound(vis_bytes + n_px_t * 64 + n_winners * records.shape[0] * 4,
+                  vis_ops),
+            "trident_tpu_torch/csrc/visibility_resolve.cu",
+            "trident_tpu/ops/resolve_pallas.py:281", err["fused vs K2"],
+            lambda: resolve.fused_visibility_resolve(bins, records, ntx,
+                                                     n_tiles),
+            lambda: resolve.fused_visibility_resolve_plain(bins, records, ntx,
+                                                           n_tiles)),
+        "resolve_tiled": (
+            bound(res_bytes), "trident_tpu_torch/csrc/resolve.cu",
+            "trident_tpu/ops/resolve_pallas.py:412",
+            err["tiled vs K2"],
+            lambda: resolve.resolve_attrs_tiled(t1, records, ntx),
+            lambda: resolve.resolve_attrs_tiled_plain(t1, records, ntx)),
+        "texel_planar": (
+            bound(n_px_t * (12 + 16) + n_quads * 16),
+            "trident_tpu_torch/csrc/texel.cu",
+            "trident_tpu/ops/texel_pallas.py:216",
+            float((xp - x3).abs().max()),
+            lambda: texel.sample_bilinear_planar(q, idx, fx, fy),
+            lambda: texel.sample_bilinear_planar_plain(q, idx, fx, fy)),
+    }
+    for name, ((b_ms, b_by), src, repl, err_, fn, plain) in work.items():
+        res = dict(route="cuda", source=src, replaces=repl, max_abs_err=err_,
+                   ms=cuda_ms(fn), plain_ms=cuda_ms(plain), bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None)
+        results[name] = res
+        print(f"{name}: kernel {res['ms']:.4f} ms (device busy "
+              f"{device_busy(fn)[0]:.4f} ms), plain {res['plain_ms']:.4f} ms,"
+              f" bound {b_ms:.4f} ms ({b_by}) ({card})", flush=True)
+    k1_ms = cuda_ms(lambda: raster.visibility_tiles(bins, ntx, n_tiles))
+    split_ms = cuda_ms(lambda: resolve.resolve_attrs_tiled(
+        raster.visibility_tiles(bins, ntx, n_tiles)[1], records, ntx))
+    print(f"the default kernels on the same bins: K1 {k1_ms:.4f} ms, K1 + "
+          f"tiled K2 {split_ms:.4f} ms ({card})", flush=True)
+
+    # the tiled shading stage beside deferred_shade_attrs, on this frame;
+    # the knob Renderers render `reg`'s scene
+    r_ck, _ = build_bench_scene(BENCH_GRID, dev, kernel=CKERN, reg=reg)
+    r_ft, _ = build_bench_scene(BENCH_GRID, dev, kernel=FUSE_TILED, reg=reg)
+    gbuf = GBuffer(tri_id=tri, depth=raster.untile_frame(
+        d1, ntx, nty)[:h, :w].contiguous(), aux=bins.aux)
+    shade_kw = dict(textures=inp["textures"], camera=inp["camera"],
+                    lights=inp["lights"])
+    print_stages("knob stages at spheres1080_1m", {
+        "binning_ckern": lambda: raster.build_bins(
+            cs.setup, w, h, setup_cols=cs.cols.setup, ck_bank=bank),
+        "binning": lambda: raster.build_bins(cs.setup, w, h,
+                                             setup_cols=cs.cols.setup),
+        "shading": lambda: deferred_shade_attrs(
+            gbuf, a2, width=w, height=h, clear_color=inp["clear_color"],
+            **shade_kw),
+        "shading_tiled": lambda: dtl.shade_attrs_tiled(
+            t1, d1, at, width=w, height=h, **shade_kw),
+        "visibility_and_shade": lambda: _visibility_and_shade(
+            cs.setup, cs.cols.setup, records, width=w, height=h,
+            clear_color=inp["clear_color"], **shade_kw),
+        "visibility_and_shade_ckern": lambda: _visibility_and_shade(
+            cs.setup, cs.cols.setup, records, width=w, height=h,
+            clear_color=inp["clear_color"], knobs=r_ck.knobs, **shade_kw),
+        "visibility_and_shade_fuse_tiled": lambda: _visibility_and_shade(
+            cs.setup, cs.cols.setup, records, width=w, height=h,
+            clear_color=inp["clear_color"], knobs=r_ft.knobs, **shade_kw),
+    }, card)
+    del cs, records, bins, d1, t1, dc, tc, dcp, tcp, tri, a2, df, tf
+    del af, dfp, tfp, afp, at, atp, idx, fx, fy, xp, xpp, x3, gbuf, work
+    torch.cuda.empty_cache()
+
+    # (b) 12 frames each of CKERN and FUSE_TILED, beside the default knobs
+    frame_ms = {"default": [], "ckern": [], "fuse_tiled": []}
+    expect = {"ckern": {"visibility_ck": 1, "visibility": 0, "resolve": 1,
+                        "texel": 1},
+              "fuse_tiled": {"visibility_resolve": 1, "texel_planar": 1,
+                             "visibility": 0, "resolve": 0,
+                             "resolve_tiled": 0, "texel": 0}}
+    knob_r = {"ckern": r_ck, "fuse_tiled": r_ft}
+
+    def timed(rr):
+        t0 = time.perf_counter()
+        out = rr.render_viewport()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def knob_frames():
+        for k in range(12):
+            rotate(reg, k)
+            ref, ms = timed(r)
+            frame_ms["default"].append(ms)
+            for name, rr in knob_r.items():
+                before = {n: fn.launches for n, fn in kernel_fns.items()}
+                out, ms = timed(rr)
+                frame_ms[name].append(ms)
+                ran = {n: kernel_fns[n].launches - before[n]
+                       for n in expect[name]}
+                if ran != expect[name]:
+                    fail(f"{name} frame {k}: launches {ran}, expected "
+                         f"{expect[name]}")
+                if out.aux.tolist() != [0, 0]:
+                    fail(f"{name} frame {k}: aux {out.aux.tolist()}")
+                if (out.tri_id != ref.tri_id).any() or same_bits(
+                        out.depth, ref.depth):
+                    fail(f"{name} frame {k}: ids or depths differ from the "
+                         "default-knob frame")
+                if name == "ckern":
+                    if (out.color != ref.color).any():
+                        fail(f"ckern frame {k} differs from the default-knob "
+                             "frame")
+                else:
+                    tiled_gate(out.color, ref.color, f"fuse_tiled frame {k}")
+
+        # (c) one shadows1080 PCF frame with tiled_shade
+        rs, sreg = build_bench_scene(SHADOW_GRID, dev, "shadows1080")
+        rt, _ = build_bench_scene(SHADOW_GRID, dev, "shadows1080",
+                                  kernel={"tiled_shade": True}, reg=sreg)
+        rotate(sreg, 0)
+        for rr in (rs, rt):
+            rr.config.render.shadow_pcf = True
+        ref, _ms = timed(rs)
+        before = {n: fn.launches for n, fn in kernel_fns.items()}
+        out, pcf_ms = timed(rt)
+        ran = {n: fn.launches - before[n] for n, fn in kernel_fns.items()}
+        if (out.aux.tolist() != [0, 0] or out.shadow_aux.tolist() != [0, 0]
+                or ran["resolve_tiled"] != 1 or ran["texel_planar"] != 1
+                or ran["shadow_taps"] != 1):
+            fail(f"shadows1080 tiled PCF frame: aux {out.aux.tolist()}, "
+                 f"light pass {out.shadow_aux.tolist()}, launches {ran}")
+        tiled_gate(out.color, ref.color, "shadows1080 tiled PCF frame")
+        sinp = rt.frame_inputs()
+        shadow, _aux = shadow_params(
+            sinp["plan"], sinp["params"], sinp["tri_draw"], sinp["corner_t"],
+            sinp["light_camera"], sinp["shadow_size"], 2e-3,
+            draw_stride=sinp["draw_stride"], real_draws=sinp["real_draws"])
+        cov = out.tri_id >= 0
+        factor = shadow_factor(shadow, world_positions(
+            out.depth, sinp["camera"], out.depth.shape[1],
+            out.depth.shape[0]), pcf=True)[..., 0]
+        shadowed = float((factor[cov] < 1.0).float().mean())
+        print(f"shadows1080 tiled PCF frame: {pcf_ms:.3f} ms wall, "
+              f"{shadowed:.4f} of {int(cov.sum())} covered pixels shadowed",
+              flush=True)
+        if not shadowed > 0.01:
+            fail("the shadows1080 tiled PCF frame has no shadow")
+
+    _none, launches10 = drive(knob_frames, ("visibility_ck",
+                                            "visibility_resolve",
+                                            "resolve_tiled", "texel_planar"))
+    for name, ms in frame_ms.items():
+        print(f"spheres1080_1m {name} frames: median "
+              f"{statistics.median(ms[2:]):.3f} ms wall per render_viewport "
+              f"({[round(t, 3) for t in ms]}) ({card})", flush=True)
+    for name, rr in (("default", r), *knob_r.items()):
+        kinp = rr.frame_inputs()
+        dev_ms = cuda_ms(lambda: render_frame(**kinp))
+        busy_ms, n_launch = device_busy(lambda: render_frame(**kinp))
+        print(f"spheres1080_1m {name} render_frame: {dev_ms:.3f} ms device "
+              f"time, {busy_ms:.3f} ms busy in {n_launch:.0f} device "
+              f"activities (idle {1 - busy_ms / dev_ms:.3f}) ({card})",
+              flush=True)
+    print(f"knob frames' launches {launches10}", flush=True)
+    del r, reg, r_ck, r_ft, knob_r, inp, kinp
+    torch.cuda.empty_cache()
+
+    # (d) the 128² knob frames against the JAX package's
+    for name, kw in KNOB_FLAVORS.items():
+        fr = base_scene(dev, **kw).render_viewport()
+        aux = [fr.aux.tolist()] + ([fr.shadow_aux.tolist()]
+                                   if fr.shadow_aux is not None else [])
+        if any(a != [0, 0] for a in aux):
+            fail(f"knob flavor {name} aux {aux}")
+        golden_gate(fr.color.cpu().numpy(),
+                    np.load(GOLDENS / f"torch_slice_knobs_{name}.npy"),
+                    f"knobs {name}")
+    return launches10
 
 
 def main() -> None:
@@ -909,12 +1268,18 @@ def main() -> None:
     # -- phase 9: spheres1080_1m:ai ------------------------------------------
     launches9 = phase_ai(dev, card, kernel_fns, drive, results)
 
+    # -- phase 10: the kernel-knob frame --------------------------------------
+    launches10 = phase_knobs(dev, card, kernel_fns, drive, results)
+
     # launches: each kernel's count in the main-path run of the frame it
     # was held on (phase 4 for the main pass, phase 6 for the shadow pass,
-    # phase 9 for the warp)
+    # phase 9 for the warp, phase 10 for the knob kernels)
     launches = {**launches4, "visibility_depth": launches6["visibility_depth"],
                 "shadow_taps": launches6["shadow_taps"],
-                "warp": launches9["warp"]}
+                "warp": launches9["warp"],
+                **{n: launches10[n] for n in (
+                    "visibility_ck", "visibility_resolve", "resolve_tiled",
+                    "texel_planar")}}
     kernels = []
     for name in kernel_fns:
         res = {k: v for k, v in results[name].items() if k != "colour_ms"}

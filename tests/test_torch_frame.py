@@ -7,10 +7,12 @@ difference below 0.35. The committed reference frames
 — tests/goldens/torch_slice_cube256.npy, the JAX package's frame of
 __graft_entry__.entry(), torch_slice_{shadows_hard,shadows_pcf,bloom,
 ssaa}.npy, its op-by-op frames of the post and shadow flavors, and
-torch_slice_ai_upscale.npy, its two op-by-op AI-upscaled frames — are what
-the card's smoke test (chip_smoke.py, no jax there) compares against; they
-must still equal the JAX package's output. Regenerate them with
-`python tests/test_torch_frame.py`.
+torch_slice_ai_upscale.npy, its two op-by-op AI-upscaled frames, and
+torch_slice_knobs_{fuse_tiled,ckern,tiled_pcf}.npy, its op-by-op frames of
+the kernel-knob flavors (KNOB_FLAVORS: the `_base` scene at 128² with
+RenderConfig.kernel set) — are what the card's smoke test (chip_smoke.py,
+no jax there) compares against; they must still equal the JAX package's
+output. Regenerate them all with `python tests/test_torch_frame.py`.
 """
 
 import os
@@ -182,13 +184,13 @@ def _flavor_reference(name: str) -> pathlib.Path:
     return REFERENCE.parent / f"torch_slice_{name}.npy"
 
 
-def _flavor_renderer(name: str):
+def _flavor_renderer(name: str, flavors=FLAVORS):
     """The `_base` scene with the flavor's config, built on the JAX
     package."""
     from test_golden_flavors import _base
 
     rc = dict(width=128, height=128, texture_size=64, use_pallas=True,
-              **FLAVORS[name])
+              **flavors[name])
     r = JRenderer(EngineConfig(render=RenderConfig(**rc)))
     r.set_active_registry(Registry())
     _base(r.registry, r)
@@ -229,6 +231,90 @@ def test_flavor_matches_jax_frame(name):
     _assert_golden_gate(tr.read_frame(out), jcolor)
 
 
+# The kernel-knob flavors of the same `_base` scene at 128²: name →
+# RenderConfig overrides, `kernel` among them. The JAX Renderer applies its
+# knobs to module globals when it is built (trident_tpu/ops/kernel_knobs.py),
+# so each JAX frame is rendered with its knobs set and the env defaults are
+# restored after it. Each frame is committed as
+# tests/goldens/torch_slice_knobs_<name>.npy for chip_smoke.py.
+KNOB_FLAVORS = {
+    "fuse_tiled": dict(kernel={"fuse": True, "tiled_shade": True}),
+    "ckern": dict(shadows=True, shadow_map_size=256,
+                  kernel={"ckern": True, "dynhit": False}),
+    "tiled_pcf": dict(shadows=True, shadow_map_size=256, shadow_pcf=True,
+                      kernel={"tiled_shade": True}),
+}
+
+
+def _knob_reference(name: str) -> pathlib.Path:
+    return REFERENCE.parent / f"torch_slice_knobs_{name}.npy"
+
+
+def _jax_knob_frame(name: str):
+    """(JAX Renderer, its op-by-op frame) of knob flavor `name`, the JAX
+    package's knobs restored to its env defaults afterwards."""
+    from trident_tpu.ops import kernel_knobs
+
+    try:
+        jr = _flavor_renderer(name, KNOB_FLAVORS)
+        return jr, _jax_frame_op_by_op(jr)
+    finally:
+        kernel_knobs.apply(kernel_knobs.env_defaults())
+
+
+def write_knob_references() -> None:
+    for name in KNOB_FLAVORS:
+        np.save(_knob_reference(name), np.asarray(_jax_knob_frame(name)[1]
+                                                  .color))
+
+
+@pytest.mark.parametrize("name", sorted(KNOB_FLAVORS))
+def test_knob_flavor_matches_jax_frame(name):
+    """The kernel-knob flavors through the port's Renderer (the same
+    `kernel` dict) against the JAX frame evaluated op by op with those
+    knobs: equal triangle ids, depth within 1e-6 (the interpreted JAX
+    kernels contract FMAs), aux [0, 0] on both passes, and the golden
+    gate. The committed reference must still equal the JAX frame; it is
+    tests/goldens/torch_slice_knobs_<name>.npy, the JAX Renderer's frame
+    of test_golden_flavors.py's `_base` scene at 128² with
+    KNOB_FLAVORS[name] (`kernel` included), evaluated op by op by
+    `_jax_knob_frame`; regenerate all of them with `PYTHONPATH=. python
+    tests/test_torch_frame.py` (write_knob_references)."""
+    jr, jout = _jax_knob_frame(name)
+    tr = carry_renderer(jr)
+    assert tr.config.render.kernel == KNOB_FLAVORS[name]["kernel"]
+    jcolor = np.asarray(jout.color)
+    ref = np.load(_knob_reference(name))
+    assert ref.dtype == np.uint8 and ref.shape == (128, 128, 4)
+    assert (ref == jcolor).all(), "reference frame is stale: regenerate"
+    out = tr.render_viewport()
+    assert out.aux.tolist() == [0, 0]
+    assert np.asarray(jout.aux).tolist() == [0, 0]
+    if KNOB_FLAVORS[name].get("shadows"):
+        assert out.shadow_aux.tolist() == [0, 0]
+    assert int((out.tri_id >= 0).sum()) > 2000
+    assert (out.tri_id.numpy() == np.asarray(jout.tri_id)).all()
+    assert np.abs(out.depth.numpy() - np.asarray(jout.depth)).max() <= 1e-6
+    _assert_golden_gate(tr.read_frame(out), jcolor)
+
+
+@pytest.mark.parametrize("kernel", [{"ckern": True, "dynhit": False},
+                                    {"fuse": True}], ids=["ckern", "fuse"])
+def test_knob_visibility_frames_equal_default_bitwise(kernel):
+    """ckern and fuse change which kernels compute visibility and resolve,
+    not the frame: without tiled_shade, the port's shadowed PCF frame with
+    either knob equals its default-knob frame bit for bit (colour, ids,
+    depth), both passes with aux [0, 0]."""
+    jr = _flavor_renderer("shadows_pcf")
+    base = carry_renderer(jr).render_viewport()
+    knob = carry_renderer(jr, kernel=kernel).render_viewport()
+    for a, b in ((knob.color, base.color), (knob.tri_id, base.tri_id),
+                 (knob.depth, base.depth)):
+        assert (a == b).all()
+    assert knob.aux.tolist() == base.aux.tolist() == [0, 0]
+    assert knob.shadow_aux.tolist() == base.shadow_aux.tolist() == [0, 0]
+
+
 # The AI-upscaled frame: the `_base` scene at 128² (rendered at 64²) with
 # the shipped temporal upscaler, frame 0 without history, then frame 1
 # after orbit([0, 0, 0], 6, 4) with frame 0's history. The JAX frames,
@@ -267,6 +353,22 @@ def _jax_ai_frames(jr):
         jr.editor_camera.orbit(*AI_ORBIT)
         out1 = _jax_frame_op_by_op(jr, params, (out0.history, vp0))
     return out0, out1
+
+
+def test_knob_route_reaches_the_upscaled_frame():
+    """The AI-upscaled frame's half-size render takes the knob route too:
+    with fuse (the fused pass, untiled attributes) both chained frames and
+    their histories equal the default-knob frames bit for bit."""
+    jr = _ai_renderer()
+    outs = {}
+    for name, kernel in (("default", None), ("fuse", {"fuse": True})):
+        tr = carry_renderer(jr, kernel=kernel)
+        assert tr.knobs.fuse == (kernel is not None)
+        first = tr.render_viewport()
+        tr.editor_camera.orbit(*AI_ORBIT)
+        outs[name] = (first, tr.render_viewport())
+    for a, b in zip(outs["default"], outs["fuse"]):
+        assert (a.color == b.color).all() and (a.history == b.history).all()
 
 
 def write_ai_reference() -> None:
@@ -317,3 +419,5 @@ if __name__ == "__main__":
     print("wrote", *(_flavor_reference(n) for n in FLAVORS))
     write_ai_reference()
     print("wrote", AI_REFERENCE)
+    write_knob_references()
+    print("wrote", *(_knob_reference(n) for n in KNOB_FLAVORS))

@@ -32,12 +32,14 @@ from trident_tpu_torch.render.renderer import Renderer
 torch.set_num_threads(1)
 
 
-def carry_renderer(jr, device="cpu") -> Renderer:
+def carry_renderer(jr, device="cpu", **render_kw) -> Renderer:
     """The port's Renderer holding the scene of `jr`, a JAX-package
-    Renderer built from primitives: the same render config, meshes at the
-    same indices, textures in the same slots, the same editor camera and
-    the registry carried across by `from_reference`."""
-    rc = RenderConfig(**dataclasses.asdict(jr.config.render))
+    Renderer built from primitives: the same render config (with
+    `render_kw` overriding its fields), meshes at the same indices,
+    textures in the same slots, the same editor camera and the registry
+    carried across by `from_reference`."""
+    rc = RenderConfig(**{**dataclasses.asdict(jr.config.render),
+                         **render_kw})
     r = Renderer(EngineConfig(render=rc), device=device)
     for kind, idx in sorted(jr._primitive_mesh_indices.items(),
                             key=lambda kv: kv[1]):

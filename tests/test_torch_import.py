@@ -35,6 +35,20 @@ for _ in range(2):
     out = r.render_viewport()
     r.editor_camera.orbit([0, 0, 0], 6.0, 4.0)
 assert out.color.shape == (64, 64, 4) and out.history.shape == (32, 32, 12)
+from trident_tpu_torch.core.config import EngineConfig, RenderConfig
+from trident_tpu_torch.render.renderer import Renderer
+for kernel in ({"ckern": True, "dynhit": False},
+               {"fuse": True, "tiled_shade": True}):
+    k = build_entry_renderer(64, 64, device="cpu")
+    kr = Renderer(EngineConfig(render=RenderConfig(width=64, height=64,
+                                                   kernel=kernel)),
+                  device="cpu")
+    kr.geometry, kr.textures = k.geometry, k.textures
+    kr.editor_camera, kr.registry = k.editor_camera, k.registry
+    assert (kr.read_frame() == frame).all(), kernel
+for name in ("ops.kernel_knobs", "ops.deferred_tiled", "ops.raster",
+             "ops.resolve", "ops.texel"):
+    assert "trident_tpu_torch." + name in sys.modules, name
 assert sys.modules["jax"] is None and sys.modules["trident_tpu"] is None
 print("rendered", frame.shape, "upscaled", tuple(out.color.shape))
 """
@@ -87,7 +101,8 @@ def test_unported_features_raise():
     from trident_tpu_torch.core.config import EngineConfig, RenderConfig
 
     for kw in ({"sampling": "trilinear"}, {"bands": 2},
-               {"use_pallas": False}):
+               {"use_pallas": False}, {"kernel": {"chunk": 128}},
+               {"kernel": {"resolve_prec": "bf16"}}):
         with pytest.raises(NotImplementedError):
             Renderer(EngineConfig(render=RenderConfig(**kw)), device="cpu")
 

@@ -1,0 +1,74 @@
+// Fused visibility + resolve kernel (the `fuse` knob): one launch gives each
+// pixel's winner (depth, id) and its 16 shading channels, in tile layout.
+//
+// Replaces: trident_tpu/ops/resolve_pallas.py _fused_kernel (reached via
+// fused_visibility_resolve_pallas, resolve_pallas.py:330; pallas_call at
+// resolve_pallas.py:386).
+//
+// Bound on the card: the visibility walk's arithmetic (as K1); the resolve
+// adds one scattered record-column read per winner and 64 B per pixel of
+// attribute output, while the (H, W) id round trip between two launches
+// (write the ids, read them back) is gone.
+//
+// Design: the TPU kernel merges attributes pair by pair, in lock-step with
+// the depth merge (resolve_pallas.py:302-323), because it cannot keep the
+// winner across grid steps. Here a CTA owns its tile to the end, and the
+// final image is the final winner's attributes whatever the order, so the
+// CTA first runs K1's walk (visibility_common.cuh) and then each thread
+// evaluates the interpolants of its 4 pixels' final winners once
+// (resolve_common.cuh, the resolve kernel's own body) at the same tile
+// pixel centres. Depth and ids are K1's bit for bit; the attributes are the
+// tiled resolve kernel's. Outputs: depth and ids (n_tiles, 1024), attributes
+// channel-planar (n_tiles, 16, 1024), every store coalesced.
+
+#include "resolve_common.cuh"
+#include "visibility_common.cuh"
+
+namespace {
+
+using namespace trident;
+
+__global__ void __launch_bounds__(kVisThreads)
+visibility_resolve_kernel(const float* __restrict__ records,
+                          const int* __restrict__ pair_chunk,
+                          const int* __restrict__ pair_mask,
+                          const int* __restrict__ tile_start, int ntx,
+                          const float* __restrict__ res_records,
+                          long long stride, float* __restrict__ depth_out,
+                          int* __restrict__ tri_out,
+                          float* __restrict__ attr_out) {
+  __shared__ float rows[kSub * kRec];
+  const int tile = blockIdx.x;
+  float px[kPxPerThread], py[kPxPerThread], best_d[kPxPerThread];
+  int best_t[kPxPerThread];
+  vis_begin(tile, ntx, px, py, best_d, best_t);
+  vis_walk<false>(records, pair_chunk, pair_mask, tile_start[tile],
+                  tile_start[tile + 1], rows, px, py, best_d, best_t);
+#pragma unroll
+  for (int k = 0; k < kPxPerThread; ++k) {
+    const int r = threadIdx.x + k * kVisThreads;
+    const size_t o = static_cast<size_t>(tile) * kTilePx + r;
+    depth_out[o] = best_d[k];
+    tri_out[o] = best_t[k];
+    float a[kChannels];
+    resolve_pixel(res_records, stride, best_t[k], px[k], py[k], a);
+    float* dst = attr_out + static_cast<size_t>(tile) * kChannels * kTilePx + r;
+#pragma unroll
+    for (int c = 0; c < kChannels; ++c) dst[c * kTilePx] = a[c];
+  }
+}
+
+}  // namespace
+
+extern "C" int trident_visibility_resolve(
+    const float* records, const int* pair_chunk, const int* pair_mask,
+    const int* tile_start, int n_tiles, int ntx, const float* res_records,
+    long long stride, float* depth_out, int* tri_out, float* attr_out,
+    cudaStream_t stream) {
+  if (n_tiles > 0) {
+    visibility_resolve_kernel<<<n_tiles, kVisThreads, 0, stream>>>(
+        records, pair_chunk, pair_mask, tile_start, ntx, res_records, stride,
+        depth_out, tri_out, attr_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -23,6 +23,14 @@ and their chunks are counted in aux[1]; pairs past `pair_budget` are
 dropped and counted in aux[0]. Overflow drops geometry, never writes
 garbage. Tiles no pair touches come out as background (depth 1, id −1)
 straight from the kernel, which writes every tile.
+
+The `ckern` knob (build_bins(ck_bank=...)) adds the compact-bank table of
+raster_pallas.py:835-857: per kept pair, its hit sub-blocks' record rows
+gathered contiguous (ascending q, padded with copies of the first hit to
+ceil(16/ck_bank)·ck_bank slots), triangle ids in column 15, and the hit
+count nhit; csrc/visibility_ck.cu reads it. At 16 KB a pair (ck_bank 8)
+the table is capped at CK_PAIR_BUDGET pairs, the JAX package's CKERN
+budget (raster_pallas.py:425-426); pairs past it are counted in aux[0].
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ NSUB = CHUNK // SUB        # 16 → one 16-bit hit mask per pair
 REC = 16                   # floats per visibility record row
 _BG_KEY = (0x3F800000 << 32) | 0x80000000   # (depth 1.0, id −1)
 _NO_KEY = (1 << 63) - 1
+CK_PAIR_BUDGET = 20480     # compact-bank pairs (ckern): 335 MB at ck_bank 8
+CK_MAX_TRIANGLES = 1 << 24  # bank ids ride an f32 column, exact below 2^24
 
 
 class Bins(NamedTuple):
@@ -56,6 +66,9 @@ class Bins(NamedTuple):
     tile_start: Tensor   # (n_tiles+1,) i32: tile t owns pairs [s[t], s[t+1])
     n_real: Tensor       # () i64 pairs kept (a sorted prefix)
     aux: Tensor          # (2,) i32 [truncated pairs, dropped chunks]
+    banks: Optional[Tensor] = None  # ckern: (NP, nbank·SUB, 16) f32 hit
+                                    # sub-block rows, id in column 15
+    nhit: Optional[Tensor] = None   # ckern: (NP,) i32 hit sub-blocks
 
 
 def default_pool(n_sub: int, n_tiles: int) -> int:
@@ -97,19 +110,27 @@ def _build_records(setup: TriangleSetup, tpad: int,
 def build_bins(setup: TriangleSetup, width: int, height: int,
                setup_cols: Optional[SetupCols] = None,
                pool: Optional[int] = None,
-               pair_budget: Optional[int] = None) -> Bins:
+               pair_budget: Optional[int] = None, ck_bank: int = 0) -> Bins:
     """Bin triangles to 32×32 tiles for a width × height target. `pool`
     (emission slots) and `pair_budget` (kept pairs) are capacities;
-    overflow is counted in aux, see the module note."""
+    overflow is counted in aux, see the module note. ck_bank > 0 (the
+    ckern knob) also builds the compact-bank table, with pair_budget
+    defaulting to CK_PAIR_BUDGET."""
     dev = setup.valid.device
     t = setup.valid.shape[0]
     n_chunks = max(1, -(-t // CHUNK))
     tpad = n_chunks * CHUNK
+    if ck_bank and tpad >= CK_MAX_TRIANGLES:
+        raise ValueError(
+            f"{t} triangles: compact-bank ids ride an f32 record column, "
+            "exact only below 2^24 — split the scene across draws")
     n_sub = n_chunks * NSUB
     ntx, nty = -(-width // TILE), -(-height // TILE)
     n_tiles = ntx * nty
     if pool is None:
         pool = default_pool(n_sub, n_tiles)
+    if ck_bank and pair_budget is None:
+        pair_budget = CK_PAIR_BUDGET
     budget = pool if pair_budget is None else min(pair_budget, pool)
 
     records = _build_records(setup, tpad, setup_cols)
@@ -169,64 +190,141 @@ def build_bins(setup: TriangleSetup, width: int, height: int,
         pair_tile, torch.arange(n_tiles + 1, device=dev))
 
     n_dropped = (q_nonempty & (ends > pool)).view(n_chunks, NSUB).any(1).sum()
+    pair_chunk = (pair_key % n_chunks).to(torch.int32)
+    pair_mask = pair_mask.to(torch.int32)
+    banks = nhit = None
+    if ck_bank:
+        banks, nhit = _ck_banks(records, pair_chunk, pair_mask, ck_bank)
     return Bins(records=records,
                 pair_tile=pair_tile.to(torch.int32),
-                pair_chunk=(pair_key % n_chunks).to(torch.int32),
-                pair_mask=pair_mask.to(torch.int32),
+                pair_chunk=pair_chunk, pair_mask=pair_mask,
                 tile_start=tile_start.to(torch.int32),
                 n_real=n_real,
                 aux=torch.stack([n_real_total - n_real,
-                                 n_dropped]).to(torch.int32))
+                                 n_dropped]).to(torch.int32),
+                banks=banks, nhit=nhit)
+
+
+def _ck_banks(records: Tensor, pair_chunk: Tensor, pair_mask: Tensor,
+              ck_bank: int):
+    """The compact-bank table (raster_pallas.py:835-857): each pair's hit
+    sub-blocks in ascending q, then copies of its first hit up to
+    nbank = ceil(NSUB/ck_bank)·ck_bank slots (the lexicographic merge is
+    idempotent, so copies are bit-exactly free), gathered as (NP,
+    nbank·SUB, 16) record rows with each triangle's global id in column
+    15; and nhit (NP,) i32. Padding pairs (mask 0) have nhit 0."""
+    dev = records.device
+    nbank = -(-NSUB // ck_bank) * ck_bank
+    q = torch.arange(NSUB, device=dev, dtype=torch.int32)
+    hit = ((pair_mask[:, None] >> q) & 1) != 0                # (NP, NSUB)
+    nhit = hit.sum(1, dtype=torch.int32)
+    order = torch.argsort((~hit).to(torch.int32), dim=1, stable=True)
+    if nbank > NSUB:
+        order = torch.cat([order, order[:, :1].expand(-1, nbank - NSUB)], 1)
+    j = torch.arange(nbank, device=dev)
+    sel = torch.where(j < nhit[:, None], order[:, :nbank], order[:, :1])
+    g = pair_chunk.long()[:, None] * NSUB + sel                # sub-block ids
+    n_pairs = g.shape[0]
+    banks = records.view(-1, SUB * REC)[g].view(n_pairs, nbank * SUB, REC)
+    ids = g[:, :, None] * SUB + torch.arange(SUB, device=dev)
+    banks[:, :, REC - 1] = ids.view(n_pairs, nbank * SUB).float()
+    return banks, nhit
+
+
+def tile_centres(tiles: Tensor, ntx: int):
+    """Pixel centres (pxf, pyf), each (N, 1024) f32, of the pixels of
+    tiles `tiles` (N,) in a row of ntx tiles — the kernels' coordinates."""
+    r = torch.arange(TILE_PX, device=tiles.device)
+    pxf = (tiles[:, None] % ntx * TILE + r % TILE).float() + 0.5
+    pyf = (tiles[:, None] // ntx * TILE + r // TILE).float() + 0.5
+    return pxf, pyf
+
+
+def _tile_keys(rc: Tensor, tid: Tensor, et: Tensor, ntx: int,
+               depth_only: bool) -> Tensor:
+    """The visibility kernels' merge of record rows rc (B, 16, 16) with
+    triangle ids tid (B, 16) against every pixel of tiles et (B,), as one
+    int64 key per (candidate, pixel) — depth bits (non-negative, so they
+    order like the values) over 0x7FFFFFFF − id — reduced over the 16
+    rows with amin: (B, 1024). The same per-op rounding as the kernels;
+    depth_only drops the id half of the key."""
+    px, py = (c[:, None, :] for c in tile_centres(et, ntx))
+
+    def col(k):
+        return rc[:, :, k:k + 1]                              # (B,16,1)
+
+    e0 = col(0) * px + col(1) * py + col(2)                   # (B,16,1024)
+    e1 = col(3) * px + col(4) * py + col(5)
+    e2 = col(6) * px + col(7) * py + col(8)
+    zi = (e0 * col(9) + e1 * col(10)) + e2 * col(11)
+    wi = (e0 * col(12) + e1 * col(13)) + e2 * col(14)
+    cover = ((e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (zi >= 0.0)
+             & (zi <= wi) & (wi > 1e-12))
+    d = zi * (1.0 / wi) + 0.0                                 # −0 → +0
+    key = d.view(torch.int32).long() << 32
+    if not depth_only:
+        key = key | (0x7FFFFFFF - tid.long())[:, :, None]
+    return torch.where(cover, key, _NO_KEY).amin(dim=1)
+
+
+def _keys_to_frame(keys: Tensor, depth_only: bool):
+    depth = (keys >> 32).to(torch.int32).view(torch.float32)
+    if depth_only:
+        return depth
+    return depth, (0x7FFFFFFF - (keys & 0xFFFFFFFF)).to(torch.int32)
+
+
+def _background_keys(n_tiles: int, depth_only: bool, device) -> Tensor:
+    bg = _BG_KEY & ~0xFFFFFFFF if depth_only else _BG_KEY
+    return torch.full((n_tiles, TILE_PX), bg, dtype=torch.int64, device=device)
 
 
 def visibility_tiles_plain(bins: Bins, ntx: int, n_tiles: int,
                            batch: int = 2048, depth_only: bool = False):
     """Plain PyTorch twin of the visibility kernel: the same triangles
     (every hit sub-block of every kept pair), the same per-op rounding, and
-    the same lexicographic merge, expressed as an int64 key per candidate
-    — depth bits (non-negative, so they order like the values) over
-    0x7FFFFFFF − id — reduced with amin. Returns (depth (n_tiles, 1024)
-    f32, tri (n_tiles, 1024) i32). depth_only (the light pass) drops the
-    id half of the key and returns the depth alone."""
+    the same lexicographic merge (_tile_keys). Returns (depth (n_tiles,
+    1024) f32, tri (n_tiles, 1024) i32). depth_only (the light pass)
+    returns the depth alone."""
     dev = bins.records.device
     q = torch.arange(NSUB, device=dev, dtype=torch.int32)
     hit = ((bins.pair_mask[:, None] >> q) & 1) != 0
     p_idx, q_idx = torch.nonzero(hit, as_tuple=True)
     e_tile = bins.pair_tile[p_idx].long()
     e_base = bins.pair_chunk[p_idx].long() * CHUNK + q_idx * SUB
-    r = torch.arange(TILE_PX, device=dev)
-    lx, ly = r % TILE, r // TILE
     sub = torch.arange(SUB, device=dev)
-    bg = _BG_KEY & ~0xFFFFFFFF if depth_only else _BG_KEY
-    keys = torch.full((n_tiles, TILE_PX), bg, dtype=torch.int64, device=dev)
+    keys = _background_keys(n_tiles, depth_only, dev)
     for b in range(0, e_tile.shape[0], batch):
         et, eb = e_tile[b:b + batch], e_base[b:b + batch]
         tid = eb[:, None] + sub                               # (B,16)
-        rc = bins.records[tid]                                # (B,16,16)
-        px = ((et % ntx * TILE)[:, None] + lx).float()[:, None, :] + 0.5
-        py = ((et // ntx * TILE)[:, None] + ly).float()[:, None, :] + 0.5
-
-        def col(k):
-            return rc[:, :, k:k + 1]                          # (B,16,1)
-
-        e0 = col(0) * px + col(1) * py + col(2)               # (B,16,1024)
-        e1 = col(3) * px + col(4) * py + col(5)
-        e2 = col(6) * px + col(7) * py + col(8)
-        zi = (e0 * col(9) + e1 * col(10)) + e2 * col(11)
-        wi = (e0 * col(12) + e1 * col(13)) + e2 * col(14)
-        cover = ((e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (zi >= 0.0)
-                 & (zi <= wi) & (wi > 1e-12))
-        d = zi * (1.0 / wi) + 0.0                             # −0 → +0
-        key = d.view(torch.int32).long() << 32
-        if not depth_only:
-            key = key | (0x7FFFFFFF - tid)[:, :, None]
-        key = torch.where(cover, key, _NO_KEY).amin(dim=1)    # (B,1024)
+        key = _tile_keys(bins.records[tid], tid, et, ntx, depth_only)
         keys.scatter_reduce_(0, et[:, None].expand_as(key), key, "amin")
-    depth = (keys >> 32).to(torch.int32).view(torch.float32)
-    if depth_only:
-        return depth
-    tri = (0x7FFFFFFF - (keys & 0xFFFFFFFF)).to(torch.int32)
-    return depth, tri
+    return _keys_to_frame(keys, depth_only)
+
+
+def visibility_ck_tiles_plain(bins: Bins, ntx: int, n_tiles: int,
+                              ck_bank: int, batch: int = 2048):
+    """Plain PyTorch twin of the compact-bank kernel, evaluating the bank
+    table as the TPU kernel does: every slot of every bank b with
+    nhit > b·ck_bank, padding copies included, ids from column 15 →
+    (depth, tri) (n_tiles, 1024)."""
+    banks = bins.banks
+    dev = banks.device
+    n_pairs, rows, _ = banks.shape
+    nbank = rows // SUB
+    runs = -(-bins.nhit.long() // ck_bank) * ck_bank          # slots run
+    p_idx, s_idx = torch.nonzero(
+        torch.arange(nbank, device=dev) < runs[:, None], as_tuple=True)
+    e_tile = bins.pair_tile[p_idx].long()
+    slots = banks.view(n_pairs, nbank, SUB, REC)
+    keys = _background_keys(n_tiles, False, dev)
+    for b in range(0, e_tile.shape[0], batch):
+        et = e_tile[b:b + batch]
+        rc = slots[p_idx[b:b + batch], s_idx[b:b + batch]]   # (B,16,16)
+        key = _tile_keys(rc, rc[:, :, REC - 1].to(torch.int32), et, ntx,
+                         False)
+        keys.scatter_reduce_(0, et[:, None].expand_as(key), key, "amin")
+    return _keys_to_frame(keys, False)
 
 
 def _require(cond: bool, what: str) -> None:
@@ -234,7 +332,7 @@ def _require(cond: bool, what: str) -> None:
         raise ValueError(what)
 
 
-def _check_bins(bins: Bins, n_tiles: int) -> None:
+def check_bins(bins: Bins, n_tiles: int) -> None:
     """The kernels' input contract; raises on what they do not take."""
     rec = bins.records
     _require(rec.device.type == "cuda", f"unsupported device {rec.device}")
@@ -261,7 +359,7 @@ def visibility_tiles(bins: Bins, ntx: int, n_tiles: int,
     rec = bins.records
     if rec.device.type == "cpu":
         return visibility_tiles_plain(bins, ntx, n_tiles)
-    _check_bins(bins, n_tiles)
+    check_bins(bins, n_tiles)
     depth = torch.empty((n_tiles, TILE_PX), dtype=torch.float32,
                         device=rec.device)
     tri = torch.empty((n_tiles, TILE_PX), dtype=torch.int32, device=rec.device)
@@ -287,7 +385,7 @@ def visibility_depth_tiles(bins: Bins, ntx: int, n_tiles: int) -> Tensor:
     rec = bins.records
     if rec.device.type == "cpu":
         return visibility_tiles_plain(bins, ntx, n_tiles, depth_only=True)
-    _check_bins(bins, n_tiles)
+    check_bins(bins, n_tiles)
     depth = torch.empty((n_tiles, TILE_PX), dtype=torch.float32,
                         device=rec.device)
     fn = _build.kernel("trident_visibility_depth",
@@ -305,10 +403,60 @@ def visibility_depth_tiles(bins: Bins, ntx: int, n_tiles: int) -> Tensor:
 visibility_depth_tiles.launches = 0
 
 
+def visibility_ck_tiles(bins: Bins, ntx: int, n_tiles: int, ck_bank: int):
+    """Per-tile (depth, tri) from the compact-bank table of
+    build_bins(ck_bank=...): the CUDA kernel for tensors on the card, the
+    plain version for tensors on the CPU. Equal to visibility_tiles on the
+    same scene, bit for bit."""
+    banks = bins.banks
+    if banks is None or bins.nhit is None:
+        raise ValueError("bins carry no compact-bank table: build them with "
+                         "build_bins(ck_bank=...)")
+    if banks.device.type == "cpu":
+        return visibility_ck_tiles_plain(bins, ntx, n_tiles, ck_bank)
+    _require(banks.device.type == "cuda", f"unsupported device {banks.device}")
+    nbank = -(-NSUB // ck_bank) * ck_bank
+    _require(banks.dtype == torch.float32 and banks.dim() == 3
+             and banks.shape[1:] == (nbank * SUB, REC)
+             and banks.is_contiguous() and banks.data_ptr() % 16 == 0,
+             f"banks must be a contiguous (NP, {nbank * SUB}, 16) f32 table")
+    for a in (bins.nhit, bins.tile_start):
+        _require(a.dtype == torch.int32 and a.is_contiguous()
+                 and a.device == banks.device, "nhit and tile_start must be "
+                 "contiguous i32 on the banks' device")
+    _require(bins.nhit.shape[0] == banks.shape[0]
+             and bins.tile_start.shape[0] == n_tiles + 1,
+             "nhit must have one entry per pair, tile_start n_tiles + 1")
+    depth = torch.empty((n_tiles, TILE_PX), dtype=torch.float32,
+                        device=banks.device)
+    tri = torch.empty((n_tiles, TILE_PX), dtype=torch.int32,
+                      device=banks.device)
+    fn = _build.kernel("trident_visibility_ck",
+                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] * 3)
+    err = fn(banks.data_ptr(), bins.nhit.data_ptr(),
+             bins.tile_start.data_ptr(), n_tiles, ntx, ck_bank, nbank,
+             depth.data_ptr(), tri.data_ptr(),
+             torch.cuda.current_stream(banks.device).cuda_stream)
+    _build.check_launch("trident_visibility_ck", err)
+    visibility_ck_tiles.launches += 1
+    return depth, tri
+
+
+visibility_ck_tiles.launches = 0
+
+
 def untile_frame(flat: Tensor, ntx: int, nty: int) -> Tensor:
     """(n_tiles, TILE·TILE) → (nty·TILE, ntx·TILE)."""
     return (flat.reshape(nty, ntx, TILE, TILE).permute(0, 2, 1, 3)
             .reshape(nty * TILE, ntx * TILE))
+
+
+def untile_channels(flat: Tensor, ntx: int, nty: int) -> Tensor:
+    """(n_tiles, C, TILE·TILE) → (nty·TILE, ntx·TILE, C)."""
+    ch = flat.shape[1]
+    return (flat.reshape(nty, ntx, ch, TILE, TILE).permute(0, 3, 1, 4, 2)
+            .reshape(nty * TILE, ntx * TILE, ch))
 
 
 def visibility(setup: TriangleSetup, width: int, height: int,

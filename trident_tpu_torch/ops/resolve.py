@@ -1,10 +1,12 @@
 """Attribute resolve: per-pixel winner ids → the 16 shading channels.
 
 Port of trident_tpu/ops/resolve_pallas.py (the channel layout, the
-interpolant math, and the resolve pass as one kernel, csrc/resolve.cu).
-On the TPU the winner's record row was selected with one-hot matrix
-products over the visibility pass's pair list; on the card it is a direct
-load of column tri_id of the (RW, T) record table (ops/planes.py).
+interpolant math, the resolve pass as one kernel, csrc/resolve.cu, in its
+(H, W) and tiled layouts, and the fused visibility + resolve pass of the
+`fuse` knob, csrc/visibility_resolve.cu). On the TPU the winner's record
+row was selected with one-hot matrix products over the visibility pass's
+pair list; on the card it is a direct load of column tri_id of the (RW, T)
+record table (ops/planes.py).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from trident_tpu_torch import _build
 from trident_tpu_torch.ops import planes as P
+from trident_tpu_torch.ops import raster
 
 Tensor = torch.Tensor
 
@@ -113,3 +116,105 @@ def resolve_attrs(tri_id: Tensor, records: Tensor) -> Tensor:
 
 
 resolve_attrs.launches = 0
+
+
+def resolve_attrs_tiled_plain(tri_tiles: Tensor, records: Tensor,
+                              ntx: int) -> Tensor:
+    """Plain PyTorch twin of the tiled resolve kernel: (n_tiles, 1024)
+    winner ids in tile layout → (n_tiles, CHANNELS, 1024) f32, zeros
+    where tri < 0 — the (H, W) resolve's values, permuted."""
+    n_tiles = tri_tiles.shape[0]
+    flat = tri_tiles.reshape(-1)
+    pxf, pyf = raster.tile_centres(
+        torch.arange(n_tiles, device=tri_tiles.device), ntx)
+    attrs = eval_interpolants(records[:, flat.clamp_min(0).long()],
+                              pxf.reshape(-1), pyf.reshape(-1))
+    attrs = torch.where(flat >= 0, attrs, 0.0)               # (CH, N)
+    return attrs.view(CHANNELS, n_tiles, raster.TILE_PX).permute(1, 0, 2) \
+        .contiguous()
+
+
+def _check_records(records: Tensor, device) -> None:
+    if (records.device != device or records.dtype != torch.float32
+            or records.dim() != 2 or records.shape[0] < P.RR_EDGE + 1
+            or not records.is_contiguous()):
+        raise ValueError("records must be a contiguous (RW, T) f32 table on "
+                         "the ids' device")
+
+
+def resolve_attrs_tiled(tri_tiles: Tensor, records: Tensor,
+                        ntx: int) -> Tensor:
+    """(n_tiles, CHANNELS, 1024) attributes of (n_tiles, 1024) tile-layout
+    winner ids (resolve_attrs_pallas(tiled=True)): the CUDA kernel for
+    tensors on the card, the plain version for tensors on the CPU."""
+    if tri_tiles.device.type == "cpu":
+        return resolve_attrs_tiled_plain(tri_tiles, records, ntx)
+    if tri_tiles.device.type != "cuda":
+        raise ValueError(f"unsupported device {tri_tiles.device}")
+    if (tri_tiles.dtype != torch.int32 or tri_tiles.dim() != 2
+            or tri_tiles.shape[1] != raster.TILE_PX
+            or not tri_tiles.is_contiguous()):
+        raise ValueError("tri_tiles must be a contiguous (n_tiles, 1024) i32 "
+                         "tensor")
+    _check_records(records, tri_tiles.device)
+    n_tiles = tri_tiles.shape[0]
+    out = torch.empty((n_tiles, CHANNELS, raster.TILE_PX),
+                      dtype=torch.float32, device=tri_tiles.device)
+    fn = _build.kernel("trident_resolve_tiled",
+                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_void_p])
+    err = fn(tri_tiles.data_ptr(), records.data_ptr(), records.shape[1], ntx,
+             n_tiles, out.data_ptr(),
+             torch.cuda.current_stream(tri_tiles.device).cuda_stream)
+    _build.check_launch("trident_resolve_tiled", err)
+    resolve_attrs_tiled.launches += 1
+    return out
+
+
+resolve_attrs_tiled.launches = 0
+
+
+def fused_visibility_resolve_plain(bins: raster.Bins, records: Tensor,
+                                   ntx: int, n_tiles: int):
+    """Plain PyTorch twin of the fused kernel: visibility_tiles_plain, then
+    resolve_attrs_tiled_plain on its winners → (depth, tri) (n_tiles,
+    1024) and attrs (n_tiles, CHANNELS, 1024)."""
+    depth, tri = raster.visibility_tiles_plain(bins, ntx, n_tiles)
+    return depth, tri, resolve_attrs_tiled_plain(tri, records, ntx)
+
+
+def fused_visibility_resolve(bins: raster.Bins, records: Tensor, ntx: int,
+                             n_tiles: int):
+    """Visibility and resolve in one pass over the bins (the `fuse` knob,
+    fused_visibility_resolve_pallas): (depth, tri) (n_tiles, 1024) and
+    attrs (n_tiles, CHANNELS, 1024), equal to visibility_tiles followed by
+    resolve_attrs_tiled. The CUDA kernel for tensors on the card, the
+    plain version for tensors on the CPU."""
+    rec = bins.records
+    if rec.device.type == "cpu":
+        return fused_visibility_resolve_plain(bins, records, ntx, n_tiles)
+    raster.check_bins(bins, n_tiles)
+    _check_records(records, rec.device)
+    dev = rec.device
+    depth = torch.empty((n_tiles, raster.TILE_PX), dtype=torch.float32,
+                        device=dev)
+    tri = torch.empty((n_tiles, raster.TILE_PX), dtype=torch.int32,
+                      device=dev)
+    attrs = torch.empty((n_tiles, CHANNELS, raster.TILE_PX),
+                        dtype=torch.float32, device=dev)
+    fn = _build.kernel("trident_visibility_resolve",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p, ctypes.c_longlong]
+                       + [ctypes.c_void_p] * 4)
+    err = fn(rec.data_ptr(), bins.pair_chunk.data_ptr(),
+             bins.pair_mask.data_ptr(), bins.tile_start.data_ptr(), n_tiles,
+             ntx, records.data_ptr(), records.shape[1], depth.data_ptr(),
+             tri.data_ptr(), attrs.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("trident_visibility_resolve", err)
+    fused_visibility_resolve.launches += 1
+    return depth, tri, attrs
+
+
+fused_visibility_resolve.launches = 0

@@ -90,10 +90,14 @@ def scene_bounds(records, packed,
 
 def render_shadow_map(plan, params, light_cam: CameraParams, size: int, *,
                       corner_t, tri_draw, draw_stride: int = 0,
-                      real_draws: int = 0) -> Tuple[Tensor, Tensor]:
+                      real_draws: int = 0,
+                      ck_bank: int = 0) -> Tuple[Tensor, Tensor]:
     """Depth-only render from the light → ((S, S) f32 depth in [0, 1],
     (2,) i32 aux of the light pass's binning). The JAX package drops the
-    aux; the depth is the same either way."""
+    aux; the depth is the same either way. ck_bank > 0 (the ckern knob)
+    runs the compact-bank kernel and drops its ids, as the JAX light pass
+    does under CKERN (raster_pallas.py:1371: no depth-only body); its
+    depths equal the depth-only kernel's."""
     if corner_t is None or tri_draw is None:
         raise NotImplementedError(
             "the indexed (skinned) light pass is not ported to "
@@ -101,9 +105,15 @@ def render_shadow_map(plan, params, light_cam: CameraParams, size: int, *,
     draw_rows = build_draw_rows(params, light_cam, size, size)
     cs = corner_stage(corner_t, draw_rows, tri_draw, plan.tri_valid, size,
                       size, draw_stride=draw_stride, real_draws=real_draws)
-    bins = raster.build_bins(cs.setup, size, size, setup_cols=cs.cols.setup)
+    bins = raster.build_bins(cs.setup, size, size, setup_cols=cs.cols.setup,
+                             ck_bank=ck_bank)
     ntx = nty = -(-size // raster.TILE)
-    depth_t = raster.visibility_tiles(bins, ntx, ntx * nty, depth_only=True)
+    if ck_bank:
+        depth_t, _tri = raster.visibility_ck_tiles(bins, ntx, ntx * nty,
+                                                   ck_bank)
+    else:
+        depth_t = raster.visibility_tiles(bins, ntx, ntx * nty,
+                                          depth_only=True)
     return raster.untile_frame(depth_t, ntx, nty)[:size, :size], bins.aux
 
 

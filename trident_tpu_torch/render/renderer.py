@@ -8,6 +8,10 @@ The forward frame of a rigid, textured, lit scene, as the JAX package's
        visibility kernel → shadow map]
     → build_bins → visibility kernel → untile
     → resolve kernel → texel kernel + shadow-taps kernel + PBR
+      (RenderConfig.kernel may route this part: `ckern` takes the
+       compact-bank visibility kernel, `fuse` the fused visibility +
+       resolve kernel, `tiled_shade` the tiled resolve, the planar texel
+       kernel and channel-planar shading, untiling only the RGBA frame)
     [→ bloom on linear HDR → tonemap] [→ supersample resolve]
     [→ AI upscale: warp the previous history (warp kernel) → upscaler
        net → depth-to-space to 2× (the frame above ran at half size)]
@@ -17,7 +21,8 @@ PyTorch runs eagerly, so there is no jit, bundling or idle-frame cache;
 tensors stay on the renderer's device. Bands, the AI-frame blend,
 skyboxes, sprites, custom shaders, non-bilinear sampling, vertex colors
 and skinning are not part of the ported slice: configuring them raises
-NotImplementedError.
+NotImplementedError, and so does a kernel knob the port does not run
+(ops/kernel_knobs.py).
 """
 
 from __future__ import annotations
@@ -43,16 +48,26 @@ from trident_tpu_torch.ecs.registry import Registry
 from trident_tpu_torch.geometry.mesh import GeometryCache
 from trident_tpu_torch.geometry.primitives import PrimitiveType, build_primitive
 from trident_tpu_torch.io.image import checkerboard
-from trident_tpu_torch.ops import post
+from trident_tpu_torch.ops import post, raster
 from trident_tpu_torch.ops.corner import build_draw_rows, corner_stage
 from trident_tpu_torch.ops.deferred import (
+    _background,
     apply_ai_blend,
     deferred_shade_attrs,
     pack_rgba8,
 )
+from trident_tpu_torch.ops.deferred_tiled import shade_attrs_tiled
+from trident_tpu_torch.ops.kernel_knobs import (
+    TILED_MAX_PIX,
+    TILED_MAX_TABLE,
+    KernelKnobs,
+)
 from trident_tpu_torch.ops.planes import build_resolve_cols_planar
-from trident_tpu_torch.ops.raster import visibility
-from trident_tpu_torch.ops.resolve import resolve_attrs
+from trident_tpu_torch.ops.resolve import (
+    fused_visibility_resolve,
+    resolve_attrs,
+    resolve_attrs_tiled,
+)
 from trident_tpu_torch.ops.shading import tonemap_reinhard_gamma
 from trident_tpu_torch.ops.shadow import (
     light_camera,
@@ -70,6 +85,7 @@ from trident_tpu_torch.render.textures import TextureSlots
 from trident_tpu_torch.render.types import (
     CameraParams,
     FrameOutput,
+    GBuffer,
     ShadowParams,
     from_numpy,
 )
@@ -94,14 +110,16 @@ def frame_geometry(plan, tri_draw, params, shade_table, camera, textures,
 
 def shadow_params(plan, params, tri_draw, corner_t, light_cam: CameraParams,
                   size: int, bias: float, *, draw_stride: int = 0,
-                  real_draws: int = 0):
+                  real_draws: int = 0, knobs: KernelKnobs = KernelKnobs()):
     """The light pass → (ShadowParams, (2,) i32 light-pass aux), with
     light_vp = proj @ view in f32 (TF32 is pinned off). The scalars are
     filled on the device: a host-to-device copy would wait for the work
-    already queued."""
+    already queued. Under knobs.ckern the light pass takes the
+    compact-bank kernel."""
     depth_map, aux = render_shadow_map(
         plan, params, light_cam, size, corner_t=corner_t, tri_draw=tri_draw,
-        draw_stride=draw_stride, real_draws=real_draws)
+        draw_stride=draw_stride, real_draws=real_draws,
+        ck_bank=knobs.ck_bank if knobs.ckern else 0)
     dev = depth_map.device
     shadow = ShadowParams(
         depth=depth_map, light_vp=light_cam.proj @ light_cam.view,
@@ -113,11 +131,59 @@ def shadow_params(plan, params, tri_draw, corner_t, light_cam: CameraParams,
 def _visibility_and_shade(setup, setup_cols, records, textures, camera,
                           lights, *, width: int, height: int, clear_color,
                           shadow: Optional[ShadowParams] = None,
-                          shadow_pcf: bool = False, tonemap: bool = True):
+                          shadow_pcf: bool = False, tonemap: bool = True,
+                          knobs: KernelKnobs = KernelKnobs()):
     """Rasterize + shade a frame from prebuilt per-triangle inputs →
-    (frame (H,W,4) f32, GBuffer)."""
-    gbuf = visibility(setup, width, height, setup_cols=setup_cols)
-    attrs = resolve_attrs(gbuf.tri_id, records)
+    (frame (H,W,4) f32, GBuffer), routed by the kernel knobs as
+    trident_tpu/render/renderer.py:99-193 routes them: visibility by the
+    fused kernel (fuse), the compact-bank kernel (ckern) or K1; then,
+    when tiled_shade is on and the JAX package's gate admits the frame,
+    the tiled resolve (or the fused attributes) and channel-planar
+    shading in tile layout; else the (H, W) attribute image and
+    deferred_shade_attrs."""
+    ntx, nty = -(-width // raster.TILE), -(-height // raster.TILE)
+    n_tiles = ntx * nty
+    bins = raster.build_bins(setup, width, height, setup_cols=setup_cols,
+                             ck_bank=knobs.ck_bank if knobs.ckern else 0)
+    attrs_t = None
+    if knobs.fuse:
+        depth_t, tri_t, attrs_t = fused_visibility_resolve(bins, records,
+                                                           ntx, n_tiles)
+    elif knobs.ckern:
+        depth_t, tri_t = raster.visibility_ck_tiles(bins, ntx, n_tiles,
+                                                    knobs.ck_bank)
+    else:
+        depth_t, tri_t = raster.visibility_tiles(bins, ntx, n_tiles)
+    gbuf = GBuffer(
+        tri_id=raster.untile_frame(tri_t, ntx, nty)[:height, :width]
+        .contiguous(),
+        depth=raster.untile_frame(depth_t, ntx, nty)[:height, :width]
+        .contiguous(),
+        aux=bins.aux)
+    # the JAX package's gate (renderer.py:140-144): bilinear sampling (the
+    # only mode ported) and its TPU texel kernel's pixel and table limits
+    use_tiled = (knobs.tiled_shade and width * height <= TILED_MAX_PIX
+                 and textures.quads.shape[0] <= TILED_MAX_TABLE)
+    if use_tiled:
+        if attrs_t is None:
+            attrs_t = resolve_attrs_tiled(tri_t, records, ntx)
+        rgba_t = shade_attrs_tiled(tri_t, depth_t, attrs_t, textures, camera,
+                                   lights, width, height, shadow=shadow,
+                                   shadow_pcf=shadow_pcf, tonemap=tonemap)
+        frame4 = raster.untile_channels(rgba_t, ntx, nty)[:height, :width]
+        covered = (gbuf.tri_id >= 0)[..., None]
+        bg = _background(width, height, clear_color, frame4.device)
+        rgb = torch.where(covered, frame4[..., :3], bg)
+        a_out = torch.where(covered, frame4[..., 3:4], clear_color[3])
+        frame = torch.cat([rgb, a_out], dim=-1)
+        if tonemap:
+            frame = torch.clamp(apply_ai_blend(frame, None), 0.0, 1.0)
+        return frame, gbuf
+    if attrs_t is not None:
+        attrs = raster.untile_channels(attrs_t, ntx, nty)[:height, :width] \
+            .contiguous()
+    else:
+        attrs = resolve_attrs(gbuf.tri_id, records)
     frame = deferred_shade_attrs(gbuf, attrs, textures, camera, lights,
                                  width, height, clear_color=clear_color,
                                  shadow=shadow, shadow_pcf=shadow_pcf,
@@ -134,7 +200,8 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
                  bloom: bool = False, bloom_threshold: float = 1.0,
                  bloom_strength: float = 0.6,
                  upscale_params: Optional[up.UpscalerNet] = None,
-                 prev=None) -> FrameOutput:
+                 prev=None,
+                 knobs: KernelKnobs = KernelKnobs()) -> FrameOutput:
     """One forward frame (the JAX `_render_frame_impl` forward branch):
     main-pass geometry at (W·ss, H·ss) → the light pass when
     `light_camera` and `shadow_size` are given → visibility, resolve and
@@ -149,7 +216,8 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
     the half-res depth, the net rebuilds the full frame from rgb and that
     temporal input, alpha, depth and ids are repeated 2×2, and
     FrameOutput.history holds the net's blocks as uint8 for the next
-    frame."""
+    frame. `knobs` (RenderConfig.kernel, validated) routes the light pass
+    and _visibility_and_shade."""
     ss = max(int(supersample), 1)
     rw, rh = width * ss, height * ss
     cs, records = frame_geometry(
@@ -159,11 +227,12 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
     if shadow_size and light_camera is not None:
         shadow, shadow_aux = shadow_params(
             plan, params, tri_draw, corner_t, light_camera, shadow_size,
-            shadow_bias, draw_stride=draw_stride, real_draws=real_draws)
+            shadow_bias, draw_stride=draw_stride, real_draws=real_draws,
+            knobs=knobs)
     frame, gbuf = _visibility_and_shade(
         cs.setup, cs.cols.setup, records, textures, camera, lights,
         width=rw, height=rh, clear_color=clear_color, shadow=shadow,
-        shadow_pcf=shadow_pcf, tonemap=not bloom)
+        shadow_pcf=shadow_pcf, tonemap=not bloom, knobs=knobs)
     if bloom:
         hdr = post.bloom(frame[..., :3], bloom_threshold, bloom_strength)
         frame = torch.cat([tonemap_reinhard_gamma(hdr), frame[..., 3:4]],
@@ -212,13 +281,20 @@ class Renderer:
     and a file that cannot be loaded raises. The JAX package logs and
     renders at native size instead; the port does not, so that a run
     meant to go through the net and the warp kernel cannot quietly skip
-    them."""
+    them.
+
+    `render.kernel` is validated once here (ops/kernel_knobs.py: an
+    unknown knob raises KeyError, an inconsistent set ValueError, a knob
+    the port does not run NotImplementedError) and its KernelKnobs ride
+    every frame explicitly, so Renderers with different knobs render
+    their own frames side by side."""
 
     def __init__(self, config: Optional[EngineConfig] = None,
                  device=None) -> None:
         self.config = config or EngineConfig()
         rc = self.config.render
         _check_slice(rc)
+        self.knobs = KernelKnobs.from_config(rc.kernel)
         self.device = resolve_device(device)
         self._upscaler: Optional[up.UpscalerNet] = None
         # (history, view·proj) of the last upscaled frame, the next one's
@@ -327,8 +403,8 @@ class Renderer:
             **self._upscale_kwargs(), clear_color=tuple(rc.clear_color),
             shadow_pcf=rc.shadow_pcf, supersample=max(int(rc.supersample), 1),
             bloom=rc.bloom, bloom_threshold=rc.bloom_threshold,
-            bloom_strength=rc.bloom_strength, **self._stride_kwargs(),
-            **self._shadow_kwargs(records, packed))
+            bloom_strength=rc.bloom_strength, knobs=self.knobs,
+            **self._stride_kwargs(), **self._shadow_kwargs(records, packed))
 
     def render_viewport(self) -> FrameOutput:
         """Render the configured viewport with the editor camera; an
