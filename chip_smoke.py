@@ -65,6 +65,19 @@ Phases (any failure exits non-zero before the final line is printed):
      shadowed, the same gate against the default-knob frame); the three
      128² knob frames against tests/goldens/torch_slice_knobs_<name>.npy
      under the golden gate
+ 11. the tools_dev probes (trident_tpu_torch/tools_dev) on phase 3's
+     spheres1080_1m bins: each kbench config (zero, dflt, full, nobranch,
+     dual, probe, probe_tiny; zero/dflt/full also through the compact-bank
+     kernel) bit-equal to its plain version and to the frame it must give
+     (K1's for dflt and dual, K1's on full masks for nobranch, background
+     for zero and the reset probes; K1 on full masks may differ from K1
+     only by bbox-culled rounding hits, at most 1 pixel in 10,000); the
+     LUT gather at the three probe shapes bit-equal to its plain version
+     and torch.gather; the split select at rw 27 and 32 (K1/K2/K3 forms)
+     bit-equal to its plain version and exact against host_parts; each
+     probe kernel's times and bound; then the tools' own runs (kbench with
+     and without ckern, its --bins and --sort legs, the gather and split
+     probes) as this phase's main path
 Then it prints the kernels as one JSON line, the card line, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -72,7 +85,8 @@ bound_ms is the least time the card could take for a kernel's work: the
 larger of its bytes (each input read once, each output written once,
 counted from this run's data) over 3.35 TB/s and its f32 operations over
 67 TFLOP/s (H100 SXM data sheet; the card's power limit is printed
-beside).
+beside). The helpers it shares with the probe tools live in
+trident_tpu_torch/tools_dev/timing.py and scenes.py.
 """
 
 from __future__ import annotations
@@ -87,18 +101,26 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+from trident_tpu_torch.tools_dev.scenes import (  # noqa: E402
+    build_bench_scene,
+    rotate,
+)
+from trident_tpu_torch.tools_dev.timing import (  # noqa: E402
+    VIS_OPS_PER_PAIR,
+    bound,
+    cuda_ms,
+    device_busy,
+)
+from trident_tpu_torch.tools_dev.timing import card as card_line  # noqa: E402
+
 GOLDENS = ROOT / "tests" / "goldens"
 BENCH_GRID = 36
 SHADOW_GRID = 12
 RESOLVE_TOL = 1e-6       # max |kernel − plain| per channel (log2 may differ
                          # by an ulp between libms; everything else is exact)
 GOLDEN_LSB, GOLDEN_FRAC, GOLDEN_MEAN = 3, 0.002, 0.35
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# f32 multiplies and adds per evaluated (triangle, pixel) pair of the
-# visibility kernels: three edge functions (2 mul + 2 add each), zi and wi
-# (3 mul + 2 add each); compares and the merge are not counted
-VIS_OPS_PER_PAIR = 22
 # the golden-flavor scene's configs (tests/test_torch_frame.py FLAVORS)
 FLAVORS = {
     "shadows_hard": dict(shadows=True, shadow_map_size=256),
@@ -127,131 +149,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of fn() in ms (CUDA events around each call)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def device_busy(fn, reps: int = 5):
-    """(ms, launches) per fn() call of device activity — kernels, copies
-    and fills as torch.profiler's CUDA activity records them — after one
-    warm-up call: the card's busy time without the gaps between launches
-    that CUDA events around a host-bound call also count."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        fail("torch.profiler recorded no device activity")
-    busy_us = sum(e.time_range.elapsed_us() for e in events)
-    return busy_us / reps / 1e3, len(events) / reps
-
-
 def print_stages(what: str, stages: dict, card: str) -> None:
     """Each stage alone: CUDA-event ms (median of 10) and device busy ms
     (torch.profiler)."""
     print(f"{what} (ms, events / device busy): " + ", ".join(
         f"{name} {cuda_ms(fn):.4f} / {device_busy(fn)[0]:.4f}"
         for name, fn in stages.items()) + f" ({card})", flush=True)
-
-
-def bound(bytes_moved: float, ops: float = 0.0):
-    """(bound_ms, bound_by) of a kernel's work on the card."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def build_bench_scene(grid: int, device, config: str = "spheres1080_1m",
-                      ai: bool = False, kernel=None, reg=None):
-    """bench.py's build_scene(config) on the port: a grid × grid sphere
-    grid with the 128² checker at 1920×1080 (spheres1080_1m) or 3840×2160
-    with bloom (ultra4k); shadows1080 adds the backdrop slab and the
-    shadow-casting sun. ai=True is bench.py's NAME:ai mode: render at half
-    size and upscale with the shipped net. `kernel` is RenderConfig.kernel.
-    Given `reg` (a registry this function built for the same config), the
-    new Renderer renders that registry's scene instead of a new one."""
-    from trident_tpu_torch.core.config import EngineConfig, RenderConfig
-    from trident_tpu_torch.ecs.components import (
-        LightComponent,
-        MeshComponent,
-        TextureComponent,
-        TransformComponent,
-    )
-    from trident_tpu_torch.ecs.registry import Registry
-    from trident_tpu_torch.geometry.primitives import PrimitiveType
-    from trident_tpu_torch.io.image import checkerboard
-    from trident_tpu_torch.render.renderer import Renderer
-
-    w, h = (3840, 2160) if config == "ultra4k" else (1920, 1080)
-    r = Renderer(EngineConfig(render=RenderConfig(
-        width=w, height=h, bloom=config == "ultra4k",
-        shadows=config == "shadows1080", ai_upscale=ai, kernel=kernel)),
-        device=device)
-    slot = r.acquire_texture("checker", checkerboard(128, 8))
-    mesh_idx = r.ensure_primitive(PrimitiveType.SPHERE)
-    r.editor_camera.set_position([0, 0, grid * 1.1 + 2])
-    r.editor_camera.look_at_target([0, 0, 0])
-    if reg is not None:
-        if config == "shadows1080":
-            r.ensure_primitive(PrimitiveType.CUBE)
-        r.set_active_registry(reg)
-        return r, reg
-    reg = Registry()
-    r.set_active_registry(reg)
-    for i in range(grid):
-        for j in range(grid):
-            e = reg.create()
-            t = reg.add(e, TransformComponent())
-            t.position = np.array(
-                [(i - grid / 2) * 1.4, (j - grid / 2) * 1.4, 0], np.float32)
-            reg.add(e, MeshComponent(mesh_index=mesh_idx))
-            reg.add(e, TextureComponent(path="checker", slot=slot))
-    if config == "shadows1080":
-        backdrop = reg.create()
-        bt = reg.add(backdrop, TransformComponent())
-        bt.position = np.array([0.0, 0.0, -2.0], np.float32)
-        bt.scale = np.array([grid * 1.4, grid * 1.4, 0.2], np.float32)
-        cube_idx = r.ensure_primitive(PrimitiveType.CUBE)
-        reg.add(backdrop, MeshComponent(mesh_index=cube_idx))
-        reg.add(backdrop, TextureComponent(path="checker", slot=slot))
-        sun = reg.create()
-        reg.add(sun, TransformComponent())
-        reg.add(sun, LightComponent(
-            direction=np.array([0.35, -0.3, -1.0], np.float32),
-            intensity=2.5, cast_shadows=True))
-    return r, reg
-
-
-def rotate(reg, k: int) -> None:
-    """bench.py's per-frame rotation of every entity."""
-    from trident_tpu_torch.ecs.components import TransformComponent
-
-    angle = 25.0 + k * 3.0
-    for _e, (t,) in reg.view(TransformComponent):
-        t.rotation = np.array([angle * 0.4, angle, 0.0], np.float32)
 
 
 def base_scene(device, **render_kw):
@@ -808,28 +711,258 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
     return launches10
 
 
+PROBE_SRC = "trident_tpu_torch/csrc/visibility_probe.cu"
+
+
+def phase_probes(dev, card: str, kernel_fns: dict, drive, results: dict,
+                 cs, records, bins, w: int, h: int) -> dict:
+    """Phase 11, the tools_dev probes at spheres1080_1m on phase 3's bins:
+    the visibility probes (dense, dual, reset) and K1 / K1-CK on doctored
+    masks against their plain versions and K1's frame, the gather at the
+    three probe shapes against its plain version and torch.gather, the
+    split select at rw 27 and 32 against its plain version and host_parts;
+    their times and bounds; then the tools' own runs (kbench's configs with
+    and without ckern, its --bins and --sort legs, the gather and split
+    probes) as the main path. Adds the probe kernels to `kernel_fns` and
+    `results` and returns the main path's launch counts."""
+    import torch
+
+    from trident_tpu_torch.ops import raster
+    from trident_tpu_torch.ops.planes import RR_WIDTH
+    from trident_tpu_torch.tools_dev import diag_split_kernel as dsk
+    from trident_tpu_torch.tools_dev import gather_probe as gp
+    from trident_tpu_torch.tools_dev import kbench as kb
+
+    kernel_fns.update(visibility_dense=kb.visibility_dense,
+                      visibility_dual=kb.visibility_dual,
+                      visibility_reset=kb.visibility_reset,
+                      lut_gather=gp.lut_gather,
+                      split_select=dsk.split_select)
+    ntx = -(-w // raster.TILE)
+    n_tiles = ntx * -(-h // raster.TILE)
+    n_real = int(bins.n_real)
+
+    def same_bits(a, b):
+        return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+    # (a) the visibility probes and the doctored-mask configs: each kernel
+    # against its plain version, then against the frame it must give: K1's
+    # (dflt, dual), K1's on full masks (full, nobranch) or background (zero,
+    # probe, probe_tiny); K1 on full masks differs from K1 only by the
+    # rounding hits that the binner's bbox cull drops
+    d1, t1 = raster.visibility_tiles(bins, ntx, n_tiles)
+    full = kb.doctored(bins, "full")
+    dfull, tfull = raster.visibility_tiles(full, ntx, n_tiles)
+    n_diff, n_bad = kb.bbox_culled_hits(cs.setup, dfull, tfull, d1, t1, ntx)
+    if n_bad or n_diff > n_tiles * raster.TILE_PX // 10000:
+        fail(f"K1 on full masks differs from K1 in {n_diff} pixels, {n_bad} "
+             "of them not a bbox-culled rounding hit")
+    bg = kb.visibility_reset_plain(bins, n_tiles)
+    expect = {"zero": bg, "probe": bg, "probe_tiny": bg, "dflt": (d1, t1),
+              "dual": (d1, t1), "full": (dfull, tfull),
+              "nobranch": (dfull, tfull)}
+    ckb = raster.build_bins(cs.setup, w, h, setup_cols=cs.cols.setup,
+                            ck_bank=kb.CK_BANK)
+    runs = [(kind, bins, 0) for kind in kb.CONFIGS] + [
+        (kind, ckb, kb.CK_BANK) for kind in ("zero", "dflt", "full")]
+    for kind, b, ck in runs:
+        dk, tk = kb.config_fn(b, kind, ntx, n_tiles, ck)()
+        dp, tp = kb.config_fn(b, kind, ntx, n_tiles, ck, plain=True)()
+        ed, et = expect[kind]
+        torch.cuda.synchronize()
+        bad = [int((tk != tp).sum()), same_bits(dk, dp),
+               int((tk != et).sum()), same_bits(dk, ed)]
+        if any(bad):
+            fail(f"kbench {kind}{' (ckern)' if ck else ''}: ids/depths "
+                 f"{bad[:2]} off its plain version, {bad[2:]} off the "
+                 "expected frame")
+    print(f"visibility probes at spheres1080_1m ({n_real} pairs, "
+          f"{kb.hit_total(bins)} hit sub-blocks): every config bit-equal "
+          "to its plain version; dflt and dual bit-equal to K1, nobranch "
+          "(and ckern full) to K1 on full masks, which differs from K1 in "
+          f"{n_diff} of {n_tiles * raster.TILE_PX} pixels, each a "
+          "bbox-culled rounding hit; zero, probe and probe_tiny background",
+          flush=True)
+
+    # bounds from this run's data: the evaluated sub-blocks as vis_work
+    # counts them; dual adds each touched chunk's 32 KB strip once; reset
+    # fetches each touched chunk's block once
+    n_chunks_hit = int(torch.unique(bins.pair_chunk[:n_real]).numel())
+    walk_bytes = n_real * 8 + (n_tiles + 1) * 4 + n_tiles * raster.TILE_PX * 8
+    table2 = kb.dual_table(bins)
+    probe_tab, probe_blk = kb.probe_table(bins, False)
+    tiny_tab, tiny_blk = kb.probe_table(bins, True)
+    vb, vo = vis_work(bins, n_tiles, 8)
+    work = {
+        "visibility_dense": (
+            bound(*vis_work(full, n_tiles, 8)), "tools_dev/kbench.py:117",
+            lambda: kb.visibility_dense(bins, ntx, n_tiles),
+            lambda: raster.visibility_tiles_plain(bins, ntx, n_tiles,
+                                                  dense=True), 3),
+        "visibility_dual": (
+            bound(vb + n_chunks_hit * RR_WIDTH * raster.CHUNK * 4, vo),
+            "tools_dev/kbench.py:180",
+            lambda: kb.visibility_dual(bins, table2, ntx, n_tiles),
+            lambda: kb.visibility_dual_plain(bins, table2, ntx, n_tiles), 3),
+        "visibility_reset": (
+            bound(walk_bytes + n_chunks_hit * probe_blk * 4),
+            "tools_dev/kbench.py:357",
+            lambda: kb.visibility_reset(bins, probe_tab, probe_blk, n_tiles),
+            lambda: kb.visibility_reset_plain(bins, n_tiles), 10),
+    }
+    for name, ((b_ms, b_by), repl, fn, plain, reps) in work.items():
+        res = dict(route="cuda", source=PROBE_SRC, replaces=repl,
+                   max_abs_err=0.0, ms=cuda_ms(fn),
+                   plain_ms=cuda_ms(plain, reps=reps, warmup=1),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        results[name] = res
+        print(f"{name}: kernel {res['ms']:.4f} ms (device busy "
+              f"{device_busy(fn)[0]:.4f} ms), plain {res['plain_ms']:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}) ({card})", flush=True)
+
+    def tiny():
+        return kb.visibility_reset(bins, tiny_tab, tiny_blk, n_tiles)
+
+    t_ms, t_by = bound(walk_bytes + n_chunks_hit * tiny_blk * 4)
+    print(f"visibility_reset (probe_tiny, 4 KB blocks): kernel "
+          f"{cuda_ms(tiny):.4f} ms (device busy {device_busy(tiny)[0]:.4f} "
+          f"ms), bound {t_ms:.4f} ms ({t_by}); streamed per pair: records "
+          f"{n_real * probe_blk * 4 / 1e6:.1f} MB, tiny "
+          f"{n_real * tiny_blk * 4 / 1e6:.1f} MB, dual strips "
+          f"{n_real * RR_WIDTH * raster.CHUNK * 4 / 1e6:.1f} MB ({card})",
+          flush=True)
+    del d1, t1, dfull, tfull, bg, expect, full, table2, tiny_tab
+    torch.cuda.empty_cache()
+
+    # (b) the gather at the three probe shapes
+    for name, (tab, idx) in gp.cases(gp.make_inputs()).items():
+        t = torch.from_numpy(tab).to(dev)
+        i = torch.from_numpy(idx).to(dev)
+        i64 = i.long()
+        got = gp.lut_gather(t, i)
+        plain = gp.lut_gather_plain(t, i)
+        lib = gp.library_gather(t, i64).view(
+            t.shape[0], *i.shape).transpose(0, 1)
+        torch.cuda.synchronize()
+        bad = [int((got != plain).sum()), int((got != lib).sum())]
+        shape = (i.shape[0], t.shape[0], *i.shape[1:])
+        if any(bad) or tuple(got.shape) != shape:
+            fail(f"lut_gather {name}: {bad[0]} values off its plain version, "
+                 f"{bad[1]} off torch.gather (shape {tuple(got.shape)})")
+        b_ms, b_by = bound(4 * (t.numel() + i.numel() + got.numel()))
+        ms = cuda_ms(lambda: gp.lut_gather(t, i))
+        lib_ms = cuda_ms(lambda: gp.library_gather(t, i64))
+        plain_ms = cuda_ms(lambda: gp.lut_gather_plain(t, i))
+        busy = [device_busy(fn)[0] for fn in (
+            lambda: gp.lut_gather(t, i), lambda: gp.library_gather(t, i64))]
+        print(f"lut_gather {name} ({tuple(t.shape)} tables, "
+              f"{tuple(i.shape)} idx): bit-equal to its plain version and "
+              f"torch.gather; kernel {ms:.4f} ms (device busy {busy[0]:.4f}),"
+              f" torch.gather {lib_ms:.4f} ms (busy {busy[1]:.4f}), plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({card})",
+              flush=True)
+        if name == "lut_frame":
+            results["lut_gather"] = dict(
+                route="cuda", source="trident_tpu_torch/csrc/lut_gather.cu",
+                replaces="tools_dev/gather_probe.py:110", max_abs_err=0.0,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+    del t, i, i64, got, plain, lib
+    torch.cuda.empty_cache()
+
+    # (c) the split select, K1/K2/K3 at rw 27 and 32
+    for rw in dsk.RWS:
+        planes, oh = dsk.make_inputs(rw)
+        want = dsk.host_parts(planes, oh)
+        for form in dsk.FORMS:
+            args = dsk.form_inputs(form, planes, oh, dev)
+            pk, sk = dsk.split_select(**args)
+            pp, sp = dsk.split_select_plain(**args)
+            torch.cuda.synchronize()
+            bad = same_bits(sk, sp) + (same_bits(pk, pp) if args["parts"]
+                                       else 0)
+            got = ([pk[k].cpu().numpy() for k in range(3)]
+                   if args["parts"] else []) + [sk.cpu().numpy()]
+            ref = (want if args["parts"] else []) + [
+                want[0] + want[1] + want[2]]
+            err = max(float(np.abs(a - b).max()) for a, b in zip(got, ref))
+            if bad or not err == 0.0:
+                fail(f"split_select {form} rw={rw}: {bad} values off its "
+                     f"plain version, max error {err} against host_parts")
+    print("split_select: K1/K2/K3 at rw 27 and 32 bit-equal to the plain "
+          "version, max error 0 against host_parts", flush=True)
+    # each form's times at rw 32; the library call is one PyTorch indexing
+    # call selecting the same lanes of the stacked planes (bf16, no sum),
+    # which K3's separate planes have no counterpart of
+    n_sel = planes.shape[1] * dsk.C
+    for form, line in (("K1", 83), ("K2", 126), ("K3", 165)):
+        args = dsk.form_inputs(form, planes, oh, dev)
+        sel = args["win"].long() + args["off"] + (
+            0 if args["chunk"] is None else dsk.C)
+        n_out = (4 if args["parts"] else 1) * n_sel
+
+        def select(args=args):
+            return dsk.split_select(**args)
+
+        def index_call(args=args, sel=sel):
+            return args["planes"][:, :, sel]
+
+        b_ms, b_by = bound(dsk.C * 4 + n_sel * 3 * 2 + n_out * 4)
+        lib = form != "K3"
+        res = dict(
+            route="cuda", source="trident_tpu_torch/csrc/split_select.cu",
+            replaces=f"tools_dev/diag_split_kernel.py:{line}",
+            max_abs_err=0.0, ms=cuda_ms(select),
+            plain_ms=cuda_ms(lambda args=args: dsk.split_select_plain(
+                **args)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(index_call) if lib else None)
+        if form == "K1":
+            results["split_select"] = res
+        print(f"split_select ({form}, rw 32): kernel {res['ms']:.4f} ms "
+              f"(device busy {device_busy(select)[0]:.4f} ms), plain "
+              f"{res['plain_ms']:.4f} ms, indexing call "
+              + (f"{res['library_ms']:.4f} ms (busy "
+                 f"{device_busy(index_call)[0]:.4f})" if lib else "none")
+              + f", bound {b_ms:.4f} ms ({b_by}) ({card})", flush=True)
+
+    # (d) the tools' own runs: the main path of this phase
+    def probes():
+        kb.report_bins(bins)
+        kb.run(bins, ntx, n_tiles, kb.CONFIGS, card_line=card)
+        print("kbench --kernel ckern:", flush=True)
+        kb.report_bins(ckb)
+        kb.run(ckb, ntx, n_tiles, kb.CONFIGS, ck_bank=kb.CK_BANK,
+               card_line=card)
+        kb.bins_leg(cs, w, h, card_line=card)
+        kb.sort_leg(dev, card_line=card)
+        gp.run(dev, card_line=card)
+        return dsk.run(dev)
+
+    worst, launches11 = drive(probes, (
+        "visibility", "visibility_ck", "visibility_dense", "visibility_dual",
+        "visibility_reset", "lut_gather", "split_select"))
+    if not worst == 0.0:
+        fail(f"the split probe's max error is {worst}, not 0")
+    print(f"probe tools' launches {launches11}", flush=True)
+    return launches11
+
+
 def main() -> None:
     # -- phase 1: the card ---------------------------------------------------
     import torch
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     try:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60)
-    except (OSError, subprocess.SubprocessError) as exc:
+        card = card_line()
+    except (OSError, subprocess.SubprocessError, RuntimeError) as exc:
         fail(f"nvidia-smi did not run: {exc}")
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
-    if smi.returncode != 0 or not card:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     print(f"card: {card}", flush=True)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
     dev = torch.device("cuda", 0)
 
     # -- phase 2: build ------------------------------------------------------
-    sys.path.insert(0, str(ROOT))
     from trident_tpu_torch import _build
 
     t0 = time.perf_counter()
@@ -1022,6 +1155,7 @@ def main() -> None:
           f"{busy_ms:.3f} ms of it busy in {n_launch:.0f} device "
           f"activities (idle {1 - busy_ms / dev_ms:.3f}); {n_fg} non-clear "
           f"pixels, launches {launches4} ({card})", flush=True)
+    bench = (cs, records, bins)              # phase 11 reuses them
     del r, reg, inp, cs, records, bins, d_k, t_k, d_p, t_p, tri, a_k, a_p
     del gbuf, idx, fx, fy, x_k, x_p, stages
     torch.cuda.empty_cache()
@@ -1095,6 +1229,7 @@ def main() -> None:
                        d_k, ntx, nty)[:h, :w].contiguous(), aux=bins.aux)
     world = world_positions(gbuf.depth, inp["camera"], w, h)
     map_bits = shadow.depth.view(torch.int32)
+    lib_busy = {}
     for pcf, key in ((False, "shadow_taps"), (True, "shadow_taps_pcf")):
         ti = tap_indices(shadow, world, pcf)
         b_k = shadow_taps.shadow_tap_bits(shadow.depth, *ti)
@@ -1121,6 +1256,7 @@ def main() -> None:
         # per pixel: the i32 indices in, one i32 per tap out; the map once
         results[key].update(zip(("bound_ms", "bound_by"), bound(
             w * h * 4 * (len(ti) + len(pairs)) + s * s * 4)))
+        lib_busy[key] = device_busy(lambda: map_bits[ys, xs])[0]
     busy = {"visibility_depth": lambda: raster.visibility_depth_tiles(
         lbins, lntx, ln_tiles)}
     for pcf, key in ((False, "shadow_taps"), (True, "shadow_taps_pcf")):
@@ -1131,7 +1267,9 @@ def main() -> None:
         res = results[name]
         print(f"{name}: kernel {res['ms']:.4f} ms (device busy "
               f"{device_busy(busy[name])[0]:.4f} ms), plain "
-              f"{res['plain_ms']:.4f} ms, library {res['library_ms']} ms, "
+              f"{res['plain_ms']:.4f} ms, library {res['library_ms']} ms"
+              + (f" (busy {lib_busy[name]:.4f})" if name in lib_busy else "")
+              + f", "
               f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})"
               + (f", colour kernel on the same bins {res['colour_ms']:.4f}"
                  " ms" if "colour_ms" in res else "") + f" ({card})",
@@ -1271,15 +1409,23 @@ def main() -> None:
     # -- phase 10: the kernel-knob frame --------------------------------------
     launches10 = phase_knobs(dev, card, kernel_fns, drive, results)
 
+    # -- phase 11: the tools_dev probes ---------------------------------------
+    launches11 = phase_probes(dev, card, kernel_fns, drive, results, *bench,
+                              w=1920, h=1080)
+
     # launches: each kernel's count in the main-path run of the frame it
     # was held on (phase 4 for the main pass, phase 6 for the shadow pass,
-    # phase 9 for the warp, phase 10 for the knob kernels)
+    # phase 9 for the warp, phase 10 for the knob kernels, phase 11 for
+    # the probes)
     launches = {**launches4, "visibility_depth": launches6["visibility_depth"],
                 "shadow_taps": launches6["shadow_taps"],
                 "warp": launches9["warp"],
                 **{n: launches10[n] for n in (
                     "visibility_ck", "visibility_resolve", "resolve_tiled",
-                    "texel_planar")}}
+                    "texel_planar")},
+                **{n: launches11[n] for n in (
+                    "visibility_dense", "visibility_dual", "visibility_reset",
+                    "lut_gather", "split_select")}}
     kernels = []
     for name in kernel_fns:
         res = {k: v for k, v in results[name].items() if k != "colour_ms"}

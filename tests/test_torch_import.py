@@ -47,7 +47,8 @@ for kernel in ({"ckern": True, "dynhit": False},
     kr.editor_camera, kr.registry = k.editor_camera, k.registry
     assert (kr.read_frame() == frame).all(), kernel
 for name in ("ops.kernel_knobs", "ops.deferred_tiled", "ops.raster",
-             "ops.resolve", "ops.texel"):
+             "ops.resolve", "ops.texel", "tools_dev.kbench",
+             "tools_dev.gather_probe", "tools_dev.diag_split_kernel"):
     assert "trident_tpu_torch." + name in sys.modules, name
 assert sys.modules["jax"] is None and sys.modules["trident_tpu"] is None
 print("rendered", frame.shape, "upscaled", tuple(out.color.shape))
@@ -75,6 +76,12 @@ def test_sources_never_import_jax():
     files.append(ROOT / "chip_smoke.py")
     offenders = [str(f) for f in files if banned.search(f.read_text())]
     assert not offenders
+    # the scan covers the probe tools, and the pattern catches the JAX
+    # scripts they port
+    tools = {f.name for f in files if f.parent.name == "tools_dev"}
+    assert {"kbench.py", "gather_probe.py", "diag_split_kernel.py",
+            "timing.py", "scenes.py"} <= tools
+    assert banned.search((ROOT / "tools_dev" / "gather_probe.py").read_text())
 
 
 def test_tf32_pinned_off():

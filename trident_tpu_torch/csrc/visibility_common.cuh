@@ -70,11 +70,56 @@ __device__ __forceinline__ void vis_triangle(const float* rc, int tid,
   }
 }
 
-// K1's walk over the sorted pairs [p_begin, p_end) of one tile: for each
-// hit 16-triangle sub-block, stage its 16 record rows (one float per
-// thread) in `rows` (kSub * kRec floats of shared memory), sync, merge.
-// Triangle ids are record row indices.
+// One 16-triangle sub-block whose first record row is `base`: stage its
+// 16 record rows (one float per thread) in `rows` (kSub * kRec floats of
+// shared memory), sync, merge. Triangle ids are record row indices.
 template <bool kDepthOnly>
+__device__ __forceinline__ void vis_sub_block(
+    const float* __restrict__ records, int base, float* rows,
+    const float (&px)[kPxPerThread], const float (&py)[kPxPerThread],
+    float (&best_d)[kPxPerThread], int (&best_t)[kPxPerThread]) {
+  rows[threadIdx.x] = records[static_cast<size_t>(base) * kRec + threadIdx.x];
+  __syncthreads();
+#pragma unroll 4
+  for (int j = 0; j < kSub; ++j) {
+    vis_triangle<kDepthOnly>(rows + j * kRec, base + j, px, py, best_d,
+                             best_t);
+  }
+  __syncthreads();
+}
+
+// One (tile, chunk) pair: its hit sub-blocks in ascending order, or, with
+// kDense (the kbench "nobranch" probe), all 16 of them with no mask walk:
+// the same merge as K1 on all-ones masks. It differs from K1 on the real
+// masks only where a triangle outside the tile's marked sub-blocks passes
+// the cover test by rounding (the extension of a near-degenerate triangle,
+// outside its bbox), a hit the binner's bbox cull drops.
+template <bool kDepthOnly, bool kDense = false>
+__device__ __forceinline__ void vis_pair(const float* __restrict__ records,
+                                         int chunk, unsigned mask,
+                                         float* rows,
+                                         const float (&px)[kPxPerThread],
+                                         const float (&py)[kPxPerThread],
+                                         float (&best_d)[kPxPerThread],
+                                         int (&best_t)[kPxPerThread]) {
+  if (kDense) {
+    for (int q = 0; q < kChunk / kSub; ++q) {
+      vis_sub_block<kDepthOnly>(records, chunk * kChunk + q * kSub, rows, px,
+                                py, best_d, best_t);
+    }
+    return;
+  }
+  mask &= 0xFFFFu;
+  while (mask != 0u) {
+    const int q = __ffs(mask) - 1;
+    mask &= mask - 1u;
+    vis_sub_block<kDepthOnly>(records, chunk * kChunk + q * kSub, rows, px,
+                              py, best_d, best_t);
+  }
+}
+
+// K1's walk over the sorted pairs [p_begin, p_end) of one tile.
+template <bool kDepthOnly, bool kDense = false>
 __device__ __forceinline__ void vis_walk(const float* __restrict__ records,
                                          const int* __restrict__ pair_chunk,
                                          const int* __restrict__ pair_mask,
@@ -83,23 +128,10 @@ __device__ __forceinline__ void vis_walk(const float* __restrict__ records,
                                          const float (&py)[kPxPerThread],
                                          float (&best_d)[kPxPerThread],
                                          int (&best_t)[kPxPerThread]) {
-  const int t = threadIdx.x;
   for (int p = p_begin; p < p_end; ++p) {
-    const int chunk = pair_chunk[p];
-    unsigned mask = static_cast<unsigned>(pair_mask[p]) & 0xFFFFu;
-    while (mask != 0u) {
-      const int q = __ffs(mask) - 1;
-      mask &= mask - 1u;
-      const int base = chunk * kChunk + q * kSub;
-      rows[t] = records[static_cast<size_t>(base) * kRec + t];
-      __syncthreads();
-#pragma unroll 4
-      for (int j = 0; j < kSub; ++j) {
-        vis_triangle<kDepthOnly>(rows + j * kRec, base + j, px, py, best_d,
-                                 best_t);
-      }
-      __syncthreads();
-    }
+    vis_pair<kDepthOnly, kDense>(records, pair_chunk[p],
+                                 static_cast<unsigned>(pair_mask[p]), rows,
+                                 px, py, best_d, best_t);
   }
 }
 

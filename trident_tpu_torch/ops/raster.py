@@ -280,15 +280,21 @@ def _background_keys(n_tiles: int, depth_only: bool, device) -> Tensor:
 
 
 def visibility_tiles_plain(bins: Bins, ntx: int, n_tiles: int,
-                           batch: int = 2048, depth_only: bool = False):
+                           batch: int = 2048, depth_only: bool = False,
+                           dense: bool = False):
     """Plain PyTorch twin of the visibility kernel: the same triangles
     (every hit sub-block of every kept pair), the same per-op rounding, and
     the same lexicographic merge (_tile_keys). Returns (depth (n_tiles,
     1024) f32, tri (n_tiles, 1024) i32). depth_only (the light pass)
-    returns the depth alone."""
+    returns the depth alone. dense (the kbench "nobranch" probe) evaluates
+    all 16 sub-blocks of every kept pair, whatever its mask."""
     dev = bins.records.device
     q = torch.arange(NSUB, device=dev, dtype=torch.int32)
-    hit = ((bins.pair_mask[:, None] >> q) & 1) != 0
+    if dense:
+        kept = torch.arange(bins.pair_mask.shape[0], device=dev) < bins.n_real
+        hit = kept[:, None].expand(-1, NSUB)
+    else:
+        hit = ((bins.pair_mask[:, None] >> q) & 1) != 0
     p_idx, q_idx = torch.nonzero(hit, as_tuple=True)
     e_tile = bins.pair_tile[p_idx].long()
     e_base = bins.pair_chunk[p_idx].long() * CHUNK + q_idx * SUB
