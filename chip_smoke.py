@@ -13,7 +13,10 @@ Phases (any failure exits non-zero before the final line is printed):
      main-pass kernel against its plain PyTorch version on that frame's
      own intermediates, and time both (CUDA events, median of 10 after
      warm-up): visibility ids equal and depth bit-equal, resolve channels
-     within RESOLVE_TOL, texel bit-equal
+     within RESOLVE_TOL, texel bit-equal; the share of (triangle, warp
+     region) pairs the visibility kernel's region test keeps, per tile
+     max / mean, and the card's SM clock, power and temperature before and
+     after the timing window
   4. render that scene through the port's Renderer for 12 frames while
      rotating the entities as bench.py does: aux == [0, 0] every frame,
      every kernel's launch count rose, the frame is not all clear color;
@@ -26,8 +29,10 @@ Phases (any failure exits non-zero before the final line is printed):
      frame's own light-pass bins, hold the depth-only visibility kernel
      against its plain version and against the colour kernel's depth (bit-
      equal, ±0 equal); hold the shadow-taps kernel against its plain
-     version at 1 and 4 taps (bits equal); time each and the stages of the
-     light pass and the shadowed shading; render 12 rotating frames and one
+     version at 1 and 4 taps (bits equal); time each (the hard taps also
+     with the L2 flushed before each launch) and the stages of the light
+     pass and the shadowed shading, and print the light pass's kept share
+     of (triangle, region) pairs; render 12 rotating frames and one
      PCF frame through the Renderer: aux [0, 0] on the main and the light
      pass, every kernel of the path launched, and > 1% of covered pixels
      shadowed
@@ -64,7 +69,9 @@ Phases (any failure exits non-zero before the final line is printed):
      tiled_shade (aux [0, 0] on both passes, > 1% of covered pixels
      shadowed, the same gate against the default-knob frame); the three
      128² knob frames against tests/goldens/torch_slice_knobs_<name>.npy
-     under the golden gate
+     under the golden gate; K1 and the compact-bank kernel (the region
+     and the sweep design) timed on the same bins, and the planar texel
+     kernel also with the L2 flushed before each launch
  11. the tools_dev probes (trident_tpu_torch/tools_dev) on phase 3's
      spheres1080_1m bins: each kbench config (zero, dflt, full, nobranch,
      dual, probe, probe_tiny; zero/dflt/full also through the compact-bank
@@ -75,9 +82,12 @@ Phases (any failure exits non-zero before the final line is printed):
      LUT gather at the three probe shapes bit-equal to its plain version
      and torch.gather; the split select at rw 27 and 32 (K1/K2/K3 forms)
      bit-equal to its plain version and exact against host_parts; each
-     probe kernel's times and bound; then the tools' own runs (kbench with
+     probe kernel's times and bound (the reset probes also with the L2
+     flushed before each launch); then the tools' own runs (kbench with
      and without ckern, its --bins and --sort legs, the gather and split
-     probes) as this phase's main path
+     probes) as this phase's main path, the card's clock sampled before
+     and after kbench, and kbench's dflt through K1 beside its dflt
+     through the compact-bank kernel
 Then it prints the kernels as one JSON line, the card line, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -85,7 +95,11 @@ bound_ms is the least time the card could take for a kernel's work: the
 larger of its bytes (each input read once, each output written once,
 counted from this run's data) over 3.35 TB/s and its f32 operations over
 67 TFLOP/s (H100 SXM data sheet; the card's power limit is printed
-beside). The helpers it shares with the probe tools live in
+beside). The visibility kernels' operations are those their inputs need,
+whatever the kernel's design: 22 per (triangle, pixel) inside each
+triangle's bbox, clipped to its tile (vis_work; the region design's and
+the full sweep's counts are printed beside).
+The helpers it shares with the probe tools live in
 trident_tpu_torch/tools_dev/timing.py and scenes.py.
 """
 
@@ -97,6 +111,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -112,6 +127,8 @@ from trident_tpu_torch.tools_dev.timing import (  # noqa: E402
     bound,
     cuda_ms,
     device_busy,
+    l2_flush,
+    smi_sample,
 )
 from trident_tpu_torch.tools_dev.timing import card as card_line  # noqa: E402
 
@@ -212,13 +229,29 @@ def golden_gate(frame: np.ndarray, ref: np.ndarray, what: str) -> None:
         fail(f"{what} frame outside the golden gate")
 
 
-def vis_work(bins, n_tiles: int, out_bytes_per_px: int):
-    """(bytes, ops) of a visibility kernel on `bins`: every hit 16-triangle
-    sub-block's 1 KB of records once, the pair lists, the outputs; 22 f32
-    ops per evaluated (triangle, pixel) pair."""
+class VisWork(NamedTuple):
+    bytes: int        # each hit sub-block's records once, pairs, outputs
+    ops: int          # 22 f32 ops per (triangle, pixel) in its tile's bbox
+    region_ops: int   # the same over the pixels of kept 16×8 regions
+    sweep_ops: int    # the same over every pixel of every hit sub-block
+    kept: object      # (n_tiles,) kept (triangle, region) pairs per tile
+    n_hit: int        # hit sub-blocks
+
+
+def vis_work(bins, setup, ntx: int, n_tiles: int,
+             out_bytes_per_px: int) -> VisWork:
+    """The work of a visibility kernel on `bins` (triangle setup `setup`):
+    every hit 16-triangle sub-block's 1 KB of records once, the pair lists,
+    the outputs; 22 f32 ops per (triangle, pixel) pair that the inputs
+    need, whatever the kernel's design — each triangle's pixels in its
+    bbox, clipped to the tile (kbench.bbox_pixel_pairs). Beside it, the
+    designs' own counts: region_ops over the 128 pixels of each (triangle,
+    16×8 region) pair that the region test keeps (raster.region_kept),
+    sweep_ops over every pixel of every hit sub-block."""
     import torch
 
     from trident_tpu_torch.ops import raster
+    from trident_tpu_torch.tools_dev.kbench import bbox_pixel_pairs
 
     n = int(bins.n_real)
     q = torch.arange(raster.NSUB, device=bins.pair_mask.device)
@@ -229,7 +262,44 @@ def vis_work(bins, n_tiles: int, out_bytes_per_px: int):
     bytes_moved = (n_unique * raster.SUB * raster.REC * 4 + n * 12
                    + (n_tiles + 1) * 4 + n_tiles * raster.TILE_PX
                    * out_bytes_per_px)
-    return bytes_moved, n_hit * raster.SUB * raster.TILE_PX * VIS_OPS_PER_PAIR
+    kept = raster.region_kept(bins, ntx, n_tiles)
+    region_px = raster.REGION_W * raster.REGION_H
+    return VisWork(bytes_moved,
+                   bbox_pixel_pairs(bins, setup, ntx) * VIS_OPS_PER_PAIR,
+                   int(kept.sum()) * region_px * VIS_OPS_PER_PAIR,
+                   n_hit * raster.SUB * raster.TILE_PX * VIS_OPS_PER_PAIR,
+                   kept, n_hit)
+
+
+def region_line(what: str, work: VisWork) -> None:
+    """The region test's kept share of (triangle, region) pairs and its
+    per-tile spread (max / mean over the tiles with any kept pair), and the
+    operation counts: the inputs' (the bound's), the region design's and
+    the sweep's."""
+    from trident_tpu_torch.ops import raster
+
+    tested = work.n_hit * raster.SUB * raster.N_REGIONS
+    kept = work.kept
+    n_kept = int(kept.sum())
+    busy = kept[kept > 0].double()
+    print(f"{what}: the region test keeps {n_kept} of {tested} (triangle, "
+          f"16x8 region) pairs ({n_kept / max(tested, 1):.4f}); per tile "
+          f"max {int(kept.max())} / mean {float(busy.mean()):.1f} over "
+          f"{busy.numel()} tiles with work; ops {work.ops} (bbox pixels), "
+          f"region_ops {work.region_ops}, sweep_ops {work.sweep_ops}",
+          flush=True)
+
+
+def cold_line(what: str, fn, b_ms: float, flush, card: str) -> None:
+    """fn timed with the L2 flushed before each launch (flush(), outside
+    the timed window), as a caller that ran other work first finds it, and
+    its bound's share of that busy time. A kernel whose warm inputs stay in
+    the 50 MB L2 across launches can otherwise beat its bytes bound."""
+    cold = device_busy(fn, flush=flush)[0]
+    print(f"{what} with the L2 flushed before each launch: "
+          f"{cuda_ms(fn, flush=flush):.4f} ms events / {cold:.4f} ms busy, "
+          f"bound {b_ms:.4f} ms ({b_ms / cold:.3f} of busy) ({card})",
+          flush=True)
 
 
 def phase_ai(dev, card: str, kernel_fns: dict, drive, results: dict) -> dict:
@@ -406,10 +476,11 @@ def tiled_gate(frame, ref, what: str) -> None:
 def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
     """Phase 10, the kernel-knob frame at spheres1080_1m: the four knob
     kernels against their plain versions and the default kernels they
-    stand in for, their times and bounds, 12 frames each of CKERN and
-    FUSE_TILED through the Renderer, one shadows1080 PCF frame with
-    tiled_shade and the 128² knob goldens; adds the knob kernels to
-    `kernel_fns` and `results` and returns the main-path launch counts."""
+    stand in for, their times and bounds, K1 against K1-CK on the same
+    bins, 12 frames each of CKERN and FUSE_TILED through the Renderer, one
+    shadows1080 PCF frame with tiled_shade and the 128² knob goldens; adds
+    the knob kernels to `kernel_fns` and `results` and returns the
+    main-path launch counts."""
     import torch
 
     from trident_tpu_torch.ops import deferred_tiled as dtl
@@ -517,27 +588,27 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
           flush=True)
 
     # bounds, from this frame's data: the live bank slots (1 KB each) once,
-    # nhit, tile_start and the outputs; 22 f32 ops per evaluated (triangle,
-    # pixel) pair, as vis_work counts
-    ops = n_live * raster.SUB * raster.TILE_PX * VIS_OPS_PER_PAIR
+    # nhit, tile_start and the outputs; the operations the inputs need, as
+    # vis_work counts them for K1 (the same function on the same bins)
+    vis = vis_work(bins, cs.setup, ntx, n_tiles, 8)
     n_px_t = n_tiles * raster.TILE_PX
     bytes_ck = (n_live * raster.SUB * raster.REC * 4
                 + bins.nhit.numel() * 4 + (n_tiles + 1) * 4 + n_px_t * 8)
     n_winners = int(torch.unique(t1[t1 >= 0]).numel())
     res_bytes = n_winners * records.shape[0] * 4 + n_px_t * 4 * (1 + 16)
-    vis_bytes, vis_ops = vis_work(bins, n_tiles, 8)
     n_quads = int(torch.unique(idx[idx >= 0]).numel())
     work = {
         "visibility_ck": (
-            bound(bytes_ck, ops), "trident_tpu_torch/csrc/visibility_ck.cu",
+            bound(bytes_ck, vis.ops),
+            "trident_tpu_torch/csrc/visibility_ck.cu",
             "trident_tpu/ops/raster_pallas.py:1239",
             float((dc - d1).abs().max()),
             lambda: raster.visibility_ck_tiles(bins, ntx, n_tiles, bank),
             lambda: raster.visibility_ck_tiles_plain(bins, ntx, n_tiles,
                                                      bank)),
         "visibility_resolve": (
-            bound(vis_bytes + n_px_t * 64 + n_winners * records.shape[0] * 4,
-                  vis_ops),
+            bound(vis.bytes + n_px_t * 64 + n_winners * records.shape[0] * 4,
+                  vis.ops),
             "trident_tpu_torch/csrc/visibility_resolve.cu",
             "trident_tpu/ops/resolve_pallas.py:281", err["fused vs K2"],
             lambda: resolve.fused_visibility_resolve(bins, records, ntx,
@@ -566,11 +637,25 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
         print(f"{name}: kernel {res['ms']:.4f} ms (device busy "
               f"{device_busy(fn)[0]:.4f} ms), plain {res['plain_ms']:.4f} ms,"
               f" bound {b_ms:.4f} ms ({b_by}) ({card})", flush=True)
-    k1_ms = cuda_ms(lambda: raster.visibility_tiles(bins, ntx, n_tiles))
-    split_ms = cuda_ms(lambda: resolve.resolve_attrs_tiled(
-        raster.visibility_tiles(bins, ntx, n_tiles)[1], records, ntx))
+    cold_line("texel_planar", work["texel_planar"][4],
+              results["texel_planar"]["bound_ms"], l2_flush(dev), card)
+
+    def k1():
+        return raster.visibility_tiles(bins, ntx, n_tiles)
+
+    def k1_ck():
+        return raster.visibility_ck_tiles(bins, ntx, n_tiles, bank)
+
+    k1_ms, k1_busy = cuda_ms(k1), device_busy(k1)[0]
+    ck_busy = device_busy(k1_ck)[0]
+    split_ms = cuda_ms(lambda: resolve.resolve_attrs_tiled(k1()[1], records,
+                                                           ntx))
     print(f"the default kernels on the same bins: K1 {k1_ms:.4f} ms, K1 + "
           f"tiled K2 {split_ms:.4f} ms ({card})", flush=True)
+    print(f"K1 (region design) against K1-CK (sweep design) on the same "
+          f"bins, ms events / busy: K1 {k1_ms:.4f} / {k1_busy:.4f}, K1-CK "
+          f"{results['visibility_ck']['ms']:.4f} / {ck_busy:.4f} (busy ratio "
+          f"{ck_busy / k1_busy:.2f}) ({card})", flush=True)
 
     # the tiled shading stage beside deferred_shade_attrs, on this frame;
     # the knob Renderers render `reg`'s scene
@@ -600,7 +685,7 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
             cs.setup, cs.cols.setup, records, width=w, height=h,
             clear_color=inp["clear_color"], knobs=r_ft.knobs, **shade_kw),
     }, card)
-    del cs, records, bins, d1, t1, dc, tc, dcp, tcp, tri, a2, df, tf
+    del cs, records, bins, d1, t1, dc, tc, dcp, tcp, tri, a2, df, tf, vis
     del af, dfp, tfp, afp, at, atp, idx, fx, fy, xp, xpp, x3, gbuf, work
     torch.cuda.empty_cache()
 
@@ -723,7 +808,8 @@ def phase_probes(dev, card: str, kernel_fns: dict, drive, results: dict,
     split select at rw 27 and 32 against its plain version and host_parts;
     their times and bounds; then the tools' own runs (kbench's configs with
     and without ckern, its --bins and --sort legs, the gather and split
-    probes) as the main path. Adds the probe kernels to `kernel_fns` and
+    probes) as the main path, with kbench's dflt through K1 against its
+    dflt through K1-CK. Adds the probe kernels to `kernel_fns` and
     `results` and returns the main path's launch counts."""
     import torch
 
@@ -792,15 +878,17 @@ def phase_probes(dev, card: str, kernel_fns: dict, drive, results: dict,
     table2 = kb.dual_table(bins)
     probe_tab, probe_blk = kb.probe_table(bins, False)
     tiny_tab, tiny_blk = kb.probe_table(bins, True)
-    vb, vo = vis_work(bins, n_tiles, 8)
+    vis = vis_work(bins, cs.setup, ntx, n_tiles, 8)
+    vis_full = vis_work(full, cs.setup, ntx, n_tiles, 8)
     work = {
         "visibility_dense": (
-            bound(*vis_work(full, n_tiles, 8)), "tools_dev/kbench.py:117",
+            bound(vis_full.bytes, vis_full.ops), "tools_dev/kbench.py:117",
             lambda: kb.visibility_dense(bins, ntx, n_tiles),
             lambda: raster.visibility_tiles_plain(bins, ntx, n_tiles,
                                                   dense=True), 3),
         "visibility_dual": (
-            bound(vb + n_chunks_hit * RR_WIDTH * raster.CHUNK * 4, vo),
+            bound(vis.bytes + n_chunks_hit * RR_WIDTH * raster.CHUNK * 4,
+                  vis.ops),
             "tools_dev/kbench.py:180",
             lambda: kb.visibility_dual(bins, table2, ntx, n_tiles),
             lambda: kb.visibility_dual_plain(bins, table2, ntx, n_tiles), 3),
@@ -823,6 +911,9 @@ def phase_probes(dev, card: str, kernel_fns: dict, drive, results: dict,
     def tiny():
         return kb.visibility_reset(bins, tiny_tab, tiny_blk, n_tiles)
 
+    def probe():
+        return kb.visibility_reset(bins, probe_tab, probe_blk, n_tiles)
+
     t_ms, t_by = bound(walk_bytes + n_chunks_hit * tiny_blk * 4)
     print(f"visibility_reset (probe_tiny, 4 KB blocks): kernel "
           f"{cuda_ms(tiny):.4f} ms (device busy {device_busy(tiny)[0]:.4f} "
@@ -831,7 +922,11 @@ def phase_probes(dev, card: str, kernel_fns: dict, drive, results: dict,
           f"{n_real * tiny_blk * 4 / 1e6:.1f} MB, dual strips "
           f"{n_real * RR_WIDTH * raster.CHUNK * 4 / 1e6:.1f} MB ({card})",
           flush=True)
-    del d1, t1, dfull, tfull, bg, expect, full, table2, tiny_tab
+    flush = l2_flush(dev)
+    cold_line("visibility_reset (probe)", probe,
+              results["visibility_reset"]["bound_ms"], flush, card)
+    cold_line("visibility_reset (probe_tiny)", tiny, t_ms, flush, card)
+    del d1, t1, dfull, tfull, bg, expect, full, table2, tiny_tab, flush
     torch.cuda.empty_cache()
 
     # (b) the gather at the three probe shapes
@@ -928,12 +1023,19 @@ def phase_probes(dev, card: str, kernel_fns: dict, drive, results: dict,
 
     # (d) the tools' own runs: the main path of this phase
     def probes():
+        print(f"card before kbench: {smi_sample()}", flush=True)
         kb.report_bins(bins)
-        kb.run(bins, ntx, n_tiles, kb.CONFIGS, card_line=card)
+        k1 = kb.run(bins, ntx, n_tiles, kb.CONFIGS, card_line=card)
         print("kbench --kernel ckern:", flush=True)
         kb.report_bins(ckb)
-        kb.run(ckb, ntx, n_tiles, kb.CONFIGS, ck_bank=kb.CK_BANK,
-               card_line=card)
+        ck = kb.run(ckb, ntx, n_tiles, kb.CONFIGS, ck_bank=kb.CK_BANK,
+                    card_line=card)
+        print(f"card after kbench: {smi_sample()}", flush=True)
+        (k1_ms, k1_busy), (ck_ms, ck_busy) = k1["dflt"], ck["dflt"]
+        print(f"kbench dflt, K1 (region design) against K1-CK (sweep "
+              f"design), ms events / busy: K1 {k1_ms:.4f} / {k1_busy:.4f}, "
+              f"K1-CK {ck_ms:.4f} / {ck_busy:.4f} (busy ratio "
+              f"{ck_busy / k1_busy:.2f}) ({card})", flush=True)
         kb.bins_leg(cs, w, h, card_line=card)
         kb.sort_leg(dev, card_line=card)
         gp.run(dev, card_line=card)
@@ -1034,6 +1136,9 @@ def main() -> None:
     bad_depth = int((d_k.view(torch.int32) != d_p.view(torch.int32)).sum())
     if bad_id or bad_depth:
         fail(f"visibility kernel disagrees: {bad_id} ids, {bad_depth} depths")
+    vis = vis_work(bins, cs.setup, ntx, n_tiles, 8)
+    region_line("visibility at spheres1080_1m", vis)
+    print(f"card before phase 3's timing: {smi_sample()}", flush=True)
     results["visibility"] = dict(
         route="cuda", source="trident_tpu_torch/csrc/visibility.cu",
         replaces="trident_tpu/ops/raster_pallas.py:943",
@@ -1043,7 +1148,7 @@ def main() -> None:
             lambda: raster.visibility_tiles_plain(bins, ntx, n_tiles)),
         library_ms=None)
     results["visibility"].update(zip(("bound_ms", "bound_by"), bound(
-        *vis_work(bins, n_tiles, 8))))
+        vis.bytes, vis.ops)))
     covered = int((t_k >= 0).sum())
     print(f"visibility: {covered} covered pixels", flush=True)
 
@@ -1091,6 +1196,7 @@ def main() -> None:
               f"{device_busy(busy[name])[0]:.4f} ms), plain "
               f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
               f"({res['bound_by']}) ({card})", flush=True)
+    print(f"card after phase 3's timing: {smi_sample()}", flush=True)
 
     # where the frame's device time goes: each stage of render_frame alone,
     # on this frame's intermediates
@@ -1157,7 +1263,7 @@ def main() -> None:
           f"pixels, launches {launches4} ({card})", flush=True)
     bench = (cs, records, bins)              # phase 11 reuses them
     del r, reg, inp, cs, records, bins, d_k, t_k, d_p, t_p, tri, a_k, a_p
-    del gbuf, idx, fx, fy, x_k, x_p, stages
+    del gbuf, idx, fx, fy, x_k, x_p, stages, vis
     torch.cuda.empty_cache()
 
     # -- phase 5: the cube against the JAX package's frame --------------------
@@ -1211,9 +1317,11 @@ def main() -> None:
         colour_ms=cuda_ms(lambda: raster.visibility_tiles(lbins, lntx,
                                                           ln_tiles)),
         library_ms=None)
+    lvis = vis_work(lbins, lcs.setup, lntx, ln_tiles, 4)
+    region_line(f"light pass at {s}x{s}", lvis)
     results["visibility_depth"].update(zip(("bound_ms", "bound_by"), bound(
-        *vis_work(lbins, ln_tiles, 4))))
-    del dd_p, dc_k, _tc
+        lvis.bytes, lvis.ops)))
+    del dd_p, dc_k, _tc, lvis
 
     shadow, _saux = shadow_params(inp["plan"], inp["params"],
                                   inp["tri_draw"], inp["corner_t"], lcam, s,
@@ -1263,6 +1371,8 @@ def main() -> None:
         ti = tap_indices(shadow, world, pcf)
         busy[key] = (lambda ti=ti: shadow_taps.shadow_tap_bits(shadow.depth,
                                                                *ti))
+    cold_line("shadow_taps (hard)", busy["shadow_taps"],
+              results["shadow_taps"]["bound_ms"], l2_flush(dev), card)
     for name in ("visibility_depth", "shadow_taps", "shadow_taps_pcf"):
         res = results[name]
         print(f"{name}: kernel {res['ms']:.4f} ms (device busy "

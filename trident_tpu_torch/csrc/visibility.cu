@@ -8,23 +8,29 @@
 // depth_only light pass (trident_visibility_depth; raster_pallas.py:1075,
 // 1149, 1212), which keeps only the min depth and writes no id plane.
 //
-// Bound on the card: arithmetic on the covered (triangle, pixel) pairs plus
-// one 1 KB record block per hit 16-triangle sub-block; the per-tile pair
-// lists are short, so the load is the per-tile work imbalance, not bytes.
+// Bound on the card: f32 arithmetic on the (triangle, pixel) pairs that
+// can cover (22 ops each), plus one 1 KB record block per hit 16-triangle
+// sub-block. Built with -fmad=false, every product and sum is its own
+// instruction, so the merge reaches at most half the card's f32 FMA rate.
 //
-// Design: one CTA per 32x32 tile walks that tile's contiguous range of
-// sorted (tile, chunk) pairs (tile_start from the binner). Each of the 256
-// threads owns 4 pixels and keeps their (depth, id) in registers. For each
-// hit sub-block of a pair the CTA stages the 16 record rows (16 floats
-// each, one float per thread) in shared memory, syncs, and every thread
-// evaluates the 16 triangles in the reference kernel's expression order
-// (visibility_common.cuh, shared with the compact-bank and fused kernels).
-// No atomics: the merge is a lexicographic compare in registers, so the
-// result is deterministic and independent of pair order. The depth-only
-// instance (kDepthOnly) keeps a plain min: the same depths in the same
-// order, so its depth is bit-equal to the colour pass's on the same bins.
-// Built with -fmad=false so each product and sum rounds like PyTorch's
-// eager elementwise ops (the plain version in ops/raster.py).
+// Design (the region design of visibility_common.cuh): one CTA of 256
+// threads per 32x32 tile walks that tile's contiguous range of sorted
+// (tile, chunk) pairs (tile_start from the binner). Warp w owns the 16x8
+// region at columns 16*(w%2), rows 8*(w/2) of the tile; each lane keeps its
+// 4 pixels' (depth, id) in registers. Per pair the CTA stages all its hit
+// sub-blocks at once (up to 256 record rows, one row per thread, 16-byte
+// loads) with each row's triangle id and an 8-bit mask of the regions its
+// three edge functions do not exclude (vis_region_bits: the edges' maxima
+// over a region, exact in the kernel's own rounding), syncs, and each warp
+// merges only its kept rows, a warp-uniform loop over a __ballot_sync
+// mask; a second sync guards the staging buffer: two syncs per pair. No
+// atomics: the merge is a lexicographic
+// (min depth, max id) compare in registers, deterministic and independent
+// of pair order, in the reference kernel's expression order
+// (vis_triangle), so ids and depths are the sweep's bit for bit. The
+// depth-only instance (kDepthOnly) keeps a plain min: the same depths, so
+// its depth is bit-equal to the colour pass's on the same bins. Outputs
+// go to tile index row*32 + col, two 64-byte runs per warp store.
 
 #include "visibility_common.cuh"
 
@@ -39,17 +45,18 @@ visibility_kernel(const float* __restrict__ records,
                   const int* __restrict__ pair_mask,
                   const int* __restrict__ tile_start, int ntx,
                   float* __restrict__ depth_out, int* __restrict__ tri_out) {
-  __shared__ float rows[kSub * kRec];
+  __shared__ VisRegionStage stage;
   const int tile = blockIdx.x;
   float px[kPxPerThread], py[kPxPerThread], best_d[kPxPerThread];
   int best_t[kPxPerThread];
-  vis_begin(tile, ntx, px, py, best_d, best_t);
-  vis_walk<kDepthOnly>(records, pair_chunk, pair_mask, tile_start[tile],
-                       tile_start[tile + 1], rows, px, py, best_d, best_t);
+  vis_region_begin(tile, ntx, px, py, best_d, best_t);
+  vis_region_walk<kDepthOnly>(records, pair_chunk, pair_mask,
+                              tile_start[tile], tile_start[tile + 1], tile,
+                              ntx, stage, px, py, best_d, best_t);
 #pragma unroll
   for (int k = 0; k < kPxPerThread; ++k) {
     const size_t o =
-        static_cast<size_t>(tile) * kTilePx + threadIdx.x + k * kVisThreads;
+        static_cast<size_t>(tile) * kTilePx + vis_region_pixel(k);
     depth_out[o] = best_d[k];
     if (!kDepthOnly) tri_out[o] = best_t[k];
   }

@@ -16,7 +16,10 @@ conservative binning gives the same image; this one is chosen for the card:
      sub-block. Shapes are static: no host sync on the frame path.
   3. The kernel (csrc/visibility.cu) runs one CTA per tile over that
      tile's contiguous pair range (tile_start, from a searchsorted). Its
-     depth-only instance renders the shadow map's light pass.
+     depth-only instance renders the shadow map's light pass. Each of its
+     8 warps owns one 16×8 region of the tile and merges only the staged
+     triangles that region_keep (the kernel's exact corner test, in plain
+     PyTorch here) keeps for that region; the result is the same.
 
 Capacity: sub-blocks whose claim runs past the pool end lose those tiles
 and their chunks are counted in aux[1]; pairs past `pair_budget` are
@@ -56,6 +59,8 @@ _BG_KEY = (0x3F800000 << 32) | 0x80000000   # (depth 1.0, id −1)
 _NO_KEY = (1 << 63) - 1
 CK_PAIR_BUDGET = 20480     # compact-bank pairs (ckern): 335 MB at ck_bank 8
 CK_MAX_TRIANGLES = 1 << 24  # bank ids ride an f32 column, exact below 2^24
+REGION_W, REGION_H = 16, 8  # one warp's pixel region of a tile
+N_REGIONS = TILE_PX // (REGION_W * REGION_H)   # 8 warps per tile
 
 
 class Bins(NamedTuple):
@@ -240,14 +245,11 @@ def tile_centres(tiles: Tensor, ntx: int):
     return pxf, pyf
 
 
-def _tile_keys(rc: Tensor, tid: Tensor, et: Tensor, ntx: int,
-               depth_only: bool) -> Tensor:
-    """The visibility kernels' merge of record rows rc (B, 16, 16) with
-    triangle ids tid (B, 16) against every pixel of tiles et (B,), as one
-    int64 key per (candidate, pixel) — depth bits (non-negative, so they
-    order like the values) over 0x7FFFFFFF − id — reduced over the 16
-    rows with amin: (B, 1024). The same per-op rounding as the kernels;
-    depth_only drops the id half of the key."""
+def _tile_cover(rc: Tensor, et: Tensor, ntx: int):
+    """(cover, depth), each (B, 16, 1024), of record rows rc (B, 16, 16)
+    at every pixel centre of tiles et (B,): the visibility kernels' cover
+    test and depth, with their per-op rounding (depth is meaningful where
+    cover holds)."""
     px, py = (c[:, None, :] for c in tile_centres(et, ntx))
 
     def col(k):
@@ -260,11 +262,27 @@ def _tile_keys(rc: Tensor, tid: Tensor, et: Tensor, ntx: int,
     wi = (e0 * col(12) + e1 * col(13)) + e2 * col(14)
     cover = ((e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (zi >= 0.0)
              & (zi <= wi) & (wi > 1e-12))
-    d = zi * (1.0 / wi) + 0.0                                 # −0 → +0
+    return cover, zi * (1.0 / wi) + 0.0                       # −0 → +0
+
+
+def _cover_keys(cover: Tensor, d: Tensor, tid: Tensor,
+                depth_only: bool) -> Tensor:
+    """One int64 merge key per (candidate, pixel) — depth bits (non-
+    negative, so they order like the values) over 0x7FFFFFFF − id, or the
+    depth bits alone — and _NO_KEY where the candidate does not cover."""
     key = d.view(torch.int32).long() << 32
     if not depth_only:
         key = key | (0x7FFFFFFF - tid.long())[:, :, None]
-    return torch.where(cover, key, _NO_KEY).amin(dim=1)
+    return torch.where(cover, key, _NO_KEY)
+
+
+def _tile_keys(rc: Tensor, tid: Tensor, et: Tensor, ntx: int,
+               depth_only: bool) -> Tensor:
+    """The visibility kernels' merge of record rows rc (B, 16, 16) with
+    triangle ids tid (B, 16) against every pixel of tiles et (B,): the
+    _cover_keys of _tile_cover reduced over the 16 rows with amin:
+    (B, 1024)."""
+    return _cover_keys(*_tile_cover(rc, et, ntx), tid, depth_only).amin(dim=1)
 
 
 def _keys_to_frame(keys: Tensor, depth_only: bool):
@@ -279,6 +297,22 @@ def _background_keys(n_tiles: int, depth_only: bool, device) -> Tensor:
     return torch.full((n_tiles, TILE_PX), bg, dtype=torch.int64, device=device)
 
 
+def hit_sub_blocks(bins: Bins, dense: bool = False):
+    """(tile, first record row) (E,) i64 each of every hit sub-block of
+    every kept pair, in pair order then ascending q; dense takes all 16
+    sub-blocks of every kept pair, whatever its mask."""
+    dev = bins.records.device
+    q = torch.arange(NSUB, device=dev, dtype=torch.int32)
+    if dense:
+        kept = torch.arange(bins.pair_mask.shape[0], device=dev) < bins.n_real
+        hit = kept[:, None].expand(-1, NSUB)
+    else:
+        hit = ((bins.pair_mask[:, None] >> q) & 1) != 0
+    p_idx, q_idx = torch.nonzero(hit, as_tuple=True)
+    return (bins.pair_tile[p_idx].long(),
+            bins.pair_chunk[p_idx].long() * CHUNK + q_idx * SUB)
+
+
 def visibility_tiles_plain(bins: Bins, ntx: int, n_tiles: int,
                            batch: int = 2048, depth_only: bool = False,
                            dense: bool = False):
@@ -289,15 +323,7 @@ def visibility_tiles_plain(bins: Bins, ntx: int, n_tiles: int,
     returns the depth alone. dense (the kbench "nobranch" probe) evaluates
     all 16 sub-blocks of every kept pair, whatever its mask."""
     dev = bins.records.device
-    q = torch.arange(NSUB, device=dev, dtype=torch.int32)
-    if dense:
-        kept = torch.arange(bins.pair_mask.shape[0], device=dev) < bins.n_real
-        hit = kept[:, None].expand(-1, NSUB)
-    else:
-        hit = ((bins.pair_mask[:, None] >> q) & 1) != 0
-    p_idx, q_idx = torch.nonzero(hit, as_tuple=True)
-    e_tile = bins.pair_tile[p_idx].long()
-    e_base = bins.pair_chunk[p_idx].long() * CHUNK + q_idx * SUB
+    e_tile, e_base = hit_sub_blocks(bins, dense)
     sub = torch.arange(SUB, device=dev)
     keys = _background_keys(n_tiles, depth_only, dev)
     for b in range(0, e_tile.shape[0], batch):
@@ -306,6 +332,51 @@ def visibility_tiles_plain(bins: Bins, ntx: int, n_tiles: int,
         key = _tile_keys(bins.records[tid], tid, et, ntx, depth_only)
         keys.scatter_reduce_(0, et[:, None].expand_as(key), key, "amin")
     return _keys_to_frame(keys, depth_only)
+
+
+def region_edge_max(rows: Tensor, tiles: Tensor, ntx: int) -> Tensor:
+    """(B, 16, 3, N_REGIONS) f32: each edge function of record rows rows
+    (B, 16, ≥ 9) at the corner of each warp region of tiles (B,) that
+    maximises it — px* = x_hi if a ≥ 0 else x_lo, py* = y_hi if b ≥ 0
+    else y_lo — written as the kernel writes it, (a·px + b·py) + c, one
+    rounding per op (vis_region_bits in csrc/visibility_common.cuh).
+    Rounding is monotone, so this is exactly the edge's maximum over the
+    region's pixel centres (NaN where the edge is NaN)."""
+    w = torch.arange(N_REGIONS, device=tiles.device)
+    col0 = (tiles[:, None] % ntx * TILE + REGION_W * (w % 2))[:, None, :]
+    row0 = (tiles[:, None] // ntx * TILE + REGION_H * (w // 2))[:, None, :]
+    out = []
+    for e in range(3):
+        a, b, c = (rows[:, :, 3 * e + i, None] for i in range(3))
+        px = (col0 + torch.where(a >= 0.0, REGION_W - 1, 0)).float() + 0.5
+        py = (row0 + torch.where(b >= 0.0, REGION_H - 1, 0)).float() + 0.5
+        out.append(a * px + b * py + c)                       # (B,16,8)
+    return torch.stack(out, dim=2)
+
+
+def region_keep(rows: Tensor, tiles: Tensor, ntx: int) -> Tensor:
+    """(B, 16, N_REGIONS) bool: whether the visibility kernel's warp for
+    each region of tiles (B,) evaluates each record row of rows (B, 16,
+    ≥ 9) — unless one edge's region_edge_max is < 0, when no pixel centre
+    of the region passes that edge. NaN edges are kept; invalid rows
+    (e ≡ −1) never are. The plain twin of the kernel's test."""
+    return ~(region_edge_max(rows, tiles, ntx) < 0.0).any(dim=2)
+
+
+def region_kept(bins: Bins, ntx: int, n_tiles: int,
+                batch: int = 4096) -> Tensor:
+    """(n_tiles,) i64: per tile, the (triangle, region) pairs of its hit
+    sub-blocks that region_keep keeps — the visibility kernel's work, 128
+    (triangle, pixel) evaluations each."""
+    dev = bins.records.device
+    e_tile, e_base = hit_sub_blocks(bins)
+    sub = torch.arange(SUB, device=dev)
+    kept = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
+    for b in range(0, e_tile.shape[0], batch):
+        et = e_tile[b:b + batch]
+        rows = bins.records[e_base[b:b + batch, None] + sub]
+        kept.index_add_(0, et, region_keep(rows, et, ntx).sum((1, 2)))
+    return kept
 
 
 def visibility_ck_tiles_plain(bins: Bins, ntx: int, n_tiles: int,
@@ -344,7 +415,8 @@ def check_bins(bins: Bins, n_tiles: int) -> None:
     _require(rec.device.type == "cuda", f"unsupported device {rec.device}")
     _require(rec.dtype == torch.float32 and rec.dim() == 2
              and rec.shape[1] == REC and rec.shape[0] % CHUNK == 0
-             and rec.is_contiguous(), "records must be contiguous (Tpad,16) f32")
+             and rec.is_contiguous() and rec.data_ptr() % 16 == 0,
+             "records must be contiguous, 16-byte aligned (Tpad,16) f32")
     for name in ("pair_chunk", "pair_mask", "tile_start"):
         a = getattr(bins, name)
         _require(a.dtype == torch.int32 and a.is_contiguous()

@@ -12,27 +12,34 @@ spheres1080_1m's real bins (bench.py's 36×36 sphere grid at 1920×1080, at
 the rotation chip_smoke.py's phase 3 renders) under doctored masks, and
 the probe kernels of csrc/visibility_probe.cu:
 
-  zero        every mask bit cleared: the per-pair walk alone
+  zero        every mask bit cleared: the per-pair walk alone (K1 stages
+              nothing and syncs twice per pair)
   dflt        the real masks
-  full        all 16 bits set on the real pairs: the walk and 16 sub-block
-              sweeps per pair (the frame also gains the rounding hits
+  full        all 16 bits set on the real pairs: the walk and 16 staged
+              sub-blocks per pair (the frame also gains the rounding hits
               that the binner's bbox cull drops, bbox_culled_hits)
   nobranch    every sub-block evaluated straight-line, no mask walk
-              (trident_visibility_dense); full − nobranch is the walk's cost
+              (trident_visibility_dense). It runs the sweep design of
+              visibility_common.cuh, every triangle at every pixel, where
+              K1 runs the region design, each warp only the triangles its
+              16×8 region can hold: full − nobranch is what the region
+              test saves on the same work, and the frames are equal
   dual        dflt plus a co-streamed resolve-shaped second table, the
               port's (32, Tpad) f32 resolve-record layout, all zeros
-              (trident_visibility_dual): the cost of a second operand
+              (trident_visibility_dual, the sweep design): the cost of a
+              second operand
   probe       the walk plus each pair's 16 KB record block fetched but not
               evaluated (trident_visibility_reset)
   probe_tiny  the same with a 4 KB block of an (nblk·8, 128) dummy table
 
-so (full − zero)/16 is the per-sub-block sweep, probe − probe_tiny the
+so (full − zero)/16 is the per-sub-block cost, probe − probe_tiny the
 record fetch and zero − probe_tiny the walk without the record traffic.
 Each config prints its CUDA-event median and device-busy ms and the card.
 --kernel ckern runs zero/dflt/full through the compact-bank kernel
-(csrc/visibility_ck.cu) on bins built with ck_bank 8, the bank table
-rebuilt from the doctored masks, and skips nobranch and dual, as the JAX
-script does under CKERN. --bins splits build_bins' time
+(csrc/visibility_ck.cu, the sweep design, so its dflt beside K1's
+compares the two designs on the same bins) on bins built with ck_bank 8,
+the bank table rebuilt from the doctored masks, and skips nobranch and
+dual, as the JAX script does under CKERN. --bins splits build_bins' time
 (records, emission + sort, one pool-sized sort) and --sort runs a ladder of
 torch.sort sizes; both are plain PyTorch, no kernel.
 
@@ -54,7 +61,7 @@ import torch
 from trident_tpu_torch import _build, resolve_device
 from trident_tpu_torch.ops import raster
 from trident_tpu_torch.ops.planes import RR_WIDTH
-from trident_tpu_torch.tools_dev.timing import card, timed
+from trident_tpu_torch.tools_dev.timing import card, fmt_ms, timed, timed_ms
 
 Tensor = torch.Tensor
 
@@ -140,6 +147,44 @@ def bbox_culled_hits(setup, depth: Tensor, tri: Tensor, ref_depth: Tensor,
     beats = (d < rd) | ((d == rd) & (win > ref))
     explained = (win >= 0) & ~inside & beats
     return int(tiles.numel()), int((~explained).sum())
+
+
+def bbox_pixel_pairs(bins: raster.Bins, setup, ntx: int) -> int:
+    """The (triangle, pixel) pairs of the hit sub-blocks whose pixel centre
+    lies in the triangle's bbox, clipped to the pair's tile: a lower
+    estimate of the pairs any exact visibility kernel evaluates on these
+    bins, whatever its thread map or reject test. The bbox is that of the
+    vertices (each the cross product of two edge rows, in f64), within the
+    binner's setup.bbox; a triangle with a vertex at w ≤ 1e-6, or whose
+    vertices do not come out finite, keeps setup.bbox."""
+    e = setup.edge.double()
+    v = torch.stack([torch.linalg.cross(e[:, j], e[:, k])
+                     for j, k in ((1, 2), (2, 0), (0, 1))], dim=1)
+    x, y = v[..., 0] / v[..., 2], v[..., 1] / v[..., 2]        # (T, 3)
+    exact = (torch.isfinite(x).all(1) & torch.isfinite(y).all(1)
+             & ~(setup.w <= 1e-6).any(1))
+    bb = setup.bbox.long()
+
+    def clip(lo, hi, c0, c1):
+        lo = torch.where(exact, torch.ceil(lo.nan_to_num(0.0) - 0.5).clamp(
+            -1 << 20, 1 << 20).long(), bb[:, c0])
+        hi = torch.where(exact, torch.floor(hi.nan_to_num(0.0) - 0.5).clamp(
+            -1 << 20, 1 << 20).long() + 1, bb[:, c1])
+        return torch.maximum(lo, bb[:, c0]), torch.minimum(hi, bb[:, c1])
+
+    x0, x1 = clip(x.amin(1), x.amax(1), 0, 2)
+    y0, y1 = clip(y.amin(1), y.amax(1), 1, 3)
+    e_tile, e_base = raster.hit_sub_blocks(bins)
+    tid = e_base[:, None] + torch.arange(raster.SUB, device=e_base.device)
+    real = tid < setup.valid.shape[0]
+    t = tid.clamp(max=setup.valid.shape[0] - 1)
+    tx = (e_tile % ntx * raster.TILE)[:, None]
+    ty = (e_tile // ntx * raster.TILE)[:, None]
+    w = (torch.minimum(x1[t], tx + raster.TILE)
+         - torch.maximum(x0[t], tx)).clamp(min=0)
+    h = (torch.minimum(y1[t], ty + raster.TILE)
+         - torch.maximum(y0[t], ty)).clamp(min=0)
+    return int(torch.where(real & setup.valid[t], w * h, 0).sum())
 
 
 def _tile_outputs(n_tiles: int, dev):
@@ -320,10 +365,13 @@ def config_fn(bins: raster.Bins, kind: str, ntx: int, n_tiles: int,
 
 
 def run(bins: raster.Bins, ntx: int, n_tiles: int, configs, iters: int = 30,
-        ck_bank: int = 0, card_line: str = "cpu") -> None:
+        ck_bank: int = 0, card_line: str = "cpu") -> dict:
     """One line per config: its kernel's time (CUDA-event median of
-    `iters` / device busy; on the CPU one untimed call) and the card."""
+    `iters` / device busy; on the CPU one untimed call) and the card.
+    Returns {config: (events ms, busy ms)}, or {config: None} on the
+    CPU."""
     dev = bins.records.device
+    times = {}
     for kind in configs:
         if kind in ("none", ""):
             continue
@@ -332,8 +380,9 @@ def run(bins: raster.Bins, ntx: int, n_tiles: int, configs, iters: int = 30,
         if ck_bank and kind in ("nobranch", "dual"):
             continue                          # masked-kernel probes only
         fn = config_fn(bins, kind, ntx, n_tiles, ck_bank)
-        print(f"kind={kind}: {timed(fn, dev, iters)} "
-              f"({card_line})", flush=True)
+        times[kind] = timed_ms(fn, dev, iters)
+        print(f"kind={kind}: {fmt_ms(times[kind])} ({card_line})", flush=True)
+    return times
 
 
 def bins_leg(cs, w: int, h: int, iters: int = 30,
