@@ -69,9 +69,11 @@ Phases (any failure exits non-zero before the final line is printed):
      tiled_shade (aux [0, 0] on both passes, > 1% of covered pixels
      shadowed, the same gate against the default-knob frame); the three
      128² knob frames against tests/goldens/torch_slice_knobs_<name>.npy
-     under the golden gate; K1 and the compact-bank kernel (the region
-     and the sweep design) timed on the same bins, and the planar texel
-     kernel also with the L2 flushed before each launch
+     under the golden gate; the compact-bank kernel also at ck_bank 3
+     and 16 and with pad pairs (nhit 0) inside tile ranges against its
+     plain version; K1, K1-CK, K-FUSE and K1 + tiled K2 timed in one
+     window on the same bins, the card's clock sampled around it; the
+     planar texel kernel also with the L2 flushed before each launch
  11. the tools_dev probes (trident_tpu_torch/tools_dev) on phase 3's
      spheres1080_1m bins: each kbench config (zero, dflt, full, nobranch,
      dual, probe, probe_tiny; zero/dflt/full also through the compact-bank
@@ -541,6 +543,29 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
              f"{bad[2:]} vs its plain version")
     print("visibility_ck: ids and depths bit-equal to K1 and to its plain "
           f"version over {n_tiles * raster.TILE_PX} tile pixels", flush=True)
+    # the kernel's schedule does not depend on ck_bank; pad pairs (nhit 0)
+    # inside tile ranges issue no copy and no wait
+    n_real = int(bins.n_real)
+    p_idx = torch.arange(bins.nhit.shape[0], device=dev)
+    padded = bins._replace(nhit=torch.where(
+        (p_idx % 7 == 3) & (p_idx < n_real), 0, bins.nhit))
+    cases = {f"ck_bank {b}": (raster.build_bins(
+        cs.setup, w, h, setup_cols=cs.cols.setup, ck_bank=b), b, True)
+        for b in (3, 16)}
+    cases["pad pairs"] = (padded, bank, False)
+    for what, (b, b_bank, like_k1) in cases.items():
+        dk, tk = raster.visibility_ck_tiles(b, ntx, n_tiles, b_bank)
+        dp, tp = raster.visibility_ck_tiles_plain(b, ntx, n_tiles, b_bank)
+        torch.cuda.synchronize()
+        bad = [int((tk != tp).sum()), same_bits(dk, dp)] + (
+            [int((tk != t1).sum()), same_bits(dk, d1)] if like_k1 else [])
+        if any(bad):
+            fail(f"compact-bank kernel ({what}) disagrees: ids/depths "
+                 f"{bad[:2]} vs its plain version, {bad[2:]} vs K1")
+    del cases, padded, p_idx, dk, tk, dp, tp
+    print("visibility_ck at ck_bank 3 and 16 bit-equal to K1 and to its "
+          "plain version, and with every 7th pair a pad pair (nhit 0) "
+          "bit-equal to its plain version", flush=True)
 
     tri = raster.untile_frame(t1, ntx, nty)[:h, :w].contiguous()
     a2 = resolve.resolve_attrs(tri, records)
@@ -640,22 +665,28 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
     cold_line("texel_planar", work["texel_planar"][4],
               results["texel_planar"]["bound_ms"], l2_flush(dev), card)
 
-    def k1():
-        return raster.visibility_tiles(bins, ntx, n_tiles)
-
-    def k1_ck():
-        return raster.visibility_ck_tiles(bins, ntx, n_tiles, bank)
-
-    k1_ms, k1_busy = cuda_ms(k1), device_busy(k1)[0]
-    ck_busy = device_busy(k1_ck)[0]
-    split_ms = cuda_ms(lambda: resolve.resolve_attrs_tiled(k1()[1], records,
-                                                           ntx))
-    print(f"the default kernels on the same bins: K1 {k1_ms:.4f} ms, K1 + "
-          f"tiled K2 {split_ms:.4f} ms ({card})", flush=True)
-    print(f"K1 (region design) against K1-CK (sweep design) on the same "
-          f"bins, ms events / busy: K1 {k1_ms:.4f} / {k1_busy:.4f}, K1-CK "
-          f"{results['visibility_ck']['ms']:.4f} / {ck_busy:.4f} (busy ratio "
-          f"{ck_busy / k1_busy:.2f}) ({card})", flush=True)
+    # one window: K1, K1-CK, K-FUSE and K1 + tiled K2 on the same bins,
+    # events / busy each, the card's clock sampled before and after (busy
+    # readings drift between windows, so designs compare side by side)
+    window = {
+        "K1": lambda: raster.visibility_tiles(bins, ntx, n_tiles),
+        "K1-CK": lambda: raster.visibility_ck_tiles(bins, ntx, n_tiles, bank),
+        "K-FUSE": lambda: resolve.fused_visibility_resolve(
+            bins, records, ntx, n_tiles),
+        "K1 + tiled K2": lambda: resolve.resolve_attrs_tiled(
+            raster.visibility_tiles(bins, ntx, n_tiles)[1], records, ntx),
+    }
+    smi_before = smi_sample()
+    times = {k: (cuda_ms(fn), device_busy(fn)[0]) for k, fn in window.items()}
+    smi_after = smi_sample()
+    busy = {k: b for k, (_e, b) in times.items()}
+    print("knob kernels in one window on the same bins, ms events / busy: "
+          + ", ".join(f"{k} {e:.4f} / {b:.4f}" for k, (e, b) in times.items())
+          + f"; K1-CK / K1 busy {busy['K1-CK'] / busy['K1']:.3f}, K-FUSE / "
+          f"(K1 + tiled K2) busy {busy['K-FUSE'] / busy['K1 + tiled K2']:.3f}"
+          f"; both visibility kernels evaluate the same {int(vis.kept.sum())} "
+          f"kept (triangle, region) pairs; card {smi_before} -> {smi_after} "
+          f"({card})", flush=True)
 
     # the tiled shading stage beside deferred_shade_attrs, on this frame;
     # the knob Renderers render `reg`'s scene
@@ -1032,8 +1063,9 @@ def phase_probes(dev, card: str, kernel_fns: dict, drive, results: dict,
                     card_line=card)
         print(f"card after kbench: {smi_sample()}", flush=True)
         (k1_ms, k1_busy), (ck_ms, ck_busy) = k1["dflt"], ck["dflt"]
-        print(f"kbench dflt, K1 (region design) against K1-CK (sweep "
-              f"design), ms events / busy: K1 {k1_ms:.4f} / {k1_busy:.4f}, "
+        print(f"kbench dflt, K1 against K1-CK (one bulk copy per pair, "
+              f"double-buffered), ms events / busy: K1 {k1_ms:.4f} / "
+              f"{k1_busy:.4f}, "
               f"K1-CK {ck_ms:.4f} / {ck_busy:.4f} (busy ratio "
               f"{ck_busy / k1_busy:.2f}) ({card})", flush=True)
         kb.bins_leg(cs, w, h, card_line=card)

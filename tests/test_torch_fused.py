@@ -205,6 +205,25 @@ def test_fused_equals_split_path_bitwise(jax_side):
     assert resolve.fused_visibility_resolve.launches == 0   # CPU: plain
 
 
+def test_fused_region_schedule_equals_plain(jax_side):
+    """The fused kernel's schedule: the region merge (each warp only the
+    staged rows the region test keeps for its 16×8 region), then the tiled
+    resolve of its winners, equals fused_visibility_resolve_plain — ids
+    and depths bit-equal, attributes exact."""
+    from test_torch_vis_region import _region_merge
+
+    fields, cols, *_ = jax_side
+    bins, records, _out = _port_fused(fields, cols)
+    (depth, tri), kept, tested = _region_merge(bins, NTX, NTX * NTY, False)
+    attrs = resolve.resolve_attrs_tiled_plain(tri, records, NTX)
+    fd, ft, fa = resolve.fused_visibility_resolve_plain(bins, records, NTX,
+                                                        NTX * NTY)
+    assert 0 < kept < tested and int((tri >= 0).sum()) > 3000
+    assert torch.equal(tri, ft)
+    assert (depth.view(torch.int32) == fd.view(torch.int32)).all()
+    assert (attrs.view(torch.int32) == fa.view(torch.int32)).all()
+
+
 if __name__ == "__main__":
     fields, cols, depth, tri, attrs = _jax_fused()
     np.savez(sys.argv[1], cols=cols, depth=depth, tri=tri, attrs=attrs,

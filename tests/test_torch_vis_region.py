@@ -154,14 +154,18 @@ def test_region_test_on_pixel_edges():
     assert keep[torch.arange(n), :, _pixel_region()[r]].all()
 
 
-def _region_merge(bins, ntx, n_tiles, depth_only):
+def _region_merge(bins, ntx, n_tiles, depth_only, rows=None):
     """The plain merge of visibility_tiles_plain with each (row, pixel)
     candidate dropped unless region_keep keeps the row for the pixel's
-    region: what the kernel evaluates. Returns (frame, kept pairs, tested
-    pairs)."""
-    e_tile, e_base = raster.hit_sub_blocks(bins)
-    tid = e_base[:, None] + torch.arange(raster.SUB)
-    rc = bins.records[tid]
+    region: what the kernel evaluates. `rows` = (record rows (E, 16, 16),
+    triangle ids (E, 16), tiles (E,)) replaces the bins' hit sub-blocks as
+    the staged rows. Returns (frame, kept pairs, tested pairs)."""
+    if rows is None:
+        e_tile, e_base = raster.hit_sub_blocks(bins)
+        tid = e_base[:, None] + torch.arange(raster.SUB)
+        rc = bins.records[tid]
+    else:
+        rc, tid, e_tile = rows
     cover, d = raster._tile_cover(rc, e_tile, ntx)
     keep = raster.region_keep(rc, e_tile, ntx)
     key = raster._cover_keys(cover & keep[:, :, _pixel_region()], d, tid,

@@ -5,17 +5,15 @@
 // kernel's (raster_pallas.py:1064-1073), with -fmad=false rounding each
 // product and sum like PyTorch's eager ops in ops/raster.py.
 //
-// Two designs share vis_triangle:
-//   the sweep (vis_begin / vis_walk / vis_pair; visibility_ck.cu,
-//     visibility_resolve.cu, visibility_probe.cu): thread t owns the pixels
-//     r = t + k*256, so warp w spans rows w, w+8, w+16, w+24 of the tile,
-//     and every thread evaluates every triangle of every hit sub-block;
-//   the region design (vis_region_*; visibility.cu, K1 and K1b): warp w
-//     owns one compact 16x8 region of the tile, a pair's hit sub-blocks
-//     are staged at once, and each warp evaluates only the staged
-//     triangles whose three edge functions are not all negative over its
-//     region (vis_region_bits): an exact test, so the result is the
-//     sweep's bit for bit.
+// One design, the region design (vis_region_*), for every visibility
+// kernel: K1 and K1b (visibility.cu), K1-CK (visibility_ck.cu, staged by
+// bulk copies of its own), K-FUSE (visibility_resolve.cu) and the kbench
+// probes (visibility_probe.cu). Warp w owns one compact 16x8 region of the
+// tile; a pair's hit sub-blocks are staged at once with each row's 8-bit
+// region mask (vis_region_bits); each warp evaluates only the staged
+// triangles whose three edge functions are not all negative over its
+// region. The test is exact, so the result is that of evaluating every
+// staged triangle at every pixel, bit for bit.
 
 #pragma once
 
@@ -30,25 +28,6 @@ constexpr int kPxPerThread = kTilePx / kVisThreads;
 constexpr int kChunk = 256;
 constexpr int kSub = 16;
 constexpr int kRec = 16;   // floats per record row: e0 e1 e2 (a,b,c), z3, w3, id/pad
-
-// Pixel centres of this thread's pixels in `tile`; background state
-// (depth 1, id -1).
-__device__ __forceinline__ void vis_begin(int tile, int ntx,
-                                          float (&px)[kPxPerThread],
-                                          float (&py)[kPxPerThread],
-                                          float (&best_d)[kPxPerThread],
-                                          int (&best_t)[kPxPerThread]) {
-  const int tx = tile % ntx;
-  const int ty = tile / ntx;
-#pragma unroll
-  for (int k = 0; k < kPxPerThread; ++k) {
-    const int r = threadIdx.x + k * kVisThreads;
-    px[k] = static_cast<float>(tx * kTile + r % kTile) + 0.5f;
-    py[k] = static_cast<float>(ty * kTile + r / kTile) + 0.5f;
-    best_d[k] = 1.0f;
-    best_t[k] = -1;
-  }
-}
 
 // Triangle `tid` (record row rc) against this thread's pixels: the
 // lexicographic (min depth, max id) merge, or a plain min (kDepthOnly).
@@ -80,73 +59,6 @@ __device__ __forceinline__ void vis_triangle(const float* rc, int tid,
     }
   }
 }
-
-// One 16-triangle sub-block whose first record row is `base`: stage its
-// 16 record rows (one float per thread) in `rows` (kSub * kRec floats of
-// shared memory), sync, merge. Triangle ids are record row indices.
-template <bool kDepthOnly>
-__device__ __forceinline__ void vis_sub_block(
-    const float* __restrict__ records, int base, float* rows,
-    const float (&px)[kPxPerThread], const float (&py)[kPxPerThread],
-    float (&best_d)[kPxPerThread], int (&best_t)[kPxPerThread]) {
-  rows[threadIdx.x] = records[static_cast<size_t>(base) * kRec + threadIdx.x];
-  __syncthreads();
-#pragma unroll 4
-  for (int j = 0; j < kSub; ++j) {
-    vis_triangle<kDepthOnly>(rows + j * kRec, base + j, px, py, best_d,
-                             best_t);
-  }
-  __syncthreads();
-}
-
-// One (tile, chunk) pair: its hit sub-blocks in ascending order, or, with
-// kDense (the kbench "nobranch" probe), all 16 of them with no mask walk:
-// the same merge as K1 on all-ones masks. It differs from K1 on the real
-// masks only where a triangle outside the tile's marked sub-blocks passes
-// the cover test by rounding (the extension of a near-degenerate triangle,
-// outside its bbox), a hit the binner's bbox cull drops.
-template <bool kDepthOnly, bool kDense = false>
-__device__ __forceinline__ void vis_pair(const float* __restrict__ records,
-                                         int chunk, unsigned mask,
-                                         float* rows,
-                                         const float (&px)[kPxPerThread],
-                                         const float (&py)[kPxPerThread],
-                                         float (&best_d)[kPxPerThread],
-                                         int (&best_t)[kPxPerThread]) {
-  if (kDense) {
-    for (int q = 0; q < kChunk / kSub; ++q) {
-      vis_sub_block<kDepthOnly>(records, chunk * kChunk + q * kSub, rows, px,
-                                py, best_d, best_t);
-    }
-    return;
-  }
-  mask &= 0xFFFFu;
-  while (mask != 0u) {
-    const int q = __ffs(mask) - 1;
-    mask &= mask - 1u;
-    vis_sub_block<kDepthOnly>(records, chunk * kChunk + q * kSub, rows, px,
-                              py, best_d, best_t);
-  }
-}
-
-// The sweep's walk over the sorted pairs [p_begin, p_end) of one tile.
-template <bool kDepthOnly, bool kDense = false>
-__device__ __forceinline__ void vis_walk(const float* __restrict__ records,
-                                         const int* __restrict__ pair_chunk,
-                                         const int* __restrict__ pair_mask,
-                                         int p_begin, int p_end, float* rows,
-                                         const float (&px)[kPxPerThread],
-                                         const float (&py)[kPxPerThread],
-                                         float (&best_d)[kPxPerThread],
-                                         int (&best_t)[kPxPerThread]) {
-  for (int p = p_begin; p < p_end; ++p) {
-    vis_pair<kDepthOnly, kDense>(records, pair_chunk[p],
-                                 static_cast<unsigned>(pair_mask[p]), rows,
-                                 px, py, best_d, best_t);
-  }
-}
-
-// ---- The region design (K1, K1b) -----------------------------------------
 
 constexpr int kWarps = kVisThreads / 32;          // 8 regions per tile
 constexpr int kRegionW = 16;                      // region columns
@@ -234,17 +146,23 @@ __device__ __forceinline__ unsigned vis_region_bits(const float* rc, int col0,
 // Stage pair (chunk, mask): thread t < 16*popc(mask) loads record row t of
 // the pair's hit sub-blocks (ascending q; four 16-byte loads of one
 // 64-byte row) into `st`, with its triangle id and its region mask for the
-// tile at (col0, row0). Returns the staged row count; the caller syncs.
+// tile at (col0, row0). kDense (the kbench "nobranch" probe) stages all 16
+// sub-blocks, row t = record row chunk*256 + t, with no mask walk. Returns
+// the staged row count; the caller syncs.
+template <bool kDense = false>
 __device__ __forceinline__ int vis_region_stage(
     const float* __restrict__ records, int chunk, unsigned mask, int col0,
     int row0, VisRegionStage& st) {
   mask &= 0xFFFFu;
-  const int n_rows = __popc(mask) * kSub;
+  const int n_rows = kDense ? kPairRows : __popc(mask) * kSub;
   const int t = threadIdx.x;
   if (t < n_rows) {
-    unsigned m = mask;
-    for (int j = t / kSub; j > 0; --j) m &= m - 1u;   // drop j lower hits
-    const int id = chunk * kChunk + (__ffs(m) - 1) * kSub + t % kSub;
+    int id = chunk * kChunk + t;
+    if (!kDense) {
+      unsigned m = mask;
+      for (int j = t / kSub; j > 0; --j) m &= m - 1u;   // drop j lower hits
+      id = chunk * kChunk + (__ffs(m) - 1) * kSub + t % kSub;
+    }
     const float4* src = reinterpret_cast<const float4*>(
         records + static_cast<size_t>(id) * kRec);
     float4* dst = reinterpret_cast<float4*>(st.rows + t * kStageStride);
@@ -262,31 +180,51 @@ __device__ __forceinline__ int vis_region_stage(
   return n_rows;
 }
 
-// This warp's sweep of a staged pair: 32 rows a round, one lane per row
-// reads its region bit, __ballot_sync gives the warp its kept rows, and the
-// warp merges them in ascending order (a warp-uniform loop).
-template <bool kDepthOnly>
+// This warp's sweep of a staged pair: n_rows record rows at `rows`, kStride
+// floats apart, with region masks `bits` and triangle ids `ids` (or, where
+// ids is null, each row's column 15, as the compact banks carry them). 32
+// rows a round: one lane per row reads its region bit, __ballot_sync gives
+// the warp its kept rows, and the warp merges them in ascending order (a
+// warp-uniform loop).
+template <bool kDepthOnly, int kStride>
 __device__ __forceinline__ void vis_region_sweep(
-    const VisRegionStage& st, int n_rows, const float (&px)[kPxPerThread],
-    const float (&py)[kPxPerThread], float (&best_d)[kPxPerThread],
-    int (&best_t)[kPxPerThread]) {
+    const float* rows, const int* ids, const unsigned char* bits, int n_rows,
+    const float (&px)[kPxPerThread], const float (&py)[kPxPerThread],
+    float (&best_d)[kPxPerThread], int (&best_t)[kPxPerThread]) {
   const int w = threadIdx.x >> 5;
   const int l = threadIdx.x & 31;
   for (int g = 0; g < n_rows; g += 32) {
-    const bool keep = g + l < n_rows && ((st.bits[g + l] >> w) & 1u);
+    const bool keep = g + l < n_rows && ((bits[g + l] >> w) & 1u);
     unsigned m = __ballot_sync(0xFFFFFFFFu, keep);
     while (m != 0u) {
       const int j = g + __ffs(m) - 1;
       m &= m - 1u;
-      vis_triangle<kDepthOnly>(st.rows + j * kStageStride, st.ids[j], px, py,
-                               best_d, best_t);
+      const float* rc = rows + j * kStride;
+      const int tid = ids != nullptr ? ids[j] : static_cast<int>(rc[kRec - 1]);
+      vis_triangle<kDepthOnly>(rc, tid, px, py, best_d, best_t);
     }
   }
 }
 
-// K1's walk over the sorted pairs [p_begin, p_end) of one tile under the
-// region design: per pair one staging, one sync, the sweep, one sync.
-template <bool kDepthOnly>
+// One pair under the region design: one staging, one sync, this warp's
+// sweep, one sync (the next staging overwrites `st`).
+template <bool kDepthOnly, bool kDense = false>
+__device__ __forceinline__ void vis_region_pair(
+    const float* __restrict__ records, int chunk, unsigned mask, int col0,
+    int row0, VisRegionStage& st, const float (&px)[kPxPerThread],
+    const float (&py)[kPxPerThread], float (&best_d)[kPxPerThread],
+    int (&best_t)[kPxPerThread]) {
+  const int n_rows =
+      vis_region_stage<kDense>(records, chunk, mask, col0, row0, st);
+  __syncthreads();
+  vis_region_sweep<kDepthOnly, kStageStride>(st.rows, st.ids, st.bits, n_rows,
+                                             px, py, best_d, best_t);
+  __syncthreads();
+}
+
+// The walk over the sorted pairs [p_begin, p_end) of one tile, one
+// vis_region_pair each (kDense: all 16 sub-blocks of every pair).
+template <bool kDepthOnly, bool kDense = false>
 __device__ __forceinline__ void vis_region_walk(
     const float* __restrict__ records, const int* __restrict__ pair_chunk,
     const int* __restrict__ pair_mask, int p_begin, int p_end, int tile,
@@ -296,12 +234,10 @@ __device__ __forceinline__ void vis_region_walk(
   const int col0 = (tile % ntx) * kTile;
   const int row0 = (tile / ntx) * kTile;
   for (int p = p_begin; p < p_end; ++p) {
-    const int n_rows =
-        vis_region_stage(records, pair_chunk[p],
-                         static_cast<unsigned>(pair_mask[p]), col0, row0, st);
-    __syncthreads();
-    vis_region_sweep<kDepthOnly>(st, n_rows, px, py, best_d, best_t);
-    __syncthreads();
+    vis_region_pair<kDepthOnly, kDense>(
+        records, pair_chunk[p], kDense ? 0xFFFFu
+                                       : static_cast<unsigned>(pair_mask[p]),
+        col0, row0, st, px, py, best_d, best_t);
   }
 }
 

@@ -1,25 +1,27 @@
 // Visibility probes of the kbench decomposition (trident_tpu_torch/tools_dev/
 // kbench.py): three variants of the visibility kernel (csrc/visibility.cu)
-// that split its time into the per-pair walk, the sub-block sweep, the
-// mask walk, the record fetch and a second streamed operand.
+// that split its time into the per-pair walk, the mask walk, the record
+// fetch and a second streamed operand.
 //
 // Replaces: trident_tpu's tools_dev/kbench.py probes, the pallas_calls at
 // kbench.py:246 (run_kernel: _dense_kernel "nobranch" kbench.py:117,
 // _dual_kernel "dual" kbench.py:180) and kbench.py:394 (run_probe:
 // probe_kernel kbench.py:357, "probe" and "probe_tiny").
 //
-//   trident_visibility_dense  ("nobranch") K1's walk with the hit mask
-//       ignored: every pair evaluates all 16 sub-blocks, q = 0..15, in
-//       order, with no __ffs loop (vis_pair's kDense instance): K1's merge
-//       on all-ones masks, bit for bit. Against K1 on the real masks it
+//   trident_visibility_dense  ("nobranch") K1's region walk with the hit
+//       mask ignored: every pair stages all 16 sub-blocks, row t = record
+//       row chunk*256 + t, with no mask walk (vis_region_walk's kDense
+//       instance): K1's merge on all-ones masks, bit for bit, so full -
+//       nobranch is the mask walk's cost. Against K1 on the real masks it
 //       also keeps the rounding hits of near-degenerate triangles outside
 //       their bbox, which the binner culls.
-//   trident_visibility_dual   ("dual") K1's walk; for each pair the CTA
-//       also streams the pair chunk's strip of a second (rows, tpad) f32
-//       table (rows x 256 floats, 16-byte coalesced loads issued before the
-//       pair's sweep) and sums it; each pixel's depth gets 1e-30 x the
-//       tile's sum at the end, as kbench.py:189-192 adds it. With a zero
-//       table the output equals K1's.
+//   trident_visibility_dual   ("dual") K1's region walk; for each pair the
+//       CTA also streams the pair chunk's strip of a second (rows, tpad)
+//       f32 table (rows x 256 floats, 16-byte coalesced loads issued
+//       before the pair's staging and sweep) and sums it; each pixel's
+//       depth gets 1e-30 x the tile's sum at the end, as kbench.py:189-192
+//       adds it. With a zero table the output equals K1's, and dual - dflt
+//       is the cost of a second streamed operand on K1's design.
 //   trident_visibility_reset  ("probe", "probe_tiny") the step machinery
 //       alone: one CTA per tile walks its pair range and loads each pair's
 //       block of a table (block_floats floats at block index pair_chunk[p]:
@@ -28,11 +30,12 @@
 //       compiler cannot drop; every pixel comes out background (depth
 //       1 + 0 x that value = 1 for finite data, id -1).
 //
-// Bound on the card: as K1 (operations on the evaluated (triangle, pixel)
-// pairs) for dense; plus the strip bytes for dual; bytes (the fetched
-// blocks and the outputs) for reset. These probes measure, they are not
-// tuned: each keeps K1's one-CTA-per-tile schedule so the differences
-// between them are differences of the work alone.
+// Bound on the card: as K1 (its bytes, or the operations the evaluated
+// (triangle, pixel) pairs need) for dense; plus the strip bytes for dual;
+// bytes (the fetched blocks and the outputs) for reset. These probes
+// measure, they are not tuned: each keeps K1's one-CTA-per-tile schedule
+// and region design so the differences between them are differences of
+// the work alone.
 
 #include "visibility_common.cuh"
 
@@ -40,8 +43,7 @@ namespace {
 
 using namespace trident;
 
-constexpr int kWarps = kVisThreads / 32;
-
+// Outputs at tile index row*32 + col under the region map.
 __device__ __forceinline__ void store_tile(int tile,
                                            const float (&best_d)[kPxPerThread],
                                            const int (&best_t)[kPxPerThread],
@@ -50,7 +52,7 @@ __device__ __forceinline__ void store_tile(int tile,
 #pragma unroll
   for (int k = 0; k < kPxPerThread; ++k) {
     const size_t o =
-        static_cast<size_t>(tile) * kTilePx + threadIdx.x + k * kVisThreads;
+        static_cast<size_t>(tile) * kTilePx + vis_region_pixel(k);
     depth_out[o] = best_d[k];
     tri_out[o] = best_t[k];
   }
@@ -63,17 +65,17 @@ visibility_dense_kernel(const float* __restrict__ records,
                         const int* __restrict__ tile_start, int ntx,
                         float* __restrict__ depth_out,
                         int* __restrict__ tri_out) {
-  __shared__ float rows[kSub * kRec];
+  __shared__ VisRegionStage stage;
   const int tile = blockIdx.x;
   float px[kPxPerThread], py[kPxPerThread], best_d[kPxPerThread];
   int best_t[kPxPerThread];
-  vis_begin(tile, ntx, px, py, best_d, best_t);
-  vis_walk<false, true>(records, pair_chunk, pair_mask, tile_start[tile],
-                        tile_start[tile + 1], rows, px, py, best_d, best_t);
+  vis_region_begin(tile, ntx, px, py, best_d, best_t);
+  vis_region_walk<false, true>(records, pair_chunk, pair_mask,
+                               tile_start[tile], tile_start[tile + 1], tile,
+                               ntx, stage, px, py, best_d, best_t);
   store_tile(tile, best_d, best_t, depth_out, tri_out);
 }
 
-// strip_f4 = rows * 64 float4s per pair chunk, at most kMaxStripF4
 constexpr int kMaxStripF4 = 2048;                 // 32 rows x 256 floats
 constexpr int kStripPerThread = kMaxStripF4 / kVisThreads;
 
@@ -85,13 +87,15 @@ visibility_dual_kernel(const float* __restrict__ records,
                        const float* __restrict__ table2, int rows2,
                        long long tpad, float* __restrict__ depth_out,
                        int* __restrict__ tri_out) {
-  __shared__ float rows[kSub * kRec];
+  __shared__ VisRegionStage stage;
   __shared__ float warp_sum[kWarps];
   const int tile = blockIdx.x;
   const int t = threadIdx.x;
+  const int col0 = (tile % ntx) * kTile;
+  const int row0 = (tile / ntx) * kTile;
   float px[kPxPerThread], py[kPxPerThread], best_d[kPxPerThread];
   int best_t[kPxPerThread];
-  vis_begin(tile, ntx, px, py, best_d, best_t);
+  vis_region_begin(tile, ntx, px, py, best_d, best_t);
   const int strip_f4 = rows2 * (kChunk / 4);
   float acc = 0.0f;
   const int p_end = tile_start[tile + 1];
@@ -111,8 +115,8 @@ visibility_dual_kernel(const float* __restrict__ records,
                      col);
       }
     }
-    vis_pair<false>(records, chunk, static_cast<unsigned>(pair_mask[p]), rows,
-                    px, py, best_d, best_t);
+    vis_region_pair<false>(records, chunk, static_cast<unsigned>(pair_mask[p]),
+                           col0, row0, stage, px, py, best_d, best_t);
 #pragma unroll
     for (int k = 0; k < kStripPerThread; ++k) {
       acc += ((v[k].x + v[k].y) + v[k].z) + v[k].w;

@@ -5,21 +5,26 @@
 // fused_visibility_resolve_pallas, resolve_pallas.py:330; pallas_call at
 // resolve_pallas.py:386).
 //
-// Bound on the card: the visibility walk's arithmetic (as K1); the resolve
-// adds one scattered record-column read per winner and 64 B per pixel of
-// attribute output, while the (H, W) id round trip between two launches
-// (write the ids, read them back) is gone.
+// Bound on the card: bytes (0.0640 ms at spheres1080_1m on an NVIDIA H100
+// 80GB HBM3 at 700 W, chip_smoke.py phase 10): the visibility kernel's
+// (records of the hit sub-blocks, pair lists, depth and ids), one record
+// column per distinct winner, and 64 B per pixel of attribute output; the
+// (H, W) id round trip between two launches (write the ids, read them back)
+// is gone.
 //
 // Design: the TPU kernel merges attributes pair by pair, in lock-step with
 // the depth merge (resolve_pallas.py:302-323), because it cannot keep the
 // winner across grid steps. Here a CTA owns its tile to the end, and the
 // final image is the final winner's attributes whatever the order, so the
-// CTA first runs K1's walk (visibility_common.cuh) and then each thread
-// evaluates the interpolants of its 4 pixels' final winners once
-// (resolve_common.cuh, the resolve kernel's own body) at the same tile
-// pixel centres. Depth and ids are K1's bit for bit; the attributes are the
-// tiled resolve kernel's. Outputs: depth and ids (n_tiles, 1024), attributes
-// channel-planar (n_tiles, 16, 1024), every store coalesced.
+// CTA first runs K1's walk, the region design of visibility_common.cuh
+// (warp w owns a 16x8 region and merges only the staged triangles whose
+// edges can pass one of its pixel centres), and then each thread evaluates
+// the interpolants of its 4 pixels' final winners once (resolve_common.cuh,
+// the resolve kernel's own body) at the same pixel centres. Depth and ids
+// are K1's bit for bit; the attributes are the tiled resolve kernel's.
+// Outputs: depth and ids (n_tiles, 1024), attributes channel-planar
+// (n_tiles, 16, 1024), at tile index row*32 + col under the region map, so
+// each warp store is two 64-byte runs.
 
 #include "resolve_common.cuh"
 #include "visibility_common.cuh"
@@ -37,16 +42,17 @@ visibility_resolve_kernel(const float* __restrict__ records,
                           long long stride, float* __restrict__ depth_out,
                           int* __restrict__ tri_out,
                           float* __restrict__ attr_out) {
-  __shared__ float rows[kSub * kRec];
+  __shared__ VisRegionStage stage;
   const int tile = blockIdx.x;
   float px[kPxPerThread], py[kPxPerThread], best_d[kPxPerThread];
   int best_t[kPxPerThread];
-  vis_begin(tile, ntx, px, py, best_d, best_t);
-  vis_walk<false>(records, pair_chunk, pair_mask, tile_start[tile],
-                  tile_start[tile + 1], rows, px, py, best_d, best_t);
+  vis_region_begin(tile, ntx, px, py, best_d, best_t);
+  vis_region_walk<false>(records, pair_chunk, pair_mask, tile_start[tile],
+                         tile_start[tile + 1], tile, ntx, stage, px, py,
+                         best_d, best_t);
 #pragma unroll
   for (int k = 0; k < kPxPerThread; ++k) {
-    const int r = threadIdx.x + k * kVisThreads;
+    const int r = vis_region_pixel(k);
     const size_t o = static_cast<size_t>(tile) * kTilePx + r;
     depth_out[o] = best_d[k];
     tri_out[o] = best_t[k];

@@ -485,7 +485,9 @@ def visibility_ck_tiles(bins: Bins, ntx: int, n_tiles: int, ck_bank: int):
     """Per-tile (depth, tri) from the compact-bank table of
     build_bins(ck_bank=...): the CUDA kernel for tensors on the card, the
     plain version for tensors on the CPU. Equal to visibility_tiles on the
-    same scene, bit for bit."""
+    same scene, bit for bit. The kernel stages each pair's first
+    min(nhit, 16) slots whatever ck_bank, which shapes the table (and the
+    plain version's TPU bank schedule) only."""
     banks = bins.banks
     if banks is None or bins.nhit is None:
         raise ValueError("bins carry no compact-bank table: build them with "

@@ -18,16 +18,14 @@ the probe kernels of csrc/visibility_probe.cu:
   full        all 16 bits set on the real pairs: the walk and 16 staged
               sub-blocks per pair (the frame also gains the rounding hits
               that the binner's bbox cull drops, bbox_culled_hits)
-  nobranch    every sub-block evaluated straight-line, no mask walk
-              (trident_visibility_dense). It runs the sweep design of
-              visibility_common.cuh, every triangle at every pixel, where
-              K1 runs the region design, each warp only the triangles its
-              16×8 region can hold: full − nobranch is what the region
-              test saves on the same work, and the frames are equal
+  nobranch    every sub-block staged straight-line, no mask walk
+              (trident_visibility_dense, K1's region design on all 16
+              sub-blocks): full − nobranch is the mask walk's cost, and
+              the two frames are equal
   dual        dflt plus a co-streamed resolve-shaped second table, the
               port's (32, Tpad) f32 resolve-record layout, all zeros
-              (trident_visibility_dual, the sweep design): the cost of a
-              second operand
+              (trident_visibility_dual, K1's region design): dual − dflt
+              is the cost of a second streamed operand
   probe       the walk plus each pair's 16 KB record block fetched but not
               evaluated (trident_visibility_reset)
   probe_tiny  the same with a 4 KB block of an (nblk·8, 128) dummy table
@@ -36,12 +34,14 @@ so (full − zero)/16 is the per-sub-block cost, probe − probe_tiny the
 record fetch and zero − probe_tiny the walk without the record traffic.
 Each config prints its CUDA-event median and device-busy ms and the card.
 --kernel ckern runs zero/dflt/full through the compact-bank kernel
-(csrc/visibility_ck.cu, the sweep design, so its dflt beside K1's
-compares the two designs on the same bins) on bins built with ck_bank 8,
-the bank table rebuilt from the doctored masks, and skips nobranch and
-dual, as the JAX script does under CKERN. --bins splits build_bins' time
-(records, emission + sort, one pool-sized sort) and --sort runs a ladder of
-torch.sort sizes; both are plain PyTorch, no kernel.
+(csrc/visibility_ck.cu: the same region design, each pair's live bank
+slots staged by one bulk copy into a double-buffered ring, so its dflt
+beside K1's is a staging A/B on the same kept pairs) on bins built with
+ck_bank 8, the bank table rebuilt from the doctored masks, and skips
+nobranch and dual, as the JAX script does under CKERN. --bins splits
+build_bins' time (records, emission + sort, one pool-sized sort) and
+--sort runs a ladder of torch.sort sizes; both are plain PyTorch, no
+kernel.
 
 Deviation from the JAX script: it builds the bins through the indexed
 vertex_stage + triangle_setup (kbench.py:59-67); the port has no indexed
