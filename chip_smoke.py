@@ -16,7 +16,9 @@ Phases (any failure exits non-zero before the final line is printed):
      within RESOLVE_TOL, texel bit-equal; the share of (triangle, warp
      region) pairs the visibility kernel's region test keeps, per tile
      max / mean, and the card's SM clock, power and temperature before and
-     after the timing window
+     after the timing window; K2's busy time over K1's in that window and
+     K2 with the L2 flushed before each launch; the stage times, among
+     them the record table's producer alone
   4. render that scene through the port's Renderer for 12 frames while
      rotating the entities as bench.py does: aux == [0, 0] every frame,
      every kernel's launch count rose, the frame is not all clear color;
@@ -47,7 +49,10 @@ Phases (any failure exits non-zero before the final line is printed):
      frame after rotating the entities and orbiting the camera, hold the
      warp kernel against its plain version on that frame's own history
      and block indices (bit-equal over all 518,400 pixels) and time it
-     beside the indexing call; render 12 chained frames through the
+     beside the indexing call; on that frame's own 960×540 ids (540 rows
+     end in a partial 32×8 block row) hold the resolve kernel against its
+     plain version (within RESOLVE_TOL per channel) and the tiled resolve
+     against it permuted; render 12 chained frames through the
      Renderer: aux [0, 0], the output and history shapes, the raster
      kernels launched every frame and the warp kernel every frame after
      the first; print the frame and stage times; then the two AI-upscaled
@@ -71,9 +76,10 @@ Phases (any failure exits non-zero before the final line is printed):
      128² knob frames against tests/goldens/torch_slice_knobs_<name>.npy
      under the golden gate; the compact-bank kernel also at ck_bank 3
      and 16 and with pad pairs (nhit 0) inside tile ranges against its
-     plain version; K1, K1-CK, K-FUSE and K1 + tiled K2 timed in one
-     window on the same bins, the card's clock sampled around it; the
-     planar texel kernel also with the L2 flushed before each launch
+     plain version; K1, K2, K1-CK, K-FUSE, tiled K2 and K1 + tiled K2
+     timed in one window on the same bins, the card's clock sampled
+     around it; the planar texel kernel also with the L2 flushed before
+     each launch
  11. the tools_dev probes (trident_tpu_torch/tools_dev) on phase 3's
      spheres1080_1m bins: each kbench config (zero, dflt, full, nobranch,
      dual, probe, probe_tiny; zero/dflt/full also through the compact-bank
@@ -312,9 +318,9 @@ def phase_ai(dev, card: str, kernel_fns: dict, drive, results: dict) -> dict:
     import torch
 
     from trident_tpu_torch.ai import upscaler as up
-    from trident_tpu_torch.ops import warp
+    from trident_tpu_torch.ops import raster, resolve, warp
     from trident_tpu_torch.ops.deferred import pack_rgba8
-    from trident_tpu_torch.render.renderer import render_frame
+    from trident_tpu_torch.render.renderer import frame_geometry, render_frame
 
     kernel_fns["warp"] = warp.warp_fetch
     r, reg = build_bench_scene(BENCH_GRID, dev, ai=True)
@@ -376,6 +382,43 @@ def phase_ai(dev, card: str, kernel_fns: dict, drive, results: dict) -> dict:
           f"{res['bound_ms']:.4f} ms ({res['bound_by']}; {n_blocks} distinct "
           f"blocks) ({card})", flush=True)
     del f_k, f_p, by, bx, in_bounds, ok, out1
+
+    # (a2) the resolve kernel on that frame's own 960×540 ids: 540 rows end
+    # in a partial 32×8 block row (540 % 8 = 4), which phase 3's 1080 rows
+    # never reach; the tiled resolve against it permuted on the same ids
+    inp = r.frame_inputs()
+    hw, hh = inp["width"], inp["height"]
+    cs, records = frame_geometry(
+        inp["plan"], inp["tri_draw"], inp["params"], inp["shade_table"],
+        inp["camera"], inp["textures"], inp["corner_t"], width=hw, height=hh,
+        draw_stride=inp["draw_stride"], real_draws=inp["real_draws"])
+    bins = raster.build_bins(cs.setup, hw, hh, setup_cols=cs.cols.setup)
+    ntx, nty = -(-hw // raster.TILE), -(-hh // raster.TILE)
+    t_k = raster.visibility_tiles(bins, ntx, ntx * nty)[1]
+    tri = raster.untile_frame(t_k, ntx, nty)[:hh, :hw].contiguous()
+    a_k = resolve.resolve_attrs(tri, records)
+    a_p = resolve.resolve_attrs_plain(tri, records)
+    a_t = resolve.resolve_attrs_tiled(t_k, records, ntx)
+    torch.cuda.synchronize()
+    err_ch = (a_k - a_p).abs().reshape(-1, resolve.CHANNELS).amax(0)
+    err_t = float((raster.untile_channels(a_t, ntx, nty)[:hh, :hw]
+                   - a_k).abs().max())
+    ragged = int((tri[hh - hh % 8:] >= 0).sum())
+    if (bins.aux.tolist() != [0, 0]
+            or tuple(a_k.shape) != (hh, hw, resolve.CHANNELS)
+            or not bool(torch.isfinite(a_k).all())
+            or not bool(torch.isfinite(a_t).all())
+            or float(err_ch.max()) > RESOLVE_TOL
+            or not err_t <= RESOLVE_TOL):
+        fail(f"resolve at {hw}x{hh}: aux {bins.aux.tolist()}, shape "
+             f"{tuple(a_k.shape)}, per-channel {err_ch.tolist()} against "
+             f"its plain version, tiled vs K2 {err_t}")
+    print(f"spheres1080_1m:ai resolve at {hw}x{hh}: per-channel max err "
+          f"against its plain version {err_ch.tolist()}, tiled vs K2 "
+          f"(permuted) {err_t}; {int((tri >= 0).sum())} covered pixels, "
+          f"{ragged} in the last {hh % 8} rows (a partial 32x8 block row)",
+          flush=True)
+    del inp, cs, records, bins, t_k, tri, a_k, a_p, a_t
 
     # (b) 12 chained frames through the Renderer, the first without history
     clear = torch.round(torch.tensor(r.config.render.clear_color) * 255.0)
@@ -492,6 +535,7 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
         texel_lookup,
         world_positions,
     )
+    from trident_tpu_torch.ops.planes import RR_WIDTH
     from trident_tpu_torch.ops.shadow import shadow_factor
     from trident_tpu_torch.render.renderer import (
         _visibility_and_shade,
@@ -620,7 +664,7 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
     bytes_ck = (n_live * raster.SUB * raster.REC * 4
                 + bins.nhit.numel() * 4 + (n_tiles + 1) * 4 + n_px_t * 8)
     n_winners = int(torch.unique(t1[t1 >= 0]).numel())
-    res_bytes = n_winners * records.shape[0] * 4 + n_px_t * 4 * (1 + 16)
+    res_bytes = n_winners * RR_WIDTH * 4 + n_px_t * 4 * (1 + 16)
     n_quads = int(torch.unique(idx[idx >= 0]).numel())
     work = {
         "visibility_ck": (
@@ -632,7 +676,7 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
             lambda: raster.visibility_ck_tiles_plain(bins, ntx, n_tiles,
                                                      bank)),
         "visibility_resolve": (
-            bound(vis.bytes + n_px_t * 64 + n_winners * records.shape[0] * 4,
+            bound(vis.bytes + n_px_t * 64 + n_winners * RR_WIDTH * 4,
                   vis.ops),
             "trident_tpu_torch/csrc/visibility_resolve.cu",
             "trident_tpu/ops/resolve_pallas.py:281", err["fused vs K2"],
@@ -665,14 +709,17 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
     cold_line("texel_planar", work["texel_planar"][4],
               results["texel_planar"]["bound_ms"], l2_flush(dev), card)
 
-    # one window: K1, K1-CK, K-FUSE and K1 + tiled K2 on the same bins,
-    # events / busy each, the card's clock sampled before and after (busy
-    # readings drift between windows, so designs compare side by side)
+    # one window: K1, K2, K1-CK, K-FUSE, tiled K2 and K1 + tiled K2 on the
+    # same bins, events / busy each, the card's clock sampled before and
+    # after (busy readings drift between windows, so designs compare side
+    # by side)
     window = {
         "K1": lambda: raster.visibility_tiles(bins, ntx, n_tiles),
+        "K2": lambda: resolve.resolve_attrs(tri, records),
         "K1-CK": lambda: raster.visibility_ck_tiles(bins, ntx, n_tiles, bank),
         "K-FUSE": lambda: resolve.fused_visibility_resolve(
             bins, records, ntx, n_tiles),
+        "tiled K2": lambda: resolve.resolve_attrs_tiled(t1, records, ntx),
         "K1 + tiled K2": lambda: resolve.resolve_attrs_tiled(
             raster.visibility_tiles(bins, ntx, n_tiles)[1], records, ntx),
     }
@@ -682,7 +729,8 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
     busy = {k: b for k, (_e, b) in times.items()}
     print("knob kernels in one window on the same bins, ms events / busy: "
           + ", ".join(f"{k} {e:.4f} / {b:.4f}" for k, (e, b) in times.items())
-          + f"; K1-CK / K1 busy {busy['K1-CK'] / busy['K1']:.3f}, K-FUSE / "
+          + f"; K2 / K1 busy {busy['K2'] / busy['K1']:.3f}, "
+          f"K1-CK / K1 busy {busy['K1-CK'] / busy['K1']:.3f}, K-FUSE / "
           f"(K1 + tiled K2) busy {busy['K-FUSE'] / busy['K1 + tiled K2']:.3f}"
           f"; both visibility kernels evaluate the same {int(vis.kept.sum())} "
           f"kept (triangle, region) pairs; card {smi_before} -> {smi_after} "
@@ -1106,6 +1154,7 @@ def main() -> None:
           flush=True)
 
     from trident_tpu_torch.ops import raster, resolve, shadow_taps, texel
+    from trident_tpu_torch.ops import planes
     from trident_tpu_torch.ops.corner import build_draw_rows, corner_stage
     from trident_tpu_torch.ops.deferred import (
         deferred_shade_attrs,
@@ -1201,7 +1250,7 @@ def main() -> None:
         library_ms=None)
     results["resolve"].update(zip(("bound_ms", "bound_by"), bound(
         w * h * (4 + 4 * resolve.CHANNELS)
-        + n_winners * records.shape[0] * 4)))
+        + n_winners * planes.RR_WIDTH * 4)))
 
     q = inp["textures"].quads
     idx, fx, fy = texel_lookup(a_k, tri >= 0, inp["textures"].max_level)
@@ -1223,12 +1272,23 @@ def main() -> None:
     busy = {"visibility": lambda: raster.visibility_tiles(bins, ntx, n_tiles),
             "resolve": lambda: resolve.resolve_attrs(tri, records),
             "texel": lambda: texel.sample_bilinear(q, idx, fx, fy)}
+    busy_ms = {}
     for name, res in results.items():
+        busy_ms[name] = device_busy(busy[name])[0]
         print(f"{name}: kernel {res['ms']:.4f} ms (device busy "
-              f"{device_busy(busy[name])[0]:.4f} ms), plain "
+              f"{busy_ms[name]:.4f} ms), plain "
               f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
               f"({res['bound_by']}) ({card})", flush=True)
     print(f"card after phase 3's timing: {smi_sample()}", flush=True)
+    print(f"resolve (K2) / visibility (K1) busy in that window: "
+          f"{busy_ms['resolve'] / busy_ms['visibility']:.3f}; K2 at "
+          f"{results['resolve']['bound_ms'] / busy_ms['resolve']:.3f} of its "
+          f"bound; {n_winners} distinct winners, {covered} covered pixels "
+          f"({card})", flush=True)
+    # the (T, 32) table (127 MB here) outgrows the 50 MB L2: warm and
+    # flushed readings of K2 should agree
+    cold_line("resolve", busy["resolve"], results["resolve"]["bound_ms"],
+              l2_flush(dev), card)
 
     # where the frame's device time goes: each stage of render_frame alone,
     # on this frame's intermediates
@@ -1240,6 +1300,8 @@ def main() -> None:
             inp["camera"], inp["textures"], inp["corner_t"], width=w,
             height=h, draw_stride=inp["draw_stride"],
             real_draws=inp["real_draws"]),
+        # the (T, 32) record table alone, as frame_geometry builds it
+        "records": lambda: planes.build_resolve_cols_planar(cs.cols),
         "binning": lambda: raster.build_bins(cs.setup, w, h,
                                              setup_cols=cs.cols.setup),
         "visibility": lambda: raster.visibility_tiles(bins, ntx, n_tiles),

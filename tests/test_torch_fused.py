@@ -5,7 +5,8 @@ tiled resolve against the JAX package's `fused_visibility_resolve_pallas`
 The JAX side runs one jit on a 3×3 sphere grid at 128² (test_torch_resolve
 .py's scene): draw rows → corner stage → resolve columns → the fused
 kernel; the port bins the same triangle setup and resolves against the
-same (RW, T) record columns. Tolerances, with their reasons:
+same (RW, T) record columns, carried across as its (T, RW) rows.
+Tolerances, with their reasons:
   * in this process XLA:CPU contracts the interpreted kernel's edge
     functions and plane evaluations into FMAs: winner ids may differ only
     at mismatches test_torch_raster.py classifies (depth ties within 2
@@ -43,6 +44,7 @@ from trident_tpu.ops.corner import corner_stage
 from trident_tpu.ops.vertex import TriangleSetup as JTriangleSetup
 
 from trident_tpu_torch.ops import raster, resolve
+from trident_tpu_torch.ops.planes import records_from_reference
 from trident_tpu_torch.render.types import from_numpy
 
 torch.set_num_threads(1)
@@ -120,7 +122,7 @@ def _port_fused(fields, cols):
     ps = from_numpy(JTriangleSetup(**fields), "cpu")
     bins = raster.build_bins(ps, W, H)
     assert bins.aux.tolist() == [0, 0]
-    records = torch.from_numpy(cols)
+    records = records_from_reference(cols)
     return bins, records, resolve.fused_visibility_resolve(
         bins, records, NTX, NTX * NTY)
 

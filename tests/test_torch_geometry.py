@@ -297,10 +297,11 @@ def test_corner_stage_and_records_bitwise(stride):
     for k in range(12):
         _eq(jcs.cols.consts[k], pcs.cols.consts[k])
     assert int(pcs.setup.valid.sum()) > 100
-    # from the JAX package's own corner columns: bitwise
-    _eq(jrec, pplanes.build_resolve_cols_planar(from_numpy(jcs.cols, CPU)))
+    # from the JAX package's own corner columns: bitwise (the port's
+    # (T, RW) rows are the JAX (RW, T) columns, transposed)
+    _eq(jrec, pplanes.build_resolve_cols_planar(from_numpy(jcs.cols, CPU)).T)
     # from the port's: the normal planes carry the rsqrt difference
-    prec = pplanes.build_resolve_cols_planar(pcs.cols).numpy()
+    prec = pplanes.build_resolve_cols_planar(pcs.cols).numpy().T
     jrec = np.asarray(jrec)
     nrm = slice(pplanes.RR_NX, pplanes.RR_U)
     keep = np.ones(pplanes.RR_WIDTH, bool)

@@ -39,9 +39,10 @@ import jax.numpy as jnp
 from trident_tpu.ops.raster_pallas import visibility_pallas
 from trident_tpu.ops.vertex import TriangleSetup as JTriangleSetup
 
-from trident_tpu_torch.ops import raster
+from trident_tpu_torch.ops import planes, raster
 from trident_tpu_torch.tools_dev import diag_split_kernel, gather_probe
 from trident_tpu_torch.tools_dev import kbench as kb
+from trident_tpu_torch.tools_dev.scenes import build_bench_scene, rotate
 
 from test_torch_host import carry_renderer
 
@@ -225,6 +226,30 @@ def test_kbench_cli_on_cpu(capsys):
         assert any(line.startswith(label + ":") for line in out), label
     assert all("not measured" in line for line in out[2:-1])
     assert out[-1] == "cpu"
+
+
+def test_kbench_records_leg_on_cpu(capsys):
+    """--records on the CPU: both producers run in the order rows,
+    columns, columns, rows, untimed; the column table is the row table
+    transposed, bit for bit, so the A/B compares one function."""
+    kb.main(["--device", "cpu", "--grid", "1", "--configs", "zero",
+             "--iters", "1", "--records"])
+    out = capsys.readouterr().out.splitlines()
+    legs = [line.split(":")[0] for line in out
+            if line.startswith("records_")]
+    assert legs == ["records_rows", "records_columns", "records_columns",
+                    "records_rows"]
+    assert all("not measured" in line for line in out[2:-1])
+    from trident_tpu_torch.render import renderer
+    assert (renderer.build_resolve_cols_planar
+            is planes.build_resolve_cols_planar)
+    r, reg = build_bench_scene(1, torch.device("cpu"))
+    rotate(reg, 0)
+    cs = kb.frame_bins(r)[0]
+    rows = planes.build_resolve_cols_planar(cs.cols)
+    cols = kb.records_columns(cs.cols)
+    assert cols.shape == (planes.RR_WIDTH, rows.shape[0])
+    assert torch.equal(cols.T.view(torch.int32), rows.view(torch.int32))
 
 
 @pytest.mark.parametrize("tool", (kb, gather_probe, diag_split_kernel))

@@ -4,7 +4,8 @@ mode) over the same winners and the same records.
 The JAX side runs one jit: draw rows → corner stage → records →
 visibility_pallas_tiled → resolve_attrs_pallas, on a 3×3 sphere grid at
 128². The port resolves the JAX winner map against the JAX (RW, T) record
-columns. Per-channel tolerances:
+columns, carried across as its (T, RW) rows (records_from_reference).
+Per-channel tolerances:
   * in a child process whose XLA:CPU may not emit FMAs
     (--xla_cpu_max_isa=AVX), every channel is bit-equal except the mip
     level, ½·log2 of the derivative footprint, which may differ by one ulp
@@ -46,6 +47,7 @@ from trident_tpu.render.frame import build_draw_params, gather_mesh_draws
 from trident_tpu.render.renderer import Renderer
 
 from trident_tpu_torch.ops import resolve
+from trident_tpu_torch.ops.planes import records_from_reference
 
 torch.set_num_threads(1)
 
@@ -104,7 +106,7 @@ def test_resolve_matches_pallas_per_channel():
     covered = tri >= 0
     assert covered.sum() > 3000
     pattrs = resolve.resolve_attrs(torch.from_numpy(tri),
-                                   torch.from_numpy(cols)).numpy()
+                                   records_from_reference(cols)).numpy()
     assert (pattrs[~covered] == 0).all() and (jattrs[~covered] == 0).all()
     p, j = pattrs[covered], jattrs[covered]
     exact = list(range(resolve.CH_CF, resolve.CHANNELS))
@@ -116,7 +118,7 @@ def test_resolve_matches_pallas_per_channel():
     assert np.abs(p[:, mip] - j[:, mip]).max() <= 1e-4
     # the wrapper on CPU tensors is the plain version
     plain = resolve.resolve_attrs_plain(torch.from_numpy(tri),
-                                        torch.from_numpy(cols)).numpy()
+                                        records_from_reference(cols)).numpy()
     assert (plain == pattrs).all()
 
 
@@ -132,7 +134,7 @@ def test_resolve_bitwise_vs_pallas_without_fma(tmp_path):
     covered = tri >= 0
     assert covered.sum() > 3000
     pattrs = resolve.resolve_attrs(torch.from_numpy(tri),
-                                   torch.from_numpy(cols)).numpy()
+                                   records_from_reference(cols)).numpy()
     assert (pattrs[~covered] == 0).all() and (jattrs[~covered] == 0).all()
     p = pattrs[covered].view(np.int32).astype(np.int64)
     j = jattrs[covered].view(np.int32).astype(np.int64)

@@ -9,18 +9,27 @@
 // (resolve_pallas.py:631-635; trident_resolve_tiled), which the tiled
 // shading path (the `tiled_shade` knob) reads without an untile.
 //
-// Bound on the card: bytes — 64 B of output per pixel plus one scattered
-// column read per record row of the winner (neighbouring pixels mostly
-// share a winner, so a warp touches few distinct columns).
+// Bound on the card: bytes — the 4-byte id and 64 B of output per pixel,
+// plus one 128-byte record row per distinct winner (neighbouring pixels
+// mostly share a winner).
 //
-// Design: one thread per pixel. The winner's record is a direct load
-// records[:, tri_id] from the (RW, T) column table; there is no pair sweep,
-// no one-hot select and no split-bf16 planes (those existed for the TPU's
-// matrix unit). The per-pixel body is resolve_common.cuh's, shared with the
-// fused kernel. The template picks the pixel mapping and output layout:
-// row-major pixels with four float4 stores of channel-last output, or tile
-// pixels (tile, r) with one coalesced store per channel plane. Uncovered
-// pixels get zeros.
+// Design: one thread per pixel, no pair sweep, no one-hot select and no
+// split-bf16 planes (those existed for the TPU's matrix unit). The winner's
+// record is its row of the row-major (T, 32) table, read with eight 16-byte
+// loads (resolve_common.cuh, the body shared with the fused kernel): a warp
+// touches one 128-byte line per distinct winner. A CTA covers 32x8 pixels,
+// one warp per 32-pixel row segment, so vertical neighbours that share a
+// winner share the CTA and its L1.
+//   (H, W): each warp's 32 pixels x 16 channels are 2 KB of contiguous
+//   output. The warp stages them in shared memory (a float4 per 4 channels,
+//   XOR-swizzled so neither the per-pixel writes nor the flat reads conflict
+//   on a bank) and stores them as consecutive float4s by consecutive lanes:
+//   each store instruction is one 512-byte run, four full 128-byte lines
+//   where W is even.
+//   Tiled: the block's 8 rows of one tile; each channel plane is one
+//   coalesced 128-byte store per warp.
+// Uncovered pixels get zeros; ragged frames (W not a multiple of 32, H not
+// a multiple of 8) mask the lanes and warps outside the frame.
 
 #include "resolve_common.cuh"
 
@@ -28,65 +37,89 @@ namespace {
 
 using namespace trident;
 
-constexpr int kThreads = 256;
+constexpr int kBlockW = 32;            // pixels of a warp's row segment
+constexpr int kBlockH = 8;             // rows of a CTA, one warp each
+constexpr int kThreads = kBlockW * kBlockH;
+constexpr int kQuads = kChannels / 4;  // float4s per pixel
 constexpr int kTile = 32;
 constexpr int kTilePx = kTile * kTile;
 
-// kTiled: tri and out are (n_tiles, 1024) and (n_tiles, 16, 1024) in tile
-// layout and `width` is the tile-row count ntx; else (H, W) and (H, W, 16)
-template <bool kTiled>
+// staging slot of pixel p's float4 q: pixel-major, q XOR-swizzled by bits
+// 1-2 of p, so that 8 lanes writing one q of 8 pixels, or reading 8
+// consecutive float4s (2 pixels), hit 8 distinct 4-bank groups
+__device__ __forceinline__ int stage_slot(int p, int q) {
+  return p * kQuads + (q ^ ((p >> 1) & (kQuads - 1)));
+}
+
+// (H, W) ids → (H, W, 16) attributes; grid (ceil(W/32), ceil(H/8))
 __global__ void __launch_bounds__(kThreads)
 resolve_kernel(const int* __restrict__ tri, const float* __restrict__ records,
-               long long stride, int width, int n_px, float* __restrict__ out) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n_px) return;
-  float pxf, pyf;
-  if (kTiled) {
-    const int tile = p / kTilePx, r = p % kTilePx;
-    pxf = static_cast<float>(tile % width * kTile + r % kTile) + 0.5f;
-    pyf = static_cast<float>(tile / width * kTile + r / kTile) + 0.5f;
-  } else {
-    pxf = static_cast<float>(p % width) + 0.5f;
-    pyf = static_cast<float>(p / width) + 0.5f;
-  }
-  float a[kChannels];
-  resolve_pixel(records, stride, tri[p], pxf, pyf, a);
-  if (kTiled) {
-    float* o = out + static_cast<size_t>(p / kTilePx) * kChannels * kTilePx +
-               p % kTilePx;
+               int width, int height, float* __restrict__ out) {
+  __shared__ float4 stage[kBlockH][kBlockW * kQuads];
+  const int lane = threadIdx.x % kBlockW, warp = threadIdx.x / kBlockW;
+  const int y = blockIdx.y * kBlockH + warp;
+  if (y >= height) return;             // warp-uniform: only warp syncs follow
+  const int x0 = blockIdx.x * kBlockW;
+  const int n = min(kBlockW, width - x0);   // pixels of this row segment
+  const size_t p0 = static_cast<size_t>(y) * width + x0;
+  float4* s = stage[warp];
+  if (lane < n) {
+    float a[kChannels];
+    resolve_pixel(record_row(records, tri[p0 + lane]),
+                  static_cast<float>(x0 + lane) + 0.5f,
+                  static_cast<float>(y) + 0.5f, a);
 #pragma unroll
-    for (int c = 0; c < kChannels; ++c) o[c * kTilePx] = a[c];
-  } else {
-    float4* o = reinterpret_cast<float4*>(out + static_cast<size_t>(p) * kChannels);
-    o[0] = make_float4(a[0], a[1], a[2], a[3]);
-    o[1] = make_float4(a[4], a[5], a[6], a[7]);
-    o[2] = make_float4(a[8], a[9], a[10], a[11]);
-    o[3] = make_float4(a[12], a[13], a[14], a[15]);
+    for (int q = 0; q < kQuads; ++q)
+      s[stage_slot(lane, q)] =
+          make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+  }
+  __syncwarp();
+  float4* o = reinterpret_cast<float4*>(out) + p0 * kQuads;
+#pragma unroll
+  for (int k = 0; k < kQuads; ++k) {
+    const int f = k * kBlockW + lane;  // float4 f of the segment's output
+    const int p = f / kQuads;
+    if (p < n) o[f] = s[stage_slot(p, f % kQuads)];
   }
 }
 
-template <bool kTiled>
-int launch(const int* tri, const float* records, long long stride, int width,
-           int n_px, float* out, cudaStream_t stream) {
-  if (n_px > 0) {
-    const int blocks = (n_px + kThreads - 1) / kThreads;
-    resolve_kernel<kTiled><<<blocks, kThreads, 0, stream>>>(
-        tri, records, stride, width, n_px, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+// tile-layout ids (n_tiles, 1024) → (n_tiles, 16, 1024); block b covers
+// rows 8(b % 4) .. 8(b % 4) + 7 of tile b / 4, one warp per row
+__global__ void __launch_bounds__(kThreads)
+resolve_tiled_kernel(const int* __restrict__ tri,
+                     const float* __restrict__ records, int ntx,
+                     float* __restrict__ out) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  const int tile = p / kTilePx, r = p % kTilePx;
+  float a[kChannels];
+  resolve_pixel(record_row(records, tri[p]),
+                static_cast<float>(tile % ntx * kTile + r % kTile) + 0.5f,
+                static_cast<float>(tile / ntx * kTile + r / kTile) + 0.5f, a);
+  float* o = out + static_cast<size_t>(tile) * kChannels * kTilePx + r;
+#pragma unroll
+  for (int c = 0; c < kChannels; ++c) o[c * kTilePx] = a[c];
 }
 
 }  // namespace
 
 extern "C" int trident_resolve(const int* tri, const float* records,
-                               long long stride, int width, int n_px,
-                               float* out, cudaStream_t stream) {
-  return launch<false>(tri, records, stride, width, n_px, out, stream);
+                               int width, int height, float* out,
+                               cudaStream_t stream) {
+  if (width > 0 && height > 0) {
+    const dim3 grid((width + kBlockW - 1) / kBlockW,
+                    (height + kBlockH - 1) / kBlockH);
+    resolve_kernel<<<grid, kThreads, 0, stream>>>(tri, records, width, height,
+                                                  out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int trident_resolve_tiled(const int* tri, const float* records,
-                                     long long stride, int ntx, int n_tiles,
-                                     float* out, cudaStream_t stream) {
-  return launch<true>(tri, records, stride, ntx, n_tiles * kTilePx, out,
-                      stream);
+                                     int ntx, int n_tiles, float* out,
+                                     cudaStream_t stream) {
+  if (n_tiles > 0) {
+    resolve_tiled_kernel<<<n_tiles * (kTilePx / kThreads), kThreads, 0,
+                           stream>>>(tri, records, ntx, out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -3,6 +3,10 @@
 // (csrc/visibility_resolve.cu), so all of them evaluate the interpolants in
 // one expression order: resolve_pallas._eval_interpolants's, with
 // -fmad=false rounding every op like the plain version in ops/resolve.py.
+//
+// The record table is row-major (T, kRecWidth) f32 (ops/planes.py
+// build_resolve_cols_planar): one 128-byte line per triangle, read with
+// eight 16-byte loads; lanes of a warp that share a winner share the line.
 
 #pragma once
 
@@ -10,10 +14,11 @@
 
 namespace trident {
 
-// resolve-record rows (ops/planes.py RR_*)
+// resolve-record columns (ops/planes.py RR_*)
 constexpr int kG1 = 0, kNX = 3, kNY = 6, kNZ = 9, kU = 12, kV = 15;
 constexpr int kCF = 18, kMet = 22, kRough = 23, kAmb = 24;
 constexpr int kTsx = 26, kTsy = 27, kBase8 = 28;
+constexpr int kRecWidth = 32;          // floats per record row (RR_WIDTH)
 constexpr int kChannels = 16;
 
 // NaN-propagating max, as torch.maximum / jnp.maximum
@@ -23,21 +28,36 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return a > b ? a : b;
 }
 
-// The 16 shading channels of winner `tid` at pixel centre (pxf, pyf), from
-// column tid of the (RW, T) record table (row stride `stride` floats);
-// zeros where tid < 0 (uncovered).
-__device__ __forceinline__ void resolve_pixel(const float* __restrict__ records,
-                                              long long stride, int tid,
+// The record row of winner `tid` in the (T, kRecWidth) table, or nullptr
+// where tid < 0 (uncovered). The table's base is 16-byte aligned (the
+// wrappers check it), so each row is eight aligned float4s.
+__device__ __forceinline__ const float4* record_row(
+    const float* __restrict__ records, int tid) {
+  return tid < 0 ? nullptr
+                 : reinterpret_cast<const float4*>(records) +
+                       static_cast<size_t>(tid) * (kRecWidth / 4);
+}
+
+// The 16 shading channels at pixel centre (pxf, pyf) of the winner whose
+// record row is `row` (record_row); zeros where row is nullptr.
+__device__ __forceinline__ void resolve_pixel(const float4* __restrict__ row,
                                               float pxf, float pyf,
                                               float (&o)[kChannels]) {
-  if (tid < 0) {
+  if (row == nullptr) {
 #pragma unroll
     for (int c = 0; c < kChannels; ++c) o[c] = 0.0f;
     return;
   }
-  const float* rc = records + tid;
-  auto row = [&](int j) { return __ldg(rc + j * stride); };
-  auto plane = [&](int j) { return row(j) * pxf + row(j + 1) * pyf + row(j + 2); };
+  float rc[kRecWidth];
+#pragma unroll
+  for (int q = 0; q < kRecWidth / 4; ++q) {
+    const float4 v = __ldg(row + q);
+    rc[4 * q] = v.x;
+    rc[4 * q + 1] = v.y;
+    rc[4 * q + 2] = v.z;
+    rc[4 * q + 3] = v.w;
+  }
+  auto plane = [&](int j) { return rc[j] * pxf + rc[j + 1] * pyf + rc[j + 2]; };
 
   const float denom = plane(kG1);
   const float inv = 1.0f / (fabsf(denom) < 1e-20f ? 1e-20f : denom);
@@ -47,21 +67,21 @@ __device__ __forceinline__ void resolve_pixel(const float* __restrict__ records,
   const float u = plane(kU) * inv;
   const float v = plane(kV) * inv;
 
-  const float g1x = row(kG1), g1y = row(kG1 + 1);
-  const float du_dx = (row(kU) - u * g1x) * inv;
-  const float du_dy = (row(kU + 1) - u * g1y) * inv;
-  const float dv_dx = (row(kV) - v * g1x) * inv;
-  const float dv_dy = (row(kV + 1) - v * g1y) * inv;
-  const float tsx = row(kTsx), tsy = row(kTsy);
+  const float g1x = rc[kG1], g1y = rc[kG1 + 1];
+  const float du_dx = (rc[kU] - u * g1x) * inv;
+  const float du_dy = (rc[kU + 1] - u * g1y) * inv;
+  const float dv_dx = (rc[kV] - v * g1x) * inv;
+  const float dv_dy = (rc[kV + 1] - v * g1y) * inv;
+  const float tsx = rc[kTsx], tsy = rc[kTsy];
   const float ax = du_dx * tsx, bx = dv_dx * tsy;
   const float ay = du_dy * tsx, by = dv_dy * tsy;
   const float rho = max_nan(ax * ax + bx * bx, ay * ay + by * by);
   const float mip = 0.5f * log2f(max_nan(rho, 1e-12f));
 
   o[0] = nx; o[1] = ny; o[2] = nz; o[3] = u;
-  o[4] = v; o[5] = mip; o[6] = row(kCF); o[7] = row(kCF + 1);
-  o[8] = row(kCF + 2); o[9] = row(kCF + 3); o[10] = row(kMet);
-  o[11] = row(kRough); o[12] = row(kAmb); o[13] = row(kBase8);
+  o[4] = v; o[5] = mip; o[6] = rc[kCF]; o[7] = rc[kCF + 1];
+  o[8] = rc[kCF + 2]; o[9] = rc[kCF + 3]; o[10] = rc[kMet];
+  o[11] = rc[kRough]; o[12] = rc[kAmb]; o[13] = rc[kBase8];
   o[14] = tsx; o[15] = tsy;
 }
 

@@ -7,8 +7,8 @@
 //
 // Bound on the card: bytes (0.0640 ms at spheres1080_1m on an NVIDIA H100
 // 80GB HBM3 at 700 W, chip_smoke.py phase 10): the visibility kernel's
-// (records of the hit sub-blocks, pair lists, depth and ids), one record
-// column per distinct winner, and 64 B per pixel of attribute output; the
+// (records of the hit sub-blocks, pair lists, depth and ids), one 128-byte
+// record row per distinct winner, and 64 B per pixel of attribute output; the
 // (H, W) id round trip between two launches (write the ids, read them back)
 // is gone.
 //
@@ -20,7 +20,8 @@
 // (warp w owns a 16x8 region and merges only the staged triangles whose
 // edges can pass one of its pixel centres), and then each thread evaluates
 // the interpolants of its 4 pixels' final winners once (resolve_common.cuh,
-// the resolve kernel's own body) at the same pixel centres. Depth and ids
+// the resolve kernel's own body: the winner's row of the (T, 32) record
+// table in eight 16-byte loads) at the same pixel centres. Depth and ids
 // are K1's bit for bit; the attributes are the tiled resolve kernel's.
 // Outputs: depth and ids (n_tiles, 1024), attributes channel-planar
 // (n_tiles, 16, 1024), at tile index row*32 + col under the region map, so
@@ -39,7 +40,7 @@ visibility_resolve_kernel(const float* __restrict__ records,
                           const int* __restrict__ pair_mask,
                           const int* __restrict__ tile_start, int ntx,
                           const float* __restrict__ res_records,
-                          long long stride, float* __restrict__ depth_out,
+                          float* __restrict__ depth_out,
                           int* __restrict__ tri_out,
                           float* __restrict__ attr_out) {
   __shared__ VisRegionStage stage;
@@ -57,7 +58,7 @@ visibility_resolve_kernel(const float* __restrict__ records,
     depth_out[o] = best_d[k];
     tri_out[o] = best_t[k];
     float a[kChannels];
-    resolve_pixel(res_records, stride, best_t[k], px[k], py[k], a);
+    resolve_pixel(record_row(res_records, best_t[k]), px[k], py[k], a);
     float* dst = attr_out + static_cast<size_t>(tile) * kChannels * kTilePx + r;
 #pragma unroll
     for (int c = 0; c < kChannels; ++c) dst[c * kTilePx] = a[c];
@@ -69,11 +70,11 @@ visibility_resolve_kernel(const float* __restrict__ records,
 extern "C" int trident_visibility_resolve(
     const float* records, const int* pair_chunk, const int* pair_mask,
     const int* tile_start, int n_tiles, int ntx, const float* res_records,
-    long long stride, float* depth_out, int* tri_out, float* attr_out,
+    float* depth_out, int* tri_out, float* attr_out,
     cudaStream_t stream) {
   if (n_tiles > 0) {
     visibility_resolve_kernel<<<n_tiles, kVisThreads, 0, stream>>>(
-        records, pair_chunk, pair_mask, tile_start, ntx, res_records, stride,
+        records, pair_chunk, pair_mask, tile_start, ntx, res_records,
         depth_out, tri_out, attr_out);
   }
   return static_cast<int>(cudaGetLastError());

@@ -4,13 +4,16 @@ Port of trident_tpu/ops/planes.py (the column-native builder of the
 forward path). For homogeneous rasterization a vertex attribute A
 interpolates as A(p) = (gA·p)/(g1·p) with p = (px, py, 1), where
 gA = Σ_k A_k·edge_k and g1 = Σ_k edge_k are per-triangle constants. The
-table is the unchunked (RW, T) column layout: the resolve kernel
-(ops/resolve.py) loads its winner's column directly, so the TPU's chunked
-sentinel-prefixed layout has no counterpart here.
+JAX package builds an (RW, T) column table and chunks it for the TPU's
+one-hot select; the port's table is row-major (T, RR_WIDTH): one 128-byte
+line per triangle, which the resolve kernels (ops/resolve.py) read with
+eight 16-byte loads at the winner's row. records_from_reference carries a
+JAX column table across.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from trident_tpu_torch.ops.corner import CornerCols
@@ -23,10 +26,10 @@ RR_TSX, RR_TSY, RR_BASE8, RR_EDGE = 26, 27, 28, 29
 RR_WIDTH = 32
 
 
-def build_resolve_cols_planar(cc: CornerCols) -> torch.Tensor:
-    """(RW, T) records from the corner stage's planar columns, with the
-    reference's fixed association: g1 = (e0 + e1) + e2 and
-    gA = (A0·e0 + A1·e1) + A2·e2 per coefficient."""
+def resolve_parts(cc: CornerCols) -> list:
+    """The 30 record columns, each (T,), from the corner stage's planar
+    columns, with the reference's fixed association: g1 = (e0 + e1) + e2
+    and gA = (A0·e0 + A1·e1) + A2·e2 per coefficient."""
     e = cc.setup.e
 
     def plane_cols(a0, a1, a2):
@@ -37,6 +40,26 @@ def build_resolve_cols_planar(cc: CornerCols) -> torch.Tensor:
         parts += plane_cols(cc.nrm[c], cc.nrm[3 + c], cc.nrm[6 + c])
     for j in range(2):                                 # u, v
         parts += plane_cols(cc.uv[j], cc.uv[2 + j], cc.uv[4 + j])
-    parts += list(cc.consts)
-    cols = torch.stack(parts, dim=0)                   # (30, T)
-    return torch.nn.functional.pad(cols, (0, 0, 0, RR_WIDTH - cols.shape[0]))
+    return parts + list(cc.consts)
+
+
+def build_resolve_cols_planar(cc: CornerCols) -> torch.Tensor:
+    """(T, RR_WIDTH) row-major records (the JAX function's (RW, T) columns,
+    transposed), columns RR_EDGE + 1 .. RR_WIDTH − 1 zero. Two passes over
+    the table: the columns and zero pad columns stacked into the (RW, T)
+    table, then one transposing copy into a contiguous row buffer (into
+    the first 30 columns of a strided one, the copy is slower)."""
+    parts = resolve_parts(cc)
+    zero = torch.zeros_like(parts[0])
+    cols = torch.stack(parts + [zero] * (RR_WIDTH - len(parts)), dim=0)
+    return cols.T.contiguous()
+
+
+def records_from_reference(cols: np.ndarray) -> torch.Tensor:
+    """The JAX package's (RR_WIDTH, T) column table (numpy) → the port's
+    (T, RR_WIDTH) row-major records on the CPU."""
+    cols = np.asarray(cols, dtype=np.float32)
+    if cols.ndim != 2 or cols.shape[0] != RR_WIDTH:
+        raise ValueError(f"expected an ({RR_WIDTH}, T) column table, got "
+                         f"{cols.shape}")
+    return torch.from_numpy(np.ascontiguousarray(cols.T))

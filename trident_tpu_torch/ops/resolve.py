@@ -5,8 +5,10 @@ interpolant math, the resolve pass as one kernel, csrc/resolve.cu, in its
 (H, W) and tiled layouts, and the fused visibility + resolve pass of the
 `fuse` knob, csrc/visibility_resolve.cu). On the TPU the winner's record
 row was selected with one-hot matrix products over the visibility pass's
-pair list; on the card it is a direct load of column tri_id of the (RW, T)
-record table (ops/planes.py).
+pair list; on the card it is a direct load of row tri_id of the
+row-major (T, RR_WIDTH) record table (ops/planes.py): one 128-byte line.
+Every wrapper takes only a contiguous (T, RR_WIDTH) f32 table with a
+16-byte-aligned base on the ids' device, and raises on anything else.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ CHANNELS = 16
 
 
 def eval_interpolants(sel: Tensor, pxf: Tensor, pyf: Tensor) -> Tensor:
-    """Every shading interpolant from selected record rows `sel` (RW, N) at
+    """Every shading interpolant from selected records `sel` (RW, N) (the
+    transposed (N, RW) rows the plain versions gather: sel[j] is field j) at
     pixel centres (pxf, pyf) (N,) → (CHANNELS, N) f32. Same expressions, in
     the same order, as resolve_pallas._eval_interpolants."""
 
@@ -71,13 +74,29 @@ def eval_interpolants(sel: Tensor, pxf: Tensor, pyf: Tensor) -> Tensor:
     ], dim=0)
 
 
+def _check_records(records: Tensor, device) -> None:
+    """Raise unless `records` is a contiguous (T, RR_WIDTH) f32 table with
+    a 16-byte-aligned base on `device` (each row eight aligned float4s)."""
+    if (records.device != device or records.dtype != torch.float32
+            or records.dim() != 2 or records.shape[1] != P.RR_WIDTH
+            or not records.is_contiguous() or records.data_ptr() % 16):
+        raise ValueError(f"records must be a contiguous (T, {P.RR_WIDTH}) "
+                         "f32 table with a 16-byte-aligned base on the ids' "
+                         "device")
+
+
+def _winner_rows(records: Tensor, flat: Tensor) -> Tensor:
+    """The winners' records as (RW, N) fields (uncovered ids read row 0)."""
+    return records[flat.clamp_min(0).long()].T
+
+
 def resolve_attrs_plain(tri_id: Tensor, records: Tensor) -> Tensor:
     """Plain PyTorch twin of the resolve kernel: (H, W) winner ids and the
-    (RW, T) records → (H, W, CHANNELS) f32, zeros where tri_id < 0."""
+    (T, RW) records → (H, W, CHANNELS) f32, zeros where tri_id < 0."""
     h, w = tri_id.shape
     dev = tri_id.device
     flat = tri_id.reshape(-1)
-    sel = records[:, flat.clamp_min(0).long()]               # (RW, H·W)
+    sel = _winner_rows(records, flat)                        # (RW, H·W)
     ys = torch.arange(h, dtype=torch.float32, device=dev) + 0.5
     xs = torch.arange(w, dtype=torch.float32, device=dev) + 0.5
     pyf = ys[:, None].expand(h, w).reshape(-1)
@@ -90,25 +109,21 @@ def resolve_attrs_plain(tri_id: Tensor, records: Tensor) -> Tensor:
 def resolve_attrs(tri_id: Tensor, records: Tensor) -> Tensor:
     """(H, W, CHANNELS) attribute image: the CUDA kernel for tensors on
     the card, the plain version for tensors on the CPU."""
+    _check_records(records, tri_id.device)
     if tri_id.device.type == "cpu":
         return resolve_attrs_plain(tri_id, records)
-    if tri_id.device.type != "cuda" or records.device != tri_id.device:
-        raise ValueError("tri_id and records must be on the same CUDA device")
+    if tri_id.device.type != "cuda":
+        raise ValueError(f"unsupported device {tri_id.device}")
     if tri_id.dtype != torch.int32 or tri_id.dim() != 2 \
             or not tri_id.is_contiguous():
         raise ValueError("tri_id must be a contiguous (H, W) i32 tensor")
-    if records.dtype != torch.float32 or records.dim() != 2 \
-            or records.shape[0] < P.RR_EDGE + 1 or not records.is_contiguous():
-        raise ValueError("records must be a contiguous (RW, T) f32 table")
     h, w = tri_id.shape
     out = torch.empty((h, w, CHANNELS), dtype=torch.float32,
                       device=tri_id.device)
     fn = _build.kernel("trident_resolve",
-                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                        ctypes.c_void_p])
-    err = fn(tri_id.data_ptr(), records.data_ptr(), records.shape[1], w,
-             h * w, out.data_ptr(),
+                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    err = fn(tri_id.data_ptr(), records.data_ptr(), w, h, out.data_ptr(),
              torch.cuda.current_stream(tri_id.device).cuda_stream)
     _build.check_launch("trident_resolve", err)
     resolve_attrs.launches += 1
@@ -127,19 +142,11 @@ def resolve_attrs_tiled_plain(tri_tiles: Tensor, records: Tensor,
     flat = tri_tiles.reshape(-1)
     pxf, pyf = raster.tile_centres(
         torch.arange(n_tiles, device=tri_tiles.device), ntx)
-    attrs = eval_interpolants(records[:, flat.clamp_min(0).long()],
+    attrs = eval_interpolants(_winner_rows(records, flat),
                               pxf.reshape(-1), pyf.reshape(-1))
     attrs = torch.where(flat >= 0, attrs, 0.0)               # (CH, N)
     return attrs.view(CHANNELS, n_tiles, raster.TILE_PX).permute(1, 0, 2) \
         .contiguous()
-
-
-def _check_records(records: Tensor, device) -> None:
-    if (records.device != device or records.dtype != torch.float32
-            or records.dim() != 2 or records.shape[0] < P.RR_EDGE + 1
-            or not records.is_contiguous()):
-        raise ValueError("records must be a contiguous (RW, T) f32 table on "
-                         "the ids' device")
 
 
 def resolve_attrs_tiled(tri_tiles: Tensor, records: Tensor,
@@ -147,6 +154,7 @@ def resolve_attrs_tiled(tri_tiles: Tensor, records: Tensor,
     """(n_tiles, CHANNELS, 1024) attributes of (n_tiles, 1024) tile-layout
     winner ids (resolve_attrs_pallas(tiled=True)): the CUDA kernel for
     tensors on the card, the plain version for tensors on the CPU."""
+    _check_records(records, tri_tiles.device)
     if tri_tiles.device.type == "cpu":
         return resolve_attrs_tiled_plain(tri_tiles, records, ntx)
     if tri_tiles.device.type != "cuda":
@@ -156,16 +164,14 @@ def resolve_attrs_tiled(tri_tiles: Tensor, records: Tensor,
             or not tri_tiles.is_contiguous()):
         raise ValueError("tri_tiles must be a contiguous (n_tiles, 1024) i32 "
                          "tensor")
-    _check_records(records, tri_tiles.device)
     n_tiles = tri_tiles.shape[0]
     out = torch.empty((n_tiles, CHANNELS, raster.TILE_PX),
                       dtype=torch.float32, device=tri_tiles.device)
     fn = _build.kernel("trident_resolve_tiled",
-                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                        ctypes.c_void_p])
-    err = fn(tri_tiles.data_ptr(), records.data_ptr(), records.shape[1], ntx,
-             n_tiles, out.data_ptr(),
+                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    err = fn(tri_tiles.data_ptr(), records.data_ptr(), ntx, n_tiles,
+             out.data_ptr(),
              torch.cuda.current_stream(tri_tiles.device).cuda_stream)
     _build.check_launch("trident_resolve_tiled", err)
     resolve_attrs_tiled.launches += 1
@@ -192,10 +198,10 @@ def fused_visibility_resolve(bins: raster.Bins, records: Tensor, ntx: int,
     resolve_attrs_tiled. The CUDA kernel for tensors on the card, the
     plain version for tensors on the CPU."""
     rec = bins.records
+    _check_records(records, rec.device)
     if rec.device.type == "cpu":
         return fused_visibility_resolve_plain(bins, records, ntx, n_tiles)
     raster.check_bins(bins, n_tiles)
-    _check_records(records, rec.device)
     dev = rec.device
     depth = torch.empty((n_tiles, raster.TILE_PX), dtype=torch.float32,
                         device=dev)
@@ -205,11 +211,10 @@ def fused_visibility_resolve(bins: raster.Bins, records: Tensor, ntx: int,
                         dtype=torch.float32, device=dev)
     fn = _build.kernel("trident_visibility_resolve",
                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p, ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 4)
+                       + [ctypes.c_void_p] * 5)
     err = fn(rec.data_ptr(), bins.pair_chunk.data_ptr(),
              bins.pair_mask.data_ptr(), bins.tile_start.data_ptr(), n_tiles,
-             ntx, records.data_ptr(), records.shape[1], depth.data_ptr(),
+             ntx, records.data_ptr(), depth.data_ptr(),
              tri.data_ptr(), attrs.data_ptr(),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("trident_visibility_resolve", err)

@@ -96,8 +96,10 @@ logger = get_logger("renderer_torch")
 def frame_geometry(plan, tri_draw, params, shade_table, camera, textures,
                    corner_t, *, width: int, height: int, draw_stride: int = 0,
                    real_draws: int = 0):
-    """Per-frame geometry: (corner stage output, (RW, T) resolve records).
-    The per-draw consts are the shade row + the texture sizes row, so the
+    """Per-frame geometry: (corner stage output, resolve records). The
+    records are row-major (T, RR_WIDTH), one 128-byte line per triangle
+    (the JAX package's (RW, T) columns, transposed; ops/planes.py). The
+    per-draw consts are the shade row + the texture sizes row, so the
     resolve kernel needs no per-pixel table lookups."""
     tex_row = textures.sizes[params.texture_slot.long()].float()
     draw_consts = torch.cat([shade_table, tex_row], dim=1)

@@ -40,8 +40,11 @@ beside K1's is a staging A/B on the same kept pairs) on bins built with
 ck_bank 8, the bank table rebuilt from the doctored masks, and skips
 nobranch and dual, as the JAX script does under CKERN. --bins splits
 build_bins' time (records, emission + sort, one pool-sized sort) and
---sort runs a ladder of torch.sort sizes; both are plain PyTorch, no
-kernel.
+--sort runs a ladder of torch.sort sizes; --records times the resolve
+table's producer, the (T, 32) rows frame_geometry builds against the
+(32, T) column layout the port built before (stack, then pad), alone and
+inside frame_geometry, in the order rows, columns, columns, rows. The
+three legs are plain PyTorch, no kernel.
 
 Deviation from the JAX script: it builds the bins through the indexed
 vertex_stage + triangle_setup (kbench.py:59-67); the port has no indexed
@@ -59,7 +62,7 @@ import ctypes
 import torch
 
 from trident_tpu_torch import _build, resolve_device
-from trident_tpu_torch.ops import raster
+from trident_tpu_torch.ops import planes, raster
 from trident_tpu_torch.ops.planes import RR_WIDTH
 from trident_tpu_torch.tools_dev.timing import card, fmt_ms, timed, timed_ms
 
@@ -74,7 +77,7 @@ SORT_LADDER = (8192, 16384, 24576, 32768, 49152, 65536, 73664, 81920, 98304,
 
 
 def frame_bins(r, ck_bank: int = 0):
-    """(corner stage output, (RW, T) resolve records, bins, width, height)
+    """(corner stage output, (T, RW) resolve records, bins, width, height)
     of Renderer r's current frame, as its render_frame builds them
     (chip_smoke.py phase 3); ck_bank > 0 adds the compact-bank table."""
     from trident_tpu_torch.render.renderer import frame_geometry
@@ -437,6 +440,48 @@ def sort_leg(dev, iters: int = 30, card_line: str = "cpu") -> None:
               f"({card_line})", flush=True)
 
 
+def records_columns(cc) -> Tensor:
+    """The (RR_WIDTH, T) column table, the layout of the JAX package's
+    records and of the port's before its (T, RR_WIDTH) rows: the 30
+    columns stacked, then padded with zero rows."""
+    cols = torch.stack(planes.resolve_parts(cc), dim=0)
+    return torch.nn.functional.pad(cols, (0, 0, 0, RR_WIDTH - cols.shape[0]))
+
+
+def records_leg(r, iters: int = 30, card_line: str = "cpu") -> None:
+    """The resolve table's producer, A/B on Renderer r's current frame:
+    build_resolve_cols_planar (rows) against records_columns (columns),
+    each alone on the frame's corner-stage columns and inside
+    frame_geometry with its producer swapped, in the order rows, columns,
+    columns, rows (one window; order effects show as the two readings of
+    one producer differing)."""
+    from trident_tpu_torch.render import renderer
+
+    inp = r.frame_inputs()
+    dev = r.device
+
+    def geometry():
+        return renderer.frame_geometry(
+            inp["plan"], inp["tri_draw"], inp["params"], inp["shade_table"],
+            inp["camera"], inp["textures"], inp["corner_t"],
+            width=inp["width"], height=inp["height"],
+            draw_stride=inp["draw_stride"], real_draws=inp["real_draws"])
+
+    cc = geometry()[0].cols
+    producers = {"rows": planes.build_resolve_cols_planar,
+                 "columns": records_columns}
+    for which in ("rows", "columns", "columns", "rows"):
+        make = producers[which]
+        renderer.build_resolve_cols_planar = make
+        try:
+            print(f"records_{which}: {timed(lambda: make(cc), dev, iters)}; "
+                  f"geometry_{which}: {timed(geometry, dev, iters)} "
+                  f"({card_line})", flush=True)
+        finally:
+            renderer.build_resolve_cols_planar = (
+                planes.build_resolve_cols_planar)
+
+
 def main(argv=None) -> None:
     from trident_tpu_torch.tools_dev.scenes import build_bench_scene, rotate
 
@@ -449,6 +494,8 @@ def main(argv=None) -> None:
     ap.add_argument("--bins", action="store_true",
                     help="the binning-chain decomposition")
     ap.add_argument("--sort", action="store_true", help="the sort ladder")
+    ap.add_argument("--records", action="store_true",
+                    help="the resolve table's producer, rows against columns")
     ap.add_argument("--kernel", choices=("k1", "ckern"), default="k1")
     ap.add_argument("--device", default=None,
                     help="the card unless 'cpu' (plain versions, untimed)")
@@ -470,6 +517,8 @@ def main(argv=None) -> None:
         bins_leg(cs, w, h, args.iters, card_line)
     if args.sort:
         sort_leg(dev, args.iters, card_line)
+    if args.records:
+        records_leg(r, args.iters, card_line)
     print(card_line, flush=True)
 
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import statistics
 import subprocess
+import sys
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -21,10 +22,19 @@ F32_OPS_PER_S = 67e12
 # visibility kernels: three edge functions (2 mul + 2 add each), zi and wi
 # (3 mul + 2 add each); compares and the merge are not counted
 VIS_OPS_PER_PAIR = 22
-PROFILE_ATTEMPTS = 3       # profiling windows device_busy tries
+PROFILE_ATTEMPTS = 10      # profiling windows device_busy tries
 L2_FLUSH_BYTES = 128 << 20  # traffic well past the H100's 50 MB L2
 # the profiler's name for l2_flush's device-to-device copy
 FLUSH_ACTIVITY = "Memcpy DtoD"
+# the prefixes of the profiler's copy and fill records (all others are
+# kernels), and the host calls that launch one kernel each
+COPY_ACTIVITIES = ("Memcpy", "Memset")
+LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx"}
+# torch.cuda._sleep's kernel, launched before and after each profiling
+# window's calls, and its length in clock cycles (about 1 µs)
+SENTINEL = "spin_kernel"
+SENTINEL_CYCLES = 2000
 
 
 def l2_flush(dev):
@@ -61,43 +71,73 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2, flush=None) -> float:
     return statistics.median(times)
 
 
-def _device_events(fn, reps: int, names=None) -> list:
+def whole(n_activities: int, n_kernels: int, n_launches: int) -> bool:
+    """Whether a profiling window holds every kernel it launched: some
+    device activity, and at least as many kernel records (n_kernels, the
+    activities that are not COPY_ACTIVITIES) as the host made kernel
+    launch calls (n_launches, LAUNCH_CALLS). The card's tracer can lose a
+    window's device records, all of them or some; the host's launch calls,
+    recorded beside them, say how many there must be."""
+    return n_activities > 0 and n_kernels >= n_launches
+
+
+def _device_events(fn, reps: int, names=None):
     """torch.profiler's CUDA activity records of `reps` fn() calls after
-    one warm-up call (only those named in `names`, if given); a window
-    with none is profiled again, up to PROFILE_ATTEMPTS windows, then it
-    raises."""
+    one warm-up call (only those named in `names`, if given), or None.
+    Each window brackets the calls with a SENTINEL kernel before and
+    after, whose records are dropped, so that a record the tracer loses
+    at a window's edge is the sentinel's; windows are profiled until one
+    is whole() for fn's own records and launches, up to PROFILE_ATTEMPTS
+    windows. Each window that loses records is reported on stderr
+    (activities, kernels, kernel launches, sentinels), and after
+    PROFILE_ATTEMPTS such windows the result is None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SENTINEL_CYCLES)
             for _ in range(reps):
                 fn()
+            torch.cuda._sleep(SENTINEL_CYCLES)
             torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        events = [e for e in device if SENTINEL not in e.name
                   and (names is None or e.name in names)]
-        if events:
+        n_kernels = sum(not e.name.startswith(COPY_ACTIVITIES)
+                        for e in events)
+        n_launches = sum(e.device_type == DeviceType.CPU
+                         and e.name in LAUNCH_CALLS for e in prof.events())
+        n_sentinels = sum(SENTINEL in e.name for e in device)
+        seen.append((len(events), n_kernels, n_launches - 2, n_sentinels))
+        if n_sentinels < 2 or not whole(*seen[-1][:3]):
+            print(f"device_busy: a window of {reps} calls lost device "
+                  f"records (activities, kernels, kernel launches, "
+                  f"sentinels): {seen[-1]}", file=sys.stderr, flush=True)
+        if whole(*seen[-1][:3]):
             return events
-    raise RuntimeError(f"torch.profiler recorded no device activity in "
-                       f"{PROFILE_ATTEMPTS} windows")
+    return None
 
 
 def device_busy(fn, reps: int = 5, flush=None):
     """(ms, launches) per fn() call of device activity — kernels, copies
     and fills as torch.profiler's CUDA activity records them — after one
     warm-up call: the card's busy time without the gaps between launches
-    that CUDA events around a host-bound call also count (the card's
-    tracer sometimes delivers no activity for a window: _device_events).
+    that CUDA events around a host-bound call also count. The card's
+    tracer can lose device records; _device_events keeps only a window
+    with a kernel record for each of fn's kernel launches, and where no
+    window does, both numbers are NaN: not measured.
     With `flush`, flush() runs before each call, and only the activities
     whose names fn() alone records are counted; it raises if fn() itself
     records a FLUSH_ACTIVITY, which the flush's could not be told from."""
+    nan = float("nan")
     events = _device_events(fn, reps)
-    if flush is not None:
+    if events is not None and flush is not None:
         names = {e.name for e in events}
         if any(FLUSH_ACTIVITY in n for n in names):
             raise RuntimeError(f"fn records a {FLUSH_ACTIVITY!r} activity: "
@@ -108,6 +148,8 @@ def device_busy(fn, reps: int = 5, flush=None):
             fn()
 
         events = _device_events(flushed, reps, names)
+    if events is None:
+        return nan, nan
     busy_us = sum(e.time_range.elapsed_us() for e in events)
     return busy_us / reps / 1e3, len(events) / reps
 
