@@ -87,11 +87,17 @@ Phases (any failure exits non-zero before the final line is printed):
      (K1's for dflt and dual, K1's on full masks for nobranch, background
      for zero and the reset probes; K1 on full masks may differ from K1
      only by bbox-culled rounding hits, at most 1 pixel in 10,000); the
-     LUT gather at the three probe shapes bit-equal to its plain version
-     and torch.gather; the split select at rw 27 and 32 (K1/K2/K3 forms)
-     bit-equal to its plain version and exact against host_parts; each
-     probe kernel's times and bound (the reset probes also with the L2
-     flushed before each launch); then the tools' own runs (kbench with
+     LUT gather at the three probe shapes and a ragged one (3 chunks of
+     2500 rows, indices outside the table) bit-equal to its plain version,
+     numpy and torch.gather, through the path its rule picks and through
+     each path forced (the direct / staged A/B, busy); the split select
+     at rw 27 and 32 (K1/K2/K3 forms) bit-equal to its plain version and
+     exact against host_parts, and with device chunks that push columns
+     outside the row (NaN exactly there); each probe kernel's times and
+     bound (the reset probes also with the L2 flushed before each launch),
+     the host µs per call of the gather and split-select wrappers and
+     their library calls (1000 back-to-back calls), and the launch floor
+     (the busy time of a one-element add_); then the tools' own runs (kbench with
      and without ckern, its --bins and --sort legs, the gather and split
      probes) as this phase's main path, the card's clock sampled before
      and after kbench, and kbench's dflt through K1 beside its dflt
@@ -876,6 +882,52 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
 
 
 PROBE_SRC = "trident_tpu_torch/csrc/visibility_probe.cu"
+HOST_CALLS = 1000
+
+
+def sass_calls(needle: str) -> dict:
+    """For each kernel of the built library whose name holds `needle`, its
+    CALL instructions in cuobjdump's SASS (a 64-bit integer division is
+    a call to a runtime routine; a 32-bit one is inline)."""
+    from trident_tpu_torch import _build
+
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build.build())],
+                          capture_output=True, text=True, check=True).stdout
+    calls, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            if needle in name:
+                calls[name] = 0
+        elif name in calls and " CALL" in line:
+            calls[name] += 1
+    return calls
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host µs per call of `calls` back-to-back fn() calls, one synchronize
+    at the end (after a few warm-up calls)."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def host_line(what: str, fn, lib_name, lib_fn, card: str) -> None:
+    """The host µs per call of a probe wrapper and, if named, its library
+    call."""
+    text = f"{what}: {host_us(fn):.2f} µs"
+    if lib_name is not None:
+        text += f", {lib_name} {host_us(lib_fn):.2f} µs"
+    print(f"host per call ({HOST_CALLS} back-to-back calls, one synchronize)"
+          f", {text} ({card})", flush=True)
 
 
 def phase_probes(dev, card: str, kernel_fns: dict, drive, results: dict,
@@ -883,9 +935,11 @@ def phase_probes(dev, card: str, kernel_fns: dict, drive, results: dict,
     """Phase 11, the tools_dev probes at spheres1080_1m on phase 3's bins:
     the visibility probes (dense, dual, reset) and K1 / K1-CK on doctored
     masks against their plain versions and K1's frame, the gather at the
-    three probe shapes against its plain version and torch.gather, the
-    split select at rw 27 and 32 against its plain version and host_parts;
-    their times and bounds; then the tools' own runs (kbench's configs with
+    three probe shapes and a ragged one against its plain version, numpy
+    and torch.gather (both paths, and their A/B), the split select at rw 27
+    and 32 against its plain version and host_parts and with chunks past
+    the row; their times, bounds, host µs per call and the launch floor;
+    then the tools' own runs (kbench's configs with
     and without ckern, its --bins and --sort legs, the gather and split
     probes) as the main path, with kbench's dflt through K1 against its
     dflt through K1-CK. Adds the probe kernels to `kernel_fns` and
@@ -1008,43 +1062,75 @@ def phase_probes(dev, card: str, kernel_fns: dict, drive, results: dict,
     del d1, t1, dfull, tfull, bg, expect, full, table2, tiny_tab, flush
     torch.cuda.empty_cache()
 
-    # (b) the gather at the three probe shapes
-    for name, (tab, idx) in gp.cases(gp.make_inputs()).items():
+    # (b) the gather at the three probe shapes and a ragged one: the rule's
+    # path against its plain version, numpy and torch.gather (on clamped
+    # indices, -1 outside the table), then each path forced, in one window
+    # of alternating readings
+    calls = sass_calls("lut_gather")
+    if len(calls) < 3 or any(calls.values()):
+        fail(f"lut_gather's kernels in SASS (CALL instructions): {calls}")
+    print(f"lut_gather: {len(calls)} kernels in the library's SASS, none "
+          "with a CALL (no 64-bit division routine)", flush=True)
+    gather_cases = dict(gp.cases(gp.make_inputs()), ragged=gp.ragged_case())
+    for name, (tab, idx) in gather_cases.items():
         t = torch.from_numpy(tab).to(dev)
         i = torch.from_numpy(idx).to(dev)
-        i64 = i.long()
+        k, rows, lanes = t.shape
+        ok = (i >= 0) & (i < rows)
+        i64 = i.clamp(0, rows - 1).long()
         got = gp.lut_gather(t, i)
         plain = gp.lut_gather_plain(t, i)
-        lib = gp.library_gather(t, i64).view(
-            t.shape[0], *i.shape).transpose(0, 1)
+        lib = torch.where(ok[:, None], gp.library_gather(t, i64).view(
+            k, *i.shape).transpose(0, 1), -1)
+        forced = [gp.lut_gather_path(t, i, staged) for staged in (False,
+                                                                   True)]
         torch.cuda.synchronize()
-        bad = [int((got != plain).sum()), int((got != lib).sum())]
-        shape = (i.shape[0], t.shape[0], *i.shape[1:])
+        bad = [int((got != plain).sum()), int((got != lib).sum()),
+               int((got.cpu().numpy() != gp.numpy_reference(tab, idx)).sum()),
+               *[int((f != plain).sum()) for f in forced]]
+        shape = (i.shape[0], k, *i.shape[1:])
         if any(bad) or tuple(got.shape) != shape:
-            fail(f"lut_gather {name}: {bad[0]} values off its plain version, "
-                 f"{bad[1]} off torch.gather (shape {tuple(got.shape)})")
+            fail(f"lut_gather {name}: {bad} values off its plain version, "
+                 f"torch.gather, numpy, the direct and the staged path "
+                 f"(shape {tuple(got.shape)})")
+        path = gp.gather_path(k, rows, lanes, i.shape[0], i.shape[1])
+        ab = [device_busy(lambda staged=staged: gp.lut_gather_path(
+            t, i, staged))[0] for staged in (False, True, True, False)]
+        print(f"lut_gather {name} ({tuple(t.shape)} tables, "
+              f"{tuple(i.shape)} idx): the rule's {path} path, the direct "
+              f"and the staged path bit-equal to the plain version, numpy "
+              f"and torch.gather; busy A/B direct / staged / staged / direct "
+              f"{' / '.join(f'{b:.4f}' for b in ab)} ms (staged splits "
+              f"{gp.staged_splits(k, lanes, *i.shape[:2])}) ({card})",
+              flush=True)
+        if name == "ragged":
+            continue
         b_ms, b_by = bound(4 * (t.numel() + i.numel() + got.numel()))
         ms = cuda_ms(lambda: gp.lut_gather(t, i))
         lib_ms = cuda_ms(lambda: gp.library_gather(t, i64))
         plain_ms = cuda_ms(lambda: gp.lut_gather_plain(t, i))
         busy = [device_busy(fn)[0] for fn in (
             lambda: gp.lut_gather(t, i), lambda: gp.library_gather(t, i64))]
-        print(f"lut_gather {name} ({tuple(t.shape)} tables, "
-              f"{tuple(i.shape)} idx): bit-equal to its plain version and "
-              f"torch.gather; kernel {ms:.4f} ms (device busy {busy[0]:.4f}),"
-              f" torch.gather {lib_ms:.4f} ms (busy {busy[1]:.4f}), plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({card})",
-              flush=True)
+        print(f"lut_gather {name}: kernel {ms:.4f} ms (device busy "
+              f"{busy[0]:.4f}), torch.gather {lib_ms:.4f} ms (busy "
+              f"{busy[1]:.4f}; kernel / torch.gather busy "
+              f"{busy[0] / busy[1]:.3f}), plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}) ({card})", flush=True)
+        if name == "lut_gather":
+            host_line("lut_gather (lut_gather shape)", lambda: gp.lut_gather(
+                t, i), "torch.gather", lambda: gp.library_gather(t, i64),
+                card)
         if name == "lut_frame":
             results["lut_gather"] = dict(
                 route="cuda", source="trident_tpu_torch/csrc/lut_gather.cu",
                 replaces="tools_dev/gather_probe.py:110", max_abs_err=0.0,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms)
-    del t, i, i64, got, plain, lib
+    del t, i, i64, ok, got, plain, lib, forced
     torch.cuda.empty_cache()
 
-    # (c) the split select, K1/K2/K3 at rw 27 and 32
+    # (c) the split select, K1/K2/K3 at rw 27 and 32, and with device chunks
+    # that push columns outside the row
     for rw in dsk.RWS:
         planes, oh = dsk.make_inputs(rw)
         want = dsk.host_parts(planes, oh)
@@ -1065,6 +1151,39 @@ def phase_probes(dev, card: str, kernel_fns: dict, drive, results: dict,
                      f"plain version, max error {err} against host_parts")
     print("split_select: K1/K2/K3 at rw 27 and 32 bit-equal to the plain "
           "version, max error 0 against host_parts", flush=True)
+    cols = planes.shape[2]
+    for form in ("K2", "K3"):
+        for c_val, off in ((3, 200), (4, 0), (-1, 100)):
+            args = dict(dsk.form_inputs(form, planes, oh, dev), off=off)
+            args["chunk"].fill_(c_val)
+            pk, sk = dsk.split_select(**args)
+            pp, sp = dsk.split_select_plain(**args)
+            col = args["win"].long() + off + c_val * dsk.C
+            outside = ((col < 0) | (col >= cols)).expand_as(sk)
+            torch.cuda.synchronize()
+            bad = same_bits(sk, sp) + (same_bits(pk, pp) if args["parts"]
+                                       else 0)
+            if bad or not outside.any() or not torch.equal(
+                    torch.isnan(sk), outside):
+                fail(f"split_select {form} chunk {c_val} off {off}: {bad} "
+                     "values off its plain version, or NaN not exactly "
+                     "outside the row")
+    # planes whose rows start off a 16-byte boundary (the ragged staging)
+    ragged = planes.to(dev)[:, :, 3:1001]
+    for form in ("K1", "K2"):
+        args = dict(dsk.form_inputs(form, planes, oh, dev), planes=ragged,
+                    off=5)
+        pk, sk = dsk.split_select(**args)
+        pp, sp = dsk.split_select_plain(**args)
+        torch.cuda.synchronize()
+        bad = same_bits(sk, sp) + same_bits(pk, pp)
+        if bad:
+            fail(f"split_select {form} on planes starting at column 3: {bad} "
+                 "values off its plain version")
+    print("split_select: K2/K3 with device chunks 3, 4, -1 (columns outside "
+          "the row) bit-equal to the plain version, NaN exactly outside the "
+          "row; K1/K2 on planes starting at column 3 (ragged staging) "
+          "bit-equal", flush=True)
     # each form's times at rw 32; the library call is one PyTorch indexing
     # call selecting the same lanes of the stacked planes (bf16, no sum),
     # which K3's separate planes have no counterpart of
@@ -1093,12 +1212,22 @@ def phase_probes(dev, card: str, kernel_fns: dict, drive, results: dict,
             library_ms=cuda_ms(index_call) if lib else None)
         if form == "K1":
             results["split_select"] = res
+        lo, hi = dsk.split_span(cols, args["off"], dsk.C,
+                                args["chunk"] is not None)
         print(f"split_select ({form}, rw 32): kernel {res['ms']:.4f} ms "
-              f"(device busy {device_busy(select)[0]:.4f} ms), plain "
+              f"(device busy {device_busy(select)[0]:.5f} ms), plain "
               f"{res['plain_ms']:.4f} ms, indexing call "
               + (f"{res['library_ms']:.4f} ms (busy "
-                 f"{device_busy(index_call)[0]:.4f})" if lib else "none")
-              + f", bound {b_ms:.4f} ms ({b_by}) ({card})", flush=True)
+                 f"{device_busy(index_call)[0]:.5f})" if lib else "none")
+              + f", bound {b_ms:.4f} ms ({b_by}); stages columns [{lo}, "
+              f"{hi}): {3 * 2 * (hi - lo) * planes.shape[1]} bytes read for "
+              f"{3 * 2 * n_sel} selected ({card})", flush=True)
+        host_line(f"split_select ({form})", select,
+                  "the indexing call" if lib else None, index_call, card)
+    one = torch.zeros(1, device=dev)
+    print(f"launch floor (one 1-element add_, device busy): "
+          f"{device_busy(lambda: one.add_(1))[0]:.5f} ms ({card})",
+          flush=True)
 
     # (d) the tools' own runs: the main path of this phase
     def probes():

@@ -34,6 +34,7 @@ COMPILE_FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-fmad=false",
 LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 
 _lib: Optional[ctypes.CDLL] = None
+_kernels: dict = {}      # name → (argtypes, declared entry point)
 build_seconds: Optional[float] = None   # wall time of the last build
 
 
@@ -119,11 +120,20 @@ def load_library() -> ctypes.CDLL:
 
 def kernel(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """C entry point `name` with its argument types declared. Every entry
-    point returns the launch's cudaGetLastError() as an int."""
-    fn = getattr(load_library(), name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
+    point returns the launch's cudaGetLastError() as an int. Declared once
+    per name and remembered: a later call with the same types returns the
+    same object, one with other types raises."""
+    argtypes = tuple(argtypes)
+    known = _kernels.get(name)
+    if known is None:
+        fn = getattr(load_library(), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        known = _kernels[name] = (argtypes, fn)
+    if known[0] != argtypes:
+        raise ValueError(f"{name} was declared with argument types "
+                         f"{known[0]}, not {argtypes}")
+    return known[1]
 
 
 def check_launch(name: str, err: int) -> None:

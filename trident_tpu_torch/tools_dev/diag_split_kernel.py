@@ -79,6 +79,72 @@ def split_select_plain(planes, win: Tensor, off: int = 0,
     return (torch.stack(ps) if parts else None), (ps[0] + ps[1]) + ps[2]
 
 
+# csrc/split_select.cu's shared-memory span
+SMEM_MAX_BYTES = 48 * 1024
+_SELECT_ARGS = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2
+                + (ctypes.c_longlong, ctypes.c_int) + (ctypes.c_void_p,) * 2
+                + (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 3)
+
+
+def plane_pitch(span: int) -> int:
+    """Shared-memory bf16 elements per plane for a span of `span` columns:
+    whole 16-byte pieces, one more for a start inside a piece."""
+    return 8 * ((span + 7) // 8 + 1)
+
+
+def split_span(cols: int, off: int, n_win: int, dynamic: bool):
+    """The columns [lo, hi) the kernel stages: the whole row when the
+    chunk comes from the device, else the static chunk's n_win columns
+    from `off`, both inside [0, cols)."""
+    if dynamic:
+        return 0, cols
+    return min(max(off, 0), cols), min(max(off + n_win, 0), cols)
+
+
+def split_smem_bytes(lo: int, hi: int) -> int:
+    """The kernel's shared memory for span [lo, hi): three planes."""
+    return 3 * 2 * plane_pitch(hi - lo)
+
+
+def check_select(planes, win: Tensor, chunk):
+    """Raise unless the kernel can take the planes, win and chunk: three
+    (rows, cols) bf16 planes with one row stride and unit lane stride (a
+    stacked (3, rows, cols) tensor or three tensors), a contiguous (n,) i32
+    win and an optional one-element i32 chunk, all on one device; else
+    return (rows, cols, row stride, the three planes' data pointers)."""
+    if isinstance(planes, Tensor):
+        ok = planes.dim() == 3 and planes.shape[0] == 3
+        if ok:
+            _n, rows, cols = planes.shape
+            step, stride, unit = planes.stride()
+            base = planes.data_ptr()
+            ptrs = (base, base + 2 * step, base + 4 * step)
+        tensors = (planes,)
+    else:
+        p0, p1, p2 = planes
+        stride, unit = p0.stride()
+        rows, cols = p0.shape
+        ok = (p0.dim() == 2 and p1.shape == p2.shape == p0.shape
+              and p1.stride() == p2.stride() == (stride, unit))
+        ptrs = (p0.data_ptr(), p1.data_ptr(), p2.data_ptr())
+        tensors = (p0, p1, p2)
+    dev = tensors[0].device
+    if not (ok and unit == 1 and stride >= cols
+            and all(t.dtype == torch.bfloat16 and t.device == dev
+                    for t in tensors)):
+        raise ValueError("planes must be three (rows, cols) bf16 planes "
+                         "with one row stride and unit lane stride on one "
+                         "device")
+    if not (win.dtype == torch.int32 and win.dim() == 1
+            and win.is_contiguous() and win.device == dev
+            and (chunk is None or (chunk.dtype == torch.int32
+                                   and chunk.numel() == 1
+                                   and chunk.device == dev))):
+        raise ValueError("win must be a contiguous (n,) i32 tensor and chunk "
+                         "one i32, on the planes' device")
+    return rows, cols, stride, ptrs
+
+
 def split_select(planes, win: Tensor, off: int = 0, chunk: Tensor = None,
                  parts: bool = True):
     """(parts (3, rows, n_win) f32 or None, sum (rows, n_win) f32) with
@@ -88,38 +154,25 @@ def split_select(planes, win: Tensor, off: int = 0, chunk: Tensor = None,
     cols) tensor or three tensors); `chunk` an optional one-element i32
     tensor on the planes' device. The CUDA kernel for tensors on the card,
     the plain version for tensors on the CPU."""
-    p0, p1, p2 = planes
-    dev = p0.device
+    dev = planes.device if isinstance(planes, Tensor) else planes[0].device
     if dev.type == "cpu":
         return split_select_plain(planes, win, off, chunk, parts)
-    rows, cols = p0.shape
-    for p in (p0, p1, p2):
-        if not (p.dtype == torch.bfloat16 and p.device == dev
-                and p.shape == (rows, cols) and p.stride() == p0.stride()
-                and p.stride(1) == 1 and p.stride(0) >= cols):
-            raise ValueError("planes must be three (rows, cols) bf16 planes "
-                             "with unit lane stride on one card")
-    if not (win.dtype == torch.int32 and win.dim() == 1
-            and win.is_contiguous() and win.device == dev
-            and (chunk is None or (chunk.dtype == torch.int32
-                                   and chunk.numel() == 1
-                                   and chunk.device == dev))):
-        raise ValueError("win must be a contiguous (n,) i32 tensor and chunk "
-                         "one i32, on the planes' card")
+    rows, cols, stride, ptrs = check_select(planes, win, chunk)
     n_win = win.shape[0]
+    lo, hi = split_span(cols, off, n_win, chunk is not None)
+    if split_smem_bytes(lo, hi) > SMEM_MAX_BYTES:
+        raise ValueError(f"split_select stages columns [{lo}, {hi}) of each "
+                         f"row: {split_smem_bytes(lo, hi)} bytes of shared "
+                         f"memory, more than {SMEM_MAX_BYTES}")
     out_parts = (torch.empty((3, rows, n_win), dtype=torch.float32,
                              device=dev) if parts else None)
     out_sum = torch.empty((rows, n_win), dtype=torch.float32, device=dev)
-    fn = _build.kernel("trident_split_select",
-                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                       + [ctypes.c_longlong, ctypes.c_int]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 3)
-    err = fn(p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), rows, cols,
-             p0.stride(0), off, chunk.data_ptr() if chunk is not None else None,
-             win.data_ptr(), n_win,
-             out_parts.data_ptr() if parts else None, out_sum.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = _build.kernel("trident_split_select", _SELECT_ARGS)(
+        *ptrs, rows, cols, stride, off,
+        chunk.data_ptr() if chunk is not None else None,
+        win.data_ptr(), n_win, lo, hi,
+        out_parts.data_ptr() if parts else None, out_sum.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("trident_split_select", err)
     split_select.launches += 1
     return out_parts, out_sum

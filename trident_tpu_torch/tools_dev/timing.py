@@ -31,10 +31,13 @@ FLUSH_ACTIVITY = "Memcpy DtoD"
 COPY_ACTIVITIES = ("Memcpy", "Memset")
 LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx"}
-# torch.cuda._sleep's kernel, launched before and after each profiling
-# window's calls, and its length in clock cycles (about 1 µs)
+# torch.cuda._sleep's kernel, launched SENTINELS_BEFORE times before and
+# once after each profiling window's calls, and its length in clock cycles
+# (about 1 µs); the card's tracer has lost up to the first two records of
+# a window
 SENTINEL = "spin_kernel"
 SENTINEL_CYCLES = 2000
+SENTINELS_BEFORE = 4
 
 
 def l2_flush(dev):
@@ -84,11 +87,11 @@ def whole(n_activities: int, n_kernels: int, n_launches: int) -> bool:
 def _device_events(fn, reps: int, names=None):
     """torch.profiler's CUDA activity records of `reps` fn() calls after
     one warm-up call (only those named in `names`, if given), or None.
-    Each window brackets the calls with a SENTINEL kernel before and
-    after, whose records are dropped, so that a record the tracer loses
-    at a window's edge is the sentinel's; windows are profiled until one
-    is whole() for fn's own records and launches, up to PROFILE_ATTEMPTS
-    windows. Each window that loses records is reported on stderr
+    Each window brackets the calls with SENTINELS_BEFORE SENTINEL kernels
+    before and one after, whose records are dropped, so that a record the
+    tracer loses at a window's edge is a sentinel's; windows are profiled
+    until one is whole() for fn's own records and launches, up to
+    PROFILE_ATTEMPTS windows. Each window that loses records is reported on stderr
     (activities, kernels, kernel launches, sentinels), and after
     PROFILE_ATTEMPTS such windows the result is None."""
     import torch
@@ -101,7 +104,8 @@ def _device_events(fn, reps: int, names=None):
     for _ in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(SENTINEL_CYCLES)
+            for _ in range(SENTINELS_BEFORE):
+                torch.cuda._sleep(SENTINEL_CYCLES)
             for _ in range(reps):
                 fn()
             torch.cuda._sleep(SENTINEL_CYCLES)
@@ -114,8 +118,9 @@ def _device_events(fn, reps: int, names=None):
         n_launches = sum(e.device_type == DeviceType.CPU
                          and e.name in LAUNCH_CALLS for e in prof.events())
         n_sentinels = sum(SENTINEL in e.name for e in device)
-        seen.append((len(events), n_kernels, n_launches - 2, n_sentinels))
-        if n_sentinels < 2 or not whole(*seen[-1][:3]):
+        seen.append((len(events), n_kernels,
+                     n_launches - SENTINELS_BEFORE - 1, n_sentinels))
+        if n_sentinels < SENTINELS_BEFORE + 1 or not whole(*seen[-1][:3]):
             print(f"device_busy: a window of {reps} calls lost device "
                   f"records (activities, kernels, kernel launches, "
                   f"sentinels): {seen[-1]}", file=sys.stderr, flush=True)
