@@ -102,8 +102,38 @@ Phases (any failure exits non-zero before the final line is printed):
      probes) as this phase's main path, the card's clock sampled before
      and after kbench, and kbench's dflt through K1 beside its dflt
      through the compact-bank kernel
+ 12. the interactive frame loop (Renderer.render_viewport replays one
+     captured CUDA graph per frame key, render/graphs.py): 12 rotating
+     spheres1080_1m frames, each bit-equal to eager render_frame on the
+     same inputs (color, depth, tri_id, aux [0, 0]), one capture, a
+     profiling window of replays whose kernel records are K1, K2 and K3
+     by name and count (the graph's launch list times the replays), the
+     memory reserved before and after the capture; the interactive loop
+     of bench.py:327-374 on 50 bundles packed ahead, eager
+     render_frame_bundled against replays in one window with the card's
+     clock sampled around it (device frame, busy, activities, idle, wall
+     FPS, host µs per frame), the host-to-device copies per frame and the
+     replay's host parts; host draw gathering, the per-record loops
+     against the batched forms and the whole frame_bundle (bit-equal,
+     alternating in one window, tools_dev/host_gather.py); draw_frame over
+     viewport 0 and a 960×540 viewport 2 through a bound runtime camera
+     (idle-cache hits with no replay, a transform change replays both,
+     pick at the centre against the eager frame); replays bit-equal to
+     eager on shadows1080 (hard, PCF; the light pass's aux [0, 0]),
+     spheres1080_1m:ai (three chained frames: the first its own graph,
+     then one graph with prev copied in), the fuse + tiled_shade frame
+     and ultra4k; each cell's graph replayed alone (device frame, busy,
+     activities, idle) in profiling windows whose kernel records must be
+     the graph's launch list times the replays
 Then it prints the kernels as one JSON line, the card line, and as the
 last line {"ok": true, "device": {...}}.
+
+Since phase 12's slice the Renderer's frames on the card are graph
+replays, which tick no kernel wrapper's launch count: a kernel's
+`launches` (and every "launches" a phase prints) is how often it ran in
+that phase's main-path run: its wrapper's count, less the launches the
+run's captures recorded, plus those its replays ran (each Renderer's
+`graphs.captured` and `graphs.replayed`, read by `drive`).
 
 bound_ms is the least time the card could take for a kernel's work: the
 larger of its bytes (each input read once, each output written once,
@@ -141,6 +171,7 @@ from trident_tpu_torch.tools_dev.timing import (  # noqa: E402
     bound,
     cuda_ms,
     device_busy,
+    graph_records,
     l2_flush,
     smi_sample,
 )
@@ -435,12 +466,12 @@ def phase_ai(dev, card: str, kernel_fns: dict, drive, results: dict) -> dict:
         out = None
         for k in range(12):
             rotate(reg, k)
-            before = {n: fn.launches for n, fn in kernel_fns.items()}
             t0 = time.perf_counter()
             out = r.render_viewport()
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
-            ran = {n: fn.launches - before[n] for n, fn in kernel_fns.items()}
+            # the replayed graph's launch list (replays tick no counter)
+            ran = {n: r.graphs.last_launches.get(n, 0) for n in kernel_fns}
             if out.aux.tolist() != [0, 0]:
                 fail(f"ai frame {k}: raster overflow aux {out.aux.tolist()}")
             if (tuple(out.color.shape) != (h, w, 4)
@@ -458,7 +489,7 @@ def phase_ai(dev, card: str, kernel_fns: dict, drive, results: dict) -> dict:
         return out
 
     out, launches9 = drive(ai_frames, ("visibility", "resolve", "texel",
-                                       "warp"))
+                                       "warp"), (r,))
     wall = statistics.median(frame_ms[2:])
     inp = r.frame_inputs()
     dev_ms = cuda_ms(lambda: render_frame(**inp))
@@ -782,6 +813,10 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
                              "visibility": 0, "resolve": 0,
                              "resolve_tiled": 0, "texel": 0}}
     knob_r = {"ckern": r_ck, "fuse_tiled": r_ft}
+    # (c)'s shadows1080 PCF frame with and without tiled_shade
+    rs, sreg = build_bench_scene(SHADOW_GRID, dev, "shadows1080")
+    rt, _ = build_bench_scene(SHADOW_GRID, dev, "shadows1080",
+                              kernel={"tiled_shade": True}, reg=sreg)
 
     def timed(rr):
         t0 = time.perf_counter()
@@ -795,10 +830,9 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
             ref, ms = timed(r)
             frame_ms["default"].append(ms)
             for name, rr in knob_r.items():
-                before = {n: fn.launches for n, fn in kernel_fns.items()}
                 out, ms = timed(rr)
                 frame_ms[name].append(ms)
-                ran = {n: kernel_fns[n].launches - before[n]
+                ran = {n: rr.graphs.last_launches.get(n, 0)
                        for n in expect[name]}
                 if ran != expect[name]:
                     fail(f"{name} frame {k}: launches {ran}, expected "
@@ -817,16 +851,12 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
                     tiled_gate(out.color, ref.color, f"fuse_tiled frame {k}")
 
         # (c) one shadows1080 PCF frame with tiled_shade
-        rs, sreg = build_bench_scene(SHADOW_GRID, dev, "shadows1080")
-        rt, _ = build_bench_scene(SHADOW_GRID, dev, "shadows1080",
-                                  kernel={"tiled_shade": True}, reg=sreg)
         rotate(sreg, 0)
         for rr in (rs, rt):
             rr.config.render.shadow_pcf = True
         ref, _ms = timed(rs)
-        before = {n: fn.launches for n, fn in kernel_fns.items()}
         out, pcf_ms = timed(rt)
-        ran = {n: fn.launches - before[n] for n, fn in kernel_fns.items()}
+        ran = {n: rt.graphs.last_launches.get(n, 0) for n in kernel_fns}
         if (out.aux.tolist() != [0, 0] or out.shadow_aux.tolist() != [0, 0]
                 or ran["resolve_tiled"] != 1 or ran["texel_planar"] != 1
                 or ran["shadow_taps"] != 1):
@@ -851,7 +881,8 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
 
     _none, launches10 = drive(knob_frames, ("visibility_ck",
                                             "visibility_resolve",
-                                            "resolve_tiled", "texel_planar"))
+                                            "resolve_tiled", "texel_planar"),
+                              (r, r_ck, r_ft, rs, rt))
     for name, ms in frame_ms.items():
         print(f"spheres1080_1m {name} frames: median "
               f"{statistics.median(ms[2:]):.3f} ms wall per render_viewport "
@@ -865,7 +896,7 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
               f"activities (idle {1 - busy_ms / dev_ms:.3f}) ({card})",
               flush=True)
     print(f"knob frames' launches {launches10}", flush=True)
-    del r, reg, r_ck, r_ft, knob_r, inp, kinp
+    del r, reg, r_ck, r_ft, rs, rt, sreg, knob_r, inp, kinp
     torch.cuda.empty_cache()
 
     # (d) the 128² knob frames against the JAX package's
@@ -1259,6 +1290,405 @@ def phase_probes(dev, card: str, kernel_fns: dict, drive, results: dict,
     return launches11
 
 
+FRAME_FIELDS = ("color", "depth", "tri_id", "aux", "shadow_aux", "history",
+                "view_proj")
+LOOP_FRAMES = 50          # frames of each mode in phase 12's interactive loop
+
+
+def differing(a, b) -> list:
+    """The FrameOutput fields in which `a` and `b` differ in any bit (a
+    field None on one side only differs)."""
+    import torch
+
+    bad = []
+    for f in FRAME_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        if x is None and y is None:
+            continue
+        if (x is None or y is None or x.shape != y.shape
+                or x.dtype != y.dtype):
+            bad.append(f)
+            continue
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if bool((x != y).any()):
+            bad.append(f)
+    return bad
+
+
+def same_as_eager(out, inp, what: str, aux_fields=("aux",)) -> None:
+    """A replayed frame against eager render_frame on its inputs, bit for
+    bit, with aux [0, 0] on each of `aux_fields`."""
+    from trident_tpu_torch.render.renderer import render_frame
+
+    bad = differing(out, render_frame(**inp))
+    aux = {f: getattr(out, f).tolist() for f in aux_fields}
+    if bad or any(a != [0, 0] for a in aux.values()):
+        fail(f"{what}: the replay differs from eager render_frame in {bad}, "
+             f"aux {aux}")
+
+
+def replay_check(r, what: str, expect, aux_fields=("aux",)) -> None:
+    """One frame of Renderer `r` through render_viewport (a graph replay
+    whose launch list must be `expect`) against eager render_frame on the
+    same inputs (same_as_eager)."""
+    ctx = r.viewports[0]
+    r.editor_camera.set_viewport_size(ctx.width, ctx.height)
+    inp = r.frame_inputs()
+    out = r.render_viewport()
+    if r.graphs.last_launches != expect:
+        fail(f"{what}: the replayed graph's launch list "
+             f"{r.graphs.last_launches}, expected {expect}")
+    same_as_eager(out, inp, what, aux_fields)
+
+
+def held_records(fn, launches: dict, what: str, reps: int = 5) -> dict:
+    """The render-path kernels' records in a profiling window of `reps`
+    fn() calls, each one replay of a graph with launch list `launches`;
+    fails unless they are the list times the replays."""
+    recs = graph_records(fn, launches, reps)
+    if recs != {n: c * reps for n, c in launches.items()}:
+        fail(f"{what}: a window of {reps} replays holds kernel records "
+             f"{recs}, expected {reps} x {launches}")
+    return recs
+
+
+def replay_line(r, what: str, card: str) -> None:
+    """The device time of the graph `r` replayed last, its replay alone
+    (no staging, no clones): CUDA events, busy and activities in a window
+    held to its launch list, idle share; fails unless a window's kernel
+    records are the launch list times the replays."""
+    g = r.graphs.graph(r.graphs.last_key)
+    held_records(g.graph.replay, g.launches, what)
+    dev_ms = cuda_ms(g.graph.replay)
+    busy, acts = device_busy(g.graph.replay, launch_list=g.launches)
+    if busy != busy:
+        fail(f"{what}: no profiling window of its replays was whole")
+    print(f"{what}, its graph replayed alone: device frame {dev_ms:.4f} ms "
+          f"(CUDA events), busy {busy:.4f} ms in {acts:.0f} device "
+          f"activities, idle {1 - busy / dev_ms:.4f}; kernel records "
+          f"{g.launches} per replay ({card})", flush=True)
+
+
+def phase_frame_loop(dev, card: str, drive) -> None:
+    """Phase 12, the interactive frame loop: Renderer.render_viewport
+    replays one captured CUDA graph per frame key. (a) 12 rotating
+    spheres1080_1m frames bit-equal to eager render_frame, one capture,
+    the replay windows' kernel records against the graph's launch list;
+    (b) the interactive loop, eager render_frame_bundled against replays
+    on bundles packed ahead, one window, and host draw gathering, loops
+    against batched against frame_bundle; (c) draw_frame over two viewports, the idle-frame
+    cache and pick; (d) replays bit-equal to eager on shadows1080 (hard,
+    PCF), spheres1080_1m:ai (three chained frames), the fuse +
+    tiled_shade frame and ultra4k. Each cell's graph is also timed
+    replayed alone."""
+    import torch
+
+    from trident_tpu_torch.ecs.components import (
+        CameraComponent,
+        TransformComponent,
+    )
+    from trident_tpu_torch.render.renderer import render_frame
+    from trident_tpu_torch.tools_dev.host_gather import gather_ab
+    from trident_tpu_torch.tools_dev.timing import uploads_per_call
+
+    main_list = {"visibility": 1, "resolve": 1, "texel": 1}
+    # (a) spheres1080_1m: 12 replays bit-equal to eager, one capture
+    r, reg = build_bench_scene(BENCH_GRID, dev)
+    w, h = r.config.render.width, r.config.render.height
+    rotate(reg, 0)
+    r.editor_camera.set_viewport_size(w, h)
+    render_frame(**r.frame_inputs())      # the eager frame's working set
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    reserved1, wall = [], []
+
+    def frames():
+        done = []
+        for k in range(12):
+            rotate(reg, k)
+            inp = r.frame_inputs()
+            t0 = time.perf_counter()
+            out = r.render_viewport()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            if r.graphs.last_launches != main_list:
+                fail(f"spheres1080_1m frame {k}: the replayed graph's "
+                     f"launch list {r.graphs.last_launches}")
+            done.append((out, inp))
+            if k == 0:
+                reserved1.append(torch.cuda.memory_reserved(dev))
+        return done
+
+    done, runs = drive(frames, tuple(main_list), (r,))
+    for k, (out, inp) in enumerate(done):    # the eager frames, undriven
+        same_as_eager(out, inp, f"spheres1080_1m frame {k}")
+    del done
+    reserved1 = reserved1[0]
+    if r.graphs.captures != 1 or r.graphs.replays != 12:
+        fail(f"spheres1080_1m: {r.graphs.captures} captures and "
+             f"{r.graphs.replays} replays for 12 frames")
+    print(f"frame loop: 12 spheres1080_1m replays bit-equal to eager "
+          f"render_frame (color, depth, tri_id, aux [0, 0]); 1 capture, "
+          f"launch list {r.graphs.last_launches}, kernel runs "
+          f"{ {n: c for n, c in runs.items() if c} }; memory_reserved "
+          f"{reserved0 / 2**20:.1f} MiB before the capture, "
+          f"{reserved1 / 2**20:.1f} MiB after; median "
+          f"{statistics.median(wall[2:]):.3f} ms wall per render_viewport "
+          f"(host state, pack, replay) ({card})", flush=True)
+    step = [12]
+
+    def replay_frame():
+        rotate(reg, step[0])
+        step[0] += 1
+        return r.render_viewport()
+
+    reps = 5
+    recs = held_records(replay_frame, main_list, "spheres1080_1m", reps)
+    print(f"frame loop: a window of {reps} replays holds kernel records "
+          f"{recs} ({reps} x the launch list)", flush=True)
+
+    # (b) the interactive loop (bench.py:327-374): bundles packed ahead
+    # (Renderer.frame_bundle: the blobs, the graph key, the eager frame)
+    bundles = []
+    for k in range(LOOP_FRAMES):
+        rotate(reg, k)
+        bundles.append(r.frame_bundle())
+    key = bundles[0].key
+    if any(fb.key != key for fb in bundles):
+        fail("interactive loop: the rotating frames' graph keys differ")
+
+    def eager(k):
+        fb = bundles[k % LOOP_FRAMES]
+        return fb.frame_fn(
+            torch.from_numpy(fb.f32).to(dev, non_blocking=True),
+            torch.from_numpy(fb.i32).to(dev, non_blocking=True), None)
+
+    def replay(k):
+        fb = bundles[k % LOOP_FRAMES]
+        return r.graphs.run(fb.key, fb.f32, fb.i32, None, fb.frame_fn,
+                            keep=fb.keep)
+
+    for k in range(0, LOOP_FRAMES, 7):
+        if differing(eager(k), replay(k)):
+            fail(f"interactive loop: bundle {k}'s replay differs from its "
+                 "eager frame")
+    if r.graphs.captures != 1:
+        fail(f"interactive loop: {r.graphs.captures} captures")
+    modes = {"eager": eager, "replay": replay}
+    stats = {}
+    print(f"card before the interactive loop: {smi_sample()}", flush=True)
+    for name, fn in modes.items():
+        host = []
+        for k in range(LOOP_FRAMES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(k)
+            host.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(LOOP_FRAMES):
+            fn(k)
+        torch.cuda.synchronize()
+        fps = LOOP_FRAMES / (time.perf_counter() - t0)
+        i = iter(range(10 ** 6))
+        dev_ms = cuda_ms(lambda: fn(next(i)))
+        busy, acts = device_busy(lambda: fn(next(i)), launch_list=(
+            main_list if name == "replay" else None))
+        if name == "replay" and busy != busy:
+            fail("interactive loop: no profiling window of the replays "
+                 "was whole")
+        stats[name] = (dev_ms, busy, acts, fps, statistics.median(host))
+    print(f"card after the interactive loop: {smi_sample()}", flush=True)
+    # the replay's host share, each part alone on an idle card: staging
+    # (pinned copy + two uploads), the graph launch, the output clones
+    g = r.graphs.graph(key)
+    f32, i32 = bundles[0].f32, bundles[0].i32
+    parts = {"staging": lambda: r.graphs.stage(g, f32, i32),
+             "graph launch": g.graph.replay,
+             "clones": lambda: [t.clone() for t in g.out if t is not None]}
+    clone_busy = device_busy(parts["clones"])
+    split = {}
+    for part, fn in parts.items():
+        host = []
+        for _k in range(LOOP_FRAMES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t0) * 1e6)
+        split[part] = statistics.median(host)
+    torch.cuda.synchronize()
+    # host-to-device copies per frame: the eager Renderer path of phases
+    # 4-11 before this loop (frame_inputs uploads each array, then
+    # render_frame), the eager bundle, the replay
+    rotate(reg, 0)
+    ups = {"frame_inputs + render_frame": uploads_per_call(
+               lambda: render_frame(**r.frame_inputs())),
+           "eager bundle": uploads_per_call(lambda: eager(0)),
+           "replay": uploads_per_call(lambda: replay(0),
+                                      launch_list=main_list)}
+    if ups["replay"] != ups["replay"]:
+        fail("interactive loop: no profiling window of a replay's uploads "
+             "was whole")
+    print("interactive loop: host-to-device copies per frame " + ", ".join(
+        f"{n} {u:.1f}" for n, u in ups.items()) + "; replay host us, each "
+          "part alone: " + ", ".join(f"{n} {v:.1f}" for n, v in split.items())
+          + f"; the clones' device busy {clone_busy[0]:.4f} ms in "
+          f"{clone_busy[1]:.0f} copies ({card})", flush=True)
+    for name, (dev_ms, busy, acts, fps, host) in stats.items():
+        print(f"interactive loop, {name} (spheres1080_1m, {LOOP_FRAMES} "
+              f"frames of bundles packed ahead): device frame {dev_ms:.4f} "
+              f"ms (CUDA events), busy {busy:.4f} ms in {acts:.0f} device "
+              f"activities, idle {1 - busy / dev_ms:.4f}; wall "
+              f"{fps:.3f} FPS chained; host {host:.1f} us per frame, the "
+              f"two blob uploads included ({card})", flush=True)
+    if r.graphs.captures != 1:
+        fail(f"interactive loop: {r.graphs.captures} captures")
+    replay_line(r, "spheres1080_1m", card)
+
+    # host draw gathering: the per-record loops against the batched
+    # forms, bit-equal, and the whole frame_bundle, alternating in one
+    # window (tools_dev/host_gather.py)
+    rotate(reg, 3)
+    host = gather_ab(r, pairs=10)
+    print(f"host draw gathering at spheres1080_1m "
+          f"({len(bundles[0].state.draws)} entities), bit-equal, medians of "
+          f"20 each alternating loop, batch, bundle, bundle, batch, loop in "
+          f"one window: per-record loops {host['loop']:.3f} ms, batched "
+          f"{host['batch']:.3f} ms, the whole frame_bundle (the batched "
+          f"forms, plan, lights, packing) {host['frame_bundle']:.3f} ms "
+          f"({card})", flush=True)
+
+    # (c) draw_frame over viewport 0 (editor camera) and viewport 2 (a
+    # bound runtime camera), the idle-frame cache, pick
+    cam_e = reg.create()
+    ct = reg.add(cam_e, TransformComponent())
+    ct.position = np.array([0.0, 0.0, BENCH_GRID * 1.1 + 2], np.float32)
+    reg.add(cam_e, CameraComponent(primary=True))
+    if not r.bind_runtime_camera(reg):
+        fail("bind_runtime_camera found no camera")
+    r.set_viewport(r.GAME_VIEWPORT, 960, 540)
+    rotate(reg, 0)
+    r.draw_frame()
+    torch.cuda.synchronize()
+    ctx0, ctx2 = r.viewports[0], r.viewports[r.GAME_VIEWPORT]
+    o0, o2 = ctx0.last_frame, ctx2.last_frame
+    if (tuple(o0.color.shape) != (h, w, 4)
+            or tuple(o2.color.shape) != (540, 960, 4)
+            or o0.aux.tolist() != [0, 0] or o2.aux.tolist() != [0, 0]):
+        fail(f"draw_frame: viewport 0 {tuple(o0.color.shape)} aux "
+             f"{o0.aux.tolist()}, viewport 2 {tuple(o2.color.shape)} aux "
+             f"{o2.aux.tolist()}")
+    replays = r.graphs.replays
+    out = r.draw_frame()
+    if (out is not o0 or ctx2.last_frame is not o2
+            or r.graphs.replays != replays):
+        fail("draw_frame with nothing moved did not reuse both viewports' "
+             "frames from the idle cache")
+    rotate(reg, 1)
+    out = r.draw_frame()
+    torch.cuda.synchronize()
+    if (out is o0 or ctx2.last_frame is o2
+            or r.graphs.replays != replays + 2):
+        fail("a transform change did not invalidate the idle cache")
+    r.editor_camera.set_viewport_size(w, h)
+    inp = r.frame_inputs()
+    ref = render_frame(**inp)
+    if differing(out, ref):
+        fail(f"draw_frame's viewport 0 differs from eager render_frame in "
+             f"{differing(out, ref)}")
+    tri = int(ref.tri_id[h // 2, w // 2])
+    draws = r.frame_bundle().state.draws
+    want = (-1 if tri < 0 else
+            int(draws.entity[int(inp["tri_draw"][tri])]))
+    got = r.pick(w // 2, h // 2, 0)
+    if tri < 0 or got != want:
+        fail(f"pick at the centre of viewport 0: {got}, the eager frame's "
+             f"tri_id {tri} maps to {want}")
+    # a one-graph cache and new frame keys (another static): each
+    # viewport's capture evicts the graphs kept (their pools freed)
+    r.graphs.capacity = 1
+    r.config.render.shadow_pcf = True
+    caps, reserved2 = r.graphs.captures, torch.cuda.memory_reserved(dev)
+    out = r.draw_frame()
+    inp = r.frame_inputs()
+    same_as_eager(out, inp, "draw_frame with a one-graph cache")
+    torch.cuda.synchronize()
+    if r.graphs.captures != caps + 2 or len(r.graphs) != 1:
+        fail(f"a one-graph cache: {r.graphs.captures - caps} captures for "
+             f"two viewports, {len(r.graphs)} graphs kept")
+    print(f"frame loop: with a one-graph cache and new frame keys "
+          f"draw_frame evicts the kept graphs and captures each viewport's, "
+          f"viewport 0 bit-equal to eager; "
+          f"memory_reserved {reserved2 / 2**20:.1f} MiB before, "
+          f"{torch.cuda.memory_reserved(dev) / 2**20:.1f} MiB after "
+          f"({card})", flush=True)
+    r.graphs.capacity = 4
+    r.config.render.shadow_pcf = False
+    print(f"frame loop: draw_frame over viewports 0 ({w}x{h}) and 2 (960x540, "
+          f"runtime camera): idle-cache hits with no replay, a transform "
+          f"change replays both; pick at the centre names entity {got} as "
+          f"the eager frame does; {r.graphs.captures} captures, "
+          f"{r.graphs.replays} replays, {r.timing.stats().sample_count} "
+          f"timed frames ({card})", flush=True)
+    del r, reg, bundles, inp, ref, out, o0, o2, ctx0, ctx2, draws, g
+    torch.cuda.empty_cache()
+
+    # (d) the other paths, replays bit-equal to eager
+    r, reg = build_bench_scene(SHADOW_GRID, dev, "shadows1080")
+    for k, pcf in enumerate((False, True)):
+        r.config.render.shadow_pcf = pcf
+        rotate(reg, k)
+        replay_check(r, f"shadows1080 {'PCF' if pcf else 'hard'} frame",
+                     {"visibility_depth": 1, "visibility": 1, "resolve": 1,
+                      "texel": 1, "shadow_taps": 1},
+                     aux_fields=("aux", "shadow_aux"))
+    print(f"frame loop: shadows1080 hard and PCF replays bit-equal to eager, "
+          f"aux [0, 0] on both passes; {r.graphs.captures} captures",
+          flush=True)
+    replay_line(r, "shadows1080 PCF", card)
+    del r, reg
+    torch.cuda.empty_cache()
+
+    r, reg = build_bench_scene(BENCH_GRID, dev, ai=True)
+    caps = []
+    for k in range(3):
+        rotate(reg, k)
+        if k:
+            r.editor_camera.orbit([0.0, 0.0, 0.0], 3.0, 2.0)
+        replay_check(r, f"spheres1080_1m:ai frame {k}",
+                     {**main_list, **({"warp": 1} if k else {})})
+        caps.append(r.graphs.captures)
+    if caps != [1, 2, 2]:
+        fail(f"spheres1080_1m:ai: captures after each frame {caps}, "
+             "expected [1, 2, 2]")
+    print("frame loop: three chained spheres1080_1m:ai replays bit-equal to "
+          "eager (history and view-proj too); frames 2 and 3 replay one "
+          "graph with prev copied in", flush=True)
+    replay_line(r, "spheres1080_1m:ai", card)
+    del r, reg
+    torch.cuda.empty_cache()
+
+    r, reg = build_bench_scene(BENCH_GRID, dev, kernel=FUSE_TILED)
+    rotate(reg, 0)
+    replay_check(r, "spheres1080_1m fuse + tiled_shade frame",
+                 {"visibility_resolve": 1, "texel_planar": 1})
+    print("frame loop: the fuse + tiled_shade replay bit-equal to eager",
+          flush=True)
+    replay_line(r, "spheres1080_1m fuse + tiled_shade", card)
+    del r, reg
+    torch.cuda.empty_cache()
+
+    r, reg = build_bench_scene(BENCH_GRID, dev, "ultra4k")
+    rotate(reg, 0)
+    replay_check(r, "ultra4k frame", main_list)
+    print("frame loop: the ultra4k (bloom) replay bit-equal to eager",
+          flush=True)
+    replay_line(r, "ultra4k", card)
+    del r, reg
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     # -- phase 1: the card ---------------------------------------------------
     import torch
@@ -1305,14 +1735,23 @@ def main() -> None:
                   "texel": texel.sample_bilinear,
                   "shadow_taps": shadow_taps.shadow_tap_bits}
 
-    def drive(path, needed):
+    def drive(path, needed, renderers=()):
         """Run `path` with every launch count set to 0 just before; the
-        counts just after, failing if a kernel in `needed` never ran."""
+        counts just after, failing if a kernel in `needed` never ran. A
+        count is the kernel's runs: its wrapper's launches, less those the
+        graph captures of `renderers` (every Renderer whose frames `path`
+        renders) recorded, plus those their replays ran."""
         for fn in kernel_fns.values():
             fn.launches = 0
+        for rr in renderers:
+            rr.graphs.captured.clear()
+            rr.graphs.replayed.clear()
         out = path()
         torch.cuda.synchronize()
-        counts = {name: fn.launches for name, fn in kernel_fns.items()}
+        counts = {name: fn.launches
+                  - sum(rr.graphs.captured[name] for rr in renderers)
+                  + sum(rr.graphs.replayed[name] for rr in renderers)
+                  for name, fn in kernel_fns.items()}
         for name in needed:
             if counts[name] < 1:
                 fail(f"the main path never launched the {name} kernel")
@@ -1467,7 +1906,8 @@ def main() -> None:
             host_ms.append((time.perf_counter() - t0) * 1e3)
         return out
 
-    out, launches4 = drive(spheres_frames, ("visibility", "resolve", "texel"))
+    out, launches4 = drive(spheres_frames, ("visibility", "resolve", "texel"),
+                           (r,))
     color = out.color
     if tuple(color.shape) != (1080, 1920, 4) or color.dtype != torch.uint8:
         fail(f"frame shape {tuple(color.shape)} {color.dtype}")
@@ -1668,7 +2108,7 @@ def main() -> None:
                  f"pass aux {pcf_out.shadow_aux.tolist()}")
         return out, pcf_ms
 
-    (out, pcf_ms), launches6 = drive(shadow_frames, kernel_fns)
+    (out, pcf_ms), launches6 = drive(shadow_frames, kernel_fns, (r,))
     # the last hard frame's shadow factor: the share of its covered pixels
     # in shadow
     inp = r.frame_inputs()
@@ -1712,7 +2152,8 @@ def main() -> None:
                      f"{out.aux.tolist()}")
         return out
 
-    out, launches7 = drive(ultra_frames, ("visibility", "resolve", "texel"))
+    out, launches7 = drive(ultra_frames, ("visibility", "resolve", "texel"),
+                           (r,))
     if tuple(out.color.shape) != (2160, 3840, 4):
         fail(f"ultra4k frame shape {tuple(out.color.shape)}")
     inp = r.frame_inputs()
@@ -1745,6 +2186,9 @@ def main() -> None:
     # -- phase 11: the tools_dev probes ---------------------------------------
     launches11 = phase_probes(dev, card, kernel_fns, drive, results, *bench,
                               w=1920, h=1080)
+
+    # -- phase 12: the interactive frame loop ----------------------------------
+    phase_frame_loop(dev, card, drive)
 
     # launches: each kernel's count in the main-path run of the frame it
     # was held on (phase 4 for the main pass, phase 6 for the shadow pass,

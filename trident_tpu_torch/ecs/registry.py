@@ -72,7 +72,8 @@ class Registry:
             raise KeyError(f"entity {entity} has no {component_type.__name__}") from None
 
     def try_get(self, entity: Entity, component_type: Type[T]) -> Optional[T]:
-        return self._storages.get(component_type, {}).get(entity)  # type: ignore[return-value]
+        storage = self._storages.get(component_type)
+        return None if storage is None else storage.get(entity)  # type: ignore[return-value]
 
     def remove(self, entity: Entity, component_type: Type[T]) -> None:
         self._storages.get(component_type, {}).pop(entity, None)
@@ -80,11 +81,14 @@ class Registry:
     def view(self, *component_types: Type) -> Iterator[Tuple[Entity, tuple]]:
         """Iterate (entity, components...) over entities having ALL types,
         in creation order."""
-        if not component_types:
-            return
         storages = [self._storages.get(t, {}) for t in component_types]
+        if not storages or not all(storages):
+            return                  # a type no entity has: an empty view
         for entity in self._alive:
-            if all(entity in s for s in storages):
+            for s in storages:
+                if entity not in s:
+                    break
+            else:
                 yield entity, tuple(s[entity] for s in storages)
 
     def single(self, component_type: Type[T]) -> Optional[Tuple[Entity, T]]:

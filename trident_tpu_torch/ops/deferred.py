@@ -32,9 +32,11 @@ Tensor = torch.Tensor
 
 
 def _background(width: int, height: int, clear_color, device) -> Tensor:
-    """The clear color as an (H, W, 3) image (the skybox is not ported)."""
-    return torch.tensor(clear_color[:3], dtype=torch.float32,
-                        device=device).expand(height, width, 3)
+    """The clear color as an (H, W, 3) image (the skybox is not ported).
+    Each channel is a device fill, not a host-to-device copy, so that a
+    CUDA graph can capture it."""
+    return torch.cat([torch.full((1,), c, dtype=torch.float32, device=device)
+                      for c in clear_color[:3]]).expand(height, width, 3)
 
 
 def texel_lookup(attrs: Tensor, covered: Tensor, max_level: Tensor):
@@ -49,7 +51,10 @@ def texel_lookup(attrs: Tensor, covered: Tensor, max_level: Tensor):
     m = torch.clamp_min(torch.maximum(w0, h0), 1) - 1
     for shift_k in (1, 2, 4, 8, 16):
         m = m | (m >> shift_k)
-    mip = torch.clamp(attrs[..., rp.CH_MIP], 0.0, max_level.float())
+    # clamp's tensor bound as torch.minimum: clamp(x, 0.0, t) would read
+    # the 0-d t back to the host (a sync, which a CUDA graph cannot hold)
+    mip = torch.minimum(torch.clamp_min(attrs[..., rp.CH_MIP], 0.0),
+                        max_level.float())
     idx, fx, fy = shading.bilinear_index(
         attrs[..., rp.CH_U:rp.CH_V + 1], torch.round(mip).to(torch.int32),
         (w0, h0, base8, m + 1))
@@ -66,7 +71,9 @@ def world_positions(depth: Tensor, camera: CameraParams, width: int,
     ys = torch.arange(height, dtype=torch.float32, device=dev) + 0.5
     xs = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
     py, px = torch.meshgrid(ys, xs, indexing="ij")
-    vp_inv = torch.linalg.inv(camera.proj @ camera.view)
+    # inv_ex: the same inverse as linalg.inv without its error check,
+    # which waits for the device (and cannot be captured in a graph)
+    vp_inv = torch.linalg.inv_ex(camera.proj @ camera.view).inverse
     ndc_x = px * (2.0 / width) - 1.0
     ndc_y = py * (2.0 / height) - 1.0
     ndc = torch.stack([ndc_x, ndc_y, depth, torch.ones_like(ndc_x)], dim=-1)

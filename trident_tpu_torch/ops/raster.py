@@ -107,8 +107,12 @@ def _build_records(setup: TriangleSetup, tpad: int,
     cols.append(torch.zeros_like(cols[0]))
     rec = torch.stack(cols, dim=1)
     if tpad != t:
-        empty = rec.new_tensor([0, 0, -1] * 3 + [0] * 3 + [1] * 3 + [0])
-        rec = torch.cat([rec, empty.expand(tpad - t, REC)], dim=0)
+        # e ≡ (0, 0, −1), z 0, w 1: filled on the device (a host-to-device
+        # copy could not be captured in a CUDA graph)
+        empty = rec.new_zeros((tpad - t, REC))
+        empty[:, 2:9:3] = -1.0
+        empty[:, 12:15] = 1.0
+        rec = torch.cat([rec, empty], dim=0)
     return rec.contiguous()
 
 

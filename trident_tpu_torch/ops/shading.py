@@ -183,6 +183,7 @@ def sample_texture(tex: TextureArrays, uv: Tensor, mip_level: Tensor,
     if size_hint is None:
         raise NotImplementedError("per-slot size lookups are not ported; "
                                   "pass the resolved size_hint rows")
-    mip = torch.clamp(mip_level, 0.0, tex.max_level.float())
+    mip = torch.minimum(torch.clamp_min(mip_level, 0.0),
+                        tex.max_level.float())
     return _bilinear_flat(tex, uv, torch.round(mip).to(torch.int32),
                           size_hint)

@@ -27,7 +27,12 @@ from trident_tpu_torch.ecs.registry import Registry
 from trident_tpu_torch.geometry.mesh import GeometryCache, PackedGeometry
 from trident_tpu_torch import resolve_device
 from trident_tpu_torch.mathx.transforms import compose_trs
-from trident_tpu_torch.render.types import DrawParams, DrawPlan, GeometryBuffers
+from trident_tpu_torch.render.types import (
+    DrawParams,
+    DrawPlan,
+    GeometryBuffers,
+    from_numpy,
+)
 
 
 @dataclass
@@ -45,13 +50,63 @@ class DrawRecord:
     material_index: int
 
 
-def gather_mesh_draws(registry: Registry,
-                      cache: GeometryCache) -> List[DrawRecord]:
-    """One DrawRecord per visible mesh entity. The model matrices are
-    composed in one batched compose_trs call over all drawn entities
-    (bit-equal to composing each alone), which keeps the host's per-entity
-    cost to the component lookups."""
-    drawn = []
+@dataclass(frozen=True)
+class DrawBatch:
+    """The frame's draws as arrays, one row per drawn entity. Iterating
+    it gives the DrawRecords (tiling as f32) that record-walking callers
+    take (gather_mesh_draws, scene_bounds)."""
+
+    entity: np.ndarray           # (N,) i64
+    mesh_index: np.ndarray       # (N,) i64
+    model: np.ndarray            # (N,4,4) f32
+    tint: np.ndarray             # (N,4) f32
+    uv_scale: np.ndarray         # (N,2) f32
+    uv_offset: np.ndarray        # (N,2) f32
+    tiling: np.ndarray           # (N,) f32
+    texture_slot: np.ndarray     # (N,) i64
+    material_index: np.ndarray   # (N,) i64
+
+    def __len__(self) -> int:
+        return self.entity.shape[0]
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield DrawRecord(
+                entity=int(self.entity[i]),
+                mesh_index=int(self.mesh_index[i]), model=self.model[i],
+                tint=self.tint[i], uv_scale=self.uv_scale[i],
+                uv_offset=self.uv_offset[i], tiling=float(self.tiling[i]),
+                texture_slot=int(self.texture_slot[i]),
+                material_index=int(self.material_index[i]))
+
+    @staticmethod
+    def from_records(records: List[DrawRecord]) -> "DrawBatch":
+        """The batch holding `records` (a DrawRecord list)."""
+        def col(f, dtype, shape):
+            vals = [getattr(r, f) for r in records]
+            return (np.asarray(vals, dtype) if vals
+                    else np.zeros((0, *shape), dtype))
+
+        return DrawBatch(
+            entity=col("entity", np.int64, ()),
+            mesh_index=col("mesh_index", np.int64, ()),
+            model=col("model", np.float32, (4, 4)),
+            tint=col("tint", np.float32, (4,)),
+            uv_scale=col("uv_scale", np.float32, (2,)),
+            uv_offset=col("uv_offset", np.float32, (2,)),
+            tiling=col("tiling", np.float32, ()),
+            texture_slot=col("texture_slot", np.int64, ()),
+            material_index=col("material_index", np.int64, ()))
+
+
+def gather_draw_batch(registry: Registry,
+                      cache: GeometryCache) -> DrawBatch:
+    """One row per visible mesh entity, the draws of the JAX package's
+    gather_mesh_draws: the per-entity work is the component lookups; the
+    model matrices (one batched compose_trs, bit-equal to composing each
+    alone) and the material, texture and default-value choices run over
+    all draws at once in numpy."""
+    rows = []
     for entity, (transform, mesh) in registry.view(TransformComponent,
                                                    MeshComponent):
         if (not mesh.visible or mesh.mesh_index < 0
@@ -61,33 +116,52 @@ def gather_mesh_draws(registry: Registry,
         if anim is not None and anim.bone_matrices is not None:
             raise NotImplementedError(
                 "skinned draws are not ported to trident_tpu_torch yet")
-        drawn.append((entity, transform, mesh))
-    if not drawn:
-        return []
-    models = compose_trs(*(np.stack([np.asarray(getattr(t, f), np.float32)
-                                     for _e, t, _m in drawn])
-                           for f in ("position", "rotation", "scale")))
-    records: List[DrawRecord] = []
-    for (entity, _transform, mesh), model in zip(drawn, models):
-        material_index = (mesh.material_index
-                          if 0 <= mesh.material_index < len(cache.materials)
-                          else 0)
-        texture_slot = cache.materials[material_index].texture_slot
-        uv_scale = np.ones(2, np.float32)
-        uv_offset = np.zeros(2, np.float32)
-        tiling = 1.0
-        tex = registry.try_get(entity, TextureComponent)
-        if tex is not None:
-            texture_slot = tex.slot
-            uv_scale = np.asarray(tex.uv_scale, np.float32)
-            uv_offset = np.asarray(tex.uv_offset, np.float32)
-            tiling = float(tex.tiling)
-        records.append(DrawRecord(
-            entity=entity, mesh_index=mesh.mesh_index, model=model,
-            tint=np.asarray(mesh.tint, np.float32), uv_scale=uv_scale,
-            uv_offset=uv_offset, tiling=tiling, texture_slot=texture_slot,
-            material_index=material_index))
-    return records
+        rows.append((entity, transform, mesh,
+                     registry.try_get(entity, TextureComponent)))
+    if not rows:
+        return DrawBatch.from_records([])
+    n = len(rows)
+    material = np.array([m.material_index for _e, _t, m, _x in rows],
+                        np.int64)
+    material = np.where((material >= 0) & (material < len(cache.materials)),
+                        material, 0)
+    texture_slot = np.array([m.texture_slot for m in cache.materials],
+                            np.int64)[material]
+    uv_scale = np.ones((n, 2), np.float32)
+    uv_offset = np.zeros((n, 2), np.float32)
+    tiling = np.ones(n, np.float32)
+    textured = [k for k, row in enumerate(rows) if row[3] is not None]
+    if textured:
+        texs = [rows[k][3] for k in textured]
+        texture_slot[textured] = [x.slot for x in texs]
+        uv_scale[textured] = np.array([x.uv_scale for x in texs], np.float32)
+        uv_offset[textured] = np.array([x.uv_offset for x in texs],
+                                       np.float32)
+        tiling[textured] = [float(x.tiling) for x in texs]
+    return DrawBatch(
+        entity=np.array([e for e, _t, _m, _x in rows], np.int64),
+        mesh_index=np.array([m.mesh_index for _e, _t, m, _x in rows],
+                            np.int64),
+        model=compose_trs(*(np.array([getattr(t, f) for _e, t, _m, _x in rows],
+                                     np.float32)
+                            for f in ("position", "rotation", "scale"))),
+        tint=np.array([m.tint for _e, _t, m, _x in rows], np.float32),
+        uv_scale=uv_scale, uv_offset=uv_offset, tiling=tiling,
+        texture_slot=texture_slot, material_index=material)
+
+
+
+def gather_mesh_draws(registry: Registry,
+                      cache: GeometryCache) -> List[DrawRecord]:
+    """gather_draw_batch's draws as a DrawRecord list (the JAX package's
+    form)."""
+    return list(gather_draw_batch(registry, cache))
+
+def _mesh_indices(records) -> tuple:
+    """The drawn mesh of each draw of a DrawBatch or a DrawRecord list."""
+    if isinstance(records, DrawBatch):
+        return tuple(records.mesh_index.tolist())
+    return tuple(r.mesh_index for r in records)
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -108,19 +182,23 @@ class DrawPlanCache:
         self._plan: Optional[DrawPlan] = None
         self._tri_draw: Optional[torch.Tensor] = None
         self._corner_t: Optional[torch.Tensor] = None
+        # monotone rebuild counter: the idle-frame signature and the frame
+        # graphs' key read it (a new plan is new tensors at new addresses)
+        self.version = 0
         self.draw_stride = 0
         self.real_draws = 0
 
     def plan(self, packed: PackedGeometry, records: List[DrawRecord],
              geometry_version: int) -> Tuple[DrawPlan, torch.Tensor]:
-        key = (geometry_version, tuple(r.mesh_index for r in records))
+        key = (geometry_version, _mesh_indices(records))
         if key == self._key and self._plan is not None:
             return self._plan, self._tri_draw
         plan, tri_draw = build_draw_plan(packed, records, self.device)
         self._key, self._plan, self._tri_draw = key, plan, tri_draw
         self._corner_t = None
-        tri_counts = {packed.draw_infos[r.mesh_index].index_count // 3
-                      for r in records}
+        self.version += 1
+        tri_counts = {packed.draw_infos[m].index_count // 3
+                      for m in key[1]}
         if records and len(tri_counts) == 1:
             self.draw_stride = tri_counts.pop()
             self.real_draws = len(records)
@@ -154,8 +232,8 @@ def build_draw_plan(packed: PackedGeometry, records: List[DrawRecord],
     tri_parts: List[np.ndarray] = []
     tri_draw_parts: List[np.ndarray] = []
     v_cursor = 0
-    for d, rec in enumerate(records):
-        info = packed.draw_infos[rec.mesh_index]
+    for d, mesh_index in enumerate(_mesh_indices(records)):
+        info = packed.draw_infos[mesh_index]
         mesh_indices = packed.indices[info.first_index:
                                       info.first_index + info.index_count]
         vcount = int(mesh_indices.max()) + 1 if info.index_count else 0
@@ -198,15 +276,17 @@ def build_draw_plan(packed: PackedGeometry, records: List[DrawRecord],
     return plan, torch.from_numpy(pad(tri_draw, tt)).to(dev)
 
 
-def build_draw_params(records: List[DrawRecord], num_draws: int,
-                      material_table: Optional[np.ndarray] = None,
-                      device=None) -> Tuple[DrawParams, torch.Tensor]:
-    """Pack per-draw state and the shade table on `device`.
+def build_draw_params_host(draws: DrawBatch, num_draws: int,
+                           material_table: Optional[np.ndarray] = None
+                           ) -> Tuple[DrawParams, np.ndarray]:
+    """Pack per-draw state and the shade table as numpy (the frame
+    bundle's form), all draws at once.
 
     Returns (DrawParams, shade_table (D,8) f32). A shade row is: color
     factor rgba (= material base color × tint), metallic, roughness,
     ambient strength, texture slot (as f32)."""
     d = num_draws
+    n = min(len(draws), d)
     model = np.tile(np.eye(4, dtype=np.float32), (d, 1, 1))
     tint = np.ones((d, 4), np.float32)
     uv_scale = np.ones((d, 2), np.float32)
@@ -220,43 +300,46 @@ def build_draw_params(records: List[DrawRecord], num_draws: int,
     shade[:, 5] = 1.0  # roughness
     shade[:, 6] = 1.0  # ambient strength
 
-    for i, rec in enumerate(records[:d]):
-        model[i] = rec.model
-        tint[i] = rec.tint
-        if (material_table is not None
-                and 0 <= rec.material_index < material_table.shape[0]):
-            mat = material_table[rec.material_index]
-            shade[i, 0:4] = mat[0:4] * rec.tint
-            shade[i, 4] = mat[4]   # metallic
-            shade[i, 5] = mat[5]   # roughness
-            shade[i, 6] = mat[6]   # ambient strength
-        else:
-            shade[i, 0:4] = rec.tint
-        shade[i, 7] = float(rec.texture_slot)
-        uv_scale[i] = rec.uv_scale
-        uv_offset[i] = rec.uv_offset
-        tiling[i] = rec.tiling
-        texture_slot[i] = rec.texture_slot
-        material_index[i] = rec.material_index
+    model[:n] = draws.model[:n]
+    tint[:n] = draws.tint[:n]
+    mi = draws.material_index[:n]
+    shade[:n, 0:4] = tint[:n]
+    if material_table is not None:
+        ok = (mi >= 0) & (mi < material_table.shape[0])
+        mat = material_table[mi[ok]]
+        shade[:n][ok, 0:4] = mat[:, 0:4] * tint[:n][ok]
+        shade[:n][ok, 4:7] = mat[:, 4:7]  # metallic, roughness, ambient
+    shade[:n, 7] = draws.texture_slot[:n]
+    uv_scale[:n] = draws.uv_scale[:n]
+    uv_offset[:n] = draws.uv_offset[:n]
+    tiling[:n] = draws.tiling[:n]
+    texture_slot[:n] = draws.texture_slot[:n]
+    material_index[:n] = mi
 
     model_flat = model.reshape(d, 16)
     xform_a = model_flat[:, :12].copy()
     xform_b = np.concatenate(
         [model_flat[:, 12:16], uv_scale, uv_offset, tiling[:, None],
          np.zeros((d, 3), np.float32)], axis=1)
-    dev = resolve_device(device)
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
     params = DrawParams(
-        model=t(model), xform_a=t(xform_a), xform_b=t(xform_b), tint=t(tint),
-        uv_scale=t(uv_scale), uv_offset=t(uv_offset), tiling=t(tiling),
-        texture_slot=t(texture_slot), material_index=t(material_index),
-        bone_offset=t(np.full(d, -1, np.int32)),
-        bone_count=t(np.zeros(d, np.int32)),
+        model=model, xform_a=xform_a, xform_b=xform_b, tint=tint,
+        uv_scale=uv_scale, uv_offset=uv_offset, tiling=tiling,
+        texture_slot=texture_slot, material_index=material_index,
+        bone_offset=np.full(d, -1, np.int32),
+        bone_count=np.zeros(d, np.int32),
     )
-    return params, t(shade)
+    return params, shade
+
+
+def build_draw_params(records: List[DrawRecord], num_draws: int,
+                      material_table: Optional[np.ndarray] = None,
+                      device=None) -> Tuple[DrawParams, torch.Tensor]:
+    """build_draw_params_host's (DrawParams, shade_table) for a
+    DrawRecord list (the JAX package's form), on `device`."""
+    params, shade = build_draw_params_host(DrawBatch.from_records(records),
+                                           num_draws, material_table)
+    dev = resolve_device(device)
+    return from_numpy(params, dev), torch.from_numpy(shade).to(dev)
 
 
 def geometry_to_device(packed: PackedGeometry, device=None) -> GeometryBuffers:

@@ -1,0 +1,222 @@
+"""One captured CUDA graph per frame key: the card's counterpart of the JAX
+package's one jit per static frame shape (render_frame_bundled).
+
+A graph bakes in the addresses of every tensor it reads, so its key holds
+more than the JAX jit cache keys on: the bundle's shape, the frame size,
+every static of render_frame, the kernel knobs, whether a previous frame
+(`prev`) is warped in, and the versions of the device-resident inputs
+(geometry, plan, textures, upscaler). A new plan or texture table is a
+new key; the JAX cache recompiles on shapes alone.
+
+Each graph owns device buffers for the two blobs and for `prev`. A frame:
+
+  1. the host blobs go into a pinned staging buffer of a small ring, one
+     buffer per frame in flight, each guarded by a CUDA event so that it
+     is not rewritten while its last copy may still run;
+  2. `copy_(non_blocking=True)` moves them on the current stream (and
+     `prev` is copied device to device);
+  3. the graph replays on the current stream;
+  4. the outputs are cloned out of the graph's pool: frames in flight, the
+     idle cache, `prev_state` and picking keep earlier outputs, which the
+     next replay would overwrite.
+
+A new key captures: one eager warm-up run on a side stream (the kernel
+library loads, the allocator and cuDNN settle outside the capture), then
+the capture. The kernel wrappers' `.launches` ticks during the capture
+are the graph's launch list; replays tick no wrapper's count (they launch
+one graph, not kernels), so each FrameGraphs tallies the launches its
+captures recorded (`captured`) and its replays ran (`replayed`). A
+capture or replay that fails raises: there is no eager fallback on the
+card. At most `capacity` graphs are kept, least recently used first out;
+an evicted graph's pool is freed.
+"""
+
+from __future__ import annotations
+
+from collections import Counter, OrderedDict
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from trident_tpu_torch.ops.kernel_knobs import KernelKnobs
+from trident_tpu_torch.render.bundle import BundleShape
+from trident_tpu_torch.render.types import FrameOutput
+
+
+def frame_kernels() -> Dict[str, Callable]:
+    """The render path's kernel wrappers by name, each with its
+    `.launches` counter."""
+    from trident_tpu_torch.ops import (
+        raster,
+        resolve,
+        shadow_taps,
+        texel,
+        warp,
+    )
+
+    return {"visibility": raster.visibility_tiles,
+            "visibility_depth": raster.visibility_depth_tiles,
+            "visibility_ck": raster.visibility_ck_tiles,
+            "visibility_resolve": resolve.fused_visibility_resolve,
+            "resolve": resolve.resolve_attrs,
+            "resolve_tiled": resolve.resolve_attrs_tiled,
+            "texel": texel.sample_bilinear,
+            "texel_planar": texel.sample_bilinear_planar,
+            "shadow_taps": shadow_taps.shadow_tap_bits,
+            "warp": warp.warp_fetch}
+
+
+def _launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in frame_kernels().items()}
+
+
+def frame_key(shape: BundleShape, width: int, height: int, statics: dict,
+              knobs: KernelKnobs, has_prev: bool, versions: tuple) -> tuple:
+    """The graph key of a frame: everything a capture bakes in. `statics`
+    are render_frame's static keyword arguments, `versions` those of the
+    device-resident inputs (geometry, plan, textures, upscaler)."""
+    return (tuple(shape), int(width), int(height),
+            tuple(sorted(statics.items())), knobs, bool(has_prev),
+            tuple(versions))
+
+
+class FrameGraph(NamedTuple):
+    """One captured frame: the graph, its input buffers and outputs."""
+
+    graph: torch.cuda.CUDAGraph
+    f32: torch.Tensor                 # the blobs' device buffers
+    i32: torch.Tensor
+    prev: Optional[Tuple[torch.Tensor, torch.Tensor]]
+    out: FrameOutput                  # outputs in the graph's pool
+    launches: Dict[str, int]          # kernel launches per replay
+    keep: tuple                       # the device-resident inputs it reads
+
+
+class _Slot:
+    """One pinned staging buffer pair and the event after its copies."""
+
+    def __init__(self) -> None:
+        self.f32: Optional[torch.Tensor] = None
+        self.i32: Optional[torch.Tensor] = None
+        self.event: Optional[torch.cuda.Event] = None
+
+
+def _pinned(buf: Optional[torch.Tensor], n: int, dtype) -> torch.Tensor:
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(max(n, 1), dtype=dtype, pin_memory=True)
+    return buf
+
+
+class FrameGraphs:
+    """The graph cache of one Renderer on one CUDA device."""
+
+    def __init__(self, device, capacity: int = 4, staging: int = 3) -> None:
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"frame graphs need a CUDA device, not "
+                             f"{self.device}")
+        self.capacity = capacity
+        self._graphs: "OrderedDict[tuple, FrameGraph]" = OrderedDict()
+        self._ring = [_Slot() for _ in range(staging)]
+        self._next = 0
+        self.captures = 0
+        self.replays = 0
+        # kernel name → launches that captures recorded into graphs (a
+        # wrapper's count ticks then, but nothing runs) / that replays ran
+        self.captured: Counter = Counter()
+        self.replayed: Counter = Counter()
+        self.last_key: Optional[tuple] = None
+        self.last_launches: Dict[str, int] = {}
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def graph(self, key: tuple) -> FrameGraph:
+        """The graph captured for `key` (KeyError if none is kept)."""
+        return self._graphs[key]
+
+    def stage(self, g: FrameGraph, f32: np.ndarray, i32: np.ndarray) -> None:
+        """Host blobs → pinned slot → the graph's buffers, on the current
+        stream."""
+        slot = self._ring[self._next]
+        self._next = (self._next + 1) % len(self._ring)
+        if slot.event is not None:
+            slot.event.synchronize()        # its last copies have run
+        slot.f32 = _pinned(slot.f32, f32.size, torch.float32)
+        slot.i32 = _pinned(slot.i32, i32.size, torch.int32)
+        np.copyto(slot.f32[:f32.size].numpy(), f32)
+        np.copyto(slot.i32[:i32.size].numpy(), i32)
+        g.f32.copy_(slot.f32[:f32.size], non_blocking=True)
+        g.i32.copy_(slot.i32[:i32.size], non_blocking=True)
+        if slot.event is None:
+            slot.event = torch.cuda.Event()
+        slot.event.record()
+
+    def _capture(self, f32: np.ndarray, i32: np.ndarray, prev, frame_fn,
+                 keep: tuple) -> FrameGraph:
+        dev = self.device
+        bufs = FrameGraph(graph=torch.cuda.CUDAGraph(),
+                      f32=torch.empty(f32.size, dtype=torch.float32,
+                                      device=dev),
+                      i32=torch.empty(i32.size, dtype=torch.int32, device=dev),
+                      prev=(None if prev is None else
+                            tuple(torch.empty_like(t) for t in prev)),
+                      out=None, launches={}, keep=keep)
+        self.stage(bufs, f32, i32)
+        if prev is not None:
+            for buf, t in zip(bufs.prev, prev):
+                buf.copy_(t)
+        # warm-up outside the capture: the kernel library loads, lazy
+        # modules and cuDNN's algorithm choice settle
+        stream = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            frame_fn(bufs.f32, bufs.i32, bufs.prev)
+        stream.wait_stream(side)
+        before = _launch_counts()
+        with torch.cuda.graph(bufs.graph):
+            out = frame_fn(bufs.f32, bufs.i32, bufs.prev)
+        after = _launch_counts()
+        launches = {n: after[n] - before[n] for n in after
+                    if after[n] != before[n]}
+        self.captured.update(launches)
+        self.captures += 1
+        return bufs._replace(out=out, launches=launches)
+
+    def _evict(self) -> None:
+        """Free least recently used graphs until a new one fits."""
+        while len(self._graphs) >= self.capacity:
+            _key, old = self._graphs.popitem(last=False)
+            torch.cuda.synchronize(self.device)   # its last replay has run
+            old.graph.reset()
+            del old
+            torch.cuda.empty_cache()              # its pool
+
+    def run(self, key: tuple, f32: np.ndarray, i32: np.ndarray, prev,
+            frame_fn, keep: tuple = ()) -> FrameOutput:
+        """The frame for `key`: replay its graph (capturing it first if it
+        is new) on blobs `f32`, `i32` and `prev` ((history, view·proj)
+        device tensors or None), and return clones of its outputs.
+        `frame_fn(f32, i32, prev)` computes the frame from device tensors
+        (render_frame_bundled with everything else bound); `keep` holds
+        the device-resident tensors it reads, alive while the graph is."""
+        g = self._graphs.get(key)
+        if g is None:
+            self._evict()
+            g = self._capture(f32, i32, prev, frame_fn, keep)
+            self._graphs[key] = g
+        else:
+            self._graphs.move_to_end(key)
+            self.stage(g, f32, i32)
+            if prev is not None:
+                for buf, t in zip(g.prev, prev):
+                    buf.copy_(t, non_blocking=True)
+        g.graph.replay()
+        self.replayed.update(g.launches)
+        self.replays += 1
+        self.last_key = key
+        self.last_launches = dict(g.launches)
+        return FrameOutput(*(None if t is None else t.clone()
+                             for t in g.out))

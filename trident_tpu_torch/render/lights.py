@@ -10,7 +10,6 @@ trident_tpu/render/lights.py, same semantics):
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from trident_tpu_torch.ecs.components import (
     LightComponent,
@@ -19,7 +18,7 @@ from trident_tpu_torch.ecs.components import (
 )
 from trident_tpu_torch.ecs.registry import Registry
 from trident_tpu_torch import resolve_device
-from trident_tpu_torch.render.types import LightParams
+from trident_tpu_torch.render.types import LightParams, from_numpy
 
 DEFAULT_SUN_DIRECTION = np.array([-0.5, -1.0, -0.3], np.float32)
 DEFAULT_SUN_COLOR = np.array([1.0, 0.98, 0.92], np.float32)
@@ -28,10 +27,11 @@ DEFAULT_AMBIENT = np.array([0.03, 0.03, 0.03, 1.0], np.float32)
 MAX_POINT_LIGHTS = 8
 
 
-def gather_lights(registry: Registry, device=None,
-                  ambient: np.ndarray = DEFAULT_AMBIENT) -> LightParams:
-    """Pack lights onto `device`. Point-light rows are sized to a bucket of
-    the actual count (0/2/4/8), as in the reference."""
+def gather_lights_host(registry: Registry,
+                       ambient: np.ndarray = DEFAULT_AMBIENT) -> LightParams:
+    """Pack lights as numpy (the frame bundle's form). Point-light rows are
+    sized to a bucket of the actual count (0/2/4/8), as in the
+    reference."""
     dir_direction = DEFAULT_SUN_DIRECTION / np.linalg.norm(DEFAULT_SUN_DIRECTION)
     dir_color = DEFAULT_SUN_COLOR.copy()
     dir_intensity = DEFAULT_SUN_INTENSITY
@@ -67,18 +67,20 @@ def gather_lights(registry: Registry, device=None,
     bucket = 0 if point_count == 0 else (2 if point_count <= 2 else
                                          (4 if point_count <= 4
                                           else MAX_POINT_LIGHTS))
-    dev = resolve_device(device)
-
-    def t(a, dtype=np.float32):
-        return torch.from_numpy(np.asarray(a, dtype)).to(dev)
-
     return LightParams(
-        ambient=t(ambient),
-        dir_direction=t(dir_direction),
-        dir_color=t([*dir_color, dir_intensity]),
-        dir_count=t(dir_used, np.int32),
-        point_pos_range=t(point_pos_range[:bucket].reshape(bucket, 4)),
-        point_color_intensity=t(
-            point_color_intensity[:bucket].reshape(bucket, 4)),
-        point_count=t(point_count, np.int32),
+        ambient=np.asarray(ambient, np.float32),
+        dir_direction=np.asarray(dir_direction, np.float32),
+        dir_color=np.asarray([*dir_color, dir_intensity], np.float32),
+        dir_count=np.int32(dir_used),
+        point_pos_range=point_pos_range[:bucket].reshape(bucket, 4),
+        point_color_intensity=point_color_intensity[:bucket].reshape(bucket,
+                                                                     4),
+        point_count=np.int32(point_count),
     )
+
+
+def gather_lights(registry: Registry, device=None,
+                  ambient: np.ndarray = DEFAULT_AMBIENT) -> LightParams:
+    """gather_lights_host's lights on `device`."""
+    return from_numpy(gather_lights_host(registry, ambient),
+                      resolve_device(device))

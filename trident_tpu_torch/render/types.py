@@ -111,6 +111,9 @@ class FrameOutput(NamedTuple):
     history: Optional[Tensor] = None  # (h,w,12) uint8 upscaler output
                                       # blocks: the next frame's warp
                                       # history (ai_upscale only)
+    view_proj: Optional[Tensor] = None  # (4,4) f32 the camera's proj @
+                                        # view: with history, the next
+                                        # frame's `prev` (ai_upscale only)
 
 
 def _twins() -> dict:

@@ -12,6 +12,7 @@ cold.
 
 from __future__ import annotations
 
+import re
 import statistics
 import subprocess
 import sys
@@ -31,6 +32,8 @@ FLUSH_ACTIVITY = "Memcpy DtoD"
 COPY_ACTIVITIES = ("Memcpy", "Memset")
 LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx"}
+# the host call that replays a captured CUDA graph: one call, many kernels
+GRAPH_LAUNCH = "cudaGraphLaunch"
 # torch.cuda._sleep's kernel, launched SENTINELS_BEFORE times before and
 # once after each profiling window's calls, and its length in clock cycles
 # (about 1 µs); the card's tracer has lost up to the first two records of
@@ -38,6 +41,33 @@ LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 SENTINEL = "spin_kernel"
 SENTINEL_CYCLES = 2000
 SENTINELS_BEFORE = 4
+# each render-path kernel (by its wrapper's name in
+# render/graphs.py::frame_kernels) as torch.profiler names its device
+# records (csrc/*.cu; "void (anonymous namespace)::visibility_kernel<false>(…)")
+KERNEL_RECORDS = {
+    "visibility": r"(?<!\w)visibility_kernel<false>",
+    "visibility_depth": r"(?<!\w)visibility_kernel<true>",
+    "visibility_ck": r"(?<!\w)visibility_ck_kernel(?!\w)",
+    "visibility_resolve": r"(?<!\w)visibility_resolve_kernel(?!\w)",
+    "resolve": r"(?<!\w)resolve_kernel(?!\w)",
+    "resolve_tiled": r"(?<!\w)resolve_tiled_kernel(?!\w)",
+    "texel": r"(?<!\w)texel_kernel<false>",
+    "texel_planar": r"(?<!\w)texel_kernel<true>",
+    "shadow_taps": r"(?<!\w)taps[14]_kernel(?!\w)",
+    "warp": r"(?<!\w)warp_kernel(?!\w)",
+}
+
+
+def record_counts(record_names) -> dict:
+    """How many of the profiler's device records `record_names` belong to
+    each render-path kernel (KERNEL_RECORDS), the kernels with none
+    left out."""
+    counts = {}
+    for rec in record_names:
+        for name, pattern in KERNEL_RECORDS.items():
+            if re.search(pattern, rec):
+                counts[name] = counts.get(name, 0) + 1
+    return counts
 
 
 def l2_flush(dev):
@@ -74,26 +104,41 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2, flush=None) -> float:
     return statistics.median(times)
 
 
-def whole(n_activities: int, n_kernels: int, n_launches: int) -> bool:
+def whole(n_activities: int, n_kernels: int, n_launches: int,
+          n_graphs: int = 0, listed=None, launch_list=None) -> bool:
     """Whether a profiling window holds every kernel it launched: some
     device activity, and at least as many kernel records (n_kernels, the
     activities that are not COPY_ACTIVITIES) as the host made kernel
     launch calls (n_launches, LAUNCH_CALLS). The card's tracer can lose a
     window's device records, all of them or some; the host's launch calls,
-    recorded beside them, say how many there must be."""
-    return n_activities > 0 and n_kernels >= n_launches
+    recorded beside them, say how many there must be.
+
+    A graph replay is one host call (GRAPH_LAUNCH) for all of its
+    kernels, so a window with n_graphs replays is whole only when it holds
+    each kernel of the graph's launch list (`launch_list`, kernel name →
+    launches per replay) exactly n_graphs times that count (`listed`, the
+    window's records by kernel name, record_counts);
+    without a launch list it is not whole."""
+    if n_activities <= 0 or n_kernels < n_launches:
+        return False
+    if n_graphs == 0:
+        return True
+    return bool(launch_list) and all(
+        (listed or {}).get(name, 0) == count * n_graphs
+        for name, count in launch_list.items())
 
 
-def _device_events(fn, reps: int, names=None):
+def _device_events(fn, reps: int, names=None, launch_list=None):
     """torch.profiler's CUDA activity records of `reps` fn() calls after
     one warm-up call (only those named in `names`, if given), or None.
     Each window brackets the calls with SENTINELS_BEFORE SENTINEL kernels
     before and one after, whose records are dropped, so that a record the
     tracer loses at a window's edge is a sentinel's; windows are profiled
-    until one is whole() for fn's own records and launches, up to
-    PROFILE_ATTEMPTS windows. Each window that loses records is reported on stderr
-    (activities, kernels, kernel launches, sentinels), and after
-    PROFILE_ATTEMPTS such windows the result is None."""
+    until one is whole() for fn's own records, launches and graph replays
+    (held to `launch_list`, the replayed graph's), up to PROFILE_ATTEMPTS
+    windows. Each window that loses records is reported on stderr
+    (activities, kernels, kernel launches, sentinels, graph replays), and
+    after PROFILE_ATTEMPTS such windows the result is None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -115,21 +160,27 @@ def _device_events(fn, reps: int, names=None):
                   and (names is None or e.name in names)]
         n_kernels = sum(not e.name.startswith(COPY_ACTIVITIES)
                         for e in events)
-        n_launches = sum(e.device_type == DeviceType.CPU
-                         and e.name in LAUNCH_CALLS for e in prof.events())
+        host = [e.name for e in prof.events()
+                if e.device_type == DeviceType.CPU]
+        n_launches = sum(n in LAUNCH_CALLS for n in host)
+        n_graphs = sum(n.startswith(GRAPH_LAUNCH) for n in host)
         n_sentinels = sum(SENTINEL in e.name for e in device)
         seen.append((len(events), n_kernels,
-                     n_launches - SENTINELS_BEFORE - 1, n_sentinels))
-        if n_sentinels < SENTINELS_BEFORE + 1 or not whole(*seen[-1][:3]):
+                     n_launches - SENTINELS_BEFORE - 1, n_sentinels,
+                     n_graphs))
+        ok = whole(*seen[-1][:3], n_graphs,
+                   record_counts(e.name for e in events), launch_list)
+        if n_sentinels < SENTINELS_BEFORE + 1 or not ok:
             print(f"device_busy: a window of {reps} calls lost device "
                   f"records (activities, kernels, kernel launches, "
-                  f"sentinels): {seen[-1]}", file=sys.stderr, flush=True)
-        if whole(*seen[-1][:3]):
+                  f"sentinels, graph replays): {seen[-1]}", file=sys.stderr,
+                  flush=True)
+        if ok:
             return events
     return None
 
 
-def device_busy(fn, reps: int = 5, flush=None):
+def device_busy(fn, reps: int = 5, flush=None, launch_list=None):
     """(ms, launches) per fn() call of device activity — kernels, copies
     and fills as torch.profiler's CUDA activity records them — after one
     warm-up call: the card's busy time without the gaps between launches
@@ -139,9 +190,12 @@ def device_busy(fn, reps: int = 5, flush=None):
     window does, both numbers are NaN: not measured.
     With `flush`, flush() runs before each call, and only the activities
     whose names fn() alone records are counted; it raises if fn() itself
-    records a FLUSH_ACTIVITY, which the flush's could not be told from."""
+    records a FLUSH_ACTIVITY, which the flush's could not be told from.
+    A fn that replays a CUDA graph needs the graph's `launch_list`
+    (kernel name → launches per replay, render/graphs.py): whole() holds
+    each window to it."""
     nan = float("nan")
-    events = _device_events(fn, reps)
+    events = _device_events(fn, reps, launch_list=launch_list)
     if events is not None and flush is not None:
         names = {e.name for e in events}
         if any(FLUSH_ACTIVITY in n for n in names):
@@ -152,11 +206,29 @@ def device_busy(fn, reps: int = 5, flush=None):
             flush()
             fn()
 
-        events = _device_events(flushed, reps, names)
+        events = _device_events(flushed, reps, names, launch_list)
     if events is None:
         return nan, nan
     busy_us = sum(e.time_range.elapsed_us() for e in events)
     return busy_us / reps / 1e3, len(events) / reps
+
+
+def graph_records(fn, launch_list, reps: int = 5):
+    """The render-path kernels' device records (by kernel name) in one
+    whole profiling window of `reps` fn() calls, each of which replays a
+    CUDA graph with launch list `launch_list`, or None when no window was
+    whole (_device_events)."""
+    events = _device_events(fn, reps, launch_list=launch_list)
+    return None if events is None else record_counts(e.name for e in events)
+
+
+def uploads_per_call(fn, reps: int = 3, launch_list=None) -> float:
+    """Host-to-device copies per fn() call in one whole profiling window
+    (launch_list: as device_busy's), NaN when no window was whole."""
+    events = _device_events(fn, reps, launch_list=launch_list)
+    if events is None:
+        return float("nan")
+    return sum(e.name.startswith("Memcpy HtoD") for e in events) / reps
 
 
 def bound(bytes_moved: float, ops: float = 0.0):
