@@ -125,6 +125,20 @@ Phases (any failure exits non-zero before the final line is printed):
      and ultra4k; each cell's graph replayed alone (device frame, busy,
      activities, idle) in profiling windows whose kernel records must be
      the graph's launch list times the replays
+ 13. the port's bench (trident_tpu_torch/bench.py, bench_sweep.py) in
+     process over all 11 entries: bench.py's five configs, each also
+     :ai, and interp, at 30 frames; each JSON line printed as it comes,
+     with bench.py's keys and aux [0, 0], no bench_error line, the card's
+     clock sampled around the sweep; on spheres1080_1m the throughput
+     mode's frames 0, 7, 14, 21 and 28 bit-equal to FrameGraphs.run on
+     the same blobs; on every render entry the busy time of a window of
+     its throughput replays, and its FPS at most 1.05 × 1000 / that busy
+     time; the interpolation net from the port's npz on
+     the card against itself on the CPU (within 1e-4); FrameGenerator on
+     four 1920×1080 frames (an output within 10 s, its telemetry filled
+     in); one spheres1080_1m frame with set_ai_frame(img, 0.5) through
+     render_viewport bit-equal to eager render_frame, and a second AI
+     frame that misses the idle cache and replays the same graph
 Then it prints the kernels as one JSON line, the card line, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -1462,11 +1476,11 @@ def phase_frame_loop(dev, card: str, drive) -> None:
         fb = bundles[k % LOOP_FRAMES]
         return fb.frame_fn(
             torch.from_numpy(fb.f32).to(dev, non_blocking=True),
-            torch.from_numpy(fb.i32).to(dev, non_blocking=True), None)
+            torch.from_numpy(fb.i32).to(dev, non_blocking=True), None, fb.ai)
 
     def replay(k):
         fb = bundles[k % LOOP_FRAMES]
-        return r.graphs.run(fb.key, fb.f32, fb.i32, None, fb.frame_fn,
+        return r.graphs.run(fb.key, fb.f32, fb.i32, None, fb.ai, fb.frame_fn,
                             keep=fb.keep)
 
     for k in range(0, LOOP_FRAMES, 7):
@@ -1687,6 +1701,232 @@ def phase_frame_loop(dev, card: str, drive) -> None:
     replay_line(r, "ultra4k", card)
     del r, reg
     torch.cuda.empty_cache()
+
+
+# phase 13: the port's bench, bench.py's every config in both timed modes
+# (trident_tpu_torch/bench_sweep.py), and the interpolation net's path
+BENCH_ENTRIES = (["cube512", "spheres1080", "spheres1080_1m", "ultra4k",
+                  "shadows1080"]
+                 + [f"{c}:ai" for c in ("cube512", "spheres1080",
+                                        "spheres1080_1m", "ultra4k",
+                                        "shadows1080")] + ["interp"])
+BENCH_ITERS = 30
+# bench.py's JSON line (bench.py:448-460) and its render lines' extra
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "extra")
+BENCH_EXTRA = ("mpix_per_s", "triangles", "interactive_fps",
+               "interactive_runs", "interactive_agreed", "raster", "aux",
+               "backend")
+THROUGHPUT_HELD = (0, 7, 14, 21, 28)  # throughput frames held to `run`
+BUSY_SLACK = 1.05        # throughput FPS ≤ this × 1000 / busy ms
+INTERP_TOL = 1e-4        # the net on the card against itself on the CPU
+FRAMEGEN_WAIT_S = 10.0
+
+
+def bench_line_faults(line: dict) -> list:
+    """What a bench JSON line lacks or gets wrong: a bench_error, a key of
+    bench.py's line, a key of its extra, aux other than [0, 0]."""
+    faults = []
+    if line.get("metric", "").startswith("bench_error"):
+        return [f"error {line.get('extra')}"]
+    faults += [f"no {k}" for k in BENCH_KEYS if k not in line]
+    extra = line.get("extra", {})
+    if line.get("metric") == "interp_infer_256":
+        return faults + [f"no extra.{k}" for k in (
+            "psnr_db_vs_middle_frame", "iters", "checkpoint", "backend")
+            if k not in extra]
+    want = BENCH_EXTRA + (("psnr_vs_native_db",)
+                          if "_ai_" in line.get("metric", "") else ())
+    faults += [f"no extra.{k}" for k in want if k not in extra]
+    if extra.get("aux") != [0, 0]:
+        faults.append(f"aux {extra.get('aux')}")
+    return faults
+
+
+def throughput_held(b) -> None:
+    """A config's throughput mode (FrameGraphs.run_rows on device rows)
+    held bit-equal to FrameGraphs.run on the same blobs at frames
+    THROUGHPUT_HELD."""
+    from trident_tpu_torch.render.types import FrameOutput
+
+    for k in THROUGHPUT_HELD:
+        dev_out = FrameOutput(*(None if t is None else t.clone()
+                                for t in b.device_frame(k, b.prev0)))
+        bad = differing(dev_out, b.interactive_frame(k, b.prev0))
+        if bad:
+            fail(f"bench {b.config}: throughput frame {k} differs from "
+                 f"FrameGraphs.run on the same blobs in {bad}")
+
+
+def throughput_busy(b, entry: str) -> tuple:
+    """(busy ms, device activities) per frame of a config's throughput
+    replays, in a profiling window held to the graph's launch list."""
+    g = b.r.graphs.graph(b.bundles[0].key)
+    step = iter(range(10 ** 6))
+    busy, acts = device_busy(
+        lambda: b.device_frame(next(step) % b.iters, b.prev0),
+        launch_list=g.launches)
+    if busy != busy:
+        fail(f"bench {entry}: no profiling window of the throughput "
+             "replays was whole")
+    return busy, acts
+
+
+def phase_bench(dev, card: str, drive) -> dict:
+    """Phase 13: (a) the port's bench sweep in-process over BENCH_ENTRIES
+    (every bench.py config, each also :ai, and interp): every line has
+    bench.py's keys and aux [0, 0], no bench_error; on spheres1080_1m the
+    throughput frames bit-equal to FrameGraphs.run; on every render entry
+    the busy time of its throughput replays, its FPS within BUSY_SLACK of
+    1000 / busy; (b) the interpolation net on the card
+    against itself on the CPU; (c) FrameGenerator on four 1920×1080
+    frames; (d) the AI-frame blend through render_viewport, bit-equal to
+    eager, a new AI image replayed without a capture, and the idle cache
+    missed. Returns the sweep's kernel runs."""
+    from collections import Counter
+    from types import SimpleNamespace
+
+    import torch
+
+    from trident_tpu_torch.ai.frame_generator import FrameGenerator
+    from trident_tpu_torch.ai.model import (
+        DEFAULT_WEIGHTS,
+        load_frame_generator,
+        unet_flops,
+    )
+    from trident_tpu_torch.bench import settings_from_env
+    from trident_tpu_torch.bench_sweep import sweep
+
+    # (a) the sweep: each entry's graph captures and replays are tallied
+    # when its measurement ends (before the spheres1080_1m checks replay)
+    tally = SimpleNamespace(graphs=SimpleNamespace(captured=Counter(),
+                                                   replayed=Counter()))
+    busy = {}
+
+    def on_bench(entry, b):
+        tally.graphs.captured.update(b.r.graphs.captured)
+        tally.graphs.replayed.update(b.r.graphs.replayed)
+        if entry == "spheres1080_1m":
+            throughput_held(b)
+        busy[entry] = throughput_busy(b, entry)
+
+    settings = dict(settings_from_env(), iters=BENCH_ITERS)
+    print(f"card before the bench sweep: {smi_sample()}", flush=True)
+    t0 = time.perf_counter()
+    lines, runs = drive(lambda: sweep(BENCH_ENTRIES, dev, on_bench, settings),
+                        ("visibility", "resolve", "texel", "visibility_depth",
+                         "shadow_taps", "warp"), (tally,))
+    sweep_s = time.perf_counter() - t0
+    print(f"card after the bench sweep: {smi_sample()}", flush=True)
+    for entry, line in zip(BENCH_ENTRIES, lines):
+        faults = bench_line_faults(line)
+        if faults:
+            fail(f"bench {entry}: {faults}")
+    fps = {e: ln["value"] for e, ln in zip(BENCH_ENTRIES, lines)}
+    if set(busy) != set(BENCH_ENTRIES) - {"interp"}:
+        fail(f"bench: the throughput windows ran for {sorted(busy)} only")
+    # a bench that reads faster than the card's busy time allows has a
+    # wrong timing window
+    for entry, (b_ms, acts) in busy.items():
+        ceiling = BUSY_SLACK * 1000.0 / b_ms
+        if fps[entry] > ceiling:
+            fail(f"bench {entry}: throughput {fps[entry]} FPS exceeds "
+                 f"{BUSY_SLACK} x 1000 / busy = {ceiling:.2f}")
+        print(f"bench {entry}: throughput replays busy {b_ms:.4f} ms per "
+              f"frame in {acts:.0f} device activities, {fps[entry]} FPS "
+              f"(idle {1 - b_ms * fps[entry] / 1000:.4f}) <= {ceiling:.2f} "
+              f"({BUSY_SLACK} x 1000 / busy) ({card})", flush=True)
+    print(f"bench sweep: {len(lines)} lines with bench.py's keys, aux [0, 0], "
+          f"no bench_error; spheres1080_1m's throughput frames "
+          f"{list(THROUGHPUT_HELD)} bit-equal to FrameGraphs.run on the same "
+          f"blobs; {sweep_s:.1f} s wall; kernel runs "
+          f"{dict((n, c) for n, c in runs.items() if c)} ({card})",
+          flush=True)
+
+    # (b) the interpolation net on the card against itself on the CPU
+    net_c, bc = load_frame_generator(device=dev)
+    net_h, _bc = load_frame_generator(device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (1, 6, 256, 256), np.float32))
+    with torch.inference_mode():
+        err = float((net_c(x.to(dev)).cpu() - net_h(x)).abs().max())
+    if not err <= INTERP_TOL:
+        fail(f"interpolation net on the card vs the CPU: max err {err}")
+    # one inference alone: CUDA events, and its busy time (the net runs
+    # eagerly, one launch a layer)
+    x_c = x.to(dev)
+    with torch.inference_mode():
+        one_ms = cuda_ms(lambda: net_c(x_c))
+        one_busy, one_acts = device_busy(lambda: net_c(x_c))
+    interp_ms = lines[BENCH_ENTRIES.index("interp")]["value"]
+    # the input pair and the output read and written once, every weight
+    # and running statistic read once
+    n_values = sum(t.numel() for t in net_c.state_dict().values()
+                   if t.is_floating_point())
+    flops = unet_flops(bc, 256, 256)
+    b_ms, b_by = bound(4 * ((6 + 3) * 256 * 256 + n_values), flops)
+    print(f"interpolation net (base {bc}, {DEFAULT_WEIGHTS.name}) on the "
+          f"card vs the CPU at 256x256: max err {err:.3g} (tolerance "
+          f"{INTERP_TOL}); interp {interp_ms} ms a frame against its bound "
+          f"{b_ms:.4f} ms ({flops / 1e9:.4f} GFLOP, {b_by}), "
+          f"{b_ms / interp_ms:.3f} of it; one inference alone "
+          f"{one_ms:.4f} ms (CUDA events), busy {one_busy:.4f} ms in "
+          f"{one_acts:.0f} device activities (idle "
+          f"{1 - one_busy / one_ms:.4f}) ({card})", flush=True)
+
+    # (c) FrameGenerator: four 1920x1080 frames, pairs on the worker
+    gen = FrameGenerator(device=dev)
+    if not gen.initialise(DEFAULT_WEIGHTS):
+        fail("FrameGenerator.initialise did not start")
+    rng = np.random.default_rng(1)
+    jobs = [gen.process_frame(rng.random((1080, 1920, 3), np.float32))
+            for _ in range(4)]
+    t0, got = time.perf_counter(), None
+    while got is None and time.perf_counter() - t0 < FRAMEGEN_WAIT_S:
+        got = gen.try_consume_output()
+        time.sleep(0.005)
+    gen.shutdown()
+    st = gen.stats
+    if (got is None or got[1].shape != (256, 256, 3)
+            or not np.isfinite(got[1]).all() or st.completed_count < 1
+            or not st.last_inference_ms > 0
+            or not st.average_inference_ms > 0):
+        fail(f"FrameGenerator: jobs {jobs}, output "
+             f"{None if got is None else got[1].shape}, stats {st}")
+    print(f"FrameGenerator: jobs {jobs} from four 1920x1080 frames; job "
+          f"{got[0]} done in {st.last_inference_ms:.3f} ms host time "
+          f"(resize, upload, net, readback; the worker's first run) "
+          f"({card})", flush=True)
+
+    # (d) the AI-frame blend on the graph path
+    r, reg = build_bench_scene(BENCH_GRID, dev)
+    w, h = r.config.render.width, r.config.render.height
+    rotate(reg, 0)
+    plain = r.render_viewport()
+    main_list = {"visibility": 1, "resolve": 1, "texel": 1}
+    r.set_ai_frame(rng.random((h, w, 3), np.float32), 0.5)
+    caps = r.graphs.captures
+    replay_check(r, "spheres1080_1m with an AI frame at blend 0.5",
+                 main_list)
+    blended = r.viewports[0].last_frame
+    if r.graphs.captures != caps + 1 or not bool(
+            (blended.color != plain.color).any()):
+        fail("the AI frame: no capture for its shape, or the frame did not "
+             "change")
+    r.set_ai_frame(rng.random((h, w, 3), np.float32), 0.5)
+    replays = r.graphs.replays
+    replay_check(r, "spheres1080_1m with a second AI frame", main_list)
+    again = r.viewports[0].last_frame
+    if (r.graphs.captures != caps + 1 or r.graphs.replays != replays + 1
+            or again is blended):
+        fail(f"a second AI frame: {r.graphs.captures - caps - 1} new "
+             f"captures, {r.graphs.replays - replays} replays, idle-cache "
+             f"hit {again is blended}")
+    print("AI blend: spheres1080_1m with set_ai_frame(img, 0.5) bit-equal "
+          "to eager render_frame; a second AI frame missed the idle cache "
+          "and replayed the same graph (no capture)", flush=True)
+    del r, reg, plain, blended, again
+    torch.cuda.empty_cache()
+    return runs
 
 
 def main() -> None:
@@ -2189,6 +2429,10 @@ def main() -> None:
 
     # -- phase 12: the interactive frame loop ----------------------------------
     phase_frame_loop(dev, card, drive)
+
+    # -- phase 13: the port's bench and the interpolation net -----------------
+    launches13 = phase_bench(dev, card, drive)
+    print(f"bench sweep's launches {launches13}", flush=True)
 
     # launches: each kernel's count in the main-path run of the frame it
     # was held on (phase 4 for the main pass, phase 6 for the shadow pass,

@@ -97,7 +97,7 @@ def _sphere_grid():
     return r
 
 
-def _jax_frame_op_by_op(r, upscale_params=None, prev=None):
+def _jax_frame_op_by_op(r, upscale_params=None, prev=None, ai=None):
     """The JAX package's forward frame for renderer `r`'s scene:
     `_render_frame_impl(raster="pallas")` evaluated op by op, so every
     elementwise op rounds once, as in the port (the Pallas kernels still
@@ -105,7 +105,8 @@ def _jax_frame_op_by_op(r, upscale_params=None, prev=None):
     the render config, with the light camera chosen as the JAX Renderer
     chooses it. With `upscale_params` the scene renders at half size and
     the upscaler rebuilds the configured size, with `prev` = (previous
-    history, previous view·proj) as its temporal input."""
+    history, previous view·proj) as its temporal input. `ai` is the JAX
+    AiBlend mixed into the display frame (None: none)."""
     from trident_tpu.ecs.components import LightComponent, LightType
     from trident_tpu.ops.shadow import light_camera, scene_bounds
     from trident_tpu.render.frame import build_draw_params, gather_mesh_draws
@@ -132,7 +133,7 @@ def _jax_frame_op_by_op(r, upscale_params=None, prev=None):
         return _render_frame_impl(
             None, plan, tri_draw, params, palette, shade,
             r.editor_camera.params(), gather_lights(r.registry),
-            r.textures.device_arrays(), None, None,
+            r.textures.device_arrays(), None, ai,
             r._plan_cache.corner_table(packed), upscale_params, prev,
             width=rc.width // half, height=rc.height // half,
             clear_color=tuple(rc.clear_color),

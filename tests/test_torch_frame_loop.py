@@ -321,10 +321,12 @@ BASE = dict(shape=BundleShape(16, 1, 2), width=128, height=96,
                          shadow_pcf=False, supersample=1, bloom=False,
                          bloom_threshold=1.0, bloom_strength=0.6,
                          draw_stride=0, real_draws=0),
-            knobs=KernelKnobs(), has_prev=False, versions=(3, 1, 2, False))
+            knobs=KernelKnobs(), has_prev=False, versions=(3, 1, 2, False),
+            ai_shape=(1, 1, 3))
 CHANGES = {
     "shape": BundleShape(32, 1, 2), "width": 64, "height": 48,
     "has_prev": True, "knobs": KernelKnobs(fuse=True),
+    "ai_shape": (128, 128, 3),
     "geometry_version": None, "plan_version": None,
     "textures_version": None, "upscaler": None,
     **{f"static_{k}": v for k, v in dict(
@@ -555,7 +557,7 @@ def test_frame_bundle_is_the_viewport_frame():
     r = carry_renderer(_sphere_grid())
     fb = r.frame_bundle()
     out = fb.frame_fn(torch.from_numpy(fb.f32), torch.from_numpy(fb.i32),
-                      fb.prev)
+                      fb.prev, fb.ai)
     assert not _same(out, r.render_viewport())
     st = fb.state
     shape = BundleShape(*fb.key[0])
@@ -563,7 +565,7 @@ def test_frame_bundle_is_the_viewport_frame():
     assert fb.key == frame_key(
         shape, 128, 128, r._statics(st.shadow_size), r.knobs, False,
         (r.geometry.version, r._plan_cache.version, r.textures.version,
-         False))
+         False), (1, 1, 3))
     t = r.registry.get(int(st.draws.entity[0]), pc.TransformComponent)
     t.position = t.position + np.float32(0.5)
     moved = r.frame_bundle()

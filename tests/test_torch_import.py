@@ -25,6 +25,7 @@ import importlib, pkgutil
 import trident_tpu_torch
 for m in pkgutil.walk_packages(trident_tpu_torch.__path__, "trident_tpu_torch."):
     importlib.import_module(m.name)
+import numpy as np, torch
 from trident_tpu_torch.render.renderer import build_entry_renderer
 r = build_entry_renderer(64, 64, device="cpu")
 frame = r.read_frame()
@@ -46,9 +47,16 @@ for kernel in ({"ckern": True, "dynhit": False},
     kr.geometry, kr.textures = k.geometry, k.textures
     kr.editor_camera, kr.registry = k.editor_camera, k.registry
     assert (kr.read_frame() == frame).all(), kernel
+r.set_ai_frame(np.full((64, 64, 3), 0.5, np.float32), 0.5)   # the AI blend
+assert (r.read_frame() != frame).any()
+from trident_tpu_torch.ai.model import load_frame_generator
+net, bc = load_frame_generator(device="cpu")
+assert net(torch.zeros((1, 6, 32, 32))).shape == (1, 3, 32, 32)
 for name in ("ops.kernel_knobs", "ops.deferred_tiled", "ops.raster",
              "ops.resolve", "ops.texel", "tools_dev.kbench",
-             "tools_dev.gather_probe", "tools_dev.diag_split_kernel"):
+             "tools_dev.gather_probe", "tools_dev.diag_split_kernel",
+             "bench", "bench_sweep", "ai.model", "ai.metrics",
+             "ai.frame_generator"):
     assert "trident_tpu_torch." + name in sys.modules, name
 assert sys.modules["jax"] is None and sys.modules["trident_tpu"] is None
 print("rendered", frame.shape, "upscaled", tuple(out.color.shape))

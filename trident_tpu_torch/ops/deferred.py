@@ -6,8 +6,10 @@ bilinear texel quad fetch (ops/texel.py), world position reconstructed
 from depth through the inverse view-projection, the directional light's
 shadow factor (ops/shadow.py) when a shadow map is given, Cook-Torrance
 PBR, Reinhard tonemap + gamma (or linear HDR out for bloom),
-clear-color background, then the frame's final blend and clamp. Skybox,
-custom shaders and the AI blend are not part of the ported slice.
+clear-color background, then the clamp. Skybox and custom shaders are not
+part of the ported slice. `apply_ai_blend` is the frame's final mix with
+the interpolated AI frame, which render_frame applies once at display
+resolution.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from trident_tpu_torch.ops import shading
 from trident_tpu_torch.ops.shadow import shadow_factor
 from trident_tpu_torch.ops.texel import sample_bilinear
 from trident_tpu_torch.render.types import (
+    AiBlend,
     CameraParams,
     GBuffer,
     LightParams,
@@ -123,13 +126,18 @@ def deferred_shade_attrs(gbuffer: GBuffer, attrs: Tensor,
     return torch.clamp(out, 0.0, 1.0)
 
 
-def apply_ai_blend(out: Tensor, ai: Optional[object]) -> Tensor:
-    """The final display-space AI-frame mix; only its disabled form (ai is
-    None) is part of the ported slice."""
-    if ai is not None:
-        raise NotImplementedError(
-            "the AI-frame blend is not ported to trident_tpu_torch yet")
-    return out
+def apply_ai_blend(out: Tensor, ai: Optional[AiBlend]) -> Tensor:
+    """The final display-space mix with the interpolated AI frame
+    (trident_tpu/ops/deferred.py::apply_ai_blend): the blend clipped to
+    [0, 1], the image given alpha 1, then out·(1 − blend) + image·blend.
+    A (1, 1, 3) image broadcasts; blend 0 leaves `out` as it is, bit for
+    bit. ai None is no mix."""
+    if ai is None:
+        return out
+    blend = torch.clamp(ai.blend, 0.0, 1.0)
+    ai_rgba = torch.cat([ai.image, torch.ones_like(ai.image[..., :1])],
+                        dim=-1)
+    return out * (1.0 - blend) + ai_rgba * blend
 
 
 def pack_rgba8(frame: Tensor) -> Tensor:

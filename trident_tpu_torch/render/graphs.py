@@ -4,21 +4,30 @@ package's one jit per static frame shape (render_frame_bundled).
 A graph bakes in the addresses of every tensor it reads, so its key holds
 more than the JAX jit cache keys on: the bundle's shape, the frame size,
 every static of render_frame, the kernel knobs, whether a previous frame
-(`prev`) is warped in, and the versions of the device-resident inputs
-(geometry, plan, textures, upscaler). A new plan or texture table is a
-new key; the JAX cache recompiles on shapes alone.
+(`prev`) is warped in, the shape of the AI image, and the versions of the
+device-resident inputs (geometry, plan, textures, upscaler). A new plan
+or texture table is a new key; the JAX cache recompiles on shapes alone.
 
-Each graph owns device buffers for the two blobs and for `prev`. A frame:
+Each graph owns device buffers for the two blobs, for `prev` and for the
+AI image (the interpolated frame that the display frame is mixed with; a
+new one arrives every few frames, so it is an input, not a baked
+address). A frame (`run`):
 
   1. the host blobs go into a pinned staging buffer of a small ring, one
      buffer per frame in flight, each guarded by a CUDA event so that it
      is not rewritten while its last copy may still run;
   2. `copy_(non_blocking=True)` moves them on the current stream (and
-     `prev` is copied device to device);
+     `prev` and the AI image are copied device to device);
   3. the graph replays on the current stream;
   4. the outputs are cloned out of the graph's pool: frames in flight, the
      idle cache, `prev_state` and picking keep earlier outputs, which the
      next replay would overwrite.
+
+`run_rows` is the device-throughput form (the counterpart of the JAX
+bench's `lax.scan` over stacked frames): the blobs are row k of device
+tensors uploaded once, copied device to device on the current stream,
+and the graph's own outputs are returned, valid until its next replay.
+No host-to-device copy, no synchronize.
 
 A new key captures: one eager warm-up run on a side stream (the kernel
 library loads, the allocator and cuDNN settle outside the capture), then
@@ -72,13 +81,15 @@ def _launch_counts() -> Dict[str, int]:
 
 
 def frame_key(shape: BundleShape, width: int, height: int, statics: dict,
-              knobs: KernelKnobs, has_prev: bool, versions: tuple) -> tuple:
+              knobs: KernelKnobs, has_prev: bool, versions: tuple,
+              ai_shape: tuple) -> tuple:
     """The graph key of a frame: everything a capture bakes in. `statics`
     are render_frame's static keyword arguments, `versions` those of the
-    device-resident inputs (geometry, plan, textures, upscaler)."""
+    device-resident inputs (geometry, plan, textures, upscaler),
+    `ai_shape` the AI image's."""
     return (tuple(shape), int(width), int(height),
             tuple(sorted(statics.items())), knobs, bool(has_prev),
-            tuple(versions))
+            tuple(versions), tuple(ai_shape))
 
 
 class FrameGraph(NamedTuple):
@@ -88,6 +99,7 @@ class FrameGraph(NamedTuple):
     f32: torch.Tensor                 # the blobs' device buffers
     i32: torch.Tensor
     prev: Optional[Tuple[torch.Tensor, torch.Tensor]]
+    ai: torch.Tensor                  # the AI image's buffer
     out: FrameOutput                  # outputs in the graph's pool
     launches: Dict[str, int]          # kernel launches per replay
     keep: tuple                       # the device-resident inputs it reads
@@ -153,31 +165,31 @@ class FrameGraphs:
             slot.event = torch.cuda.Event()
         slot.event.record()
 
-    def _capture(self, f32: np.ndarray, i32: np.ndarray, prev, frame_fn,
-                 keep: tuple) -> FrameGraph:
+    def _capture(self, fill: Callable, n_f32: int, n_i32: int, prev, ai,
+                 frame_fn, keep: tuple) -> FrameGraph:
         dev = self.device
         bufs = FrameGraph(graph=torch.cuda.CUDAGraph(),
-                      f32=torch.empty(f32.size, dtype=torch.float32,
-                                      device=dev),
-                      i32=torch.empty(i32.size, dtype=torch.int32, device=dev),
-                      prev=(None if prev is None else
-                            tuple(torch.empty_like(t) for t in prev)),
-                      out=None, launches={}, keep=keep)
-        self.stage(bufs, f32, i32)
-        if prev is not None:
-            for buf, t in zip(bufs.prev, prev):
-                buf.copy_(t)
+                          f32=torch.empty(n_f32, dtype=torch.float32,
+                                          device=dev),
+                          i32=torch.empty(n_i32, dtype=torch.int32,
+                                          device=dev),
+                          prev=(None if prev is None else
+                                tuple(torch.empty_like(t) for t in prev)),
+                          ai=torch.empty_like(ai), out=None, launches={},
+                          keep=keep)
+        fill(bufs)
+        self._copy_in(bufs, prev, ai)
         # warm-up outside the capture: the kernel library loads, lazy
         # modules and cuDNN's algorithm choice settle
         stream = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(stream)
         with torch.cuda.stream(side):
-            frame_fn(bufs.f32, bufs.i32, bufs.prev)
+            frame_fn(bufs.f32, bufs.i32, bufs.prev, bufs.ai)
         stream.wait_stream(side)
         before = _launch_counts()
         with torch.cuda.graph(bufs.graph):
-            out = frame_fn(bufs.f32, bufs.i32, bufs.prev)
+            out = frame_fn(bufs.f32, bufs.i32, bufs.prev, bufs.ai)
         after = _launch_counts()
         launches = {n: after[n] - before[n] for n in after
                     if after[n] != before[n]}
@@ -185,38 +197,74 @@ class FrameGraphs:
         self.captures += 1
         return bufs._replace(out=out, launches=launches)
 
-    def _evict(self) -> None:
-        """Free least recently used graphs until a new one fits."""
-        while len(self._graphs) >= self.capacity:
+    @staticmethod
+    def _copy_in(g: FrameGraph, prev, ai) -> None:
+        """`prev` and the AI image → the graph's buffers, device to device
+        on the current stream."""
+        if prev is not None:
+            for buf, t in zip(g.prev, prev):
+                buf.copy_(t, non_blocking=True)
+        g.ai.copy_(ai, non_blocking=True)
+
+    def _evict(self, keep: int) -> None:
+        """Free least recently used graphs until `keep` are left."""
+        while len(self._graphs) > keep:
             _key, old = self._graphs.popitem(last=False)
             torch.cuda.synchronize(self.device)   # its last replay has run
             old.graph.reset()
             del old
             torch.cuda.empty_cache()              # its pool
 
-    def run(self, key: tuple, f32: np.ndarray, i32: np.ndarray, prev,
-            frame_fn, keep: tuple = ()) -> FrameOutput:
-        """The frame for `key`: replay its graph (capturing it first if it
-        is new) on blobs `f32`, `i32` and `prev` ((history, view·proj)
-        device tensors or None), and return clones of its outputs.
-        `frame_fn(f32, i32, prev)` computes the frame from device tensors
-        (render_frame_bundled with everything else bound); `keep` holds
-        the device-resident tensors it reads, alive while the graph is."""
+    def clear(self) -> None:
+        """Free every graph and its pool."""
+        self._evict(0)
+
+    def _replay(self, key: tuple, fill: Callable, n_f32: int, n_i32: int,
+                prev, ai, frame_fn, keep: tuple) -> FrameGraph:
+        """Fill the graph of `key` (capturing it first if it is new) with
+        fill(graph) for the blobs, `prev` and `ai`, and replay it."""
         g = self._graphs.get(key)
         if g is None:
-            self._evict()
-            g = self._capture(f32, i32, prev, frame_fn, keep)
+            self._evict(self.capacity - 1)
+            g = self._capture(fill, n_f32, n_i32, prev, ai, frame_fn, keep)
             self._graphs[key] = g
         else:
             self._graphs.move_to_end(key)
-            self.stage(g, f32, i32)
-            if prev is not None:
-                for buf, t in zip(g.prev, prev):
-                    buf.copy_(t, non_blocking=True)
+            fill(g)
+            self._copy_in(g, prev, ai)
         g.graph.replay()
         self.replayed.update(g.launches)
         self.replays += 1
         self.last_key = key
         self.last_launches = dict(g.launches)
+        return g
+
+    def run(self, key: tuple, f32: np.ndarray, i32: np.ndarray, prev, ai,
+            frame_fn, keep: tuple = ()) -> FrameOutput:
+        """The frame for `key`: replay its graph (capturing it first if it
+        is new) on host blobs `f32`, `i32`, on `prev` ((history,
+        view·proj) device tensors or None) and on the AI image `ai` (a
+        device tensor), and return clones of its outputs.
+        `frame_fn(f32, i32, prev, ai)` computes the frame from device
+        tensors (render_frame_bundled with everything else bound); `keep`
+        holds the device-resident tensors it reads, alive while the graph
+        is."""
+        g = self._replay(key, lambda g: self.stage(g, f32, i32), f32.size,
+                         i32.size, prev, ai, frame_fn, keep)
         return FrameOutput(*(None if t is None else t.clone()
                              for t in g.out))
+
+    def run_rows(self, key: tuple, f32_rows: torch.Tensor,
+                 i32_rows: torch.Tensor, k: int, prev, ai, frame_fn,
+                 keep: tuple = ()) -> FrameOutput:
+        """`run` on row k of the device tensors `f32_rows` (frames, n_f32)
+        and `i32_rows` (frames, n_i32), copied device to device on the
+        current stream, with no host-to-device copy and no synchronize.
+        Returns the graph's own outputs, which its next replay
+        overwrites; `prev` may be them (they are copied in first)."""
+        def fill(g: FrameGraph) -> None:
+            g.f32.copy_(f32_rows[k], non_blocking=True)
+            g.i32.copy_(i32_rows[k], non_blocking=True)
+
+        return self._replay(key, fill, f32_rows.shape[1], i32_rows.shape[1],
+                            prev, ai, frame_fn, keep).out

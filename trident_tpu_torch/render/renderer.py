@@ -21,9 +21,10 @@ The interactive loop (Renderer.render_viewport, draw_frame) ships each
 frame's host state in two blobs (render/bundle.py) and, on the card,
 replays one captured CUDA graph per frame key (render/graphs.py), the
 counterpart of the JAX package's one jit per static shape; on the CPU
-the same bundled frame runs eagerly. Bands, the AI-frame blend,
-skyboxes, sprites, custom shaders, non-bilinear sampling, vertex colors
-and skinning are not part of the ported slice: configuring them raises
+the same bundled frame runs eagerly; `set_ai_frame` mixes an
+interpolated AI frame into the display frame. Bands, skyboxes, sprites,
+custom shaders, non-bilinear sampling, vertex colors and skinning are
+not part of the ported slice: configuring them raises
 NotImplementedError, and so does a kernel knob the port does not run
 (ops/kernel_knobs.py).
 """
@@ -97,6 +98,7 @@ from trident_tpu_torch.render.graphs import FrameGraphs, frame_key
 from trident_tpu_torch.render.lights import gather_lights_host
 from trident_tpu_torch.render.textures import TextureSlots
 from trident_tpu_torch.render.types import (
+    AiBlend,
     CameraParams,
     FrameOutput,
     GBuffer,
@@ -218,7 +220,7 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
                  bloom: bool = False, bloom_threshold: float = 1.0,
                  bloom_strength: float = 0.6,
                  upscale_params: Optional[up.UpscalerNet] = None,
-                 prev=None,
+                 prev=None, ai: Optional[AiBlend] = None,
                  knobs: KernelKnobs = KernelKnobs()) -> FrameOutput:
     """One forward frame (the JAX `_render_frame_impl` forward branch):
     main-pass geometry at (W·ss, H·ss) → the light pass when
@@ -235,6 +237,9 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
     temporal input, alpha, depth and ids are repeated 2×2, and
     FrameOutput.history holds the net's blocks as uint8 for the next
     frame, with the view·proj it was seen through (FrameOutput.view_proj).
+    `ai` (an AiBlend) mixes the interpolated AI frame in once, at display
+    resolution: after the supersample resolve and the upscale, before the
+    clamp (trident_tpu/render/renderer.py:405); the shading keeps none.
     `knobs` (RenderConfig.kernel, validated) routes the light pass and
     _visibility_and_shade."""
     ss = max(int(supersample), 1)
@@ -268,7 +273,7 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
         history = up.blocks_to_u8(blocks)
         frame = torch.cat([rgb, _repeat2(frame[..., 3:4])], dim=-1)
         depth_out, tri_out = _repeat2(depth_out), _repeat2(tri_out)
-    frame = torch.clamp(apply_ai_blend(frame, None), 0.0, 1.0)
+    frame = torch.clamp(apply_ai_blend(frame, ai), 0.0, 1.0)
     return FrameOutput(color=pack_rgba8(frame), depth=depth_out,
                        tri_id=tri_out, aux=gbuf.aux, shadow_aux=shadow_aux,
                        history=history, view_proj=view_proj)
@@ -281,7 +286,8 @@ def _repeat2(a):
 
 def render_frame_bundled(plan, tri_draw, f32, i32, textures, corner_t,
                          upscale_params: Optional[up.UpscalerNet] = None,
-                         prev=None, *, shape: BundleShape, width: int,
+                         prev=None, ai_image: Optional[torch.Tensor] = None,
+                         *, shape: BundleShape, width: int,
                          height: int, clear_color, draw_stride: int = 0,
                          real_draws: int = 0, shadow_size: int = 0,
                          shadow_pcf: bool = False, supersample: int = 1,
@@ -292,8 +298,10 @@ def render_frame_bundled(plan, tri_draw, f32, i32, textures, corner_t,
     blobs of render/bundle.py (f32, i32: device tensors of the layout of
     `shape`), the interactive path (trident_tpu/render/renderer.py:
     457-495). The light camera is used when shadow_size is set; the
-    shadow bias rides the blob; the AI blend is not ported and ignored."""
-    (params, _palette, shade_table, camera, lights, light_cam, _ai_blend,
+    shadow bias rides the blob, and so does the AI blend, which mixes
+    `ai_image` ((H, W, 3) at display size, or (1, 1, 3)) into the frame;
+    without an ai_image there is no mix."""
+    (params, _palette, shade_table, camera, lights, light_cam, ai_blend,
      shadow_bias) = unpack_frame(f32, i32, shape)
     return render_frame(
         plan, tri_draw, params, shade_table, camera, lights, textures,
@@ -303,7 +311,9 @@ def render_frame_bundled(plan, tri_draw, f32, i32, textures, corner_t,
         shadow_size=shadow_size, shadow_bias=shadow_bias,
         shadow_pcf=shadow_pcf, supersample=supersample, bloom=bloom,
         bloom_threshold=bloom_threshold, bloom_strength=bloom_strength,
-        upscale_params=upscale_params, prev=prev, knobs=knobs)
+        upscale_params=upscale_params, prev=prev,
+        ai=None if ai_image is None else AiBlend(ai_image, ai_blend),
+        knobs=knobs)
 
 
 def _check_slice(rc: RenderConfig) -> None:
@@ -360,8 +370,9 @@ class FrameBundle(NamedTuple):
     i32: np.ndarray
     key: tuple                       # its graph key (graphs.frame_key)
     prev: Optional[tuple]            # (history, view·proj) warped in
-    frame_fn: Callable               # (f32, i32, prev) on the device →
-                                     # FrameOutput, eagerly
+    ai: torch.Tensor                 # the AI image mixed in (device)
+    frame_fn: Callable               # (f32, i32, prev, ai) on the device
+                                     # → FrameOutput, eagerly
     keep: tuple                      # the device-resident inputs it reads
     upscaled: bool
     sig: tuple                       # the idle-frame signature
@@ -390,7 +401,13 @@ class Renderer:
     unknown knob raises KeyError, an inconsistent set ValueError, a knob
     the port does not run NotImplementedError) and its KernelKnobs ride
     every frame explicitly, so Renderers with different knobs render
-    their own frames side by side."""
+    their own frames side by side.
+
+    `set_ai_frame(image, blend)` sets the interpolated AI frame that the
+    display frame is mixed with (ops/deferred.py::apply_ai_blend); with no
+    image, or blend ≤ 0, frames mix in a (1, 1, 3) zero image at blend 0,
+    which leaves them as they are (trident_tpu/render/renderer.py:
+    784-787)."""
 
     SCENE_VIEWPORT = 1
     GAME_VIEWPORT = 2
@@ -427,6 +444,11 @@ class Renderer:
         self._mesh_boxes_version: Optional[int] = None
         self._last_draws: Optional[DrawBatch] = None
         self._last_tri_draw: Optional[torch.Tensor] = None
+        self._ai_image: Optional[torch.Tensor] = None
+        self._ai_zero = torch.zeros((1, 1, 3), dtype=torch.float32,
+                                    device=self.device)
+        self.ai_blend = 0.0
+        self._ai_version = 0
         self.stats_models = 0
         self.stats_triangles = 0
 
@@ -521,6 +543,29 @@ class Renderer:
                 self.config.ai.upscaler_path, self.device)
         return self._upscaler
 
+    def set_ai_frame(self, image: Optional[np.ndarray], blend: float) -> None:
+        """The AI frame ((H, W, 3) f32 in [0, 1] at the display size, or
+        None) and its blend (clipped to [0, 1] in the frame; ≤ 0 is
+        none). Each call is a new AI frame: the idle-frame cache misses
+        after it."""
+        if image is not None:
+            image = np.array(image, np.float32)      # a copy of the caller's
+            if image.ndim != 3 or image.shape[-1] != 3:
+                raise ValueError(f"an AI frame is (H, W, 3), not "
+                                 f"{image.shape}")
+            image = torch.from_numpy(image).to(self.device)
+        self._ai_image = image
+        self.ai_blend = float(blend)
+        self._ai_version += 1
+
+    def _ai_input(self):
+        """(image, blend, version) the frame mixes in: the AI frame when
+        one is set with blend > 0, else the (1, 1, 3) zero image at blend
+        0 and version −1."""
+        if self._ai_image is not None and self.ai_blend > 0.0:
+            return self._ai_image, self.ai_blend, self._ai_version
+        return self._ai_zero, 0.0, -1
+
     # -- frame ------------------------------------------------------------------
     def _upscale_kwargs(self, width: int, height: int, prev) -> dict:
         """render_frame's size and upscale arguments for a width × height
@@ -597,11 +642,13 @@ class Renderer:
         """render_frame's arguments for the current scene, on the device,
         with the editor camera as it stands at the configured size (the
         eager reference of viewport 0's frame; render_viewport first sizes
-        the camera to the viewport)."""
+        the camera to the viewport), the AI frame mixed in when one is
+        set."""
         rc = self.config.render
         st = self._frame_state()
         dev = self.device
         statics = self._statics(st.shadow_size)
+        ai_image, ai_blend, _v = self._ai_input()
         if st.light_camera is None:
             del statics["shadow_size"]
         else:
@@ -615,6 +662,9 @@ class Renderer:
             textures=self.textures.device_arrays(dev),
             corner_t=self._plan_cache.corner_table(st.packed),
             **self._upscale_kwargs(rc.width, rc.height, self.prev_state),
+            ai=(AiBlend(ai_image, torch.full((), ai_blend,
+                                             dtype=torch.float32, device=dev))
+                if ai_blend > 0.0 else None),
             knobs=self.knobs, **statics)
 
     def frame_bundle(self, viewport_id: int = 0) -> FrameBundle:
@@ -625,9 +675,10 @@ class Renderer:
         ctx = self._viewport(viewport_id)
         cam = self._camera_for(ctx)
         st = self._frame_state()
+        ai_image, ai_blend, ai_version = self._ai_input()
         f32, i32, shape = pack_frame(st.params, zero_palette(), st.shade,
                                      cam.host_params(), st.lights,
-                                     st.light_camera, 0.0)
+                                     st.light_camera, ai_blend)
         sizes = self._upscale_kwargs(ctx.width, ctx.height, ctx.prev_state)
         net, prev = sizes.get("upscale_params"), sizes.get("prev")
         w_r, h_r = sizes["width"], sizes["height"]
@@ -635,19 +686,20 @@ class Renderer:
         versions = (self.geometry.version, self._plan_cache.version,
                     self.textures.version, net is not None)
         key = frame_key(shape, w_r, h_r, statics, self.knobs,
-                        prev is not None, versions)
-        # every input of the frame but `prev`, as the JAX signature
+                        prev is not None, versions, ai_image.shape)
+        # every input of the frame but `prev`, as the JAX signature (the AI
+        # frame by its version: a new one misses the cache)
         sig = (f32.tobytes(), i32.tobytes(), shape, w_r, h_r, versions,
-               tuple(sorted(statics.items())), self.knobs)
+               tuple(sorted(statics.items())), self.knobs, ai_version)
         textures = self.textures.device_arrays(self.device)
         corner_t = self._plan_cache.corner_table(st.packed)
         plan, tri_draw = st.plan, st.tri_draw
         kw = dict(shape=shape, width=w_r, height=h_r, knobs=self.knobs,
                   **statics)
         return FrameBundle(
-            st, f32, i32, key, prev,
-            lambda f, i, p: render_frame_bundled(
-                plan, tri_draw, f, i, textures, corner_t, net, p, **kw),
+            st, f32, i32, key, prev, ai_image,
+            lambda f, i, p, a: render_frame_bundled(
+                plan, tri_draw, f, i, textures, corner_t, net, p, a, **kw),
             (plan, tri_draw, textures, corner_t, net), net is not None, sig)
 
     def render_viewport(self, viewport_id: int = 0) -> FrameOutput:
@@ -675,9 +727,9 @@ class Renderer:
             return ctx.last_frame
         if self.graphs is None:
             out = fb.frame_fn(torch.from_numpy(fb.f32),
-                              torch.from_numpy(fb.i32), fb.prev)
+                              torch.from_numpy(fb.i32), fb.prev, fb.ai)
         else:
-            out = self.graphs.run(fb.key, fb.f32, fb.i32, fb.prev,
+            out = self.graphs.run(fb.key, fb.f32, fb.i32, fb.prev, fb.ai,
                                   fb.frame_fn, keep=fb.keep)
         if fb.upscaled:
             ctx.prev_state = (out.history, out.view_proj)

@@ -92,6 +92,13 @@ class GBuffer(NamedTuple):
     aux: Optional[Tensor] = None  # (2,) i32 [truncated pairs, dropped chunks]
 
 
+class AiBlend(NamedTuple):
+    """The display-space mix with the last interpolated AI frame."""
+
+    image: Tensor         # (H,W,3) f32 — the AI frame, at display size
+    blend: Tensor         # () f32 — 0 disables
+
+
 class ShadowParams(NamedTuple):
     """Directional-light shadow map (the two-pass render graph)."""
 
@@ -122,7 +129,8 @@ def _twins() -> dict:
 
     return {cls.__name__: cls for cls in (
         GeometryBuffers, DrawPlan, DrawParams, CameraParams, LightParams,
-        TextureArrays, GBuffer, ShadowParams, FrameOutput, TriangleSetup,
+        TextureArrays, GBuffer, AiBlend, ShadowParams, FrameOutput,
+        TriangleSetup,
         SetupCols, CornerCols, CornerStageOut)}
 
 
