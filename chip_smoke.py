@@ -139,6 +139,25 @@ Phases (any failure exits non-zero before the final line is printed):
      in); one spheres1080_1m frame with set_ai_frame(img, 0.5) through
      render_viewport bit-equal to eager render_frame, and a second AI
      frame that misses the idle cache and replays the same graph
+ 14. the forward frame's features at spheres1080_1m (the sphere mesh
+     vertex-coloured 0.5 + 0.5·n, the gradient skybox at 256² faces with a
+     128² and a 64² level, 64 animated sprites from a 2×2 atlas, trilinear
+     sampling; tools_dev/scenes.py::build_feature_scene): on the frame's
+     own ids and (T, 40) records the 40-wide resolve instances against
+     their plain versions (K2-vc within RESOLVE_TOL, tiled K2-vc against
+     K2-vc permuted, K-FUSE-vc against K1 + K2-vc with depth and ids
+     bit-equal), the 32-wide K2 on phase 3's records against its plain
+     version (bits counted), K2 and K2-vc timed in one window with their
+     bounds and the card's clock around it, the stages ("records" and
+     "shading" beside spheres1080_1m's); 12 rotating frames each through
+     render_viewport with the default knobs, tiled_shade (bilinear) and
+     fuse: each replay bit-equal to its eager frame, aux [0, 0], the vc
+     instance launched once a frame and the 32-wide one never, the sky
+     not the clear colour, the sprites covering pixels; device frame and
+     busy times, memory reserved; then the 128² feature flavors
+     (pallas_forward, vcolor, skybox, trilinear, nearest, sprite, mips,
+     shader) against tests/goldens/torch_slice_<name>.npy under the
+     golden gate
 Then it prints the kernels as one JSON line, the card line, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -177,8 +196,15 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from trident_tpu_torch.tools_dev.scenes import (  # noqa: E402
+    FEATURE_FLAVORS,
+    FEATURE_SPRITES,
     build_bench_scene,
+    build_feature_scene,
+    feature_scene,
     rotate,
+)
+from trident_tpu_torch.tools_dev.scenes import (  # noqa: E402
+    golden_base_scene as base_scene,
 )
 from trident_tpu_torch.tools_dev.timing import (  # noqa: E402
     VIS_OPS_PER_PAIR,
@@ -231,50 +257,6 @@ def print_stages(what: str, stages: dict, card: str) -> None:
     print(f"{what} (ms, events / device busy): " + ", ".join(
         f"{name} {cuda_ms(fn):.4f} / {device_busy(fn)[0]:.4f}"
         for name, fn in stages.items()) + f" ({card})", flush=True)
-
-
-def base_scene(device, **render_kw):
-    """tests/test_golden_flavors.py's `_base` scene (a textured cube over a
-    ground slab, a shadow-casting sun) at 128² on the Pallas path."""
-    from trident_tpu_torch.core.config import EngineConfig, RenderConfig
-    from trident_tpu_torch.ecs.components import (
-        LightComponent,
-        LightType,
-        MeshComponent,
-        TextureComponent,
-        TransformComponent,
-    )
-    from trident_tpu_torch.ecs.registry import Registry
-    from trident_tpu_torch.geometry.primitives import PrimitiveType
-    from trident_tpu_torch.io.image import checkerboard
-    from trident_tpu_torch.render.renderer import Renderer
-
-    r = Renderer(EngineConfig(render=RenderConfig(
-        width=128, height=128, texture_size=64, use_pallas=True,
-        **render_kw)), device=device)
-    reg = Registry()
-    r.set_active_registry(reg)
-    slot = r.acquire_texture("checker", checkerboard(64, 8))
-    cube_idx = r.ensure_primitive(PrimitiveType.CUBE)
-    cube = reg.create()
-    t = reg.add(cube, TransformComponent())
-    t.rotation = np.array([20.0, 35.0, 0.0], np.float32)
-    reg.add(cube, MeshComponent(mesh_index=cube_idx))
-    reg.add(cube, TextureComponent(path="checker", slot=slot))
-    ground = reg.create()
-    tg = reg.add(ground, TransformComponent())
-    tg.position = np.array([0, -0.9, 0], np.float32)
-    tg.scale = np.array([5, 0.1, 5], np.float32)
-    reg.add(ground, MeshComponent(mesh_index=cube_idx))
-    sun = reg.create()
-    reg.add(sun, TransformComponent())
-    reg.add(sun, LightComponent(
-        light_type=LightType.DIRECTIONAL,
-        direction=np.array([-0.35, -1.0, -0.25], np.float32),
-        intensity=4.0, cast_shadows=True))
-    r.editor_camera.set_position([1.8, 1.3, 2.8])
-    r.editor_camera.look_at_target([0, 0, 0])
-    return r
 
 
 def golden_gate(frame: np.ndarray, ref: np.ndarray, what: str) -> None:
@@ -1929,6 +1911,349 @@ def phase_bench(dev, card: str, drive) -> dict:
     return runs
 
 
+# phase 14: the forward frame's features at spheres1080_1m: vertex colours
+# (the three 40-wide resolve instances), the skybox, trilinear sampling,
+# animated sprites; and the 128² feature flavors
+FEATURE_FRAMES = 12
+SPRITE_FPS = 0.25         # time.elapsed step per frame (sprites animate)
+RESOLVE_KERNELS = ("resolve_kernel", "resolve_vc_kernel",
+                   "resolve_tiled_kernel", "resolve_tiled_vc_kernel",
+                   "visibility_resolve_kernel", "visibility_resolve_vc_kernel")
+
+
+def phase_features(dev, card: str, kernel_fns: dict, drive, results: dict,
+                   bench) -> dict:
+    """Phase 14: (a) on the feature frame's own ids and (T, 40) records,
+    K2-vc against its plain version, tiled K2-vc against K2-vc permuted
+    and its plain version, K-FUSE-vc against K1 + K2-vc and its plain
+    version; on spheres1080_1m's (T, 32) records (`bench`, phase 3's
+    (cs, records, bins)) the 32-wide K2 against its plain version, bit for
+    bit; K2 and K2-vc timed in one window with the card's clock around
+    it, and the stages beside spheres1080_1m's; (b) 12 rotating frames
+    each through render_viewport with the default knobs (trilinear),
+    tiled_shade (bilinear) and fuse: each replay bit-equal to its eager
+    frame, aux [0, 0], the vc instance launched once a frame and the
+    32-wide one never, the sky not the clear colour, the sprites covering
+    pixels; (c) the 128² feature flavors against the JAX package's
+    frames. Adds the vc kernels to `kernel_fns` and `results` and returns
+    the main-path launch counts."""
+    import tempfile
+
+    import torch
+
+    from trident_tpu_torch.ops import deferred, planes, raster, resolve
+    from trident_tpu_torch.render.renderer import (
+        frame_geometry,
+        render_frame,
+    )
+    from trident_tpu_torch.render.types import GBuffer
+
+    kernel_fns.update(resolve_vc=resolve.resolve_attrs_vc,
+                      resolve_tiled_vc=resolve.resolve_attrs_tiled_vc,
+                      visibility_resolve_vc=resolve.fused_visibility_resolve_vc)
+
+    # (a) the kernels on the feature frame's own intermediates
+    r, reg = build_feature_scene(BENCH_GRID, dev)
+    rotate(reg, 0)
+    r.editor_camera.set_viewport_size(1920, 1080)
+    inp = r.frame_inputs()
+    if not inp["vertex_colors"] or inp["sampling"] != "trilinear" \
+            or inp["skybox"] is None or inp["draw_stride"] != 0:
+        fail(f"the feature scene's frame inputs: vertex_colors "
+             f"{inp['vertex_colors']}, sampling {inp['sampling']}, skybox "
+             f"{inp['skybox'] is not None}, draw_stride "
+             f"{inp['draw_stride']}")
+    w, h = inp["width"], inp["height"]
+    ntx, nty = -(-w // raster.TILE), -(-h // raster.TILE)
+    n_tiles = ntx * nty
+    geo_kw = dict(width=w, height=h, draw_stride=0, real_draws=0)
+    geo_args = (inp["plan"], inp["tri_draw"], inp["params"],
+                inp["shade_table"], inp["camera"], inp["textures"],
+                inp["corner_t"])
+    cs, records = frame_geometry(*geo_args, vertex_colors=True, **geo_kw)
+    n_tri = int(inp["plan"].tri_valid.sum())
+    print(f"features: {n_tri} triangles ({BENCH_GRID ** 2} vertex-coloured "
+          f"spheres, {FEATURE_SPRITES ** 2} sprites), records "
+          f"{tuple(records.shape)}, skybox level "
+          f"{tuple(inp['skybox'].faces.shape)}, {w}x{h}", flush=True)
+    if tuple(records.shape) != (inp["corner_t"].shape[1],
+                                planes.RR_WIDTH_VCOLOR):
+        fail(f"the vertex-colour records are {tuple(records.shape)}")
+    bins = raster.build_bins(cs.setup, w, h, setup_cols=cs.cols.setup)
+    if bins.aux.tolist() != [0, 0]:
+        fail(f"binning overflow on the feature frame: aux "
+             f"{bins.aux.tolist()}")
+    d1, t1 = raster.visibility_tiles(bins, ntx, n_tiles)
+    tri = raster.untile_frame(t1, ntx, nty)[:h, :w].contiguous()
+    a_k = resolve.resolve_attrs_vc(tri, records)
+    a_p = resolve.resolve_attrs_plain(tri, records)
+    at = resolve.resolve_attrs_tiled_vc(t1, records, ntx)
+    atp = resolve.resolve_attrs_tiled_plain(t1, records, ntx)
+    df, tf, af = resolve.fused_visibility_resolve_vc(bins, records, ntx,
+                                                     n_tiles)
+    dfp, tfp, afp = resolve.fused_visibility_resolve_plain(bins, records, ntx,
+                                                           n_tiles)
+    torch.cuda.synchronize()
+
+    def same_bits(a, b):
+        return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+    def vs_k2(a_t):
+        return float((raster.untile_channels(a_t, ntx, nty)[:h, :w]
+                      - a_k).abs().max())
+
+    err_ch = (a_k - a_p).abs().reshape(-1, resolve.CHANNELS).amax(0)
+    vc_ch = slice(resolve.CH_CF, resolve.CH_CF + 3)
+    err = {"K2-vc vs plain": float(err_ch.max()),
+           "tiled K2-vc vs K2-vc": vs_k2(at),
+           "tiled K2-vc vs plain": float((at - atp).abs().max()),
+           "K-FUSE-vc vs K2-vc": vs_k2(af),
+           "K-FUSE-vc vs plain": float((af - afp).abs().max())}
+    bad = [int((tf != t1).sum()), same_bits(df, d1), int((tf != tfp).sum()),
+           same_bits(df, dfp)]
+    finite = all(bool(torch.isfinite(a).all()) for a in (a_k, at, af))
+    cf = a_k[tri >= 0][:, vc_ch]
+    print(f"resolve_vc per-channel max err vs plain: {err_ch.tolist()}; "
+          f"colour factor rgb spread {cf.std(0).tolist()}", flush=True)
+    if any(bad) or not finite or max(err.values()) > RESOLVE_TOL \
+            or float(cf.std(0).min()) < 0.01:
+        fail(f"vc kernels disagree: K-FUSE-vc ids/depths {bad} vs K1 and "
+             f"plain, attrs {err}, finite {finite}, colour spread "
+             f"{cf.std(0).tolist()}")
+    print(f"vc kernels: K-FUSE-vc depth and ids bit-equal to K1 and to its "
+          f"plain version; attribute max errors {err}", flush=True)
+
+    # the 32-wide K2 on spheres1080_1m's own records, bit for bit
+    cs32, rec32, bins32 = bench
+    _d32, t32 = raster.visibility_tiles(bins32, ntx, n_tiles)
+    tri32 = raster.untile_frame(t32, ntx, nty)[:h, :w].contiguous()
+    k32 = resolve.resolve_attrs(tri32, rec32)
+    p32 = resolve.resolve_attrs_plain(tri32, rec32)
+    torch.cuda.synchronize()
+    bits32 = same_bits(k32, p32)
+    err32 = float((k32 - p32).abs().max())
+    print(f"resolve (32-wide) on spheres1080_1m's records: {bits32} values "
+          f"differ in any bit from its plain version (max err {err32})",
+          flush=True)
+    if err32 > RESOLVE_TOL:
+        fail(f"the 32-wide resolve kernel disagrees: max err {err32}")
+
+    # what the compiler made of the resolve instances: registers and
+    # spills of each, and the SASS digest of each (a 32-wide kernel's
+    # digest equal to the previous build's is the same code)
+    from trident_tpu_torch import _build
+    from trident_tpu_torch.tools_dev import kernel_sass
+
+    for line in kernel_sass.resource_usage(["resolve.cu",
+                                            "visibility_resolve.cu"]):
+        print(f"ptxas {line}", flush=True)
+    for name, (n_ins, digest) in sorted(kernel_sass.sass_digests(
+            _build.build(), RESOLVE_KERNELS).items()):
+        print(f"sass {name}: {n_ins} instructions, sha256 {digest}",
+              flush=True)
+
+    # bounds from this frame's data: ids and 64 B of attributes per pixel,
+    # one 160-byte row per distinct winner; K-FUSE-vc adds K1's work
+    vis = vis_work(bins, cs.setup, ntx, n_tiles, 8)
+    n_winners = int(torch.unique(tri[tri >= 0]).numel())
+    n_px_t = n_tiles * raster.TILE_PX
+    row_vc = planes.RR_WIDTH_VCOLOR * 4
+    work = {
+        "resolve_vc": (
+            bound(w * h * (4 + 4 * resolve.CHANNELS) + n_winners * row_vc),
+            "trident_tpu_torch/csrc/resolve.cu",
+            "trident_tpu/ops/resolve_pallas.py:412", err["K2-vc vs plain"],
+            lambda: resolve.resolve_attrs_vc(tri, records),
+            lambda: resolve.resolve_attrs_plain(tri, records)),
+        "resolve_tiled_vc": (
+            bound(n_px_t * 4 * (1 + resolve.CHANNELS) + n_winners * row_vc),
+            "trident_tpu_torch/csrc/resolve.cu",
+            "trident_tpu/ops/resolve_pallas.py:412",
+            err["tiled K2-vc vs K2-vc"],
+            lambda: resolve.resolve_attrs_tiled_vc(t1, records, ntx),
+            lambda: resolve.resolve_attrs_tiled_plain(t1, records, ntx)),
+        "visibility_resolve_vc": (
+            bound(vis.bytes + n_px_t * 4 * resolve.CHANNELS
+                  + n_winners * row_vc, vis.ops),
+            "trident_tpu_torch/csrc/visibility_resolve.cu",
+            "trident_tpu/ops/resolve_pallas.py:281",
+            err["K-FUSE-vc vs K2-vc"],
+            lambda: resolve.fused_visibility_resolve_vc(bins, records, ntx,
+                                                        n_tiles),
+            lambda: resolve.fused_visibility_resolve_plain(bins, records, ntx,
+                                                           n_tiles)),
+    }
+    for name, ((b_ms, b_by), src, repl, err_, fn, plain) in work.items():
+        res = dict(route="cuda", source=src, replaces=repl, max_abs_err=err_,
+                   ms=cuda_ms(fn), plain_ms=cuda_ms(plain), bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None)
+        results[name] = res
+        print(f"{name}: kernel {res['ms']:.4f} ms, plain "
+              f"{res['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
+              f"({card})", flush=True)
+    n_win32 = int(torch.unique(tri32[tri32 >= 0]).numel())
+    b32 = bound(w * h * (4 + 4 * resolve.CHANNELS)
+                + n_win32 * planes.RR_WIDTH * 4)[0]
+    # the same frame's geometry without colours: the 32-wide instances on
+    # this frame's own ids, so that a vc / 32-wide ratio is the row width
+    # alone
+    _cs, rec_f32 = frame_geometry(*geo_args, **geo_kw)
+    del _cs
+    window = {
+        "K2": lambda: resolve.resolve_attrs(tri32, rec32),
+        "K2 (this frame)": lambda: resolve.resolve_attrs(tri, rec_f32),
+        "K2-vc": lambda: resolve.resolve_attrs_vc(tri, records),
+        "K1": lambda: raster.visibility_tiles(bins, ntx, n_tiles),
+        "tiled K2 (this frame)": lambda: resolve.resolve_attrs_tiled(
+            t1, rec_f32, ntx),
+        "tiled K2-vc": lambda: resolve.resolve_attrs_tiled_vc(t1, records,
+                                                              ntx),
+        "K-FUSE (this frame)": lambda: resolve.fused_visibility_resolve(
+            bins, rec_f32, ntx, n_tiles),
+        "K-FUSE-vc": lambda: resolve.fused_visibility_resolve_vc(
+            bins, records, ntx, n_tiles),
+    }
+    smi_before = smi_sample()
+    times = {k: (cuda_ms(fn), device_busy(fn)[0]) for k, fn in window.items()}
+    smi_after = smi_sample()
+    busy = {k: b for k, (_e, b) in times.items()}
+    print("K2 and the vc kernels in one window, ms events / busy: "
+          + ", ".join(f"{k} {e:.4f} / {b:.4f}" for k, (e, b) in times.items())
+          + f"; K2-vc / K2 busy {busy['K2-vc'] / busy['K2']:.3f} "
+          f"(on this frame's ids {busy['K2-vc'] / busy['K2 (this frame)']:.3f}"
+          f", tiled {busy['tiled K2-vc'] / busy['tiled K2 (this frame)']:.3f}"
+          f", K-FUSE {busy['K-FUSE-vc'] / busy['K-FUSE (this frame)']:.3f})"
+          f"; bounds K2 "
+          f"{b32:.4f} ms ({n_win32} winners x 128 B), K2-vc "
+          f"{results['resolve_vc']['bound_ms']:.4f} ms ({n_winners} winners "
+          f"x 160 B); K2 at {b32 / busy['K2']:.3f} and K2-vc at "
+          f"{results['resolve_vc']['bound_ms'] / busy['K2-vc']:.3f} of their "
+          f"bounds; K-FUSE-vc / (K1 + tiled K2-vc) busy "
+          f"{busy['K-FUSE-vc'] / (busy['K1'] + busy['tiled K2-vc']):.3f}; "
+          f"card {smi_before} -> {smi_after} ({card})", flush=True)
+
+    # the stages of the feature frame beside spheres1080_1m's
+    gbuf = GBuffer(tri_id=tri, depth=raster.untile_frame(
+        d1, ntx, nty)[:h, :w].contiguous(), aux=bins.aux)
+    shade_kw = dict(textures=inp["textures"], camera=inp["camera"],
+                    lights=inp["lights"], width=w, height=h,
+                    clear_color=inp["clear_color"])
+    a32 = resolve.resolve_attrs(tri32, rec32)
+    gbuf32 = GBuffer(tri_id=tri32, depth=gbuf.depth, aux=bins32.aux)
+    print_stages("feature stages (spheres1080_1m's beside)", {
+        "geometry": lambda: frame_geometry(*geo_args, vertex_colors=True,
+                                           **geo_kw),
+        "records": lambda: planes.build_resolve_cols_planar(cs.cols),
+        "records_spheres1080_1m": lambda: planes.build_resolve_cols_planar(
+            cs32.cols),
+        "binning": lambda: raster.build_bins(cs.setup, w, h,
+                                             setup_cols=cs.cols.setup),
+        "visibility": lambda: raster.visibility_tiles(bins, ntx, n_tiles),
+        "resolve": lambda: resolve.resolve_attrs_vc(tri, records),
+        "background": lambda: deferred._background(
+            inp["camera"], inp["skybox"], w, h, inp["clear_color"], dev),
+        "shading": lambda: deferred.deferred_shade_attrs(
+            gbuf, a_k, skybox=inp["skybox"], sampling="trilinear",
+            **shade_kw),
+        "shading_spheres1080_1m": lambda: deferred.deferred_shade_attrs(
+            gbuf32, a32, **shade_kw),
+    }, card)
+    del cs, records, bins, d1, t1, tri, a_k, a_p, at, atp, df, tf, af, dfp
+    del tfp, afp, t32, tri32, k32, p32, a32, gbuf, gbuf32, work, vis, inp
+    del rec_f32, window
+    torch.cuda.empty_cache()
+
+    # (b) 12 frames each through render_viewport: default knobs
+    # (trilinear), tiled_shade with bilinear sampling, fuse
+    tiled_r, _ = build_feature_scene(BENCH_GRID, dev, sampling="bilinear",
+                                     kernel={"tiled_shade": True}, reg=reg)
+    fuse_r, _ = build_feature_scene(BENCH_GRID, dev, kernel={"fuse": True},
+                                    reg=reg)
+    runs = {"default": (r, {"visibility": 1, "resolve_vc": 1, "texel": 2}),
+            "tiled_shade": (tiled_r, {"visibility": 1, "resolve_tiled_vc": 1,
+                                      "texel_planar": 1}),
+            "fuse": (fuse_r, {"visibility_resolve_vc": 1, "texel": 2})}
+    n_mesh = BENCH_GRID ** 2
+    clear = torch.round(torch.tensor(r.config.render.clear_color, device=dev)
+                        * 255.0).to(torch.uint8)
+    frame_ms = {name: [] for name in runs}
+    held = []
+
+    def feature_frames():
+        for k in range(FEATURE_FRAMES):
+            rotate(reg, k)
+            for name, (rr, expect) in runs.items():
+                rr.time.elapsed = k * SPRITE_FPS
+                ctx = rr.viewports[0]
+                rr.editor_camera.set_viewport_size(ctx.width, ctx.height)
+                kinp = rr.frame_inputs()
+                t0 = time.perf_counter()
+                out = rr.render_viewport()
+                torch.cuda.synchronize()
+                frame_ms[name].append((time.perf_counter() - t0) * 1e3)
+                if rr.graphs.last_launches != expect:
+                    fail(f"features {name} frame {k}: the graph's launch "
+                         f"list {rr.graphs.last_launches}, expected {expect}")
+                held.append((f"features {name} frame {k}", out, kinp,
+                             rr._last_tri_draw))
+        return out
+
+    _out, launches14 = drive(feature_frames, ("resolve_vc",
+                                              "resolve_tiled_vc",
+                                              "visibility_resolve_vc"),
+                             tuple(rr for rr, _e in runs.values()))
+    sky_share, sprite_px = [], []
+    for what, out, kinp, tri_draw in held:
+        same_as_eager(out, kinp, what)        # and aux [0, 0]
+        sky = out.tri_id < 0
+        not_clear = (out.color[..., :3] != clear[:3]).any(-1)
+        share = float(not_clear[sky].float().mean())
+        n_sprite = int(((out.tri_id >= 0)
+                        & (tri_draw[out.tri_id.clamp_min(0).long()]
+                           >= n_mesh)).sum())
+        if not share > 0.99 or n_sprite < 1000:
+            fail(f"{what}: {share:.4f} of {int(sky.sum())} sky pixels not "
+                 f"the clear colour, {n_sprite} sprite pixels")
+        sky_share.append(share)
+        sprite_px.append(n_sprite)
+    print(f"feature frames: replays bit-equal to eager, aux [0, 0]; sky "
+          f"pixels not the clear colour min share {min(sky_share):.4f}; "
+          f"sprite pixels {min(sprite_px)} .. {max(sprite_px)}; launches "
+          f"{launches14}", flush=True)
+    del held
+    for name, (rr, _e) in runs.items():
+        kinp = rr.frame_inputs()
+        dev_ms = cuda_ms(lambda: render_frame(**kinp))
+        busy_ms, n_launch = device_busy(lambda: render_frame(**kinp))
+        print(f"features {name}: median "
+              f"{statistics.median(frame_ms[name][2:]):.3f} ms wall per "
+              f"render_viewport; render_frame {dev_ms:.3f} ms device time, "
+              f"{busy_ms:.3f} ms busy in {n_launch:.0f} device activities "
+              f"(idle {1 - busy_ms / dev_ms:.3f}) ({card})", flush=True)
+        replay_line(rr, f"features {name}", card)
+    print(f"features: memory reserved "
+          f"{torch.cuda.memory_reserved(dev) / 2 ** 30:.3f} GiB, max "
+          f"allocated {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} "
+          f"GiB ({card})", flush=True)
+    del r, reg, tiled_r, fuse_r, runs, kinp
+    torch.cuda.empty_cache()
+
+    # (c) the 128² feature flavors against the JAX package's frames
+    with tempfile.TemporaryDirectory() as td:
+        for name in FEATURE_FLAVORS:
+            fr = feature_scene(name, dev,
+                               shader_path=Path(td) / "shader.py") \
+                .render_viewport()
+            aux = [fr.aux.tolist()] + ([fr.shadow_aux.tolist()]
+                                       if fr.shadow_aux is not None else [])
+            if any(a != [0, 0] for a in aux):
+                fail(f"feature flavor {name} aux {aux}")
+            golden_gate(fr.color.cpu().numpy(),
+                        np.load(GOLDENS / f"torch_slice_{name}.npy"),
+                        f"feature {name}")
+    return launches14
+
+
 def main() -> None:
     # -- phase 1: the card ---------------------------------------------------
     import torch
@@ -2434,10 +2759,15 @@ def main() -> None:
     launches13 = phase_bench(dev, card, drive)
     print(f"bench sweep's launches {launches13}", flush=True)
 
+    # -- phase 14: the forward frame's features --------------------------------
+    launches14 = phase_features(dev, card, kernel_fns, drive, results, bench)
+    del bench
+    torch.cuda.empty_cache()
+
     # launches: each kernel's count in the main-path run of the frame it
     # was held on (phase 4 for the main pass, phase 6 for the shadow pass,
     # phase 9 for the warp, phase 10 for the knob kernels, phase 11 for
-    # the probes)
+    # the probes, phase 14 for the vertex-colour instances)
     launches = {**launches4, "visibility_depth": launches6["visibility_depth"],
                 "shadow_taps": launches6["shadow_taps"],
                 "warp": launches9["warp"],
@@ -2446,7 +2776,10 @@ def main() -> None:
                     "texel_planar")},
                 **{n: launches11[n] for n in (
                     "visibility_dense", "visibility_dual", "visibility_reset",
-                    "lut_gather", "split_select")}}
+                    "lut_gather", "split_select")},
+                **{n: launches14[n] for n in (
+                    "resolve_vc", "resolve_tiled_vc",
+                    "visibility_resolve_vc")}}
     kernels = []
     for name in kernel_fns:
         res = {k: v for k, v in results[name].items() if k != "colour_ms"}

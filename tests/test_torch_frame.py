@@ -10,7 +10,10 @@ ssaa}.npy, its op-by-op frames of the post and shadow flavors, and
 torch_slice_ai_upscale.npy, its two op-by-op AI-upscaled frames, and
 torch_slice_knobs_{fuse_tiled,ckern,tiled_pcf}.npy, its op-by-op frames of
 the kernel-knob flavors (KNOB_FLAVORS: the `_base` scene at 128² with
-RenderConfig.kernel set) — are what the card's smoke test (chip_smoke.py,
+RenderConfig.kernel set), and torch_slice_<feature>.npy, its op-by-op
+frames of the forward frame's feature flavors (write_feature_references:
+vertex colours, skybox, trilinear, nearest, sprite, file mips, custom
+shader, pallas_forward) — are what the card's smoke test (chip_smoke.py,
 no jax there) compares against; they must still equal the JAX package's
 output. Regenerate them all with `python tests/test_torch_frame.py`.
 """
@@ -106,17 +109,36 @@ def _jax_frame_op_by_op(r, upscale_params=None, prev=None, ai=None):
     chooses it. With `upscale_params` the scene renders at half size and
     the upscaler rebuilds the configured size, with `prev` = (previous
     history, previous view·proj) as its temporal input. `ai` is the JAX
-    AiBlend mixed into the display frame (None: none)."""
-    from trident_tpu.ecs.components import LightComponent, LightType
+    AiBlend mixed into the display frame (None: none). Sprites (drawn at
+    `r.time.elapsed`), vertex colours, the sampling mode, the skybox level
+    and the custom shader follow `r` as its render_viewport takes them."""
+    from trident_tpu.ecs.components import (
+        LightComponent,
+        LightType,
+        SpriteComponent,
+    )
     from trident_tpu.ops.shadow import light_camera, scene_bounds
-    from trident_tpu.render.frame import build_draw_params, gather_mesh_draws
+    from trident_tpu.render.frame import (
+        build_draw_params,
+        gather_mesh_draws,
+        gather_sprite_draws,
+    )
     from trident_tpu.render.lights import gather_lights
     from trident_tpu.render.renderer import _render_frame_impl
 
     rc = r.config.render
     r.editor_camera.set_viewport_size(rc.width, rc.height)
-    packed = r.geometry.packed()
     records = gather_mesh_draws(r.registry, r.geometry)
+    # sprites, vertex colours, the skybox level and the custom shader as
+    # the JAX Renderer's render_viewport takes them
+    if any(True for _ in r.registry.view(SpriteComponent)):
+        quad = r.ensure_primitive(PrimitiveType.QUAD)
+        records.extend(gather_sprite_draws(
+            r.registry, r.geometry, quad, r.time.elapsed,
+            texture_lookup=r.textures.lookup))
+    packed = r.geometry.packed()
+    vertex_colors = bool((packed.colors != 1.0).any())
+    skybox = r._skybox_for(rc.height, r.editor_camera.fov_deg)
     plan, tri_draw = r._plan_cache.plan(packed, records, r.geometry.version)
     params, palette, shade = build_draw_params(
         records, plan.num_draws, material_table=r.geometry.material_table())
@@ -133,7 +155,7 @@ def _jax_frame_op_by_op(r, upscale_params=None, prev=None, ai=None):
         return _render_frame_impl(
             None, plan, tri_draw, params, palette, shade,
             r.editor_camera.params(), gather_lights(r.registry),
-            r.textures.device_arrays(), None, ai,
+            r.textures.device_arrays(), skybox, ai,
             r._plan_cache.corner_table(packed), upscale_params, prev,
             width=rc.width // half, height=rc.height // half,
             clear_color=tuple(rc.clear_color),
@@ -141,7 +163,8 @@ def _jax_frame_op_by_op(r, upscale_params=None, prev=None, ai=None):
             light_camera=light_cam, shadow_size=shadow_size,
             shadow_pcf=rc.shadow_pcf, supersample=max(int(rc.supersample), 1),
             bloom=rc.bloom, bloom_threshold=rc.bloom_threshold,
-            bloom_strength=rc.bloom_strength)
+            bloom_strength=rc.bloom_strength, sampling=rc.sampling,
+            vertex_colors=vertex_colors, shader_fn=r.shader_hook.fn)
 
 
 def test_sphere_grid_matches_jax_frame():
@@ -411,6 +434,150 @@ def test_ai_upscale_matches_jax_frames():
     assert float(temporal[..., 12].mean()) >= 0.01
 
 
+# The forward frame's feature flavors (vertex colours, skybox, trilinear
+# and nearest sampling, a sprite, a file mip chain, a custom shader, and
+# the golden PNG's pallas_forward scene): trident_tpu_torch/tools_dev/
+# scenes.py::feature_scene builds each on the port, jax_feature_renderer
+# its twin on the JAX package. Each JAX frame, evaluated op by op, is
+# committed as tests/goldens/torch_slice_<name>.npy for chip_smoke.py.
+BANDED_SHADER_JAX = """
+import jax
+import jax.numpy as jnp
+
+
+def shade(world, normal, albedo, metallic, roughness, ambient_strength,
+          camera_pos, lights, dir_shadow=None):
+    l = -lights.dir_direction
+    l = l * jax.lax.rsqrt(jnp.maximum(jnp.sum(l * l), 1e-8))
+    ndotl = jnp.maximum(jnp.sum(normal * l, axis=-1, keepdims=True), 0.0)
+    band = jnp.floor(ndotl * 3.0) * (1.0 / 3.0)
+    if dir_shadow is not None:
+        band = band * dir_shadow
+    light = lights.dir_color[:3] * lights.dir_color[3]
+    return albedo * (0.15 + band * light)
+"""
+
+
+def jax_feature_renderer(name: str, shader_path=None, **render_kw):
+    """scenes.feature_scene(name)'s twin on the JAX package (the "shader"
+    flavor writes BANDED_SHADER_JAX to `shader_path`)."""
+    from test_golden_flavors import _base
+
+    from trident_tpu.ecs.components import (
+        LightComponent,
+        LightType,
+        SpriteComponent,
+    )
+    from trident_tpu.geometry.primitives import build_primitive
+    from trident_tpu_torch.tools_dev import scenes
+
+    kw = {"pallas_forward": dict(shadows=True, shadow_map_size=128),
+          "trilinear": dict(sampling="trilinear"),
+          "nearest": dict(sampling="nearest")}.get(name, {})
+    r = JRenderer(EngineConfig(render=RenderConfig(**{
+        "width": 128, "height": 128, "texture_size": 64, "use_pallas": True,
+        **kw, **render_kw})))
+    reg = Registry()
+    r.set_active_registry(reg)
+    if name == "sprite":
+        slot = r.acquire_texture("atlas", scenes.sprite_atlas())
+        s = reg.create()
+        reg.add(s, TransformComponent())
+        reg.add(s, SpriteComponent(texture_path="atlas", texture_slot=slot,
+                                   atlas_tiles=2, atlas_index=1))
+        sun = reg.create()
+        reg.add(sun, TransformComponent())
+        reg.add(sun, LightComponent(
+            light_type=LightType.DIRECTIONAL,
+            direction=np.array([0.0, -0.3, -1.0], np.float32),
+            intensity=3.0))
+        r.editor_camera.set_position([0, 0, 2.2])
+        r.editor_camera.look_at_target([0, 0, 0])
+        return r
+    _base(reg, r)
+    cube = next(e for e, _ in reg.view(TextureComponent))
+    if name == "vcolor":
+        idx = r.geometry.add_mesh(scenes.coloured_mesh(
+            build_primitive(PrimitiveType.CUBE)))
+        reg.get(cube, MeshComponent).mesh_index = idx
+    elif name == "skybox":
+        r.set_skybox(scenes.gradient_faces(16))
+    elif name in ("trilinear", "nearest"):
+        reg.get(cube, TextureComponent).tiling = (
+            9.0 if name == "trilinear" else 2.0)
+    elif name == "mips":
+        slot = r.textures.replace("checker", checkerboard(64, 8),
+                                  mips=scenes.checker_mips(64))
+        tex = reg.get(cube, TextureComponent)
+        tex.slot, tex.tiling = slot, 4.0
+    elif name == "shader":
+        with open(shader_path, "w") as f:
+            f.write(BANDED_SHADER_JAX)
+        assert r.set_custom_shader(str(shader_path)), \
+            r.shader_hook.last_error
+    elif name != "pallas_forward":
+        raise KeyError(name)
+    return r
+
+
+def jax_feature_frame(name: str, shader_path=None, **render_kw):
+    """(JAX Renderer, its op-by-op frame) of feature flavor `name`, the JAX
+    package's kernel knobs restored to its env defaults afterwards (its
+    Renderer sets zskip and zorder for shadowed scenes)."""
+    from trident_tpu.ops import kernel_knobs
+
+    try:
+        jr = jax_feature_renderer(name, shader_path, **render_kw)
+        return jr, _jax_frame_op_by_op(jr)
+    finally:
+        kernel_knobs.apply(kernel_knobs.env_defaults())
+
+
+def feature_reference(name: str) -> pathlib.Path:
+    return REFERENCE.parent / f"torch_slice_{name}.npy"
+
+
+def write_feature_references() -> None:
+    import tempfile
+
+    from trident_tpu_torch.tools_dev.scenes import FEATURE_FLAVORS
+
+    with tempfile.TemporaryDirectory() as td:
+        for name in FEATURE_FLAVORS:
+            out = jax_feature_frame(name, pathlib.Path(td) / "shader.py")[1]
+            np.save(feature_reference(name), np.asarray(out.color))
+
+
+def check_feature_frame(name: str, tmp_path, **render_kw):
+    """The port's frame of feature flavor `name` (built on the port by
+    scenes.feature_scene) against the JAX frame under the golden gate,
+    with aux [0, 0] on both and the triangle ids equal but for edge flips;
+    the committed
+    reference must still equal the JAX frame (without `render_kw`).
+    Returns (port Renderer, port frame, JAX frame (numpy))."""
+    from trident_tpu_torch.tools_dev.scenes import feature_scene
+
+    jr, jout = jax_feature_frame(name, tmp_path / "jshader.py", **render_kw)
+    jcolor = np.asarray(jout.color)
+    if not render_kw:
+        ref = np.load(feature_reference(name))
+        assert ref.dtype == np.uint8 and ref.shape == (128, 128, 4)
+        assert (ref == jcolor).all(), "reference frame is stale: regenerate"
+    tr = feature_scene(name, "cpu", shader_path=tmp_path / "shader.py",
+                       **render_kw)
+    out = tr.render_viewport()
+    assert out.aux.tolist() == [0, 0]
+    assert np.asarray(jout.aux).tolist() == [0, 0]
+    # the interpreted JAX kernels contract their edge functions into FMAs:
+    # pixel centres on an edge may flip (a sprite's diagonal runs through
+    # pixel centres), at most 1% of the covered pixels
+    pt, jt = out.tri_id.numpy(), np.asarray(jout.tri_id)
+    assert ((pt >= 0) == (jt >= 0)).mean() > 0.999
+    assert (pt != jt).sum() <= max(32, int((jt >= 0).sum()) // 100)
+    _assert_golden_gate(tr.read_frame(out), jcolor)
+    return tr, out, jcolor
+
+
 if __name__ == "__main__":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     jax.config.update("jax_platforms", "cpu")
@@ -422,3 +589,5 @@ if __name__ == "__main__":
     print("wrote", AI_REFERENCE)
     write_knob_references()
     print("wrote", *(_knob_reference(n) for n in KNOB_FLAVORS))
+    write_feature_references()
+    print("wrote feature references")

@@ -581,8 +581,12 @@ KERNEL_SOURCES = {
     "visibility_ck": ("visibility_ck.cu", "visibility_ck_kernel", ""),
     "visibility_resolve": ("visibility_resolve.cu",
                            "visibility_resolve_kernel", ""),
+    "visibility_resolve_vc": ("visibility_resolve.cu",
+                              "visibility_resolve_vc_kernel", ""),
     "resolve": ("resolve.cu", "resolve_kernel", ""),
+    "resolve_vc": ("resolve.cu", "resolve_vc_kernel", ""),
     "resolve_tiled": ("resolve.cu", "resolve_tiled_kernel", ""),
+    "resolve_tiled_vc": ("resolve.cu", "resolve_tiled_vc_kernel", ""),
     "texel": ("texel.cu", "texel_kernel", "<false>"),
     "texel_planar": ("texel.cu", "texel_kernel", "<true>"),
     "shadow_taps": ("shadow_taps.cu", "taps4_kernel", ""),

@@ -49,6 +49,13 @@ for kernel in ({"ckern": True, "dynhit": False},
     assert (kr.read_frame() == frame).all(), kernel
 r.set_ai_frame(np.full((64, 64, 3), 0.5, np.float32), 0.5)   # the AI blend
 assert (r.read_frame() != frame).any()
+import tempfile
+from trident_tpu_torch.tools_dev.scenes import FEATURE_FLAVORS, feature_scene
+with tempfile.TemporaryDirectory() as td:       # the forward features
+    for name in FEATURE_FLAVORS:
+        f = feature_scene(name, "cpu", shader_path=td + "/shader.py",
+                          width=48, height=48).read_frame()
+        assert f.shape == (48, 48, 4), name
 from trident_tpu_torch.ai.model import load_frame_generator
 net, bc = load_frame_generator(device="cpu")
 assert net(torch.zeros((1, 6, 32, 32))).shape == (1, 3, 32, 32)
@@ -56,7 +63,7 @@ for name in ("ops.kernel_knobs", "ops.deferred_tiled", "ops.raster",
              "ops.resolve", "ops.texel", "tools_dev.kbench",
              "tools_dev.gather_probe", "tools_dev.diag_split_kernel",
              "bench", "bench_sweep", "ai.model", "ai.metrics",
-             "ai.frame_generator"):
+             "ai.frame_generator", "render.shader_hook", "tools_dev.scenes"):
     assert "trident_tpu_torch." + name in sys.modules, name
 assert sys.modules["jax"] is None and sys.modules["trident_tpu"] is None
 print("rendered", frame.shape, "upscaled", tuple(out.color.shape))
@@ -89,6 +96,9 @@ def test_sources_never_import_jax():
     tools = {f.name for f in files if f.parent.name == "tools_dev"}
     assert {"kbench.py", "gather_probe.py", "diag_split_kernel.py",
             "timing.py", "scenes.py"} <= tools
+    render = {f.name for f in files if f.parent.name == "render"}
+    assert {"shader_hook.py", "renderer.py", "textures.py",
+            "frame.py"} <= render
     assert banned.search((ROOT / "tools_dev" / "gather_probe.py").read_text())
 
 
@@ -115,11 +125,18 @@ def test_cuda_request_without_card_raises(monkeypatch):
 def test_unported_features_raise():
     from trident_tpu_torch.core.config import EngineConfig, RenderConfig
 
-    for kw in ({"sampling": "trilinear"}, {"bands": 2},
-               {"use_pallas": False}, {"kernel": {"chunk": 128}},
+    for kw in ({"bands": 2}, {"use_pallas": False},
+               {"forward_shading": False}, {"kernel": {"chunk": 128}},
                {"kernel": {"resolve_prec": "bf16"}}):
         with pytest.raises(NotImplementedError):
             Renderer(EngineConfig(render=RenderConfig(**kw)), device="cpu")
+    # the sampling modes are ported; an unknown one is a ValueError
+    for mode in ("nearest", "bilinear", "trilinear"):
+        Renderer(EngineConfig(render=RenderConfig(sampling=mode)),
+                 device="cpu")
+    with pytest.raises(ValueError):
+        Renderer(EngineConfig(render=RenderConfig(sampling="aniso")),
+                 device="cpu")
 
 
 def test_chip_smoke_fails_without_card():

@@ -235,6 +235,11 @@ def test_records_from_reference_round_trips():
     assert rows.dtype == torch.float32 and rows.data_ptr() % 16 == 0
     back = rows.T.numpy()
     assert (back.view(np.int32) == cols.view(np.int32)).all()
-    # the JAX package's vertex-colour width (40) has no port layout
+    # the JAX package's vertex-colour width (40) carries across as well
+    cols_vc = rng.standard_normal((P.RR_WIDTH_VCOLOR, 77)).astype(np.float32)
+    rows_vc = P.records_from_reference(cols_vc)
+    assert rows_vc.shape == (77, P.RR_WIDTH_VCOLOR)
+    assert (rows_vc.T.numpy().view(np.int32) == cols_vc.view(np.int32)).all()
+    # no other width has a port layout
     with pytest.raises(ValueError):
-        P.records_from_reference(np.zeros((40, 5), np.float32))
+        P.records_from_reference(np.zeros((36, 5), np.float32))

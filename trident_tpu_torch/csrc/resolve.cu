@@ -9,15 +9,22 @@
 // (resolve_pallas.py:631-635; trident_resolve_tiled), which the tiled
 // shading path (the `tiled_shade` knob) reads without an untile.
 //
+// With vertex colours (resolve_pallas.py's vertex_colors=True branch) the
+// table is (T, 40) and the same kernels run their 40-wide instance
+// (trident_resolve_vc, trident_resolve_tiled_vc): ten 16-byte loads per
+// row instead of eight, and the colour factor's rgb times the interpolated
+// vertex colour; nothing else differs.
+//
 // Bound on the card: bytes — the 4-byte id and 64 B of output per pixel,
-// plus one 128-byte record row per distinct winner (neighbouring pixels
-// mostly share a winner).
+// plus one 128-byte (160-byte with vertex colours) record row per distinct
+// winner (neighbouring pixels mostly share a winner).
 //
 // Design: one thread per pixel, no pair sweep, no one-hot select and no
 // split-bf16 planes (those existed for the TPU's matrix unit). The winner's
 // record is its row of the row-major (T, 32) table, read with eight 16-byte
 // loads (resolve_common.cuh, the body shared with the fused kernel): a warp
-// touches one 128-byte line per distinct winner. A CTA covers 32x8 pixels,
+// touches one 128-byte line per distinct winner (two with the 160-byte
+// rows of the (T, 40) table). A CTA covers 32x8 pixels,
 // one warp per 32-pixel row segment, so vertical neighbours that share a
 // winner share the CTA and its L1.
 //   (H, W): each warp's 32 pixels x 16 channels are 2 KB of contiguous
@@ -51,11 +58,13 @@ __device__ __forceinline__ int stage_slot(int p, int q) {
   return p * kQuads + (q ^ ((p >> 1) & (kQuads - 1)));
 }
 
-// (H, W) ids → (H, W, 16) attributes; grid (ceil(W/32), ceil(H/8))
-__global__ void __launch_bounds__(kThreads)
-resolve_kernel(const int* __restrict__ tri, const float* __restrict__ records,
-               int width, int height, float* __restrict__ out) {
-  __shared__ float4 stage[kBlockH][kBlockW * kQuads];
+// (H, W) ids → (H, W, 16) attributes, the block's part; grid
+// (ceil(W/32), ceil(H/8)); `stage` is the block's shared staging buffer
+template <int kWidth>
+__device__ __forceinline__ void resolve_block(
+    const int* __restrict__ tri, const float* __restrict__ records,
+    int width, int height, float* __restrict__ out,
+    float4 (&stage)[kBlockH][kBlockW * kQuads]) {
   const int lane = threadIdx.x % kBlockW, warp = threadIdx.x / kBlockW;
   const int y = blockIdx.y * kBlockH + warp;
   if (y >= height) return;             // warp-uniform: only warp syncs follow
@@ -65,9 +74,9 @@ resolve_kernel(const int* __restrict__ tri, const float* __restrict__ records,
   float4* s = stage[warp];
   if (lane < n) {
     float a[kChannels];
-    resolve_pixel(record_row(records, tri[p0 + lane]),
-                  static_cast<float>(x0 + lane) + 0.5f,
-                  static_cast<float>(y) + 0.5f, a);
+    resolve_pixel<kWidth>(record_row<kWidth>(records, tri[p0 + lane]),
+                          static_cast<float>(x0 + lane) + 0.5f,
+                          static_cast<float>(y) + 0.5f, a);
 #pragma unroll
     for (int q = 0; q < kQuads; ++q)
       s[stage_slot(lane, q)] =
@@ -83,21 +92,77 @@ resolve_kernel(const int* __restrict__ tri, const float* __restrict__ records,
   }
 }
 
-// tile-layout ids (n_tiles, 1024) → (n_tiles, 16, 1024); block b covers
-// rows 8(b % 4) .. 8(b % 4) + 7 of tile b / 4, one warp per row
+// tile-layout ids (n_tiles, 1024) → (n_tiles, 16, 1024), the block's part;
+// block b covers rows 8(b % 4) .. 8(b % 4) + 7 of tile b / 4, one warp per
+// row
+template <int kWidth>
+__device__ __forceinline__ void resolve_tiled_block(
+    const int* __restrict__ tri, const float* __restrict__ records, int ntx,
+    float* __restrict__ out) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  const int tile = p / kTilePx, r = p % kTilePx;
+  float a[kChannels];
+  resolve_pixel<kWidth>(
+      record_row<kWidth>(records, tri[p]),
+      static_cast<float>(tile % ntx * kTile + r % kTile) + 0.5f,
+      static_cast<float>(tile / ntx * kTile + r / kTile) + 0.5f, a);
+  float* o = out + static_cast<size_t>(tile) * kChannels * kTilePx + r;
+#pragma unroll
+  for (int c = 0; c < kChannels; ++c) o[c * kTilePx] = a[c];
+}
+
+// one kernel per layout and record width, each named for the profiler's
+// records (tools_dev/timing.py KERNEL_RECORDS)
+__global__ void __launch_bounds__(kThreads)
+resolve_kernel(const int* __restrict__ tri, const float* __restrict__ records,
+               int width, int height, float* __restrict__ out) {
+  __shared__ float4 stage[kBlockH][kBlockW * kQuads];
+  resolve_block<kRecWidth>(tri, records, width, height, out, stage);
+}
+
+__global__ void __launch_bounds__(kThreads)
+resolve_vc_kernel(const int* __restrict__ tri,
+                  const float* __restrict__ records, int width, int height,
+                  float* __restrict__ out) {
+  __shared__ float4 stage[kBlockH][kBlockW * kQuads];
+  resolve_block<kRecWidthVColor>(tri, records, width, height, out, stage);
+}
+
 __global__ void __launch_bounds__(kThreads)
 resolve_tiled_kernel(const int* __restrict__ tri,
                      const float* __restrict__ records, int ntx,
                      float* __restrict__ out) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  const int tile = p / kTilePx, r = p % kTilePx;
-  float a[kChannels];
-  resolve_pixel(record_row(records, tri[p]),
-                static_cast<float>(tile % ntx * kTile + r % kTile) + 0.5f,
-                static_cast<float>(tile / ntx * kTile + r / kTile) + 0.5f, a);
-  float* o = out + static_cast<size_t>(tile) * kChannels * kTilePx + r;
-#pragma unroll
-  for (int c = 0; c < kChannels; ++c) o[c * kTilePx] = a[c];
+  resolve_tiled_block<kRecWidth>(tri, records, ntx, out);
+}
+
+__global__ void __launch_bounds__(kThreads)
+resolve_tiled_vc_kernel(const int* __restrict__ tri,
+                        const float* __restrict__ records, int ntx,
+                        float* __restrict__ out) {
+  resolve_tiled_block<kRecWidthVColor>(tri, records, ntx, out);
+}
+
+using ResolveKernel = void (*)(const int*, const float*, int, int, float*);
+using TiledKernel = void (*)(const int*, const float*, int, float*);
+
+int launch_resolve(ResolveKernel kernel, const int* tri, const float* records,
+                   int width, int height, float* out, cudaStream_t stream) {
+  if (width > 0 && height > 0) {
+    const dim3 grid((width + kBlockW - 1) / kBlockW,
+                    (height + kBlockH - 1) / kBlockH);
+    kernel<<<grid, kThreads, 0, stream>>>(tri, records, width, height, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_resolve_tiled(TiledKernel kernel, const int* tri,
+                         const float* records, int ntx, int n_tiles,
+                         float* out, cudaStream_t stream) {
+  if (n_tiles > 0) {
+    kernel<<<n_tiles * (kTilePx / kThreads), kThreads, 0, stream>>>(
+        tri, records, ntx, out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -105,21 +170,27 @@ resolve_tiled_kernel(const int* __restrict__ tri,
 extern "C" int trident_resolve(const int* tri, const float* records,
                                int width, int height, float* out,
                                cudaStream_t stream) {
-  if (width > 0 && height > 0) {
-    const dim3 grid((width + kBlockW - 1) / kBlockW,
-                    (height + kBlockH - 1) / kBlockH);
-    resolve_kernel<<<grid, kThreads, 0, stream>>>(tri, records, width, height,
-                                                  out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_resolve(resolve_kernel, tri, records, width, height, out,
+                        stream);
+}
+
+extern "C" int trident_resolve_vc(const int* tri, const float* records,
+                                  int width, int height, float* out,
+                                  cudaStream_t stream) {
+  return launch_resolve(resolve_vc_kernel, tri, records, width, height, out,
+                        stream);
 }
 
 extern "C" int trident_resolve_tiled(const int* tri, const float* records,
                                      int ntx, int n_tiles, float* out,
                                      cudaStream_t stream) {
-  if (n_tiles > 0) {
-    resolve_tiled_kernel<<<n_tiles * (kTilePx / kThreads), kThreads, 0,
-                           stream>>>(tri, records, ntx, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_resolve_tiled(resolve_tiled_kernel, tri, records, ntx,
+                              n_tiles, out, stream);
+}
+
+extern "C" int trident_resolve_tiled_vc(const int* tri, const float* records,
+                                        int ntx, int n_tiles, float* out,
+                                        cudaStream_t stream) {
+  return launch_resolve_tiled(resolve_tiled_vc_kernel, tri, records, ntx,
+                              n_tiles, out, stream);
 }

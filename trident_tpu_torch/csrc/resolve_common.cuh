@@ -4,9 +4,14 @@
 // one expression order: resolve_pallas._eval_interpolants's, with
 // -fmad=false rounding every op like the plain version in ops/resolve.py.
 //
-// The record table is row-major (T, kRecWidth) f32 (ops/planes.py
-// build_resolve_cols_planar): one 128-byte line per triangle, read with
-// eight 16-byte loads; lanes of a warp that share a winner share the line.
+// The record table is row-major (T, kWidth) f32 (ops/planes.py
+// build_resolve_cols_planar): kWidth = kRecWidth (32) is one 128-byte line
+// per triangle, read with eight 16-byte loads; kWidth = kRecWidthVColor
+// (40) adds the three vertex-colour planes (a 160-byte row, ten 16-byte
+// loads), which multiply the colour factor's rgb (resolve_pallas.py
+// _eval_interpolants:231-234). Lanes of a warp that share a winner share
+// the row. Both widths are instances of one template: the 32-wide one is
+// the code of the table without colours, unchanged.
 
 #pragma once
 
@@ -18,7 +23,9 @@ namespace trident {
 constexpr int kG1 = 0, kNX = 3, kNY = 6, kNZ = 9, kU = 12, kV = 15;
 constexpr int kCF = 18, kMet = 22, kRough = 23, kAmb = 24;
 constexpr int kTsx = 26, kTsy = 27, kBase8 = 28;
+constexpr int kCol = 30;               // vertex-colour planes (RR_COL)
 constexpr int kRecWidth = 32;          // floats per record row (RR_WIDTH)
+constexpr int kRecWidthVColor = 40;    // with vertex colours (RR_WIDTH_VCOLOR)
 constexpr int kChannels = 16;
 
 // NaN-propagating max, as torch.maximum / jnp.maximum
@@ -28,18 +35,22 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return a > b ? a : b;
 }
 
-// The record row of winner `tid` in the (T, kRecWidth) table, or nullptr
+// The record row of winner `tid` in the (T, kWidth) table, or nullptr
 // where tid < 0 (uncovered). The table's base is 16-byte aligned (the
-// wrappers check it), so each row is eight aligned float4s.
+// wrappers check it), so each row is kWidth / 4 aligned float4s.
+template <int kWidth>
 __device__ __forceinline__ const float4* record_row(
     const float* __restrict__ records, int tid) {
+  static_assert(kWidth == kRecWidth || kWidth == kRecWidthVColor,
+                "record rows are 32 or 40 floats");
   return tid < 0 ? nullptr
                  : reinterpret_cast<const float4*>(records) +
-                       static_cast<size_t>(tid) * (kRecWidth / 4);
+                       static_cast<size_t>(tid) * (kWidth / 4);
 }
 
 // The 16 shading channels at pixel centre (pxf, pyf) of the winner whose
-// record row is `row` (record_row); zeros where row is nullptr.
+// record row is `row` (record_row<kWidth>); zeros where row is nullptr.
+template <int kWidth>
 __device__ __forceinline__ void resolve_pixel(const float4* __restrict__ row,
                                               float pxf, float pyf,
                                               float (&o)[kChannels]) {
@@ -48,9 +59,9 @@ __device__ __forceinline__ void resolve_pixel(const float4* __restrict__ row,
     for (int c = 0; c < kChannels; ++c) o[c] = 0.0f;
     return;
   }
-  float rc[kRecWidth];
+  float rc[kWidth];
 #pragma unroll
-  for (int q = 0; q < kRecWidth / 4; ++q) {
+  for (int q = 0; q < kWidth / 4; ++q) {
     const float4 v = __ldg(row + q);
     rc[4 * q] = v.x;
     rc[4 * q + 1] = v.y;
@@ -78,9 +89,17 @@ __device__ __forceinline__ void resolve_pixel(const float4* __restrict__ row,
   const float rho = max_nan(ax * ax + bx * bx, ay * ay + by * by);
   const float mip = 0.5f * log2f(max_nan(rho, 1e-12f));
 
+  float cf_r = rc[kCF], cf_g = rc[kCF + 1], cf_b = rc[kCF + 2];
+  if constexpr (kWidth == kRecWidthVColor) {
+    // (cf · colour plane) · inv, left to right as the reference multiplies
+    cf_r = (cf_r * plane(kCol)) * inv;
+    cf_g = (cf_g * plane(kCol + 3)) * inv;
+    cf_b = (cf_b * plane(kCol + 6)) * inv;
+  }
+
   o[0] = nx; o[1] = ny; o[2] = nz; o[3] = u;
-  o[4] = v; o[5] = mip; o[6] = rc[kCF]; o[7] = rc[kCF + 1];
-  o[8] = rc[kCF + 2]; o[9] = rc[kCF + 3]; o[10] = rc[kMet];
+  o[4] = v; o[5] = mip; o[6] = cf_r; o[7] = cf_g;
+  o[8] = cf_b; o[9] = rc[kCF + 3]; o[10] = rc[kMet];
   o[11] = rc[kRough]; o[12] = rc[kAmb]; o[13] = rc[kBase8];
   o[14] = tsx; o[15] = tsy;
 }

@@ -9,7 +9,9 @@ one mesh, `draw_stride` > 0), broadcast with a reshape:
     draw_row = [ (P·V·M row0+row3)·W/2 | (row1+row3)·H/2 | row3 | row2 |
                  cof(M) | uv_scale·tiling | uv_offset | pad | shading consts ]
 
-Vertex colors are not part of the ported slice.
+With `vertex_colors` the corner stage also hands on the corners' colours
+(rows 12k+8 .. 12k+10 of the table), which the resolve records carry as
+three more planes (ops/planes.py RR_COL); without it they are never read.
 """
 
 from __future__ import annotations
@@ -78,6 +80,8 @@ class CornerCols(NamedTuple):
     nrm: tuple                 # 9 (T,) world-normal columns
     uv: tuple                  # 6 (T,) atlas-UV columns
     consts: tuple              # 12 (T,) shading-const columns
+    col: Optional[tuple] = None  # 9 (T,) vertex-colour columns (col[3k+c]
+                                 # corner k's channel c), or None
 
 
 class CornerStageOut(NamedTuple):
@@ -87,9 +91,11 @@ class CornerStageOut(NamedTuple):
 
 def corner_stage(corner_t: Tensor, draw_rows: Tensor, tri_draw: Tensor,
                  tri_valid: Tensor, width: int, height: int,
-                 draw_stride: int = 0, real_draws: int = 0) -> CornerStageOut:
+                 draw_stride: int = 0, real_draws: int = 0,
+                 vertex_colors: bool = False) -> CornerStageOut:
     """Planar triangle setup + world corner attributes from the corner
-    table. `draw_stride` > 0 declares the uniform layout (draw d owns
+    table (with `vertex_colors`, the corners' colours too:
+    trident_tpu/ops/corner.py:174-188). `draw_stride` > 0 declares the uniform layout (draw d owns
     triangles [d·stride, (d+1)·stride) for d < real_draws, the rest is
     padding): the draw-row lookup becomes a broadcast instead of the
     (T,48) tri_draw gather."""
@@ -112,7 +118,7 @@ def corner_stage(corner_t: Tensor, draw_rows: Tensor, tri_draw: Tensor,
         return xt[j]
 
     sx, sy, wz, zz = [], [], [], []
-    nrm_cols, uv_cols = [], []
+    nrm_cols, uv_cols, col_cols = [], [], []
     for k in range(3):
         px, py, pz = corner_t[12 * k], corner_t[12 * k + 1], corner_t[12 * k + 2]
         sx.append(g(0) * px + g(1) * py + g(2) * pz + g(3))
@@ -129,10 +135,14 @@ def corner_stage(corner_t: Tensor, draw_rows: Tensor, tri_draw: Tensor,
         nrm_cols += [nx * inv, ny * inv, nz * inv]
         uv_cols += [corner_t[12 * k + 6] * g(25) + g(27),
                     corner_t[12 * k + 7] * g(26) + g(28)]
+        if vertex_colors:
+            col_cols += [corner_t[12 * k + 8], corner_t[12 * k + 9],
+                         corner_t[12 * k + 10]]
 
     setup, setup_cols = planar_setup_cols(sx, sy, wz, zz, tri_valid,
                                           width, height)
     cols = CornerCols(setup=setup_cols, nrm=tuple(nrm_cols),
                       uv=tuple(uv_cols),
-                      consts=tuple(xt[32 + j] for j in range(12)))
+                      consts=tuple(xt[32 + j] for j in range(12)),
+                      col=tuple(col_cols) if vertex_colors else None)
     return CornerStageOut(setup=setup, cols=cols)

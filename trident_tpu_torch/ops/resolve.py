@@ -7,8 +7,16 @@ interpolant math, the resolve pass as one kernel, csrc/resolve.cu, in its
 row was selected with one-hot matrix products over the visibility pass's
 pair list; on the card it is a direct load of row tri_id of the
 row-major (T, RR_WIDTH) record table (ops/planes.py): one 128-byte line.
-Every wrapper takes only a contiguous (T, RR_WIDTH) f32 table with a
-16-byte-aligned base on the ids' device, and raises on anything else.
+With vertex colours the table is (T, RR_WIDTH_VCOLOR), 160-byte rows, and
+each kernel runs its 40-wide instance, which multiplies the colour
+factor's rgb by the interpolated vertex colour (the `vertex_colors=True`
+branch of _eval_interpolants): resolve_attrs, resolve_attrs_tiled and
+fused_visibility_resolve pick the instance by the table's width, and
+resolve_attrs_vc, resolve_attrs_tiled_vc and fused_visibility_resolve_vc
+are the 40-wide instances' wrappers, each with its own launch count.
+Every wrapper takes only a contiguous (T, RW) f32 table with a
+16-byte-aligned base on the ids' device, RW a width it has an instance
+for, and raises on anything else.
 """
 
 from __future__ import annotations
@@ -34,11 +42,14 @@ CH_TSX, CH_TSY = 14, 15          # mip-0 texture (w, h)
 CHANNELS = 16
 
 
-def eval_interpolants(sel: Tensor, pxf: Tensor, pyf: Tensor) -> Tensor:
+def eval_interpolants(sel: Tensor, pxf: Tensor, pyf: Tensor,
+                      vertex_colors: bool = False) -> Tensor:
     """Every shading interpolant from selected records `sel` (RW, N) (the
     transposed (N, RW) rows the plain versions gather: sel[j] is field j) at
     pixel centres (pxf, pyf) (N,) → (CHANNELS, N) f32. Same expressions, in
-    the same order, as resolve_pallas._eval_interpolants."""
+    the same order, as resolve_pallas._eval_interpolants; with
+    `vertex_colors` the colour factor's rgb is multiplied by the
+    perspective-correct vertex colour (RW = RR_WIDTH_VCOLOR)."""
 
     def row(j):
         return sel[j]
@@ -66,23 +77,34 @@ def eval_interpolants(sel: Tensor, pxf: Tensor, pyf: Tensor) -> Tensor:
     rho = torch.maximum(ax * ax + bx * bx, ay * ay + by * by)
     mip = 0.5 * torch.log2(torch.clamp_min(rho, 1e-12))
 
+    cf_r, cf_g, cf_b = row(P.RR_CF), row(P.RR_CF + 1), row(P.RR_CF + 2)
+    if vertex_colors:
+        cf_r = cf_r * plane(P.RR_COL) * inv
+        cf_g = cf_g * plane(P.RR_COL + 3) * inv
+        cf_b = cf_b * plane(P.RR_COL + 6) * inv
+
     return torch.stack([
         nx, ny, nz, u, v, mip,
-        row(P.RR_CF), row(P.RR_CF + 1), row(P.RR_CF + 2), row(P.RR_CF + 3),
+        cf_r, cf_g, cf_b, row(P.RR_CF + 3),
         row(P.RR_MET), row(P.RR_ROUGH), row(P.RR_AMB), row(P.RR_BASE8),
         tsx, tsy,
     ], dim=0)
 
 
-def _check_records(records: Tensor, device) -> None:
-    """Raise unless `records` is a contiguous (T, RR_WIDTH) f32 table with
-    a 16-byte-aligned base on `device` (each row eight aligned float4s)."""
+WIDTHS = (P.RR_WIDTH, P.RR_WIDTH_VCOLOR)
+
+
+def _check_records(records: Tensor, device, widths=WIDTHS) -> bool:
+    """Raise unless `records` is a contiguous (T, RW) f32 table, RW one of
+    `widths`, with a 16-byte-aligned base on `device` (each row RW / 4
+    aligned float4s). Returns whether it carries vertex colours."""
     if (records.device != device or records.dtype != torch.float32
-            or records.dim() != 2 or records.shape[1] != P.RR_WIDTH
+            or records.dim() != 2 or records.shape[1] not in widths
             or not records.is_contiguous() or records.data_ptr() % 16):
-        raise ValueError(f"records must be a contiguous (T, {P.RR_WIDTH}) "
-                         "f32 table with a 16-byte-aligned base on the ids' "
-                         "device")
+        shapes = " or ".join(f"(T, {w})" for w in widths)
+        raise ValueError(f"records must be a contiguous {shapes} f32 table "
+                         "with a 16-byte-aligned base on the ids' device")
+    return records.shape[1] == P.RR_WIDTH_VCOLOR
 
 
 def _winner_rows(records: Tensor, flat: Tensor) -> Tensor:
@@ -90,9 +112,14 @@ def _winner_rows(records: Tensor, flat: Tensor) -> Tensor:
     return records[flat.clamp_min(0).long()].T
 
 
+def _vc(records: Tensor) -> bool:
+    return records.shape[1] == P.RR_WIDTH_VCOLOR
+
+
 def resolve_attrs_plain(tri_id: Tensor, records: Tensor) -> Tensor:
-    """Plain PyTorch twin of the resolve kernel: (H, W) winner ids and the
-    (T, RW) records → (H, W, CHANNELS) f32, zeros where tri_id < 0."""
+    """Plain PyTorch twin of the resolve kernel (both widths): (H, W)
+    winner ids and the (T, RW) records → (H, W, CHANNELS) f32, zeros where
+    tri_id < 0."""
     h, w = tri_id.shape
     dev = tri_id.device
     flat = tri_id.reshape(-1)
@@ -101,17 +128,13 @@ def resolve_attrs_plain(tri_id: Tensor, records: Tensor) -> Tensor:
     xs = torch.arange(w, dtype=torch.float32, device=dev) + 0.5
     pyf = ys[:, None].expand(h, w).reshape(-1)
     pxf = xs[None, :].expand(h, w).reshape(-1)
-    attrs = eval_interpolants(sel, pxf, pyf).T                # (H·W, CH)
+    attrs = eval_interpolants(sel, pxf, pyf, _vc(records)).T  # (H·W, CH)
     attrs = torch.where((flat >= 0)[:, None], attrs, 0.0)
     return attrs.reshape(h, w, CHANNELS)
 
 
-def resolve_attrs(tri_id: Tensor, records: Tensor) -> Tensor:
-    """(H, W, CHANNELS) attribute image: the CUDA kernel for tensors on
-    the card, the plain version for tensors on the CPU."""
-    _check_records(records, tri_id.device)
-    if tri_id.device.type == "cpu":
-        return resolve_attrs_plain(tri_id, records)
+def _launch_resolve(name: str, tri_id: Tensor, records: Tensor) -> Tensor:
+    """Entry point `name` of csrc/resolve.cu on (H, W) ids."""
     if tri_id.device.type != "cuda":
         raise ValueError(f"unsupported device {tri_id.device}")
     if tri_id.dtype != torch.int32 or tri_id.dim() != 2 \
@@ -120,17 +143,44 @@ def resolve_attrs(tri_id: Tensor, records: Tensor) -> Tensor:
     h, w = tri_id.shape
     out = torch.empty((h, w, CHANNELS), dtype=torch.float32,
                       device=tri_id.device)
-    fn = _build.kernel("trident_resolve",
+    fn = _build.kernel(name,
                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     err = fn(tri_id.data_ptr(), records.data_ptr(), w, h, out.data_ptr(),
              torch.cuda.current_stream(tri_id.device).cuda_stream)
-    _build.check_launch("trident_resolve", err)
+    _build.check_launch(name, err)
+    return out
+
+
+def resolve_attrs(tri_id: Tensor, records: Tensor) -> Tensor:
+    """(H, W, CHANNELS) attribute image: the CUDA kernel for tensors on
+    the card (its 40-wide instance, resolve_attrs_vc, for a table with
+    vertex colours), the plain version for tensors on the CPU."""
+    if _check_records(records, tri_id.device):
+        return resolve_attrs_vc(tri_id, records)
+    if tri_id.device.type == "cpu":
+        return resolve_attrs_plain(tri_id, records)
+    out = _launch_resolve("trident_resolve", tri_id, records)
     resolve_attrs.launches += 1
     return out
 
 
 resolve_attrs.launches = 0
+
+
+def resolve_attrs_vc(tri_id: Tensor, records: Tensor) -> Tensor:
+    """resolve_attrs on a (T, RR_WIDTH_VCOLOR) table (vertex colours): the
+    kernel's 40-wide instance for tensors on the card, the plain version
+    for tensors on the CPU. Raises on a table of any other width."""
+    _check_records(records, tri_id.device, (P.RR_WIDTH_VCOLOR,))
+    if tri_id.device.type == "cpu":
+        return resolve_attrs_plain(tri_id, records)
+    out = _launch_resolve("trident_resolve_vc", tri_id, records)
+    resolve_attrs_vc.launches += 1
+    return out
+
+
+resolve_attrs_vc.launches = 0
 
 
 def resolve_attrs_tiled_plain(tri_tiles: Tensor, records: Tensor,
@@ -143,20 +193,16 @@ def resolve_attrs_tiled_plain(tri_tiles: Tensor, records: Tensor,
     pxf, pyf = raster.tile_centres(
         torch.arange(n_tiles, device=tri_tiles.device), ntx)
     attrs = eval_interpolants(_winner_rows(records, flat),
-                              pxf.reshape(-1), pyf.reshape(-1))
+                              pxf.reshape(-1), pyf.reshape(-1),
+                              _vc(records))
     attrs = torch.where(flat >= 0, attrs, 0.0)               # (CH, N)
     return attrs.view(CHANNELS, n_tiles, raster.TILE_PX).permute(1, 0, 2) \
         .contiguous()
 
 
-def resolve_attrs_tiled(tri_tiles: Tensor, records: Tensor,
-                        ntx: int) -> Tensor:
-    """(n_tiles, CHANNELS, 1024) attributes of (n_tiles, 1024) tile-layout
-    winner ids (resolve_attrs_pallas(tiled=True)): the CUDA kernel for
-    tensors on the card, the plain version for tensors on the CPU."""
-    _check_records(records, tri_tiles.device)
-    if tri_tiles.device.type == "cpu":
-        return resolve_attrs_tiled_plain(tri_tiles, records, ntx)
+def _launch_resolve_tiled(name: str, tri_tiles: Tensor, records: Tensor,
+                          ntx: int) -> Tensor:
+    """Entry point `name` of csrc/resolve.cu on tile-layout ids."""
     if tri_tiles.device.type != "cuda":
         raise ValueError(f"unsupported device {tri_tiles.device}")
     if (tri_tiles.dtype != torch.int32 or tri_tiles.dim() != 2
@@ -167,18 +213,52 @@ def resolve_attrs_tiled(tri_tiles: Tensor, records: Tensor,
     n_tiles = tri_tiles.shape[0]
     out = torch.empty((n_tiles, CHANNELS, raster.TILE_PX),
                       dtype=torch.float32, device=tri_tiles.device)
-    fn = _build.kernel("trident_resolve_tiled",
+    fn = _build.kernel(name,
                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     err = fn(tri_tiles.data_ptr(), records.data_ptr(), ntx, n_tiles,
              out.data_ptr(),
              torch.cuda.current_stream(tri_tiles.device).cuda_stream)
-    _build.check_launch("trident_resolve_tiled", err)
+    _build.check_launch(name, err)
+    return out
+
+
+def resolve_attrs_tiled(tri_tiles: Tensor, records: Tensor,
+                        ntx: int) -> Tensor:
+    """(n_tiles, CHANNELS, 1024) attributes of (n_tiles, 1024) tile-layout
+    winner ids (resolve_attrs_pallas(tiled=True)): the CUDA kernel for
+    tensors on the card (its 40-wide instance, resolve_attrs_tiled_vc, for
+    a table with vertex colours), the plain version for tensors on the
+    CPU."""
+    if _check_records(records, tri_tiles.device):
+        return resolve_attrs_tiled_vc(tri_tiles, records, ntx)
+    if tri_tiles.device.type == "cpu":
+        return resolve_attrs_tiled_plain(tri_tiles, records, ntx)
+    out = _launch_resolve_tiled("trident_resolve_tiled", tri_tiles, records,
+                                ntx)
     resolve_attrs_tiled.launches += 1
     return out
 
 
 resolve_attrs_tiled.launches = 0
+
+
+def resolve_attrs_tiled_vc(tri_tiles: Tensor, records: Tensor,
+                           ntx: int) -> Tensor:
+    """resolve_attrs_tiled on a (T, RR_WIDTH_VCOLOR) table (vertex
+    colours): the kernel's 40-wide instance for tensors on the card, the
+    plain version for tensors on the CPU. Raises on a table of any other
+    width."""
+    _check_records(records, tri_tiles.device, (P.RR_WIDTH_VCOLOR,))
+    if tri_tiles.device.type == "cpu":
+        return resolve_attrs_tiled_plain(tri_tiles, records, ntx)
+    out = _launch_resolve_tiled("trident_resolve_tiled_vc", tri_tiles,
+                                records, ntx)
+    resolve_attrs_tiled_vc.launches += 1
+    return out
+
+
+resolve_attrs_tiled_vc.launches = 0
 
 
 def fused_visibility_resolve_plain(bins: raster.Bins, records: Tensor,
@@ -190,17 +270,10 @@ def fused_visibility_resolve_plain(bins: raster.Bins, records: Tensor,
     return depth, tri, resolve_attrs_tiled_plain(tri, records, ntx)
 
 
-def fused_visibility_resolve(bins: raster.Bins, records: Tensor, ntx: int,
-                             n_tiles: int):
-    """Visibility and resolve in one pass over the bins (the `fuse` knob,
-    fused_visibility_resolve_pallas): (depth, tri) (n_tiles, 1024) and
-    attrs (n_tiles, CHANNELS, 1024), equal to visibility_tiles followed by
-    resolve_attrs_tiled. The CUDA kernel for tensors on the card, the
-    plain version for tensors on the CPU."""
+def _launch_fused(name: str, bins: raster.Bins, records: Tensor, ntx: int,
+                  n_tiles: int):
+    """Entry point `name` of csrc/visibility_resolve.cu."""
     rec = bins.records
-    _check_records(records, rec.device)
-    if rec.device.type == "cpu":
-        return fused_visibility_resolve_plain(bins, records, ntx, n_tiles)
     raster.check_bins(bins, n_tiles)
     dev = rec.device
     depth = torch.empty((n_tiles, raster.TILE_PX), dtype=torch.float32,
@@ -209,7 +282,7 @@ def fused_visibility_resolve(bins: raster.Bins, records: Tensor, ntx: int,
                       device=dev)
     attrs = torch.empty((n_tiles, CHANNELS, raster.TILE_PX),
                         dtype=torch.float32, device=dev)
-    fn = _build.kernel("trident_visibility_resolve",
+    fn = _build.kernel(name,
                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p] * 5)
     err = fn(rec.data_ptr(), bins.pair_chunk.data_ptr(),
@@ -217,9 +290,44 @@ def fused_visibility_resolve(bins: raster.Bins, records: Tensor, ntx: int,
              ntx, records.data_ptr(), depth.data_ptr(),
              tri.data_ptr(), attrs.data_ptr(),
              torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch("trident_visibility_resolve", err)
-    fused_visibility_resolve.launches += 1
+    _build.check_launch(name, err)
     return depth, tri, attrs
 
 
+def fused_visibility_resolve(bins: raster.Bins, records: Tensor, ntx: int,
+                             n_tiles: int):
+    """Visibility and resolve in one pass over the bins (the `fuse` knob,
+    fused_visibility_resolve_pallas): (depth, tri) (n_tiles, 1024) and
+    attrs (n_tiles, CHANNELS, 1024), equal to visibility_tiles followed by
+    resolve_attrs_tiled. The CUDA kernel for tensors on the card (its
+    40-wide instance, fused_visibility_resolve_vc, for a table with vertex
+    colours), the plain version for tensors on the CPU."""
+    if _check_records(records, bins.records.device):
+        return fused_visibility_resolve_vc(bins, records, ntx, n_tiles)
+    if bins.records.device.type == "cpu":
+        return fused_visibility_resolve_plain(bins, records, ntx, n_tiles)
+    out = _launch_fused("trident_visibility_resolve", bins, records, ntx,
+                        n_tiles)
+    fused_visibility_resolve.launches += 1
+    return out
+
+
 fused_visibility_resolve.launches = 0
+
+
+def fused_visibility_resolve_vc(bins: raster.Bins, records: Tensor, ntx: int,
+                                n_tiles: int):
+    """fused_visibility_resolve on a (T, RR_WIDTH_VCOLOR) table (vertex
+    colours, fused_visibility_resolve_pallas(vertex_colors=True)): the
+    kernel's 40-wide instance for tensors on the card, the plain version
+    for tensors on the CPU. Raises on a table of any other width."""
+    _check_records(records, bins.records.device, (P.RR_WIDTH_VCOLOR,))
+    if bins.records.device.type == "cpu":
+        return fused_visibility_resolve_plain(bins, records, ntx, n_tiles)
+    out = _launch_fused("trident_visibility_resolve_vc", bins, records, ntx,
+                        n_tiles)
+    fused_visibility_resolve_vc.launches += 1
+    return out
+
+
+fused_visibility_resolve_vc.launches = 0

@@ -5,8 +5,11 @@ reference's GLSL (Default.frag): GGX distribution, Smith geometry with
 k = (r+1)²/8, Schlick Fresnel, one (optionally shadowed) directional + up
 to 8 point lights with squared edge falloff, roughness clamped to
 [0.045, 1], F0 = mix(0.04, albedo, metallic), Reinhard tonemap + gamma 2.2. Texture sampling is the
-flat quad-pyramid addressing of render/textures.py; only the bilinear
-mode is part of the ported slice.
+flat quad-pyramid addressing of render/textures.py in the three modes of
+the reference's sampling knob (nearest: one texel gather; bilinear: one
+quad at the rounded mip; trilinear: a quad at each of the two mips around
+the fractional one, lerped), and the skybox is a cube map sampled by
+direction (sample_skybox).
 """
 
 from __future__ import annotations
@@ -174,16 +177,114 @@ def _bilinear_flat(tex: TextureArrays, uv: Tensor, level: Tensor,
     return sample_bilinear_plain(tex.quads, idx, fx, fy)
 
 
+SAMPLING_MODES = ("nearest", "bilinear", "trilinear")
+
+
+def _nearest_flat(tex: TextureArrays, uv: Tensor, level: Tensor,
+                  size_hint) -> Tensor:
+    """Nearest-texel sample with REPEAT wrap at integer mip `level`: one
+    indexing gather of the texel's RGBA8 word, lane 0 of its quad
+    (trident_tpu/ops/shading.py:_nearest_flat)."""
+    from trident_tpu_torch.ops.texel import _unpack_rgba8
+
+    lw, lh, stride, base = _level_geom(level, size_hint)
+    xi = torch.remainder(torch.floor(uv[..., 0] * lw.float())
+                         .to(torch.int32), lw)
+    yi = torch.remainder(torch.floor(uv[..., 1] * lh.float())
+                         .to(torch.int32), lh)
+    v = tex.quads[(base + yi * stride + xi).long(), 0]
+    return _unpack_rgba8(v) * (1.0 / 255.0)
+
+
+def clamp_mip(tex: TextureArrays, mip_level: Tensor) -> Tensor:
+    """The mip level clamped to [0, max level] (a graph-safe clamp: the
+    bound is a device tensor)."""
+    return torch.minimum(torch.clamp_min(mip_level, 0.0),
+                         tex.max_level.float())
+
+
+def trilinear_levels(mip: Tensor):
+    """(lower level i32, lerp weight (..., 1)) of a clamped mip: the
+    trilinear sample is bilinear at `lo` and `lo + 1`, mixed by `frac`."""
+    lo = torch.floor(mip)
+    return lo.to(torch.int32), (mip - lo)[..., None]
+
+
+def sample_texture_mip(tex: TextureArrays, uv: Tensor, mip_level: Tensor,
+                       size_hint) -> Tensor:
+    """Trilinear sample: bilinear at the floor and floor + 1 mips, lerped
+    (levels past a slot's own pyramid clamp to its 1×1 tail in
+    _level_geom)."""
+    lo_i, frac = trilinear_levels(clamp_mip(tex, mip_level))
+    lo_samp = _bilinear_flat(tex, uv, lo_i, size_hint)
+    hi_samp = _bilinear_flat(tex, uv, lo_i + 1, size_hint)
+    return lo_samp * (1.0 - frac) + hi_samp * frac
+
+
 def sample_texture(tex: TextureArrays, uv: Tensor, mip_level: Tensor,
                    mode: str = "bilinear", size_hint=None) -> Tensor:
-    """Bilinear sample at the rounded, clamped mip level (gather path)."""
-    if mode != "bilinear":
-        raise NotImplementedError(
-            f"sampling mode {mode!r} is not ported to trident_tpu_torch yet")
+    """Sample at the clamped mip level in `mode` (SAMPLING_MODES), plain
+    PyTorch (trident_tpu/ops/shading.py:sample_texture): nearest and
+    bilinear at the rounded level, trilinear between the two around it.
+    `size_hint` is the per-pixel (w0, h0, base>>8, edge) i32 rows of the
+    resolved attributes."""
+    if mode not in SAMPLING_MODES:
+        raise ValueError(f"unknown sampling mode {mode!r}; expected one of "
+                         f"{SAMPLING_MODES}")
     if size_hint is None:
         raise NotImplementedError("per-slot size lookups are not ported; "
                                   "pass the resolved size_hint rows")
-    mip = torch.minimum(torch.clamp_min(mip_level, 0.0),
-                        tex.max_level.float())
-    return _bilinear_flat(tex, uv, torch.round(mip).to(torch.int32),
-                          size_hint)
+    mip = clamp_mip(tex, mip_level)
+    if mode == "trilinear":
+        return sample_texture_mip(tex, uv, mip, size_hint)
+    mip_i = torch.round(mip).to(torch.int32)
+    if mode == "nearest":
+        return _nearest_flat(tex, uv, mip_i, size_hint)
+    return _bilinear_flat(tex, uv, mip_i, size_hint)
+
+
+def sample_skybox(faces: Tensor, direction: Tensor,
+                  bilinear: bool = True) -> Tensor:
+    """Cube map sample by direction (trident_tpu/ops/shading.py:270-315).
+    faces: (6, E, E, 3) f32 ordered +x, −x, +y, −y, +z, −z; direction:
+    (..., 3). Bilinear with clamp-to-edge inside the face by default,
+    nearest with bilinear=False. The face is the major axis, x winning
+    ties with y and z and y winning ties with z, as the reference decides
+    edge pixels."""
+    d = _normalize(direction)
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    ax, ay, az = x.abs(), y.abs(), z.abs()
+    is_x = (ax >= ay) & (ax >= az)
+    is_y = (ay > ax) & (ay >= az)
+    face = torch.where(
+        is_x, torch.where(x > 0, 0, 1),
+        torch.where(is_y, torch.where(y > 0, 2, 3),
+                    torch.where(z > 0, 4, 5)))
+    ma = torch.clamp_min(torch.where(is_x, ax, torch.where(is_y, ay, az)),
+                         1e-8)
+    sc = torch.where(is_x, torch.where(x > 0, -z, z),
+                     torch.where(is_y, x, torch.where(z > 0, x, -x)))
+    tc = torch.where(is_y, torch.where(y > 0, z, -z), -y)
+    u = (sc / ma + 1.0) * 0.5
+    v = (tc / ma + 1.0) * 0.5
+    e = faces.shape[1]
+    face = face.long()
+    if not bilinear:
+        xi = torch.clamp((u * e).to(torch.int64), 0, e - 1)
+        yi = torch.clamp((v * e).to(torch.int64), 0, e - 1)
+        return faces[face, yi, xi]
+    fx = u * e - 0.5
+    fy = v * e - 0.5
+    x0 = torch.floor(fx)
+    y0 = torch.floor(fy)
+    wx = (fx - x0)[..., None]
+    wy = (fy - y0)[..., None]
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+    x1i = torch.clamp(x0i + 1, 0, e - 1)
+    y1i = torch.clamp(y0i + 1, 0, e - 1)
+    x0i = torch.clamp(x0i, 0, e - 1)
+    y0i = torch.clamp(y0i, 0, e - 1)
+    top = faces[face, y0i, x0i] * (1.0 - wx) + faces[face, y0i, x1i] * wx
+    bot = faces[face, y1i, x0i] * (1.0 - wx) + faces[face, y1i, x1i] * wx
+    return top * (1.0 - wy) + bot * wy

@@ -5,6 +5,7 @@ instances which mesh) is cached by scene topology in DrawPlanCache; per
 frame only the transforms and shading rows are packed on the host and
 moved to the device. Counts are padded to power-of-two buckets exactly as
 the reference pads them, so triangle ids agree between the two packages.
+Sprites are textured quads drawn after the meshes (gather_sprite_batch).
 Skinned draws (AnimationComponent bone palettes) are not part of the
 ported slice and raise.
 """
@@ -20,6 +21,7 @@ import torch
 from trident_tpu_torch.ecs.components import (
     AnimationComponent,
     MeshComponent,
+    SpriteComponent,
     TextureComponent,
     TransformComponent,
 )
@@ -78,6 +80,12 @@ class DrawBatch:
                 uv_offset=self.uv_offset[i], tiling=float(self.tiling[i]),
                 texture_slot=int(self.texture_slot[i]),
                 material_index=int(self.material_index[i]))
+
+    def concat(self, other: "DrawBatch") -> "DrawBatch":
+        """This batch's draws, then `other`'s."""
+        return DrawBatch(**{f: np.concatenate([getattr(self, f),
+                                               getattr(other, f)])
+                            for f in self.__dataclass_fields__})
 
     @staticmethod
     def from_records(records: List[DrawRecord]) -> "DrawBatch":
@@ -156,6 +164,57 @@ def gather_mesh_draws(registry: Registry,
     """gather_draw_batch's draws as a DrawRecord list (the JAX package's
     form)."""
     return list(gather_draw_batch(registry, cache))
+
+
+def gather_sprite_batch(registry: Registry, quad_mesh_index: int,
+                        time_s: float = 0.0,
+                        texture_lookup=None) -> DrawBatch:
+    """One row per visible sprite, drawn as the textured quad
+    `quad_mesh_index` (trident_tpu/render/frame.py:81-113): the atlas
+    tile's UV window (uv_scale / tiles, offset by the tile's column and
+    row over tiles), the tile index advanced by ⌊time_s ·
+    animation_speed⌋ when the sprite animates, sort_offset added to the
+    model matrix's z translation, and a sprite with slot 0 and a
+    texture_path takes `texture_lookup(path)`'s slot. The model matrices
+    are one batched compose_trs, bit-equal to composing each alone."""
+    rows = [(e, t, sp) for e, (t, sp) in registry.view(TransformComponent,
+                                                        SpriteComponent)
+            if sp.visible]
+    if not rows:
+        return DrawBatch.from_records([])
+    n = len(rows)
+    model = compose_trs(*(np.array([getattr(t, f) for _e, t, _s in rows],
+                                   np.float32)
+                          for f in ("position", "rotation", "scale")))
+    offset = np.array([sp.sort_offset for _e, _t, sp in rows], np.float32)
+    model[:, 2, 3] = np.where(offset != 0, model[:, 2, 3] + offset,
+                              model[:, 2, 3])
+    uv_scale = np.empty((n, 2), np.float32)
+    uv_offset = np.empty((n, 2), np.float32)
+    slots = np.empty(n, np.int64)
+    for k, (_e, _t, sp) in enumerate(rows):
+        tiles = max(int(sp.atlas_tiles), 1)
+        index = int(sp.atlas_index)
+        if sp.animation_speed > 0.0:
+            index = (index + int(time_s * sp.animation_speed)) % (tiles * tiles)
+        uv_scale[k] = np.asarray(sp.uv_scale, np.float32) / tiles
+        uv_offset[k] = (np.asarray(sp.uv_offset, np.float32)
+                        + np.array([index % tiles, index // tiles],
+                                   np.float32) / tiles)
+        slot = sp.texture_slot
+        if slot == 0 and sp.texture_path and texture_lookup is not None:
+            slot = texture_lookup(sp.texture_path)
+        slots[k] = slot
+    return DrawBatch(
+        entity=np.array([e for e, _t, _s in rows], np.int64),
+        mesh_index=np.full(n, quad_mesh_index, np.int64),
+        model=model,
+        tint=np.array([sp.tint for _e, _t, sp in rows], np.float32),
+        uv_scale=uv_scale, uv_offset=uv_offset,
+        tiling=np.array([float(sp.tiling) for _e, _t, sp in rows],
+                        np.float32),
+        texture_slot=slots, material_index=np.zeros(n, np.int64))
+
 
 def _mesh_indices(records) -> tuple:
     """The drawn mesh of each draw of a DrawBatch or a DrawRecord list."""

@@ -4,8 +4,9 @@ package's one jit per static frame shape (render_frame_bundled).
 A graph bakes in the addresses of every tensor it reads, so its key holds
 more than the JAX jit cache keys on: the bundle's shape, the frame size,
 every static of render_frame, the kernel knobs, whether a previous frame
-(`prev`) is warped in, the shape of the AI image, and the versions of the
-device-resident inputs (geometry, plan, textures, upscaler). A new plan
+(`prev`) is warped in, the shape of the AI image, the versions of the
+device-resident inputs (geometry, plan, textures, upscaler), the skybox
+level's shape and version, and the custom shader's version. A new plan
 or texture table is a new key; the JAX cache recompiles on shapes alone.
 
 Each graph owns device buffers for the two blobs, for `prev` and for the
@@ -68,8 +69,11 @@ def frame_kernels() -> Dict[str, Callable]:
             "visibility_depth": raster.visibility_depth_tiles,
             "visibility_ck": raster.visibility_ck_tiles,
             "visibility_resolve": resolve.fused_visibility_resolve,
+            "visibility_resolve_vc": resolve.fused_visibility_resolve_vc,
             "resolve": resolve.resolve_attrs,
+            "resolve_vc": resolve.resolve_attrs_vc,
             "resolve_tiled": resolve.resolve_attrs_tiled,
+            "resolve_tiled_vc": resolve.resolve_attrs_tiled_vc,
             "texel": texel.sample_bilinear,
             "texel_planar": texel.sample_bilinear_planar,
             "shadow_taps": shadow_taps.shadow_tap_bits,
@@ -82,14 +86,17 @@ def _launch_counts() -> Dict[str, int]:
 
 def frame_key(shape: BundleShape, width: int, height: int, statics: dict,
               knobs: KernelKnobs, has_prev: bool, versions: tuple,
-              ai_shape: tuple) -> tuple:
+              ai_shape: tuple, sky: Optional[tuple] = None,
+              shader_version: int = 0) -> tuple:
     """The graph key of a frame: everything a capture bakes in. `statics`
-    are render_frame's static keyword arguments, `versions` those of the
-    device-resident inputs (geometry, plan, textures, upscaler),
-    `ai_shape` the AI image's."""
+    are render_frame's static keyword arguments (vertex colours and the
+    sampling mode among them), `versions` those of the device-resident
+    inputs (geometry, plan, textures, upscaler), `ai_shape` the AI
+    image's, `sky` the skybox level's (shape, chain version) or None, and
+    `shader_version` the custom shader's (render/shader_hook.py)."""
     return (tuple(shape), int(width), int(height),
             tuple(sorted(statics.items())), knobs, bool(has_prev),
-            tuple(versions), tuple(ai_shape))
+            tuple(versions), tuple(ai_shape), sky, int(shader_version))
 
 
 class FrameGraph(NamedTuple):

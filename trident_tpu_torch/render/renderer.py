@@ -4,14 +4,19 @@ The forward frame of a rigid, textured, lit scene, as the JAX package's
 `_render_frame_impl(raster="pallas", forward_shading=True)` runs it:
 
     draw rows → corner stage (planar setup) → resolve records
+      (with vertex colours: the colour planes too, a (T, 40) table)
     [→ light pass: draw rows → corner stage → build_bins → depth-only
        visibility kernel → shadow map]
     → build_bins → visibility kernel → untile
-    → resolve kernel → texel kernel + shadow-taps kernel + PBR
+    → resolve kernel (its 40-wide instance with vertex colours)
+    → texture sample (the texel kernel: bilinear, or twice for trilinear;
+      nearest is one gather) + shadow-taps kernel + PBR or a custom
+      shader, the skybox or the clear color behind
       (RenderConfig.kernel may route this part: `ckern` takes the
        compact-bank visibility kernel, `fuse` the fused visibility +
        resolve kernel, `tiled_shade` the tiled resolve, the planar texel
-       kernel and channel-planar shading, untiling only the RGBA frame)
+       kernel and channel-planar shading, untiling only the RGBA frame,
+       for bilinear frames without a custom shader)
     [→ bloom on linear HDR → tonemap] [→ supersample resolve]
     [→ AI upscale: warp the previous history (warp kernel) → upscaler
        net → depth-to-space to 2× (the frame above ran at half size)]
@@ -22,17 +27,21 @@ frame's host state in two blobs (render/bundle.py) and, on the card,
 replays one captured CUDA graph per frame key (render/graphs.py), the
 counterpart of the JAX package's one jit per static shape; on the CPU
 the same bundled frame runs eagerly; `set_ai_frame` mixes an
-interpolated AI frame into the display frame. Bands, skyboxes, sprites,
-custom shaders, non-bilinear sampling, vertex colors and skinning are
-not part of the ported slice: configuring them raises
-NotImplementedError, and so does a kernel knob the port does not run
-(ops/kernel_knobs.py).
+interpolated AI frame into the display frame. Sprites are quads drawn
+with the meshes, `set_skybox` sets the background's cube map (with an
+optional mip chain, one level picked per viewport), `set_custom_shader`
+a user shading module (render/shader_hook.py), and `acquire_texture`
+takes a file mip chain. Bands, the reference raster and skinning are not
+part of the ported slice: configuring them raises NotImplementedError,
+and so does a kernel knob the port does not run (ops/kernel_knobs.py).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Dict, List, NamedTuple, Optional
+
+import math
 
 import numpy as np
 import torch
@@ -70,6 +79,7 @@ from trident_tpu_torch.ops.kernel_knobs import (
     KernelKnobs,
 )
 from trident_tpu_torch.ops.planes import build_resolve_cols_planar
+from trident_tpu_torch.ops.shading import SAMPLING_MODES
 from trident_tpu_torch.ops.resolve import (
     fused_visibility_resolve,
     resolve_attrs,
@@ -93,9 +103,11 @@ from trident_tpu_torch.render.frame import (
     DrawBatch,
     build_draw_params_host,
     gather_draw_batch,
+    gather_sprite_batch,
 )
 from trident_tpu_torch.render.graphs import FrameGraphs, frame_key
 from trident_tpu_torch.render.lights import gather_lights_host
+from trident_tpu_torch.render.shader_hook import ShaderHook
 from trident_tpu_torch.render.textures import TextureSlots
 from trident_tpu_torch.render.types import (
     AiBlend,
@@ -103,6 +115,7 @@ from trident_tpu_torch.render.types import (
     FrameOutput,
     GBuffer,
     ShadowParams,
+    SkyboxCube,
     from_numpy,
 )
 
@@ -111,18 +124,20 @@ logger = get_logger("renderer_torch")
 
 def frame_geometry(plan, tri_draw, params, shade_table, camera, textures,
                    corner_t, *, width: int, height: int, draw_stride: int = 0,
-                   real_draws: int = 0):
+                   real_draws: int = 0, vertex_colors: bool = False):
     """Per-frame geometry: (corner stage output, resolve records). The
     records are row-major (T, RR_WIDTH), one 128-byte line per triangle
-    (the JAX package's (RW, T) columns, transposed; ops/planes.py). The
-    per-draw consts are the shade row + the texture sizes row, so the
+    (the JAX package's (RW, T) columns, transposed; ops/planes.py), or
+    with `vertex_colors` (T, RR_WIDTH_VCOLOR), the colour planes added.
+    The per-draw consts are the shade row + the texture sizes row, so the
     resolve kernel needs no per-pixel table lookups."""
     tex_row = textures.sizes[params.texture_slot.long()].float()
     draw_consts = torch.cat([shade_table, tex_row], dim=1)
     draw_rows = build_draw_rows(params, camera, width, height,
                                 draw_consts=draw_consts)
     cs = corner_stage(corner_t, draw_rows, tri_draw, plan.tri_valid, width,
-                      height, draw_stride=draw_stride, real_draws=real_draws)
+                      height, draw_stride=draw_stride, real_draws=real_draws,
+                      vertex_colors=vertex_colors)
     return cs, build_resolve_cols_planar(cs.cols)
 
 
@@ -152,15 +167,19 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
                           lights, *, width: int, height: int, clear_color,
                           shadow: Optional[ShadowParams] = None,
                           shadow_pcf: bool = False, tonemap: bool = True,
-                          knobs: KernelKnobs = KernelKnobs()):
+                          knobs: KernelKnobs = KernelKnobs(),
+                          skybox: Optional[SkyboxCube] = None,
+                          sampling: str = "bilinear", shader_fn=None):
     """Rasterize + shade a frame from prebuilt per-triangle inputs →
     (frame (H,W,4) f32, GBuffer), routed by the kernel knobs as
     trident_tpu/render/renderer.py:99-193 routes them: visibility by the
     fused kernel (fuse), the compact-bank kernel (ckern) or K1; then,
-    when tiled_shade is on and the JAX package's gate admits the frame,
-    the tiled resolve (or the fused attributes) and channel-planar
-    shading in tile layout; else the (H, W) attribute image and
-    deferred_shade_attrs."""
+    when tiled_shade is on and the JAX package's gate admits the frame
+    (bilinear sampling, no custom shader, the size limits), the tiled
+    resolve (or the fused attributes) and channel-planar shading in tile
+    layout; else the (H, W) attribute image and deferred_shade_attrs. The
+    records' width picks the resolve kernels' instance (vertex colours or
+    not)."""
     ntx, nty = -(-width // raster.TILE), -(-height // raster.TILE)
     n_tiles = ntx * nty
     bins = raster.build_bins(setup, width, height, setup_cols=setup_cols,
@@ -180,9 +199,10 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
         depth=raster.untile_frame(depth_t, ntx, nty)[:height, :width]
         .contiguous(),
         aux=bins.aux)
-    # the JAX package's gate (renderer.py:140-144): bilinear sampling (the
-    # only mode ported) and its TPU texel kernel's pixel and table limits
-    use_tiled = (knobs.tiled_shade and width * height <= TILED_MAX_PIX
+    # the JAX package's gate (renderer.py:140-144): bilinear sampling, no
+    # custom shader, and its TPU texel kernel's pixel and table limits
+    use_tiled = (knobs.tiled_shade and sampling == "bilinear"
+                 and shader_fn is None and width * height <= TILED_MAX_PIX
                  and textures.quads.shape[0] <= TILED_MAX_TABLE)
     if use_tiled:
         if attrs_t is None:
@@ -192,7 +212,8 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
                                    shadow_pcf=shadow_pcf, tonemap=tonemap)
         frame4 = raster.untile_channels(rgba_t, ntx, nty)[:height, :width]
         covered = (gbuf.tri_id >= 0)[..., None]
-        bg = _background(width, height, clear_color, frame4.device)
+        bg = _background(camera, skybox, width, height, clear_color,
+                         frame4.device)
         rgb = torch.where(covered, frame4[..., :3], bg)
         a_out = torch.where(covered, frame4[..., 3:4], clear_color[3])
         frame = torch.cat([rgb, a_out], dim=-1)
@@ -207,7 +228,8 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
     frame = deferred_shade_attrs(gbuf, attrs, textures, camera, lights,
                                  width, height, clear_color=clear_color,
                                  shadow=shadow, shadow_pcf=shadow_pcf,
-                                 tonemap=tonemap)
+                                 tonemap=tonemap, skybox=skybox,
+                                 sampling=sampling, shader_fn=shader_fn)
     return frame, gbuf
 
 
@@ -221,7 +243,10 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
                  bloom_strength: float = 0.6,
                  upscale_params: Optional[up.UpscalerNet] = None,
                  prev=None, ai: Optional[AiBlend] = None,
-                 knobs: KernelKnobs = KernelKnobs()) -> FrameOutput:
+                 knobs: KernelKnobs = KernelKnobs(),
+                 skybox: Optional[SkyboxCube] = None,
+                 vertex_colors: bool = False, sampling: str = "bilinear",
+                 shader_fn=None) -> FrameOutput:
     """One forward frame (the JAX `_render_frame_impl` forward branch):
     main-pass geometry at (W·ss, H·ss) → the light pass when
     `light_camera` and `shadow_size` are given → visibility, resolve and
@@ -241,12 +266,17 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
     resolution: after the supersample resolve and the upscale, before the
     clamp (trident_tpu/render/renderer.py:405); the shading keeps none.
     `knobs` (RenderConfig.kernel, validated) routes the light pass and
-    _visibility_and_shade."""
+    _visibility_and_shade. `vertex_colors` multiplies the colour factor
+    by the meshes' interpolated vertex colours (the (T, 40) records),
+    `sampling` is the texture sampling mode (shading.SAMPLING_MODES),
+    `skybox` the background's cube map and `shader_fn` a custom shader's
+    `shade` in place of the built-in PBR."""
     ss = max(int(supersample), 1)
     rw, rh = width * ss, height * ss
     cs, records = frame_geometry(
         plan, tri_draw, params, shade_table, camera, textures, corner_t,
-        width=rw, height=rh, draw_stride=draw_stride, real_draws=real_draws)
+        width=rw, height=rh, draw_stride=draw_stride, real_draws=real_draws,
+        vertex_colors=vertex_colors)
     shadow = shadow_aux = None
     if shadow_size and light_camera is not None:
         shadow, shadow_aux = shadow_params(
@@ -256,7 +286,8 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
     frame, gbuf = _visibility_and_shade(
         cs.setup, cs.cols.setup, records, textures, camera, lights,
         width=rw, height=rh, clear_color=clear_color, shadow=shadow,
-        shadow_pcf=shadow_pcf, tonemap=not bloom, knobs=knobs)
+        shadow_pcf=shadow_pcf, tonemap=not bloom, knobs=knobs, skybox=skybox,
+        sampling=sampling, shader_fn=shader_fn)
     if bloom:
         hdr = post.bloom(frame[..., :3], bloom_threshold, bloom_strength)
         frame = torch.cat([tonemap_reinhard_gamma(hdr), frame[..., 3:4]],
@@ -287,20 +318,25 @@ def _repeat2(a):
 def render_frame_bundled(plan, tri_draw, f32, i32, textures, corner_t,
                          upscale_params: Optional[up.UpscalerNet] = None,
                          prev=None, ai_image: Optional[torch.Tensor] = None,
+                         skybox: Optional[SkyboxCube] = None,
                          *, shape: BundleShape, width: int,
                          height: int, clear_color, draw_stride: int = 0,
                          real_draws: int = 0, shadow_size: int = 0,
                          shadow_pcf: bool = False, supersample: int = 1,
                          bloom: bool = False, bloom_threshold: float = 1.0,
                          bloom_strength: float = 0.6,
-                         knobs: KernelKnobs = KernelKnobs()) -> FrameOutput:
+                         knobs: KernelKnobs = KernelKnobs(),
+                         vertex_colors: bool = False,
+                         sampling: str = "bilinear",
+                         shader_fn=None) -> FrameOutput:
     """render_frame with every per-frame host value arriving in the two
     blobs of render/bundle.py (f32, i32: device tensors of the layout of
     `shape`), the interactive path (trident_tpu/render/renderer.py:
     457-495). The light camera is used when shadow_size is set; the
     shadow bias rides the blob, and so does the AI blend, which mixes
     `ai_image` ((H, W, 3) at display size, or (1, 1, 3)) into the frame;
-    without an ai_image there is no mix."""
+    without an ai_image there is no mix. `skybox`, `vertex_colors`,
+    `sampling` and `shader_fn` are render_frame's."""
     (params, _palette, shade_table, camera, lights, light_cam, ai_blend,
      shadow_bias) = unpack_frame(f32, i32, shape)
     return render_frame(
@@ -313,15 +349,18 @@ def render_frame_bundled(plan, tri_draw, f32, i32, textures, corner_t,
         bloom_threshold=bloom_threshold, bloom_strength=bloom_strength,
         upscale_params=upscale_params, prev=prev,
         ai=None if ai_image is None else AiBlend(ai_image, ai_blend),
-        knobs=knobs)
+        knobs=knobs, skybox=skybox, vertex_colors=vertex_colors,
+        sampling=sampling, shader_fn=shader_fn)
 
 
 def _check_slice(rc: RenderConfig) -> None:
+    if rc.sampling not in SAMPLING_MODES:
+        raise ValueError(f"unknown sampling mode {rc.sampling!r}; expected "
+                         f"one of {SAMPLING_MODES}")
     unported = {
         "use_pallas=False (reference raster)": rc.use_pallas is False,
         "forward_shading=False": not rc.forward_shading,
         "bands": rc.bands > 1,
-        f"sampling={rc.sampling!r}": rc.sampling != "bilinear",
     }
     bad = [name for name, on in unported.items() if on]
     if bad:
@@ -407,7 +446,16 @@ class Renderer:
     display frame is mixed with (ops/deferred.py::apply_ai_blend); with no
     image, or blend ≤ 0, frames mix in a (1, 1, 3) zero image at blend 0,
     which leaves them as they are (trident_tpu/render/renderer.py:
-    784-787)."""
+    784-787).
+
+    Vertex colours are found once per geometry version (any packed colour
+    not 1, as the JAX Renderer decides) and ride the frame's statics, so
+    they enter the graph key. `set_skybox`'s chain lives on the device;
+    the level a viewport picks (`_skybox_for`) is baked into its frame's
+    graph, and its shape and the skybox's version are part of the key, so
+    a new set_skybox or a resize that picks another level captures anew.
+    The custom shader's version is part of the key and of the idle-frame
+    signature."""
 
     SCENE_VIEWPORT = 1
     GAME_VIEWPORT = 2
@@ -449,6 +497,11 @@ class Renderer:
                                     device=self.device)
         self.ai_blend = 0.0
         self._ai_version = 0
+        self.shader_hook = ShaderHook()
+        self._skybox_chain: List[torch.Tensor] = []
+        self._skybox_version = 0
+        self._vertex_colors = False
+        self._vertex_colors_version = -1
         self.stats_models = 0
         self.stats_triangles = 0
 
@@ -530,8 +583,55 @@ class Renderer:
                 build_primitive(kind))
         return self._primitive_mesh_indices[kind]
 
-    def acquire_texture(self, key: str, rgba: Optional[np.ndarray] = None) -> int:
-        return self.textures.acquire(key, rgba)
+    def acquire_texture(self, key: str, rgba: Optional[np.ndarray] = None,
+                        mips=None) -> int:
+        """A texture slot for `key` (render/textures.py), with an optional
+        file mip chain `mips`."""
+        return self.textures.acquire(key, rgba, mips=mips)
+
+    def set_skybox(self, faces: np.ndarray, mips=None) -> None:
+        """The background's cube map: faces (6, E, E, 3) float in [0, 1]
+        ordered +x, −x, +y, −y, +z, −z, and `mips` an optional list of
+        coarser levels (edge halved each). The chain is copied to the
+        device; each viewport renders the level whose texel density best
+        matches its resolution (_skybox_for)."""
+        self._skybox_chain = [
+            torch.from_numpy(np.array(f, np.float32)).to(self.device)
+            for f in [faces, *(mips or [])]]
+        self._skybox_valid = torch.ones((), dtype=torch.bool,
+                                        device=self.device)
+        self._skybox_version += 1
+
+    def _skybox_for(self, height: int,
+                    fov_deg: float) -> Optional[SkyboxCube]:
+        """The chain level whose face edge best matches a viewport of
+        `height` rows at `fov_deg` (trident_tpu/render/renderer.py:
+        619-653): a 90° face needs about (π/2)·h / (2·tan(fov/2)) texels
+        to be minification-free, and the smallest level still at least
+        that dense is taken (level 0 when none is). None without a
+        skybox."""
+        chain = self._skybox_chain
+        if not chain:
+            return None
+        best = 0
+        if len(chain) > 1:
+            ideal = (math.pi / 2.0) * height / max(
+                2.0 * math.tan(math.radians(fov_deg) / 2.0), 1e-6)
+            for lvl, faces in enumerate(chain):
+                if faces.shape[1] >= ideal:
+                    best = lvl
+        return SkyboxCube(faces=chain[best], valid=self._skybox_valid)
+
+    def set_custom_shader(self, path: str) -> bool:
+        """Install (or hot-swap) a user shading module
+        (render/shader_hook.py contract); True on success. The next frame
+        captures anew with it; a failed load keeps the current shading and
+        returns False (shader_hook.last_error says why)."""
+        return self.shader_hook.load(path)
+
+    def clear_custom_shader(self) -> None:
+        """Back to the built-in Cook-Torrance PBR."""
+        self.shader_hook.clear()
 
     def _upscale_params(self) -> Optional[up.UpscalerNet]:
         """The upscaler net on the device when ai_upscale is set (loaded
@@ -606,18 +706,23 @@ class Renderer:
         return None, 0
 
     def _frame_state(self) -> _FrameState:
-        """The current scene's host state: draws, plan, per-draw rows,
-        lights and the light camera (raises on what is not ported)."""
+        """The current scene's host state: draws (the meshes, then the
+        sprites as quads), plan, per-draw rows, lights and the light
+        camera; and whether the geometry has vertex colours (raises on
+        what is not ported)."""
         if self.registry is None:
             raise RuntimeError("no active registry — call set_active_registry")
-        if any(True for _ in self.registry.view(SpriteComponent)):
-            raise NotImplementedError(
-                "sprites are not ported to trident_tpu_torch yet")
+        sprites = any(True for _ in self.registry.view(SpriteComponent))
+        quad = self.ensure_primitive(PrimitiveType.QUAD) if sprites else -1
         packed = self.geometry.packed()
-        if bool((packed.colors != 1.0).any()):
-            raise NotImplementedError(
-                "vertex colors are not ported to trident_tpu_torch yet")
+        if self._vertex_colors_version != self.geometry.version:
+            self._vertex_colors = bool((packed.colors != 1.0).any())
+            self._vertex_colors_version = self.geometry.version
         draws = gather_draw_batch(self.registry, self.geometry)
+        if sprites:
+            draws = draws.concat(gather_sprite_batch(
+                self.registry, quad, self.time.elapsed,
+                texture_lookup=self.textures.lookup))
         plan, tri_draw = self._plan_cache.plan(packed, draws,
                                                self.geometry.version)
         params, shade = build_draw_params_host(
@@ -636,7 +741,9 @@ class Renderer:
                     shadow_size=shadow_size, shadow_pcf=rc.shadow_pcf,
                     supersample=max(int(rc.supersample), 1), bloom=rc.bloom,
                     bloom_threshold=rc.bloom_threshold,
-                    bloom_strength=rc.bloom_strength, **self._stride_kwargs())
+                    bloom_strength=rc.bloom_strength,
+                    vertex_colors=self._vertex_colors, sampling=rc.sampling,
+                    **self._stride_kwargs())
 
     def frame_inputs(self) -> dict:
         """render_frame's arguments for the current scene, on the device,
@@ -665,7 +772,9 @@ class Renderer:
             ai=(AiBlend(ai_image, torch.full((), ai_blend,
                                              dtype=torch.float32, device=dev))
                 if ai_blend > 0.0 else None),
-            knobs=self.knobs, **statics)
+            knobs=self.knobs,
+            skybox=self._skybox_for(rc.height, self.editor_camera.fov_deg),
+            shader_fn=self.shader_hook.fn, **statics)
 
     def frame_bundle(self, viewport_id: int = 0) -> FrameBundle:
         """The viewport's frame as render_viewport renders it: the scene's
@@ -685,22 +794,31 @@ class Renderer:
         statics = self._statics(st.shadow_size)
         versions = (self.geometry.version, self._plan_cache.version,
                     self.textures.version, net is not None)
+        # the skybox level of this viewport (at its display height) is
+        # baked into the graph: its shape and the chain's version key it
+        skybox = self._skybox_for(ctx.height, cam.fov_deg)
+        sky = (None if skybox is None
+               else (tuple(skybox.faces.shape), self._skybox_version))
+        shader_fn, shader_version = self.shader_hook.fn, self.shader_hook.version
         key = frame_key(shape, w_r, h_r, statics, self.knobs,
-                        prev is not None, versions, ai_image.shape)
+                        prev is not None, versions, ai_image.shape, sky,
+                        shader_version)
         # every input of the frame but `prev`, as the JAX signature (the AI
         # frame by its version: a new one misses the cache)
         sig = (f32.tobytes(), i32.tobytes(), shape, w_r, h_r, versions,
-               tuple(sorted(statics.items())), self.knobs, ai_version)
+               tuple(sorted(statics.items())), self.knobs, ai_version, sky,
+               shader_version)
         textures = self.textures.device_arrays(self.device)
         corner_t = self._plan_cache.corner_table(st.packed)
         plan, tri_draw = st.plan, st.tri_draw
         kw = dict(shape=shape, width=w_r, height=h_r, knobs=self.knobs,
-                  **statics)
+                  skybox=skybox, shader_fn=shader_fn, **statics)
         return FrameBundle(
             st, f32, i32, key, prev, ai_image,
             lambda f, i, p, a: render_frame_bundled(
                 plan, tri_draw, f, i, textures, corner_t, net, p, a, **kw),
-            (plan, tri_draw, textures, corner_t, net), net is not None, sig)
+            (plan, tri_draw, textures, corner_t, net, skybox, shader_fn),
+            net is not None, sig)
 
     def render_viewport(self, viewport_id: int = 0) -> FrameOutput:
         """Render one viewport (trident_tpu/render/renderer.py:749-971):

@@ -92,6 +92,13 @@ class GBuffer(NamedTuple):
     aux: Optional[Tensor] = None  # (2,) i32 [truncated pairs, dropped chunks]
 
 
+class SkyboxCube(NamedTuple):
+    """The cube map drawn where no triangle covers a pixel."""
+
+    faces: Tensor         # (6, E, E, 3) f32 — +x, −x, +y, −y, +z, −z
+    valid: Tensor         # () bool — False → clear color
+
+
 class AiBlend(NamedTuple):
     """The display-space mix with the last interpolated AI frame."""
 
@@ -129,7 +136,8 @@ def _twins() -> dict:
 
     return {cls.__name__: cls for cls in (
         GeometryBuffers, DrawPlan, DrawParams, CameraParams, LightParams,
-        TextureArrays, GBuffer, AiBlend, ShadowParams, FrameOutput,
+        TextureArrays, GBuffer, SkyboxCube, AiBlend, ShadowParams,
+        FrameOutput,
         TriangleSetup,
         SetupCols, CornerCols, CornerStageOut)}
 

@@ -49,8 +49,11 @@ KERNEL_RECORDS = {
     "visibility_depth": r"(?<!\w)visibility_kernel<true>",
     "visibility_ck": r"(?<!\w)visibility_ck_kernel(?!\w)",
     "visibility_resolve": r"(?<!\w)visibility_resolve_kernel(?!\w)",
+    "visibility_resolve_vc": r"(?<!\w)visibility_resolve_vc_kernel(?!\w)",
     "resolve": r"(?<!\w)resolve_kernel(?!\w)",
+    "resolve_vc": r"(?<!\w)resolve_vc_kernel(?!\w)",
     "resolve_tiled": r"(?<!\w)resolve_tiled_kernel(?!\w)",
+    "resolve_tiled_vc": r"(?<!\w)resolve_tiled_vc_kernel(?!\w)",
     "texel": r"(?<!\w)texel_kernel<false>",
     "texel_planar": r"(?<!\w)texel_kernel<true>",
     "shadow_taps": r"(?<!\w)taps[14]_kernel(?!\w)",
