@@ -158,8 +158,28 @@ Phases (any failure exits non-zero before the final line is printed):
      (pallas_forward, vcolor, skybox, trilinear, nearest, sprite, mips,
      shader) against tests/goldens/torch_slice_<name>.npy under the
      golden gate
-Then it prints the kernels as one JSON line, the card line, and as the
-last line {"ok": true, "device": {...}}.
+ 15. the routes of the reference raster, the plane-gather frame and the
+     indexed, skinned geometry path (phase_routes): the eight 128² PNG
+     goldens (tests/goldens/scene_128.png and flavor_{shadows_pcf, ssaa,
+     bloom, trilinear, skybox, sprite, f16_planes}.png, read without PIL)
+     through render_viewport under the golden gate; the plane-gather
+     frame (forward_shading=False) at spheres1080_1m with f16 and f32
+     planes and at shadows1080 hard and PCF: K1 on its bins and K3 on its
+     texel indices bit-equal to their plain versions, 12 rotating frames
+     each with every replay bit-equal to eager render_frame, the f32-plane
+     frame within the gate of the forward frame and the f16 one of the f32
+     one (PSNR printed); the skinned tube crowd at 1080p (1,105,920
+     triangles, 2,304 bones, tools_dev/scenes.py::skinned_scene): K2-vc
+     and K2 on its records within RESOLVE_TOL of their plain versions, 12
+     frames whose poses change, replays bit-equal to eager; a shadowed
+     frame through the indexed light pass (1024² map) with K1b and K4
+     bit-equal to their plain versions; the 128² skinned frames against
+     tests/goldens/torch_slice_skinned{,_shadow}.npy; each new frame's
+     replay alone (device, busy and idle time), and the stages of the
+     three routes beside spheres1080_1m's forward stages in one window
+Then it prints the kernels as one JSON line (each entry with
+`route_launches`: its launches in each of phase 15's route runs), the
+card line, and as the last line {"ok": true, "device": {...}}.
 
 Since phase 12's slice the Renderer's frames on the card are graph
 replays, which tick no kernel wrapper's launch count: a kernel's
@@ -259,12 +279,13 @@ def print_stages(what: str, stages: dict, card: str) -> None:
         for name, fn in stages.items()) + f" ({card})", flush=True)
 
 
-def golden_gate(frame: np.ndarray, ref: np.ndarray, what: str) -> None:
+def golden_gate(frame: np.ndarray, ref: np.ndarray, what: str,
+                against: str = "JAX reference") -> None:
     if frame.shape != ref.shape:
         fail(f"{what} frame shape {frame.shape} vs reference {ref.shape}")
     diff = np.abs(frame.astype(np.int32) - ref.astype(np.int32))
     frac, mean = float((diff > GOLDEN_LSB).mean()), float(diff.mean())
-    print(f"{what} vs JAX reference: {frac:.6f} of values > {GOLDEN_LSB} "
+    print(f"{what} vs {against}: {frac:.6f} of values > {GOLDEN_LSB} "
           f"LSB, mean {mean:.6f}, max {int(diff.max())}", flush=True)
     if not (frac < GOLDEN_FRAC and mean < GOLDEN_MEAN):
         fail(f"{what} frame outside the golden gate")
@@ -2254,6 +2275,415 @@ def phase_features(dev, card: str, kernel_fns: dict, drive, results: dict,
     return launches14
 
 
+# phase 15: the reference raster, the plane-gather frame (f16 / f32
+# planes) and the indexed, skinned geometry path
+ROUTE_FRAMES = 12
+
+
+def psnr(a, b) -> float:
+    """PSNR in dB of two RGBA8 frames' rgb (inf when equal)."""
+    import math
+
+    d = float((a[..., :3].float() - b[..., :3].float()).pow(2).mean())
+    return math.inf if d == 0 else 10.0 * math.log10(255.0 ** 2 / d)
+
+
+def png_golden(name: str) -> Path:
+    return GOLDENS / (f"{name}.png" if name == "scene_128"
+                      else f"flavor_{name}.png")
+
+
+def frame_inputs_at(r) -> dict:
+    """render_frame's inputs of viewport 0 as render_viewport sizes its
+    camera."""
+    ctx = r.viewports[0]
+    r.editor_camera.set_viewport_size(ctx.width, ctx.height)
+    return r.frame_inputs()
+
+
+def phase_routes(dev, card: str, kernel_fns: dict, drive, bench) -> dict:
+    """Phase 15: the three frame routes of this slice on the card.
+    (a) the eight 128² PNG goldens (scene_128, flavor_{shadows_pcf, ssaa,
+    bloom, trilinear, skybox, sprite} on the reference raster, flavor_
+    f16_planes on the binned raster with f16 planes) through
+    render_viewport against their PNGs under the golden gate, aux [0, 0];
+    (b) the plane-gather frame (forward_shading=False) at spheres1080_1m
+    with f16 and f32 planes and at shadows1080 (f16 and f32 hard, f16
+    PCF): K1 on the frame's own bins and K3 on its own texel indices
+    against their plain versions, bit for bit; 12 rotating frames of each
+    through render_viewport, every replay bit-equal to eager
+    render_frame, aux [0, 0] (the light pass's too); the f32-plane frame
+    against the forward frame of the same scene and the f16 frame
+    against the f32 one under the golden gate, PSNR printed; (c) the
+    skinned tube crowd at 1080p (144 tubes, 1,105,920 triangles, 2,304
+    bones): K2-vc on its records and K2 on its 32-wide records against
+    their plain versions within RESOLVE_TOL; 12 frames whose poses
+    change, replays bit-equal to eager, aux [0, 0]; one shadowed frame
+    (a 1024² map through the indexed light pass): K1b on its light-pass
+    bins and K4 on its taps against their plain versions, bit for bit,
+    the replay bit-equal to eager; the 128² skinned frames against
+    tests/goldens/torch_slice_skinned{,_shadow}.npy; (d) each new frame's
+    graph replayed alone (device time, busy time, idle share), and the
+    stages of the three routes beside spheres1080_1m's forward stages
+    (`bench`, phase 3's (cs, records, bins)) in one window. Returns the
+    launch counts of each route's run, by route."""
+    import torch
+
+    from trident_tpu_torch.io.image import read_png
+    from trident_tpu_torch.ops import (
+        deferred,
+        planes,
+        raster,
+        resolve,
+        shadow_taps,
+        texel,
+    )
+    from trident_tpu_torch.ops.corner import indexed_corner_stage
+    from trident_tpu_torch.ops.shadow import tap_indices
+    from trident_tpu_torch.ops.vertex import triangle_setup_cols, vertex_stage
+    from trident_tpu_torch.render.renderer import (
+        frame_geometry,
+        plane_geometry,
+        plane_visibility,
+        shadow_params,
+    )
+    from trident_tpu_torch.render.types import GBuffer
+    from trident_tpu_torch.tools_dev.scenes import (
+        PLANE_CONFIGS,
+        PNG_GOLDENS,
+        SKINNED_128,
+        build_plane_scene,
+        png_scene,
+        pose_skinned,
+        skinned_scene,
+    )
+
+    launches = {}
+    w, h = 1920, 1080
+    ntx, nty = -(-w // raster.TILE), -(-h // raster.TILE)
+    n_tiles = ntx * nty
+
+    def same_bits(a, b):
+        return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+    # (a) the PNG goldens on the reference raster and the f16 planes
+    png_rs = {name: png_scene(name, dev) for name in PNG_GOLDENS}
+
+    def png_frames():
+        return {name: rr.render_viewport() for name, rr in png_rs.items()}
+
+    outs, launches["png"] = drive(png_frames, ("visibility", "texel",
+                                               "shadow_taps"),
+                                  tuple(png_rs.values()))
+    for name, out in outs.items():
+        aux = [out.aux.tolist()] + ([out.shadow_aux.tolist()]
+                                    if out.shadow_aux is not None else [])
+        if any(a != [0, 0] for a in aux):
+            fail(f"PNG golden {name}: aux {aux}")
+        golden_gate(out.color.cpu().numpy(), read_png(png_golden(name)),
+                    name, png_golden(name).name)
+    print(f"PNG goldens: {len(outs)} frames ({', '.join(outs)}) within the "
+          f"golden gate of their PNGs, aux [0, 0]; launches "
+          f"{launches['png']}", flush=True)
+    del png_rs, outs
+
+    # (b) the plane-gather frame at spheres1080_1m and shadows1080
+    plane_rs, regs = {}, {}
+    for name in PLANE_CONFIGS:
+        base = PLANE_CONFIGS[name][0]
+        rr, regs[base] = build_plane_scene(name, dev, reg=regs.get(base))
+        plane_rs[name] = rr
+    fwd_rs = {base: build_bench_scene(BENCH_GRID if base == "spheres1080_1m"
+                                      else SHADOW_GRID, dev, base,
+                                      reg=regs[base])[0]
+              for base in regs}
+    for reg in regs.values():
+        rotate(reg, 0)
+    for name in ("spheres1080_1m:planes_f32", "shadows1080:planes_f16"):
+        rr = plane_rs[name]
+        inp = frame_inputs_at(rr)
+        cs, pl = plane_geometry(
+            inp["plan"], inp["tri_draw"], inp["params"], inp["shade_table"],
+            inp["camera"], inp["corner_t"], width=w, height=h,
+            plane_f16=inp["plane_f16"], draw_stride=inp["draw_stride"],
+            real_draws=inp["real_draws"])
+        bins = raster.build_bins(cs.setup, w, h, setup_cols=cs.cols.setup)
+        d_k, t_k = raster.visibility_tiles(bins, ntx, n_tiles)
+        d_p, t_p = raster.visibility_tiles_plain(bins, ntx, n_tiles)
+        gbuf = plane_visibility(cs.setup, cs.cols.setup, w, h, "pallas")
+        covered = gbuf.tri_id >= 0
+        _n, uv, mip, hint, *_rest = deferred.plane_attributes(
+            gbuf, pl, inp["textures"], w, h)
+        idx, fx, fy = deferred.texel_index(uv, mip, hint, covered,
+                                           inp["textures"].max_level)
+        q = inp["textures"].quads
+        x_k = texel.sample_bilinear(q, idx, fx, fy)
+        x_p = texel.sample_bilinear_plain(q, idx, fx, fy)
+        torch.cuda.synchronize()
+        bad = [int((t_k != t_p).sum()), same_bits(d_k, d_p),
+               same_bits(x_k, x_p)]
+        if any(bad) or bins.aux.tolist() != [0, 0]:
+            fail(f"{name}: K1 vs plain {bad[:2]} ids / depths, K3 vs plain "
+                 f"{bad[2]} values, aux {bins.aux.tolist()}")
+        print(f"{name}: {int(inp['plan'].tri_valid.sum())} triangles, "
+              f"planes {tuple(pl.table_a.shape)} {pl.table_a.dtype}; K1 on "
+              f"its {int(bins.n_real)} pairs and K3 on its "
+              f"{int(covered.sum())} covered pixels' indices bit-equal to "
+              f"their plain versions", flush=True)
+        del cs, pl, bins, d_k, t_k, d_p, t_p, gbuf, x_k, x_p, idx, fx, fy
+        del uv, mip, hint, _rest
+    torch.cuda.empty_cache()
+
+    plane_held = []
+
+    def plane_frames():
+        for k in range(ROUTE_FRAMES):
+            for reg in regs.values():
+                rotate(reg, k)
+            for name, rr in plane_rs.items():
+                kinp = frame_inputs_at(rr)
+                out = rr.render_viewport()
+                plane_held.append((f"{name} frame {k}", out, kinp,
+                                   rr.config.render.shadows))
+
+    _none, launches["planes"] = drive(
+        plane_frames, ("visibility", "visibility_depth", "texel",
+                       "shadow_taps"), tuple(plane_rs.values()))
+    for what, out, kinp, shadows in plane_held:
+        same_as_eager(out, kinp, what,
+                      ("aux", "shadow_aux") if shadows else ("aux",))
+    last = {what.split(" frame")[0]: out for what, out, _i, _s in plane_held
+            if what.endswith(f"frame {ROUTE_FRAMES - 1}")}
+    del plane_held
+    print(f"plane-gather frames: {ROUTE_FRAMES} of each of "
+          f"{', '.join(plane_rs)}, replays bit-equal to eager render_frame, "
+          f"aux [0, 0] (and the light pass's); launches "
+          f"{launches['planes']}", flush=True)
+    for base, fr in fwd_rs.items():
+        fwd = fr.render_viewport().color.cpu().numpy()
+        f32 = last[f"{base}:planes_f32"].color
+        f16 = last[f"{base}:planes_f16"].color
+        golden_gate(f32.cpu().numpy(), fwd, f"{base} f32-plane frame",
+                    "the forward frame")
+        golden_gate(f16.cpu().numpy(), f32.cpu().numpy(),
+                    f"{base} f16-plane frame", "the f32-plane frame")
+        print(f"{base} frame {ROUTE_FRAMES - 1}: the f32-plane frame within "
+              f"the golden gate of the forward frame (PSNR "
+              f"{psnr(f32, torch.from_numpy(fwd).to(dev)):.3f} dB), the f16 "
+              f"one within it of the f32 one (PSNR {psnr(f16, f32):.3f} dB)",
+              flush=True)
+    for name, rr in plane_rs.items():
+        replay_line(rr, name, card)
+    sph_inp = frame_inputs_at(plane_rs["spheres1080_1m:planes_f16"])
+    del plane_rs, fwd_rs, last
+    torch.cuda.empty_cache()
+
+    # (c) the skinned crowd at 1080p
+    sk_r, sk_reg = skinned_scene(dev)
+    inp = frame_inputs_at(sk_r)
+    if inp["corner_t"] is not None or not inp["skinned"] \
+            or not inp["vertex_colors"] or inp["draw_stride"] != 0:
+        fail(f"the skinned frame's inputs: corner table "
+             f"{inp['corner_t'] is not None}, skinned {inp['skinned']}, "
+             f"vertex colours {inp['vertex_colors']}, draw_stride "
+             f"{inp['draw_stride']}")
+    sk_geo = dict(width=w, height=h, geometry=inp["geometry"],
+                  palette=inp["palette"], skinned=True)
+    sk_args = (inp["plan"], inp["tri_draw"], inp["params"],
+               inp["shade_table"], inp["camera"], inp["textures"], None)
+    cs, rec40 = frame_geometry(*sk_args, vertex_colors=True, **sk_geo)
+    _cs32, rec32 = frame_geometry(*sk_args, **sk_geo)
+    del _cs32
+    bins = raster.build_bins(cs.setup, w, h, setup_cols=cs.cols.setup)
+    _d, t_k = raster.visibility_tiles(bins, ntx, n_tiles)
+    tri = raster.untile_frame(t_k, ntx, nty)[:h, :w].contiguous()
+    err = {}
+    for what, rec, fn in (("K2-vc", rec40, resolve.resolve_attrs_vc),
+                          ("K2", rec32, resolve.resolve_attrs)):
+        a_k, a_p = fn(tri, rec), resolve.resolve_attrs_plain(tri, rec)
+        torch.cuda.synchronize()
+        err[what] = float((a_k - a_p).abs().max())
+        if not bool(torch.isfinite(a_k).all()) or err[what] > RESOLVE_TOL:
+            fail(f"skinned frame: {what} disagrees with its plain version "
+                 f"by {err[what]}")
+    n_tri = int(inp["plan"].tri_valid.sum())
+    print(f"skinned: {n_tri} triangles, palette "
+          f"{tuple(inp['palette'].shape)}, records {tuple(rec40.shape)} and "
+          f"{tuple(rec32.shape)}, {int((tri >= 0).sum())} covered pixels, "
+          f"bins aux {bins.aux.tolist()}; K2-vc and K2 on its records vs "
+          f"plain, max err {err}", flush=True)
+    if bins.aux.tolist() != [0, 0]:
+        fail(f"binning overflow on the skinned frame: {bins.aux.tolist()}")
+    sk_stage = dict(inp=inp, cs=cs, rec40=rec40, tri=tri,
+                    gbuf=GBuffer(tri_id=tri, depth=raster.untile_frame(
+                        _d, ntx, nty)[:h, :w].contiguous(), aux=bins.aux))
+    del bins, t_k, rec32
+
+    sk_held = []
+
+    def skinned_frames():
+        for k in range(ROUTE_FRAMES):
+            pose_skinned(sk_reg, k)
+            kinp = frame_inputs_at(sk_r)
+            sk_held.append((f"skinned frame {k}", sk_r.render_viewport(),
+                            kinp))
+
+    _none, launches["skinned"] = drive(
+        skinned_frames, ("visibility", "resolve_vc", "texel"), (sk_r,))
+    for what, out, kinp in sk_held:
+        same_as_eager(out, kinp, what)
+    moved = [int((a[1].color != b[1].color).any(-1).sum())
+             for a, b in zip(sk_held, sk_held[1:])]
+    if min(moved) < 1000:
+        fail(f"skinned frames: pixels changed between poses {moved}")
+    del sk_held
+    print(f"skinned frames: {ROUTE_FRAMES} poses, replays bit-equal to eager"
+          f" render_frame, aux [0, 0]; pixels changed between poses "
+          f"{min(moved)} .. {max(moved)}; launches {launches['skinned']}",
+          flush=True)
+    replay_line(sk_r, "skinned", card)
+
+    # the shadowed crowd: the indexed light pass's kernels, then its frame
+    sh_r, _sh_reg = skinned_scene(dev, shadows=True)
+    sinp = frame_inputs_at(sh_r)
+    s, lcam = sinp["shadow_size"], sinp["light_camera"]
+    verts = vertex_stage(sinp["geometry"], sinp["plan"], sinp["params"],
+                         lcam, sinp["palette"], skinned=True)
+    lsetup, lcols = triangle_setup_cols(verts.clip, sinp["plan"].tri_vtx,
+                                        sinp["plan"].tri_valid, s, s)
+    lbins = raster.build_bins(lsetup, s, s, setup_cols=lcols)
+    lntx = -(-s // raster.TILE)
+    dd_k = raster.visibility_depth_tiles(lbins, lntx, lntx * lntx)
+    dd_p = raster.visibility_tiles_plain(lbins, lntx, lntx * lntx,
+                                         depth_only=True)
+    shadow, _saux = shadow_params(
+        sinp["plan"], sinp["params"], sinp["tri_draw"], None, lcam, s, 2e-3,
+        geometry=sinp["geometry"], palette=sinp["palette"], skinned=True)
+    scs, srec = frame_geometry(
+        sinp["plan"], sinp["tri_draw"], sinp["params"], sinp["shade_table"],
+        sinp["camera"], sinp["textures"], None, vertex_colors=True,
+        width=w, height=h, geometry=sinp["geometry"],
+        palette=sinp["palette"], skinned=True)
+    sgbuf = raster.visibility(scs.setup, w, h, setup_cols=scs.cols.setup)
+    world = deferred.world_positions(sgbuf.depth, sinp["camera"], w, h)
+    bad_taps = {}
+    for pcf in (False, True):
+        ti = tap_indices(shadow, world, pcf)
+        b_k = shadow_taps.shadow_tap_bits(shadow.depth, *ti)
+        b_p = shadow_taps.shadow_tap_bits_plain(shadow.depth, *ti)
+        torch.cuda.synchronize()
+        bad_taps["pcf" if pcf else "hard"] = int((b_k != b_p).sum())
+    bad_depth = same_bits(dd_k, dd_p)
+    map_dk = raster.untile_frame(dd_k, lntx, lntx)[:s, :s]
+    if bad_depth or any(bad_taps.values()) or lbins.aux.tolist() != [0, 0] \
+            or not torch.equal(map_dk, shadow.depth):
+        fail(f"skinned light pass: K1b vs plain {bad_depth} depths, K4 vs "
+             f"plain {bad_taps} taps, aux {lbins.aux.tolist()}, map equal "
+             f"to the light pass's {torch.equal(map_dk, shadow.depth)}")
+    print(f"skinned light pass at {s}²: {int(lbins.n_real)} pairs, "
+          f"{int((dd_k < 1.0).sum())} map texels covered; K1b and K4 (hard "
+          f"and PCF) bit-equal to their plain versions", flush=True)
+    del verts, lsetup, lcols, lbins, dd_k, dd_p, map_dk, scs, srec, sgbuf
+    del world, shadow
+
+    def shadow_frame():
+        return sh_r.render_viewport()
+
+    sh_out, launches["skinned_shadow"] = drive(
+        shadow_frame, ("visibility", "visibility_depth", "resolve_vc",
+                       "texel", "shadow_taps"), (sh_r,))
+    same_as_eager(sh_out, sinp, "skinned shadowed frame",
+                  ("aux", "shadow_aux"))
+    print(f"skinned shadowed frame: replay bit-equal to eager, aux [0, 0] "
+          f"(and the light pass's); launches {launches['skinned_shadow']}",
+          flush=True)
+    replay_line(sh_r, "skinned shadowed", card)
+    del sh_r, sinp, sh_out
+    for shadows in (False, True):
+        gr, _g = skinned_scene(dev, shadows=shadows, **SKINNED_128)
+        out = gr.render_viewport()
+        aux = [out.aux.tolist()] + ([out.shadow_aux.tolist()]
+                                    if shadows else [])
+        if any(a != [0, 0] for a in aux):
+            fail(f"128² skinned frame aux {aux}")
+        golden_gate(out.color.cpu().numpy(), np.load(
+            GOLDENS / f"torch_slice_skinned{'_shadow' if shadows else ''}"
+            ".npy"), f"skinned{' shadowed' if shadows else ''} 128²")
+
+    # (d) the stages of the three routes beside spheres1080_1m's forward
+    # stages, in one window
+    fcs, frec, fbins = bench
+    _fd, ft = raster.visibility_tiles(fbins, ntx, n_tiles)
+    ftri = raster.untile_frame(ft, ntx, nty)[:h, :w].contiguous()
+    fgbuf = GBuffer(tri_id=ftri, depth=raster.untile_frame(
+        _fd, ntx, nty)[:h, :w].contiguous(), aux=fbins.aux)
+    fattrs = resolve.resolve_attrs(ftri, frec)
+    pcs, pl16 = plane_geometry(
+        sph_inp["plan"], sph_inp["tri_draw"], sph_inp["params"],
+        sph_inp["shade_table"], sph_inp["camera"], sph_inp["corner_t"],
+        width=w, height=h, plane_f16=True,
+        draw_stride=sph_inp["draw_stride"], real_draws=sph_inp["real_draws"])
+    pl32 = planes.build_planes_cols(pcs.cols, pcs.setup.bbox,
+                                    sph_inp["tri_draw"],
+                                    sph_inp["shade_table"])
+    pgbuf = plane_visibility(pcs.setup, pcs.cols.setup, w, h, "pallas")
+    sk = sk_stage
+    ski = sk["inp"]
+    sk_verts = vertex_stage(ski["geometry"], ski["plan"], ski["params"],
+                            ski["camera"], ski["palette"], skinned=True)
+    sk_attrs = resolve.resolve_attrs_vc(sk["tri"], sk["rec40"])
+    shade_kw = dict(textures=sph_inp["textures"], camera=sph_inp["camera"],
+                    lights=sph_inp["lights"], width=w, height=h,
+                    clear_color=sph_inp["clear_color"])
+    sph_geo = (sph_inp["plan"], sph_inp["tri_draw"], sph_inp["params"],
+               sph_inp["shade_table"], sph_inp["camera"])
+    sph_stride = dict(draw_stride=sph_inp["draw_stride"],
+                      real_draws=sph_inp["real_draws"])
+    print_stages("route stages (spheres1080_1m forward, planes; skinned)", {
+        "forward_geometry": lambda: frame_geometry(
+            *sph_geo, sph_inp["textures"], sph_inp["corner_t"], width=w,
+            height=h, **sph_stride),
+        "forward_records": lambda: planes.build_resolve_cols_planar(
+            fcs.cols),
+        "forward_resolve": lambda: resolve.resolve_attrs(ftri, frec),
+        "forward_shading": lambda: deferred.deferred_shade_attrs(
+            fgbuf, fattrs, **shade_kw),
+        "planes_geometry_f16": lambda: plane_geometry(
+            *sph_geo, sph_inp["corner_t"], width=w, height=h,
+            plane_f16=True, **sph_stride),
+        "planes_f16": lambda: planes.build_planes_cols(
+            pcs.cols, pcs.setup.bbox, sph_inp["tri_draw"],
+            sph_inp["shade_table"], f16=True),
+        "planes_f32": lambda: planes.build_planes_cols(
+            pcs.cols, pcs.setup.bbox, sph_inp["tri_draw"],
+            sph_inp["shade_table"]),
+        "planes_visibility": lambda: plane_visibility(
+            pcs.setup, pcs.cols.setup, w, h, "pallas"),
+        "deferred_shade_f16": lambda: deferred.deferred_shade(
+            pgbuf, pl16, **shade_kw),
+        "deferred_shade_f32": lambda: deferred.deferred_shade(
+            pgbuf, pl32, **shade_kw),
+        "skinned_vertex_stage": lambda: vertex_stage(
+            ski["geometry"], ski["plan"], ski["params"], ski["camera"],
+            ski["palette"], skinned=True),
+        "skinned_corners_setup": lambda: indexed_corner_stage(
+            sk_verts.packed, ski["plan"].tri_vtx, ski["plan"].tri_valid, w,
+            h, vertex_colors=True),
+        "skinned_records": lambda: planes.build_resolve_cols_planar(
+            sk["cs"].cols),
+        "skinned_resolve_vc": lambda: resolve.resolve_attrs_vc(
+            sk["tri"], sk["rec40"]),
+        "skinned_shading": lambda: deferred.deferred_shade_attrs(
+            sk["gbuf"], sk_attrs, textures=ski["textures"],
+            camera=ski["camera"], lights=ski["lights"], width=w, height=h,
+            clear_color=ski["clear_color"]),
+    }, card)
+    del sk_stage, sk, ski, sk_verts, sk_attrs, pcs, pl16, pl32, pgbuf
+    del fgbuf, fattrs, ftri, ft, _fd, sk_r, sk_reg, inp, cs, rec40, tri
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     # -- phase 1: the card ---------------------------------------------------
     import torch
@@ -2761,6 +3191,10 @@ def main() -> None:
 
     # -- phase 14: the forward frame's features --------------------------------
     launches14 = phase_features(dev, card, kernel_fns, drive, results, bench)
+
+    # -- phase 15: the reference raster, planes and the skinned path --------
+    launches15 = phase_routes(dev, card, kernel_fns, drive, bench)
+    print(f"route launches {launches15}", flush=True)
     del bench
     torch.cuda.empty_cache()
 
@@ -2783,7 +3217,11 @@ def main() -> None:
     kernels = []
     for name in kernel_fns:
         res = {k: v for k, v in results[name].items() if k != "colour_ms"}
-        kernels.append(dict(name=name, launches=launches[name], **res))
+        # the launches of each of phase 15's route runs beside
+        kernels.append(dict(name=name, launches=launches[name], **res,
+                            route_launches={route: counts.get(name, 0)
+                                            for route, counts in
+                                            launches15.items()}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -125,11 +125,17 @@ def test_cuda_request_without_card_raises(monkeypatch):
 def test_unported_features_raise():
     from trident_tpu_torch.core.config import EngineConfig, RenderConfig
 
-    for kw in ({"bands": 2}, {"use_pallas": False},
-               {"forward_shading": False}, {"kernel": {"chunk": 128}},
+    for kw in ({"bands": 2}, {"kernel": {"chunk": 128}},
                {"kernel": {"resolve_prec": "bf16"}}):
         with pytest.raises(NotImplementedError):
             Renderer(EngineConfig(render=RenderConfig(**kw)), device="cpu")
+    # the reference raster and the plane-gather frame are ported routes
+    for kw in ({"use_pallas": False}, {"forward_shading": False},
+               {"forward_shading": False, "plane_f16": False},
+               {"use_pallas": False, "forward_shading": False}):
+        r = Renderer(EngineConfig(render=RenderConfig(**kw)), device="cpu")
+        assert r._statics(0)["raster_mode"] == (
+            "ref" if kw.get("use_pallas") is False else "pallas")
     # the sampling modes are ported; an unknown one is a ValueError
     for mode in ("nearest", "bilinear", "trilinear"):
         Renderer(EngineConfig(render=RenderConfig(sampling=mode)),

@@ -14,7 +14,11 @@ Tolerances, each with its reason:
     pass's geometry (op by op in this process), depths within 1e-5 and
     over 97% bit-equal: the light camera's 4×4 products in build_draw_rows
     round differently in PyTorch's CPU matmul than in XLA's dot (ulps in
-    a few draw-row entries), which moves the planes by ulps.
+    a few draw-row entries), which moves the planes by ulps. Its indexed
+    path (the skinned frames' light pass) is bit-equal to the JAX indexed
+    light pass (vertex stage, setup and kernel) run whole in the child:
+    without FMAs the clip coordinates agree bit for bit
+    (tests/test_torch_skinning.py).
   * the depth-only pass against the colour pass on the same bins:
     bit-equal depths.
   * taps: bit-equal to shadow_tap_bits (interpreted), −1 indices and the
@@ -145,6 +149,24 @@ def _light_setup():
                             MAP).setup
 
 
+def _indexed_light_inputs():
+    """The JAX indexed light pass's inputs for _grid_scene() (what
+    render_shadow_map takes without a corner table: the vertex stage at
+    the light camera, then triangle_setup), as arrays named for the
+    child."""
+    from trident_tpu.render.frame import geometry_to_device
+
+    _rec, packed, plan, _td, params, _ct, cam = _jax_light_inputs(
+        _grid_scene())
+    arrays = {}
+    for name, nt in (("geo", geometry_to_device(packed)), ("plan", plan),
+                     ("params", params), ("cam", cam)):
+        arrays.update({f"{name}_{f}": np.asarray(v)
+                       for f, v in nt._asdict().items()
+                       if not isinstance(v, int)})
+    return arrays
+
+
 @pytest.fixture(scope="module")
 def child_out(tmp_path_factory):
     """The JAX depth-only kernel, run without FMAs (see the module note),
@@ -153,9 +175,11 @@ def child_out(tmp_path_factory):
     args = [str(tmp / "out.npz")]
     for name, (js, w, h) in {
             "depth_only": (_depth_setup()[0], DEPTH_W, DEPTH_H),
-            "shadow_map": (_light_setup(), MAP, MAP)}.items():
+            "shadow_map": (_light_setup(), MAP, MAP),
+            "indexed_map": (_indexed_light_inputs(), MAP, MAP)}.items():
         np.savez(tmp / f"{name}.npz",
-                 **{f: np.asarray(getattr(js, f)) for f in js._fields})
+                 **(js if isinstance(js, dict) else
+                    {f: np.asarray(getattr(js, f)) for f in js._fields}))
         args += [name, str(tmp / f"{name}.npz"), str(w), str(h)]
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT),
                XLA_FLAGS="--xla_cpu_max_isa=AVX")
@@ -230,10 +254,21 @@ def test_render_shadow_map_matches_jax(child_out):
     assert ((d < 1.0) == (ref < 1.0)).all()                 # same coverage
     assert np.abs(d - ref).max() <= 1e-5
     assert (d == ref).mean() > 0.97
-    with pytest.raises(NotImplementedError):
-        shadow.render_shadow_map(inp["plan"], inp["params"],
-                                 inp["light_camera"], MAP, corner_t=None,
-                                 tri_draw=inp["tri_draw"])
+    # the indexed light pass (the skinned frames' path: vertex stage at the
+    # light camera, triangle setup, the depth-only kernel) against the JAX
+    # indexed light pass run whole in the child: bit-equal
+    from trident_tpu_torch.render.frame import geometry_to_device
+
+    depth, aux = shadow.render_shadow_map(
+        inp["plan"], inp["params"], inp["light_camera"], MAP, corner_t=None,
+        tri_draw=inp["tri_draw"],
+        geometry=geometry_to_device(tr.geometry.packed(), "cpu"),
+        palette=torch.eye(4)[None])
+    assert aux.tolist() == [0, 0]
+    ref = child_out["indexed_map"]
+    d = depth.numpy()
+    assert (d < 1.0).mean() > 0.2
+    assert d.tobytes() == ref.tobytes()
 
 
 def _tap_inputs(rng, s, h=40, w=300):
@@ -344,6 +379,36 @@ def test_shadow_factor_matches_jax(s, pcf):
             == 1.0).all()
 
 
+def _child_indexed_setup(arrays, w: int, h: int):
+    """The JAX indexed light pass's setup (vertex_stage at the light
+    camera, triangle_setup, under jit) from _indexed_light_inputs()."""
+    from trident_tpu.ops.vertex import triangle_setup, vertex_stage
+    from trident_tpu.render.types import (
+        CameraParams,
+        DrawParams,
+        DrawPlan,
+        GeometryBuffers,
+    )
+
+    def nt(cls, name, **extra):
+        return cls(**{f: jnp.asarray(arrays[f"{name}_{f}"])
+                      for f in cls._fields if f"{name}_{f}" in arrays},
+                   **extra)
+
+    geo, params, cam = (nt(GeometryBuffers, "geo"), nt(DrawParams, "params"),
+                        nt(CameraParams, "cam"))
+    plan = nt(DrawPlan, "plan", num_draws=0)
+
+    def setup(geo, plan, params, cam):
+        verts = vertex_stage(geo, plan, params, cam,
+                             jnp.eye(4, dtype=jnp.float32)[None],
+                             skinned=False)
+        return triangle_setup(verts.clip, plan.tri_vtx, plan.tri_valid, w,
+                              h)
+
+    return jax.jit(setup)(geo, plan, params, cam)
+
+
 if __name__ == "__main__":
     out_npz, *jobs = sys.argv[1:]
     results = {}
@@ -351,8 +416,11 @@ if __name__ == "__main__":
         name, setup_npz, w, h = jobs[i:i + 4]
         w, h = int(w), int(h)
         arrays = np.load(setup_npz)
-        setup = JTriangleSetup(**{f: jnp.asarray(arrays[f])
-                                  for f in JTriangleSetup._fields})
+        if "geo_attr_table" in arrays:      # the indexed light pass
+            setup = _child_indexed_setup(arrays, w, h)
+        else:
+            setup = JTriangleSetup(**{f: jnp.asarray(arrays[f])
+                                      for f in JTriangleSetup._fields})
         _b, depth_t, _t, _w = jax.jit(lambda st: visibility_pallas_tiled(
             st, w, h, interpret=True, depth_only=True))(setup)
         results[name] = np.asarray(

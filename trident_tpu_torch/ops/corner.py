@@ -12,6 +12,11 @@ one mesh, `draw_stride` > 0), broadcast with a reshape:
 With `vertex_colors` the corner stage also hands on the corners' colours
 (rows 12k+8 .. 12k+10 of the table), which the resolve records carry as
 three more planes (ops/planes.py RR_COL); without it they are never read.
+
+indexed_corner_stage is the same output for the indexed path that skinned
+frames take (trident_tpu/render/renderer.py:284-297): one (T, 3, 16)
+gather of the vertex stage's packed rows feeds the setup and the corner
+attributes.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ import torch
 from trident_tpu_torch.ops.vertex import (
     SetupCols,
     TriangleSetup,
+    _cofactor3,
     planar_setup_cols,
+    triangle_setup_cols,
 )
 from trident_tpu_torch.render.types import CameraParams, DrawParams
 
@@ -40,13 +47,6 @@ def build_corner_table(attr_table: np.ndarray, vtx_src: np.ndarray,
     corners = np.asarray(attr_table)[src_corner]                # (T,3,12)
     t = corners.shape[0]
     return np.ascontiguousarray(corners.reshape(t, 36).T.astype(np.float32))
-
-
-def _cofactor3(m: Tensor) -> Tensor:
-    """Cofactor matrix of (...,3,3): normals transform as cof(M)·n."""
-    r0, r1, r2 = m[..., 0, :], m[..., 1, :], m[..., 2, :]
-    return torch.stack([torch.linalg.cross(r1, r2), torch.linalg.cross(r2, r0),
-                        torch.linalg.cross(r0, r1)], dim=-2)
 
 
 def build_draw_rows(params: DrawParams, camera: CameraParams, width: int,
@@ -146,3 +146,28 @@ def corner_stage(corner_t: Tensor, draw_rows: Tensor, tri_draw: Tensor,
                       consts=tuple(xt[32 + j] for j in range(12)),
                       col=tuple(col_cols) if vertex_colors else None)
     return CornerStageOut(setup=setup, cols=cols)
+
+
+def indexed_corner_stage(packed: Tensor, tri_vtx: Tensor, tri_valid: Tensor,
+                         width: int, height: int,
+                         consts: Optional[Tensor] = None,
+                         vertex_colors: bool = False) -> CornerStageOut:
+    """The corner stage of the indexed path: the vertex stage's (TV, 16)
+    packed rows (ops/vertex.py::VertexStageOut.packed) gathered once per
+    triangle corner → setup from the corners' clip coordinates, the
+    corners' normals and UVs (and colours with `vertex_colors`) as planar
+    columns. `consts` (T, 12), the per-triangle shading consts the resolve
+    records carry, or None (the plane tables take theirs from the shade
+    table)."""
+    corners = packed[tri_vtx.long()]                          # (T,3,16)
+    setup, setup_cols = triangle_setup_cols(corners[..., 0:4], None,
+                                            tri_valid, width, height)
+
+    def cols(base, n):
+        return tuple(corners[:, k, base + c] for k in range(3)
+                     for c in range(n))
+
+    return CornerStageOut(setup=setup, cols=CornerCols(
+        setup=setup_cols, nrm=cols(4, 3), uv=cols(7, 2),
+        consts=() if consts is None else tuple(consts.unbind(1)),
+        col=cols(9, 3) if vertex_colors else None))

@@ -544,12 +544,20 @@ def untile_channels(flat: Tensor, ntx: int, nty: int) -> Tensor:
 
 
 def visibility(setup: TriangleSetup, width: int, height: int,
-               setup_cols: Optional[SetupCols] = None, **bin_kw) -> GBuffer:
+               setup_cols: Optional[SetupCols] = None, ck_bank: int = 0,
+               **bin_kw) -> GBuffer:
     """Binned visibility → contiguous per-pixel winner id + depth, with
-    aux. `bin_kw` are build_bins' capacities."""
+    aux (the untiled visibility of trident_tpu/ops/raster_pallas.py:1443,
+    the plane-gather frame's raster). ck_bank > 0 (the ckern knob) runs
+    the compact-bank kernel, as the JAX package's visibility does under
+    CKERN. `bin_kw` are build_bins' capacities."""
     ntx, nty = -(-width // TILE), -(-height // TILE)
-    bins = build_bins(setup, width, height, setup_cols=setup_cols, **bin_kw)
-    depth, tri = visibility_tiles(bins, ntx, ntx * nty)
+    bins = build_bins(setup, width, height, setup_cols=setup_cols,
+                      ck_bank=ck_bank, **bin_kw)
+    if ck_bank:
+        depth, tri = visibility_ck_tiles(bins, ntx, ntx * nty, ck_bank)
+    else:
+        depth, tri = visibility_tiles(bins, ntx, ntx * nty)
     return GBuffer(
         tri_id=untile_frame(tri, ntx, nty)[:height, :width].contiguous(),
         depth=untile_frame(depth, ntx, nty)[:height, :width].contiguous(),

@@ -1,11 +1,17 @@
-"""Reference rasterizer: the O(T × pixels) visibility oracle.
+"""Reference rasterizer: the O(T × pixels) visibility pass.
 
-Port of trident_tpu/ops/raster_ref.py, a CPU test oracle only: it
-evaluates every triangle against every pixel and keeps the nearest-depth
+Port of trident_tpu/ops/raster_ref.py: it evaluates every triangle against
+every pixel, a chunk of triangles at a time, and keeps the nearest-depth
 winner (LESS_OR_EQUAL, later triangle wins ties). Depth is the rational
 z/w with the kernel's (e0·z0 + e1·z1) + e2·z2 association; the oracle
 divides where the kernels multiply by an IEEE reciprocal, so depths may
 differ by one rounding step.
+
+It is the Renderer's `use_pallas=False` route (render/renderer.py) and the
+oracle of the tests. The JAX package calls it the correctness oracle for
+goldens and small scenes: each chunk holds (chunk, 3, H, W) f32 edge
+values, 12.6 MB at 128² and chunk 64. It reads nothing back to the host
+and makes no tensor from host data, so a CUDA graph can capture it.
 """
 
 from __future__ import annotations
@@ -18,6 +24,9 @@ from trident_tpu_torch.render.types import GBuffer
 
 def visibility_ref(setup: TriangleSetup, width: int, height: int,
                    chunk: int = 64, depth_clear: float = 1.0) -> GBuffer:
+    """Per-pixel winner id (−1 background) and depth of every valid
+    triangle, with aux a (2,) i32 zero on the setup's device (nothing is
+    binned, so nothing can be dropped)."""
     dev = setup.edge.device
     t = setup.edge.shape[0]
     ys = torch.arange(height, dtype=torch.float32, device=dev) + 0.5
@@ -48,4 +57,5 @@ def visibility_ref(setup: TriangleSetup, width: int, height: int,
         best_depth = torch.where(better, chunk_depth, best_depth)
         best_tri = torch.where(better, (idx + base).to(torch.int32), best_tri)
     best_depth = torch.where(best_tri >= 0, best_depth, depth_clear)
-    return GBuffer(tri_id=best_tri, depth=best_depth)
+    return GBuffer(tri_id=best_tri, depth=best_depth,
+                   aux=torch.zeros(2, dtype=torch.int32, device=dev))

@@ -1,13 +1,14 @@
 """Directional-light shadow mapping: the two-pass render graph.
 
 Port of trident_tpu/ops/shadow.py. Pass 1 renders a light-POV depth map
-with the main view's own pipeline (draw rows → corner stage → binning) and
-the visibility kernel's depth-only instance. Pass 2 (in deferred shading)
-projects each pixel's reconstructed world position into light clip space
-and compares it with one map texel (hard) or the four of a 2×2 PCF
-footprint, fetched by the shadow-taps kernel (ops/shadow_taps.py).
-Only the corner (rigid) light pass is ported; the indexed (skinned) one
-raises, as the main path does.
+with the main view's own geometry path (rigid frames: draw rows → corner
+stage; skinned frames: the indexed vertex stage at the light camera →
+triangle setup) and raster (binning → the visibility kernel's depth-only
+instance, or the reference raster under use_pallas=False). Pass 2 (in
+deferred shading) projects each pixel's reconstructed world position into
+light clip space and compares it with one map texel (hard) or the four of
+a 2×2 PCF footprint, fetched by the shadow-taps kernel
+(ops/shadow_taps.py).
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ import torch
 from trident_tpu_torch.mathx.transforms import look_at, ortho_rh_zo
 from trident_tpu_torch.ops import raster
 from trident_tpu_torch.ops.corner import build_draw_rows, corner_stage
+from trident_tpu_torch.ops.raster_ref import visibility_ref
 from trident_tpu_torch.ops.shadow_taps import shadow_tap_bits
+from trident_tpu_torch.ops.vertex import triangle_setup_cols, vertex_stage
 from trident_tpu_torch.render.types import CameraParams, ShadowParams
 
 Tensor = torch.Tensor
@@ -90,22 +93,37 @@ def scene_bounds(records, packed,
 
 def render_shadow_map(plan, params, light_cam: CameraParams, size: int, *,
                       corner_t, tri_draw, draw_stride: int = 0,
-                      real_draws: int = 0,
-                      ck_bank: int = 0) -> Tuple[Tensor, Tensor]:
+                      real_draws: int = 0, ck_bank: int = 0, geometry=None,
+                      palette=None, skinned: bool = False,
+                      raster_mode: str = "pallas") -> Tuple[Tensor, Tensor]:
     """Depth-only render from the light → ((S, S) f32 depth in [0, 1],
-    (2,) i32 aux of the light pass's binning). The JAX package drops the
-    aux; the depth is the same either way. ck_bank > 0 (the ckern knob)
-    runs the compact-bank kernel and drops its ids, as the JAX light pass
-    does under CKERN (raster_pallas.py:1371: no depth-only body); its
-    depths equal the depth-only kernel's."""
-    if corner_t is None or tri_draw is None:
-        raise NotImplementedError(
-            "the indexed (skinned) light pass is not ported to "
-            "trident_tpu_torch yet")
-    draw_rows = build_draw_rows(params, light_cam, size, size)
-    cs = corner_stage(corner_t, draw_rows, tri_draw, plan.tri_valid, size,
-                      size, draw_stride=draw_stride, real_draws=real_draws)
-    bins = raster.build_bins(cs.setup, size, size, setup_cols=cs.cols.setup,
+    (2,) i32 aux of the light pass's binning, zero under the reference
+    raster). The JAX package drops the aux; the depth is the same either
+    way (trident_tpu/ops/shadow.py:73-112).
+
+    Geometry: the corner stage when `corner_t` is given and the frame is
+    not `skinned`; else the indexed vertex stage (`geometry`, the device
+    GeometryBuffers, and `palette`, the frame's bone palette) at the light
+    camera. Raster: `raster_mode` "ref" is the reference raster (chunk
+    64); "pallas" bins and runs the depth-only kernel, or with ck_bank > 0
+    (the ckern knob) the compact-bank kernel, its ids dropped as the JAX
+    light pass drops them under CKERN (raster_pallas.py:1371: no
+    depth-only body); its depths equal the depth-only kernel's."""
+    if corner_t is not None and tri_draw is not None and not skinned:
+        draw_rows = build_draw_rows(params, light_cam, size, size)
+        cs = corner_stage(corner_t, draw_rows, tri_draw, plan.tri_valid,
+                          size, size, draw_stride=draw_stride,
+                          real_draws=real_draws)
+        setup, setup_cols = cs.setup, cs.cols.setup
+    else:
+        verts = vertex_stage(geometry, plan, params, light_cam, palette,
+                             skinned=skinned)
+        setup, setup_cols = triangle_setup_cols(verts.clip, plan.tri_vtx,
+                                                plan.tri_valid, size, size)
+    if raster_mode == "ref":
+        gbuf = visibility_ref(setup, size, size)
+        return gbuf.depth, gbuf.aux
+    bins = raster.build_bins(setup, size, size, setup_cols=setup_cols,
                              ck_bank=ck_bank)
     ntx = nty = -(-size // raster.TILE)
     if ck_bank:

@@ -6,8 +6,9 @@ frame only the transforms and shading rows are packed on the host and
 moved to the device. Counts are padded to power-of-two buckets exactly as
 the reference pads them, so triangle ids agree between the two packages.
 Sprites are textured quads drawn after the meshes (gather_sprite_batch).
-Skinned draws (AnimationComponent bone palettes) are not part of the
-ported slice and raise.
+A skinned draw carries its AnimationComponent's bone matrices; the frame's
+global palette packs them in draw order (bone_palette_host), as the JAX
+package's build_draw_params does, so palette indices agree too.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ class DrawRecord:
     tiling: float
     texture_slot: int
     material_index: int
+    bone_matrices: Optional[np.ndarray] = None   # (B,4,4) or None
 
 
 @dataclass(frozen=True)
@@ -67,6 +69,7 @@ class DrawBatch:
     tiling: np.ndarray           # (N,) f32
     texture_slot: np.ndarray     # (N,) i64
     material_index: np.ndarray   # (N,) i64
+    bone_matrices: np.ndarray    # (N,) object: (B,4,4) arrays or None
 
     def __len__(self) -> int:
         return self.entity.shape[0]
@@ -79,7 +82,8 @@ class DrawBatch:
                 tint=self.tint[i], uv_scale=self.uv_scale[i],
                 uv_offset=self.uv_offset[i], tiling=float(self.tiling[i]),
                 texture_slot=int(self.texture_slot[i]),
-                material_index=int(self.material_index[i]))
+                material_index=int(self.material_index[i]),
+                bone_matrices=self.bone_matrices[i])
 
     def concat(self, other: "DrawBatch") -> "DrawBatch":
         """This batch's draws, then `other`'s."""
@@ -104,7 +108,22 @@ class DrawBatch:
             uv_offset=col("uv_offset", np.float32, (2,)),
             tiling=col("tiling", np.float32, ()),
             texture_slot=col("texture_slot", np.int64, ()),
-            material_index=col("material_index", np.int64, ()))
+            material_index=col("material_index", np.int64, ()),
+            bone_matrices=_objects([r.bone_matrices for r in records]))
+
+    @property
+    def skinned(self) -> bool:
+        """Whether any draw carries bone matrices (the JAX Renderer's
+        test: an empty (0, 4, 4) array counts)."""
+        return any(b is not None for b in self.bone_matrices)
+
+
+def _objects(values: list) -> np.ndarray:
+    """(N,) object array holding `values` as they are (np.asarray would
+    stack equal-shaped bone arrays into one block)."""
+    out = np.empty(len(values), object)
+    out[:] = values
+    return out
 
 
 def gather_draw_batch(registry: Registry,
@@ -121,15 +140,13 @@ def gather_draw_batch(registry: Registry,
                 or mesh.mesh_index >= len(cache.meshes)):
             continue
         anim = registry.try_get(entity, AnimationComponent)
-        if anim is not None and anim.bone_matrices is not None:
-            raise NotImplementedError(
-                "skinned draws are not ported to trident_tpu_torch yet")
         rows.append((entity, transform, mesh,
-                     registry.try_get(entity, TextureComponent)))
+                     registry.try_get(entity, TextureComponent),
+                     None if anim is None else anim.bone_matrices))
     if not rows:
         return DrawBatch.from_records([])
     n = len(rows)
-    material = np.array([m.material_index for _e, _t, m, _x in rows],
+    material = np.array([m.material_index for _e, _t, m, _x, _b in rows],
                         np.int64)
     material = np.where((material >= 0) & (material < len(cache.materials)),
                         material, 0)
@@ -147,15 +164,16 @@ def gather_draw_batch(registry: Registry,
                                        np.float32)
         tiling[textured] = [float(x.tiling) for x in texs]
     return DrawBatch(
-        entity=np.array([e for e, _t, _m, _x in rows], np.int64),
-        mesh_index=np.array([m.mesh_index for _e, _t, m, _x in rows],
+        entity=np.array([e for e, _t, _m, _x, _b in rows], np.int64),
+        mesh_index=np.array([m.mesh_index for _e, _t, m, _x, _b in rows],
                             np.int64),
-        model=compose_trs(*(np.array([getattr(t, f) for _e, t, _m, _x in rows],
+        model=compose_trs(*(np.array([getattr(row[1], f) for row in rows],
                                      np.float32)
                             for f in ("position", "rotation", "scale"))),
-        tint=np.array([m.tint for _e, _t, m, _x in rows], np.float32),
+        tint=np.array([m.tint for _e, _t, m, _x, _b in rows], np.float32),
         uv_scale=uv_scale, uv_offset=uv_offset, tiling=tiling,
-        texture_slot=texture_slot, material_index=material)
+        texture_slot=texture_slot, material_index=material,
+        bone_matrices=_objects([b for _e, _t, _m, _x, b in rows]))
 
 
 
@@ -213,7 +231,8 @@ def gather_sprite_batch(registry: Registry, quad_mesh_index: int,
         uv_scale=uv_scale, uv_offset=uv_offset,
         tiling=np.array([float(sp.tiling) for _e, _t, sp in rows],
                         np.float32),
-        texture_slot=slots, material_index=np.zeros(n, np.int64))
+        texture_slot=slots, material_index=np.zeros(n, np.int64),
+        bone_matrices=_objects([None] * n))
 
 
 def _mesh_indices(records) -> tuple:
@@ -335,15 +354,51 @@ def build_draw_plan(packed: PackedGeometry, records: List[DrawRecord],
     return plan, torch.from_numpy(pad(tri_draw, tt)).to(dev)
 
 
+def _bone_layout(draws: DrawBatch, num_draws: int, max_bones: int):
+    """(bone_offset (D,) i32, bone_count (D,) i32, the skinned draws' bone
+    blocks in draw order): each of the first num_draws draws with a
+    non-empty bone array takes its first max_bones matrices at the next
+    palette offset; the others get offset −1 and count 0
+    (trident_tpu/render/frame.py:293-299)."""
+    d = num_draws
+    bones = draws.bone_matrices[:d]
+    blocks = [np.asarray(b, np.float32)[:max_bones]
+              if b is not None and len(b) > 0 else None for b in bones]
+    has = np.zeros(d, bool)
+    has[:len(blocks)] = [b is not None for b in blocks]
+    count = np.zeros(d, np.int32)
+    count[:len(blocks)] = [0 if b is None else b.shape[0] for b in blocks]
+    offset = np.where(has, np.cumsum(count) - count, -1).astype(np.int32)
+    return offset, count, [b for b in blocks if b is not None]
+
+
+def bone_palette_host(draws: DrawBatch, num_draws: int,
+                      max_bones: int = 128) -> np.ndarray:
+    """The frame's global bone palette (P, 4, 4) f32 (the frame bundle's
+    form): the skinned draws' matrices in draw order (each capped at
+    max_bones), padded with identities to P = the power-of-two bucket of
+    their count, at least 1; one identity when no draw is skinned
+    (render/bundle.py::zero_palette)."""
+    blocks = _bone_layout(draws, num_draws, max_bones)[2]
+    n = sum(b.shape[0] for b in blocks)
+    palette = np.tile(np.eye(4, dtype=np.float32),
+                      (_bucket(max(n, 1), minimum=1), 1, 1))
+    if blocks:
+        palette[:n] = np.concatenate(blocks, axis=0)
+    return palette
+
+
 def build_draw_params_host(draws: DrawBatch, num_draws: int,
-                           material_table: Optional[np.ndarray] = None
+                           material_table: Optional[np.ndarray] = None,
+                           max_bones: int = 128
                            ) -> Tuple[DrawParams, np.ndarray]:
     """Pack per-draw state and the shade table as numpy (the frame
     bundle's form), all draws at once.
 
     Returns (DrawParams, shade_table (D,8) f32). A shade row is: color
     factor rgba (= material base color × tint), metallic, roughness,
-    ambient strength, texture slot (as f32)."""
+    ambient strength, texture slot (as f32). A skinned draw's bone_offset
+    and bone_count place its matrices in bone_palette_host's palette."""
     d = num_draws
     n = min(len(draws), d)
     model = np.tile(np.eye(4, dtype=np.float32), (d, 1, 1))
@@ -375,6 +430,7 @@ def build_draw_params_host(draws: DrawBatch, num_draws: int,
     texture_slot[:n] = draws.texture_slot[:n]
     material_index[:n] = mi
 
+    bone_offset, bone_count, _blocks = _bone_layout(draws, d, max_bones)
     model_flat = model.reshape(d, 16)
     xform_a = model_flat[:, :12].copy()
     xform_b = np.concatenate(
@@ -384,8 +440,7 @@ def build_draw_params_host(draws: DrawBatch, num_draws: int,
         model=model, xform_a=xform_a, xform_b=xform_b, tint=tint,
         uv_scale=uv_scale, uv_offset=uv_offset, tiling=tiling,
         texture_slot=texture_slot, material_index=material_index,
-        bone_offset=np.full(d, -1, np.int32),
-        bone_count=np.zeros(d, np.int32),
+        bone_offset=bone_offset, bone_count=bone_count,
     )
     return params, shade
 

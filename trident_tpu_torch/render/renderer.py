@@ -1,12 +1,17 @@
 """The renderer: scene in, frames out (port of trident_tpu/render/renderer.py).
 
-The forward frame of a rigid, textured, lit scene, as the JAX package's
-`_render_frame_impl(raster="pallas", forward_shading=True)` runs it:
+The frame as the JAX package's `_render_frame_impl` runs it, on three
+routes. The default (use_pallas None or True, forward_shading True) is
+the forward frame:
 
-    draw rows → corner stage (planar setup) → resolve records
+    geometry: rigid frames draw rows → corner stage (planar setup);
+      frames with a skinned draw the indexed path: vertex stage (gather,
+      linear-blend skinning from the bone palette, transforms) → one
+      (T, 3, 16) corner gather → triangle setup
+    → resolve records
       (with vertex colours: the colour planes too, a (T, 40) table)
-    [→ light pass: draw rows → corner stage → build_bins → depth-only
-       visibility kernel → shadow map]
+    [→ light pass: the same geometry path at the light camera → build_bins
+       → depth-only visibility kernel → shadow map]
     → build_bins → visibility kernel → untile
     → resolve kernel (its 40-wide instance with vertex colours)
     → texture sample (the texel kernel: bilinear, or twice for trilinear;
@@ -22,6 +27,16 @@ The forward frame of a rigid, textured, lit scene, as the JAX package's
        net → depth-to-space to 2× (the frame above ran at half size)]
     → RGBA8
 
+The plane-gather routes replace records, resolve and the attribute image
+with attribute planes (ops/planes.py, f16 or f32 tables by plane_f16) and
+deferred_shade, which gathers the winner's plane rows per pixel:
+use_pallas=False is the reference raster (ops/raster_ref.py, its light
+pass too), forward_shading=False the binned visibility kernel, untiled.
+Both geometry paths feed all three routes. The JAX package takes the
+reference raster for use_pallas=None on the CPU; the port keeps the
+kernel route there too (its plain versions), so that the CPU tests run
+the card's route.
+
 The interactive loop (Renderer.render_viewport, draw_frame) ships each
 frame's host state in two blobs (render/bundle.py) and, on the card,
 replays one captured CUDA graph per frame key (render/graphs.py), the
@@ -31,9 +46,9 @@ interpolated AI frame into the display frame. Sprites are quads drawn
 with the meshes, `set_skybox` sets the background's cube map (with an
 optional mip chain, one level picked per viewport), `set_custom_shader`
 a user shading module (render/shader_hook.py), and `acquire_texture`
-takes a file mip chain. Bands, the reference raster and skinning are not
-part of the ported slice: configuring them raises NotImplementedError,
-and so does a kernel knob the port does not run (ops/kernel_knobs.py).
+takes a file mip chain. Bands are not part of the ported slice:
+configuring them raises NotImplementedError, and so does a kernel knob the
+port does not run (ops/kernel_knobs.py).
 """
 
 from __future__ import annotations
@@ -65,10 +80,16 @@ from trident_tpu_torch.geometry.mesh import GeometryCache
 from trident_tpu_torch.geometry.primitives import PrimitiveType, build_primitive
 from trident_tpu_torch.io.image import checkerboard
 from trident_tpu_torch.ops import post, raster
-from trident_tpu_torch.ops.corner import build_draw_rows, corner_stage
+from trident_tpu_torch.ops.corner import (
+    CornerStageOut,
+    build_draw_rows,
+    corner_stage,
+    indexed_corner_stage,
+)
 from trident_tpu_torch.ops.deferred import (
     _background,
     apply_ai_blend,
+    deferred_shade,
     deferred_shade_attrs,
     pack_rgba8,
 )
@@ -78,7 +99,11 @@ from trident_tpu_torch.ops.kernel_knobs import (
     TILED_MAX_TABLE,
     KernelKnobs,
 )
-from trident_tpu_torch.ops.planes import build_resolve_cols_planar
+from trident_tpu_torch.ops.planes import (
+    build_planes_cols,
+    build_resolve_cols_planar,
+)
+from trident_tpu_torch.ops.raster_ref import visibility_ref
 from trident_tpu_torch.ops.shading import SAMPLING_MODES
 from trident_tpu_torch.ops.resolve import (
     fused_visibility_resolve,
@@ -91,19 +116,21 @@ from trident_tpu_torch.ops.shadow import (
     render_shadow_map,
     scene_bounds,
 )
+from trident_tpu_torch.ops.vertex import vertex_stage
 from trident_tpu_torch.render.bundle import (
     BundleShape,
     pack_frame,
     unpack_frame,
-    zero_palette,
 )
 from trident_tpu_torch.render.camera import Camera, EditorCamera, RuntimeCamera
 from trident_tpu_torch.render.frame import (
     DrawPlanCache,
     DrawBatch,
+    bone_palette_host,
     build_draw_params_host,
     gather_draw_batch,
     gather_sprite_batch,
+    geometry_to_device,
 )
 from trident_tpu_torch.render.graphs import FrameGraphs, frame_key
 from trident_tpu_torch.render.lights import gather_lights_host
@@ -114,6 +141,7 @@ from trident_tpu_torch.render.types import (
     CameraParams,
     FrameOutput,
     GBuffer,
+    GeometryBuffers,
     ShadowParams,
     SkyboxCube,
     from_numpy,
@@ -122,38 +150,96 @@ from trident_tpu_torch.render.types import (
 logger = get_logger("renderer_torch")
 
 
+RASTER_MODES = ("pallas", "ref")
+
+
+def _geometry(plan, tri_draw, params, camera, corner_t, draw_consts, *,
+              width: int, height: int, draw_stride: int = 0,
+              real_draws: int = 0, vertex_colors: bool = False,
+              geometry: Optional[GeometryBuffers] = None,
+              palette: Optional[torch.Tensor] = None,
+              skinned: bool = False) -> CornerStageOut:
+    """The frame's setup and planar corner columns: the corner stage when
+    `corner_t` is given and the frame is not `skinned`, else the indexed
+    path (trident_tpu/render/renderer.py:284-297): the vertex stage over
+    `geometry` (skinning from `palette` when `skinned`), one (T, 3, 16)
+    corner gather, the triangle setup. `draw_consts` (D, 12) or None ride
+    the columns as the records' shading consts."""
+    if corner_t is not None and not skinned:
+        draw_rows = build_draw_rows(params, camera, width, height,
+                                    draw_consts=draw_consts)
+        return corner_stage(corner_t, draw_rows, tri_draw, plan.tri_valid,
+                            width, height, draw_stride=draw_stride,
+                            real_draws=real_draws,
+                            vertex_colors=vertex_colors)
+    verts = vertex_stage(geometry, plan, params, camera, palette,
+                         skinned=skinned)
+    return indexed_corner_stage(
+        verts.packed, plan.tri_vtx, plan.tri_valid, width, height,
+        consts=None if draw_consts is None else draw_consts[tri_draw.long()],
+        vertex_colors=vertex_colors)
+
+
 def frame_geometry(plan, tri_draw, params, shade_table, camera, textures,
                    corner_t, *, width: int, height: int, draw_stride: int = 0,
-                   real_draws: int = 0, vertex_colors: bool = False):
-    """Per-frame geometry: (corner stage output, resolve records). The
-    records are row-major (T, RR_WIDTH), one 128-byte line per triangle
-    (the JAX package's (RW, T) columns, transposed; ops/planes.py), or
-    with `vertex_colors` (T, RR_WIDTH_VCOLOR), the colour planes added.
-    The per-draw consts are the shade row + the texture sizes row, so the
-    resolve kernel needs no per-pixel table lookups."""
+                   real_draws: int = 0, vertex_colors: bool = False,
+                   geometry: Optional[GeometryBuffers] = None,
+                   palette: Optional[torch.Tensor] = None,
+                   skinned: bool = False):
+    """Per-frame geometry of the forward route: (corner stage output,
+    resolve records). The records are row-major (T, RR_WIDTH), one
+    128-byte line per triangle (the JAX package's (RW, T) columns,
+    transposed; ops/planes.py), or with `vertex_colors` (T,
+    RR_WIDTH_VCOLOR), the colour planes added. The per-draw consts are the
+    shade row + the texture sizes row, so the resolve kernel needs no
+    per-pixel table lookups. `geometry`, `palette` and `skinned` select
+    the indexed path as _geometry says."""
     tex_row = textures.sizes[params.texture_slot.long()].float()
     draw_consts = torch.cat([shade_table, tex_row], dim=1)
-    draw_rows = build_draw_rows(params, camera, width, height,
-                                draw_consts=draw_consts)
-    cs = corner_stage(corner_t, draw_rows, tri_draw, plan.tri_valid, width,
-                      height, draw_stride=draw_stride, real_draws=real_draws,
-                      vertex_colors=vertex_colors)
+    cs = _geometry(plan, tri_draw, params, camera, corner_t, draw_consts,
+                   width=width, height=height, draw_stride=draw_stride,
+                   real_draws=real_draws, vertex_colors=vertex_colors,
+                   geometry=geometry, palette=palette, skinned=skinned)
     return cs, build_resolve_cols_planar(cs.cols)
+
+
+def plane_geometry(plan, tri_draw, params, shade_table, camera, corner_t, *,
+                   width: int, height: int, plane_f16: bool = False,
+                   draw_stride: int = 0, real_draws: int = 0,
+                   vertex_colors: bool = False,
+                   geometry: Optional[GeometryBuffers] = None,
+                   palette: Optional[torch.Tensor] = None,
+                   skinned: bool = False):
+    """Per-frame geometry of the plane-gather routes: (corner stage
+    output, AttributePlanes), f16 tables with `plane_f16`
+    (trident_tpu/render/renderer.py:345-351); the geometry path as
+    frame_geometry's."""
+    cs = _geometry(plan, tri_draw, params, camera, corner_t, None,
+                   width=width, height=height, draw_stride=draw_stride,
+                   real_draws=real_draws, vertex_colors=vertex_colors,
+                   geometry=geometry, palette=palette, skinned=skinned)
+    return cs, build_planes_cols(cs.cols, cs.setup.bbox, tri_draw,
+                                 shade_table, f16=plane_f16)
 
 
 def shadow_params(plan, params, tri_draw, corner_t, light_cam: CameraParams,
                   size: int, bias, *, draw_stride: int = 0,
-                  real_draws: int = 0, knobs: KernelKnobs = KernelKnobs()):
+                  real_draws: int = 0, knobs: KernelKnobs = KernelKnobs(),
+                  geometry: Optional[GeometryBuffers] = None,
+                  palette: Optional[torch.Tensor] = None,
+                  skinned: bool = False, raster_mode: str = "pallas"):
     """The light pass → (ShadowParams, (2,) i32 light-pass aux), with
     light_vp = proj @ view in f32 (TF32 is pinned off). `bias` is a float
     or a () f32 tensor on the device (the frame bundle's). The scalars are
     filled on the device: a host-to-device copy would wait for the work
     already queued. Under knobs.ckern the light pass takes the
-    compact-bank kernel."""
+    compact-bank kernel; geometry path and raster as render_shadow_map
+    takes them."""
     depth_map, aux = render_shadow_map(
         plan, params, light_cam, size, corner_t=corner_t, tri_draw=tri_draw,
         draw_stride=draw_stride, real_draws=real_draws,
-        ck_bank=knobs.ck_bank if knobs.ckern else 0)
+        ck_bank=knobs.ck_bank if knobs.ckern else 0, geometry=geometry,
+        palette=palette, skinned=skinned, raster_mode=raster_mode)
     dev = depth_map.device
     shadow = ShadowParams(
         depth=depth_map, light_vp=light_cam.proj @ light_cam.view,
@@ -233,6 +319,18 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
     return frame, gbuf
 
 
+def plane_visibility(setup, setup_cols, width: int, height: int,
+                     raster_mode: str,
+                     knobs: KernelKnobs = KernelKnobs()) -> GBuffer:
+    """The plane-gather routes' G-buffer: the reference raster (chunk 64,
+    trident_tpu/render/renderer.py:200-202) or the binned visibility
+    kernel, untiled (:195-199; the compact-bank kernel under ckern)."""
+    if raster_mode == "ref":
+        return visibility_ref(setup, width, height, chunk=64)
+    return raster.visibility(setup, width, height, setup_cols=setup_cols,
+                             ck_bank=knobs.ck_bank if knobs.ckern else 0)
+
+
 def render_frame(plan, tri_draw, params, shade_table, camera, lights,
                  textures, corner_t, *, width: int, height: int, clear_color,
                  draw_stride: int = 0, real_draws: int = 0,
@@ -246,14 +344,26 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
                  knobs: KernelKnobs = KernelKnobs(),
                  skybox: Optional[SkyboxCube] = None,
                  vertex_colors: bool = False, sampling: str = "bilinear",
-                 shader_fn=None) -> FrameOutput:
-    """One forward frame (the JAX `_render_frame_impl` forward branch):
-    main-pass geometry at (W·ss, H·ss) → the light pass when
-    `light_camera` and `shadow_size` are given → visibility, resolve and
-    shading (linear HDR when blooming) → bloom + tonemap → supersample
-    resolve → [2× AI upscale] → clamp. Depth and ids are each ss × ss
-    block's top-left sample; shadow_aux is the light pass's aux (None
-    without one).
+                 shader_fn=None, raster_mode: str = "pallas",
+                 forward_shading: bool = True, plane_f16: bool = False,
+                 skinned: bool = False,
+                 geometry: Optional[GeometryBuffers] = None,
+                 palette: Optional[torch.Tensor] = None) -> FrameOutput:
+    """One frame (the JAX `_render_frame_impl`): main-pass geometry at
+    (W·ss, H·ss) → the light pass when `light_camera` and `shadow_size`
+    are given → visibility, resolve and shading (linear HDR when
+    blooming) → bloom + tonemap → supersample resolve → [2× AI upscale] →
+    clamp. Depth and ids are each ss × ss block's top-left sample;
+    shadow_aux is the light pass's aux (None without one).
+
+    Routes: raster_mode "pallas" with forward_shading is the forward
+    frame (records, the resolve kernel); raster_mode "ref" (the reference
+    raster) or forward_shading False (the visibility kernel, untiled) is
+    the plane-gather frame, attribute planes (f16 with `plane_f16`) and
+    deferred_shade. Geometry: the corner stage from `corner_t`, or with
+    corner_t None or `skinned` the indexed path over `geometry` (the
+    device GeometryBuffers) with the bone `palette` (P, 4, 4); the light
+    pass takes the same geometry path and raster.
 
     With `upscale_params` (an UpscalerNet) width and height are the half
     size the scene renders at, and the frame comes out at twice that:
@@ -271,23 +381,41 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
     `sampling` is the texture sampling mode (shading.SAMPLING_MODES),
     `skybox` the background's cube map and `shader_fn` a custom shader's
     `shade` in place of the built-in PBR."""
+    if raster_mode not in RASTER_MODES:
+        raise ValueError(f"unknown raster mode {raster_mode!r}; expected "
+                         f"one of {RASTER_MODES}")
     ss = max(int(supersample), 1)
     rw, rh = width * ss, height * ss
-    cs, records = frame_geometry(
-        plan, tri_draw, params, shade_table, camera, textures, corner_t,
-        width=rw, height=rh, draw_stride=draw_stride, real_draws=real_draws,
-        vertex_colors=vertex_colors)
+    forward = raster_mode == "pallas" and forward_shading
+    geo_kw = dict(width=rw, height=rh, draw_stride=draw_stride,
+                  real_draws=real_draws, vertex_colors=vertex_colors,
+                  geometry=geometry, palette=palette, skinned=skinned)
+    if forward:
+        cs, records = frame_geometry(plan, tri_draw, params, shade_table,
+                                     camera, textures, corner_t, **geo_kw)
+    else:
+        cs, planes = plane_geometry(plan, tri_draw, params, shade_table,
+                                    camera, corner_t, plane_f16=plane_f16,
+                                    **geo_kw)
     shadow = shadow_aux = None
     if shadow_size and light_camera is not None:
         shadow, shadow_aux = shadow_params(
             plan, params, tri_draw, corner_t, light_camera, shadow_size,
             shadow_bias, draw_stride=draw_stride, real_draws=real_draws,
-            knobs=knobs)
-    frame, gbuf = _visibility_and_shade(
-        cs.setup, cs.cols.setup, records, textures, camera, lights,
-        width=rw, height=rh, clear_color=clear_color, shadow=shadow,
-        shadow_pcf=shadow_pcf, tonemap=not bloom, knobs=knobs, skybox=skybox,
-        sampling=sampling, shader_fn=shader_fn)
+            knobs=knobs, geometry=geometry, palette=palette,
+            skinned=skinned, raster_mode=raster_mode)
+    shade_kw = dict(clear_color=clear_color, shadow=shadow,
+                    shadow_pcf=shadow_pcf, tonemap=not bloom, skybox=skybox,
+                    sampling=sampling, shader_fn=shader_fn)
+    if forward:
+        frame, gbuf = _visibility_and_shade(
+            cs.setup, cs.cols.setup, records, textures, camera, lights,
+            width=rw, height=rh, knobs=knobs, **shade_kw)
+    else:
+        gbuf = plane_visibility(cs.setup, cs.cols.setup, rw, rh,
+                                raster_mode, knobs)
+        frame = deferred_shade(gbuf, planes, textures, camera, lights, rw,
+                               rh, **shade_kw)
     if bloom:
         hdr = post.bloom(frame[..., :3], bloom_threshold, bloom_strength)
         frame = torch.cat([tonemap_reinhard_gamma(hdr), frame[..., 3:4]],
@@ -328,16 +456,22 @@ def render_frame_bundled(plan, tri_draw, f32, i32, textures, corner_t,
                          knobs: KernelKnobs = KernelKnobs(),
                          vertex_colors: bool = False,
                          sampling: str = "bilinear",
-                         shader_fn=None) -> FrameOutput:
+                         shader_fn=None, raster_mode: str = "pallas",
+                         forward_shading: bool = True,
+                         plane_f16: bool = False, skinned: bool = False,
+                         geometry: Optional[GeometryBuffers] = None
+                         ) -> FrameOutput:
     """render_frame with every per-frame host value arriving in the two
     blobs of render/bundle.py (f32, i32: device tensors of the layout of
     `shape`), the interactive path (trident_tpu/render/renderer.py:
     457-495). The light camera is used when shadow_size is set; the
     shadow bias rides the blob, and so does the AI blend, which mixes
     `ai_image` ((H, W, 3) at display size, or (1, 1, 3)) into the frame;
-    without an ai_image there is no mix. `skybox`, `vertex_colors`,
-    `sampling` and `shader_fn` are render_frame's."""
-    (params, _palette, shade_table, camera, lights, light_cam, ai_blend,
+    without an ai_image there is no mix; the bone palette rides it too.
+    `skybox`, `vertex_colors`, `sampling`, `shader_fn`, the route
+    (`raster_mode`, `forward_shading`, `plane_f16`), `skinned` and
+    `geometry` are render_frame's."""
+    (params, palette, shade_table, camera, lights, light_cam, ai_blend,
      shadow_bias) = unpack_frame(f32, i32, shape)
     return render_frame(
         plan, tri_draw, params, shade_table, camera, lights, textures,
@@ -350,18 +484,16 @@ def render_frame_bundled(plan, tri_draw, f32, i32, textures, corner_t,
         upscale_params=upscale_params, prev=prev,
         ai=None if ai_image is None else AiBlend(ai_image, ai_blend),
         knobs=knobs, skybox=skybox, vertex_colors=vertex_colors,
-        sampling=sampling, shader_fn=shader_fn)
+        sampling=sampling, shader_fn=shader_fn, raster_mode=raster_mode,
+        forward_shading=forward_shading, plane_f16=plane_f16,
+        skinned=skinned, geometry=geometry, palette=palette)
 
 
 def _check_slice(rc: RenderConfig) -> None:
     if rc.sampling not in SAMPLING_MODES:
         raise ValueError(f"unknown sampling mode {rc.sampling!r}; expected "
                          f"one of {SAMPLING_MODES}")
-    unported = {
-        "use_pallas=False (reference raster)": rc.use_pallas is False,
-        "forward_shading=False": not rc.forward_shading,
-        "bands": rc.bands > 1,
-    }
+    unported = {"bands": rc.bands > 1}
     bad = [name for name, on in unported.items() if on]
     if bad:
         raise NotImplementedError(
@@ -394,10 +526,12 @@ class _FrameState(NamedTuple):
     plan: object                     # DrawPlan (device)
     tri_draw: torch.Tensor           # (T,) draw per triangle (device)
     params: object                   # DrawParams (numpy)
+    palette: np.ndarray              # (P, 4, 4) bone palette
     shade: np.ndarray                # (D, 8) shade rows
     lights: object                   # LightParams (numpy)
     light_camera: Optional[CameraParams]   # numpy, when shadowed
     shadow_size: int                 # 0 without a shadow pass
+    skinned: bool                    # a draw carries bone matrices
 
 
 class FrameBundle(NamedTuple):
@@ -448,6 +582,15 @@ class Renderer:
     which leaves them as they are (trident_tpu/render/renderer.py:
     784-787).
 
+    `render.use_pallas=False` renders on the reference raster and
+    `render.forward_shading=False` through attribute planes (f16 tables
+    by `render.plane_f16`); a frame with a skinned draw (an
+    AnimationComponent with bone_matrices) takes the indexed geometry path
+    over the geometry's device buffers, its bone palette packed into the
+    frame bundle. Route, plane mode and `skinned` are statics of the frame
+    and the palette's bucket is part of the bundle's shape, so each keys
+    its own graph, and a replay reads the new pose from the blob.
+
     Vertex colours are found once per geometry version (any packed colour
     not 1, as the JAX Renderer decides) and ride the frame's statics, so
     they enter the graph key. `set_skybox`'s chain lives on the device;
@@ -486,6 +629,8 @@ class Renderer:
         self._inflight: List[torch.cuda.Event] = []
         self.max_inflight = 3
         self._plan_cache = DrawPlanCache(self.device)
+        self._geometry_buffers: Optional[GeometryBuffers] = None
+        self._geometry_buffers_version = -1
         self._primitive_mesh_indices: Dict[PrimitiveType, int] = {}
         # scene_bounds' per-mesh bbox corners, valid for one geometry version
         self._mesh_boxes: Dict[int, Optional[np.ndarray]] = {}
@@ -677,11 +822,12 @@ class Renderer:
         return {"width": width // 2, "height": height // 2,
                 "upscale_params": net, "prev": prev}
 
-    def _stride_kwargs(self) -> dict:
+    def _stride_kwargs(self, skinned: bool = False) -> dict:
         """draw_stride/real_draws for the uniform-instancing broadcast path
-        (ops/corner.py), gated to ≥64k-triangle plans as in the reference."""
+        (ops/corner.py), gated to ≥64k-triangle plans as in the reference;
+        none for a skinned frame (it takes the indexed path)."""
         stride, nd = self._plan_cache.draw_stride, self._plan_cache.real_draws
-        if not stride or stride * nd < 65536:
+        if skinned or not stride or stride * nd < 65536:
             return {"draw_stride": 0, "real_draws": 0}
         return {"draw_stride": stride, "real_draws": nd}
 
@@ -725,15 +871,23 @@ class Renderer:
                 texture_lookup=self.textures.lookup))
         plan, tri_draw = self._plan_cache.plan(packed, draws,
                                                self.geometry.version)
+        rc = self.config.render
         params, shade = build_draw_params_host(
             draws, plan.num_draws,
-            material_table=self.geometry.material_table())
+            material_table=self.geometry.material_table(),
+            max_bones=rc.max_bones)
+        palette = bone_palette_host(draws, plan.num_draws, rc.max_bones)
         light_cam, shadow_size = self._shadow_host(draws, packed)
-        return _FrameState(packed, draws, plan, tri_draw, params, shade,
-                           gather_lights_host(self.registry), light_cam,
-                           shadow_size)
+        return _FrameState(packed, draws, plan, tri_draw, params, palette,
+                           shade, gather_lights_host(self.registry),
+                           light_cam, shadow_size, draws.skinned)
 
-    def _statics(self, shadow_size: int) -> dict:
+    def _raster_mode(self) -> str:
+        """"ref" (the reference raster) when use_pallas is False, else
+        "pallas": the port's kernel route on either device."""
+        return "ref" if self.config.render.use_pallas is False else "pallas"
+
+    def _statics(self, shadow_size: int, skinned: bool = False) -> dict:
         """render_frame_bundled's static keyword arguments (the knobs and
         the size aside)."""
         rc = self.config.render
@@ -743,7 +897,23 @@ class Renderer:
                     bloom_threshold=rc.bloom_threshold,
                     bloom_strength=rc.bloom_strength,
                     vertex_colors=self._vertex_colors, sampling=rc.sampling,
-                    **self._stride_kwargs())
+                    raster_mode=self._raster_mode(),
+                    forward_shading=rc.forward_shading,
+                    plane_f16=rc.plane_f16, skinned=skinned,
+                    **self._stride_kwargs(skinned))
+
+    def _device_geometry(self, st: _FrameState):
+        """(GeometryBuffers, corner table): the geometry's device buffers
+        (uploaded once per geometry version) and no corner table for a
+        skinned frame, which takes the indexed path; no buffers and the
+        plan's corner table for a rigid one."""
+        if not st.skinned:
+            return None, self._plan_cache.corner_table(st.packed)
+        if self._geometry_buffers_version != self.geometry.version:
+            self._geometry_buffers = geometry_to_device(st.packed,
+                                                        self.device)
+            self._geometry_buffers_version = self.geometry.version
+        return self._geometry_buffers, None
 
     def frame_inputs(self) -> dict:
         """render_frame's arguments for the current scene, on the device,
@@ -754,12 +924,13 @@ class Renderer:
         rc = self.config.render
         st = self._frame_state()
         dev = self.device
-        statics = self._statics(st.shadow_size)
+        statics = self._statics(st.shadow_size, st.skinned)
         ai_image, ai_blend, _v = self._ai_input()
         if st.light_camera is None:
             del statics["shadow_size"]
         else:
             statics["light_camera"] = from_numpy(st.light_camera, dev)
+        geometry, corner_t = self._device_geometry(st)
         return dict(
             plan=st.plan, tri_draw=st.tri_draw,
             params=from_numpy(st.params, dev),
@@ -767,7 +938,8 @@ class Renderer:
             camera=self.editor_camera.params(dev),
             lights=from_numpy(st.lights, dev),
             textures=self.textures.device_arrays(dev),
-            corner_t=self._plan_cache.corner_table(st.packed),
+            corner_t=corner_t, geometry=geometry,
+            palette=torch.from_numpy(st.palette).to(dev),
             **self._upscale_kwargs(rc.width, rc.height, self.prev_state),
             ai=(AiBlend(ai_image, torch.full((), ai_blend,
                                              dtype=torch.float32, device=dev))
@@ -785,13 +957,13 @@ class Renderer:
         cam = self._camera_for(ctx)
         st = self._frame_state()
         ai_image, ai_blend, ai_version = self._ai_input()
-        f32, i32, shape = pack_frame(st.params, zero_palette(), st.shade,
+        f32, i32, shape = pack_frame(st.params, st.palette, st.shade,
                                      cam.host_params(), st.lights,
                                      st.light_camera, ai_blend)
         sizes = self._upscale_kwargs(ctx.width, ctx.height, ctx.prev_state)
         net, prev = sizes.get("upscale_params"), sizes.get("prev")
         w_r, h_r = sizes["width"], sizes["height"]
-        statics = self._statics(st.shadow_size)
+        statics = self._statics(st.shadow_size, st.skinned)
         versions = (self.geometry.version, self._plan_cache.version,
                     self.textures.version, net is not None)
         # the skybox level of this viewport (at its display height) is
@@ -809,15 +981,17 @@ class Renderer:
                tuple(sorted(statics.items())), self.knobs, ai_version, sky,
                shader_version)
         textures = self.textures.device_arrays(self.device)
-        corner_t = self._plan_cache.corner_table(st.packed)
+        geometry, corner_t = self._device_geometry(st)
         plan, tri_draw = st.plan, st.tri_draw
         kw = dict(shape=shape, width=w_r, height=h_r, knobs=self.knobs,
-                  skybox=skybox, shader_fn=shader_fn, **statics)
+                  skybox=skybox, shader_fn=shader_fn, geometry=geometry,
+                  **statics)
         return FrameBundle(
             st, f32, i32, key, prev, ai_image,
             lambda f, i, p, a: render_frame_bundled(
                 plan, tri_draw, f, i, textures, corner_t, net, p, a, **kw),
-            (plan, tri_draw, textures, corner_t, net, skybox, shader_fn),
+            (plan, tri_draw, textures, corner_t, net, skybox, shader_fn,
+             geometry),
             net is not None, sig)
 
     def render_viewport(self, viewport_id: int = 0) -> FrameOutput:

@@ -36,11 +36,11 @@ LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 GRAPH_LAUNCH = "cudaGraphLaunch"
 # torch.cuda._sleep's kernel, launched SENTINELS_BEFORE times before and
 # once after each profiling window's calls, and its length in clock cycles
-# (about 1 µs); the card's tracer has lost up to the first two records of
-# a window
+# (about 1 µs); the card's tracer has lost up to the first seven records
+# of a window (late in a long process: every window of a phase at once)
 SENTINEL = "spin_kernel"
 SENTINEL_CYCLES = 2000
-SENTINELS_BEFORE = 4
+SENTINELS_BEFORE = 32
 # each render-path kernel (by its wrapper's name in
 # render/graphs.py::frame_kernels) as torch.profiler names its device
 # records (csrc/*.cu; "void (anonymous namespace)::visibility_kernel<false>(…)")
