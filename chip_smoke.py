@@ -159,10 +159,11 @@ Phases (any failure exits non-zero before the final line is printed):
      shader) against tests/goldens/torch_slice_<name>.npy under the
      golden gate
  15. the routes of the reference raster, the plane-gather frame and the
-     indexed, skinned geometry path (phase_routes): the eight 128² PNG
+     indexed, skinned geometry path (phase_routes): the nine 128² PNG
      goldens (tests/goldens/scene_128.png and flavor_{shadows_pcf, ssaa,
-     bloom, trilinear, skybox, sprite, f16_planes}.png, read without PIL)
-     through render_viewport under the golden gate; the plane-gather
+     bloom, trilinear, skybox, sprite, f16_planes, skinned}.png, read
+     without PIL; skinned's rig imported, played and posed through a
+     Scene) through render_viewport under the golden gate; the plane-gather
      frame (forward_shading=False) at spheres1080_1m with f16 and f32
      planes and at shadows1080 hard and PCF: K1 on its bins and K3 on its
      texel indices bit-equal to their plain versions, 12 rotating frames
@@ -177,9 +178,24 @@ Phases (any failure exits non-zero before the final line is printed):
      tests/goldens/torch_slice_skinned{,_shadow}.npy; each new frame's
      replay alone (device, busy and idle time), and the stages of the
      three routes beside spheres1080_1m's forward stages in one window
+ 16. the loaded crowd (phase_loaded): one skinned tube written as a .glb
+     (tools_dev/scenes.py::write_tube_gltf: 7,680 triangles, 16 joints,
+     a 24-key looping clip), load_model and import_model_entities timed,
+     144 entities of it in a played Scene (loaded_crowd: 1,105,920
+     triangles, 2,304 bones, each at its own speed); 60 frames of
+     Scene.update(1/60) + render_viewport (wall and update ms, median and
+     p90); in one window Scene.update with the sampler on the card
+     against AnimationSystem.update with it on the CPU, frame_bundle and
+     each sampler alone; the graph replayed alone; every frame's 2,304
+     palettes against the AnimationPlayer (3e-5), the CPU sampler (1e-5)
+     and tube_bone_matrices of the interpolated key bends (1e-4); every
+     replay bit-equal to eager, aux [0, 0]; 12 frames against
+     skinned_scene posed with those matrices under the golden gate; K1,
+     K2-vc, K3 on the route's inputs and, on one shadowed loaded frame,
+     K1b and K4 against their plain versions
 Then it prints the kernels as one JSON line (each entry with
-`route_launches`: its launches in each of phase 15's route runs), the
-card line, and as the last line {"ok": true, "device": {...}}.
+`route_launches`: its launches in each of phase 15's and 16's route
+runs), the card line, and as the last line {"ok": true, "device": {...}}.
 
 Since phase 12's slice the Renderer's frames on the card are graph
 replays, which tick no kernel wrapper's launch count: a kernel's
@@ -2301,11 +2317,128 @@ def frame_inputs_at(r) -> dict:
     return r.frame_inputs()
 
 
+def skinned_kernels(inp, what: str, w: int, h: int) -> dict:
+    """A skinned frame's kernels on its own inputs (`inp`, frame_inputs of
+    a frame that takes the indexed path with vertex colours): K1 on its
+    bins (ids equal, depth bit-equal), K2-vc and K2 on its 40- and 32-wide
+    records (within RESOLVE_TOL) and K3 on its texel indices (bit-equal)
+    against their plain versions; fails on a mismatch or an overflow.
+    Returns its intermediates: inp, cs, rec40, tri and gbuf."""
+    import torch
+
+    from trident_tpu_torch.ops import raster, resolve, texel
+    from trident_tpu_torch.ops.deferred import texel_lookup
+    from trident_tpu_torch.render.renderer import frame_geometry
+    from trident_tpu_torch.render.types import GBuffer
+
+    if inp["corner_t"] is not None or not inp["skinned"] \
+            or not inp["vertex_colors"] or inp["draw_stride"] != 0:
+        fail(f"{what} frame's inputs: corner table "
+             f"{inp['corner_t'] is not None}, skinned {inp['skinned']}, "
+             f"vertex colours {inp['vertex_colors']}, draw_stride "
+             f"{inp['draw_stride']}")
+    ntx, nty = -(-w // raster.TILE), -(-h // raster.TILE)
+    geo = dict(width=w, height=h, geometry=inp["geometry"],
+               palette=inp["palette"], skinned=True)
+    args = (inp["plan"], inp["tri_draw"], inp["params"], inp["shade_table"],
+            inp["camera"], inp["textures"], None)
+    cs, rec40 = frame_geometry(*args, vertex_colors=True, **geo)
+    _cs32, rec32 = frame_geometry(*args, **geo)
+    del _cs32
+    bins = raster.build_bins(cs.setup, w, h, setup_cols=cs.cols.setup)
+    if bins.aux.tolist() != [0, 0]:
+        fail(f"binning overflow on the {what} frame: {bins.aux.tolist()}")
+    d_k, t_k = raster.visibility_tiles(bins, ntx, ntx * nty)
+    d_p, t_p = raster.visibility_tiles_plain(bins, ntx, ntx * nty)
+    bad_vis = [int((t_k != t_p).sum()),
+               int((d_k.view(torch.int32) != d_p.view(torch.int32)).sum())]
+    tri = raster.untile_frame(t_k, ntx, nty)[:h, :w].contiguous()
+    err = {}
+    for name, rec, fn in (("K2-vc", rec40, resolve.resolve_attrs_vc),
+                          ("K2", rec32, resolve.resolve_attrs)):
+        a_k, a_p = fn(tri, rec), resolve.resolve_attrs_plain(tri, rec)
+        torch.cuda.synchronize()
+        err[name] = float((a_k - a_p).abs().max())
+        if not bool(torch.isfinite(a_k).all()) or err[name] > RESOLVE_TOL:
+            fail(f"{what} frame: {name} disagrees with its plain version "
+                 f"by {err[name]}")
+    a_vc = resolve.resolve_attrs_vc(tri, rec40)
+    q = inp["textures"].quads
+    idx, fx, fy = texel_lookup(a_vc, tri >= 0, inp["textures"].max_level)
+    x_k = texel.sample_bilinear(q, idx, fx, fy)
+    x_p = texel.sample_bilinear_plain(q, idx, fx, fy)
+    bad_tx = int((x_k.view(torch.int32) != x_p.view(torch.int32)).sum())
+    if any(bad_vis) or bad_tx:
+        fail(f"{what} frame: K1 vs plain {bad_vis} ids / depths, K3 vs "
+             f"plain {bad_tx} values")
+    print(f"{what}: {int(inp['plan'].tri_valid.sum())} triangles, palette "
+          f"{tuple(inp['palette'].shape)}, records {tuple(rec40.shape)} and "
+          f"{tuple(rec32.shape)}, {int((tri >= 0).sum())} covered pixels, "
+          f"{int(bins.n_real)} pairs, bins aux {bins.aux.tolist()}; K1 and "
+          f"K3 bit-equal to their plain versions, K2-vc and K2 max err "
+          f"{err}", flush=True)
+    return dict(inp=inp, cs=cs, rec40=rec40, tri=tri, gbuf=GBuffer(
+        tri_id=tri, depth=raster.untile_frame(d_k, ntx, nty)[:h, :w]
+        .contiguous(), aux=bins.aux))
+
+
+def skinned_light_pass(sinp, what: str, w: int, h: int) -> None:
+    """A shadowed skinned frame's indexed light pass on its own inputs
+    (`sinp`): K1b on the light-pass bins and K4 on the frame's hard and
+    PCF taps against their plain versions, bit for bit, and the map equal
+    to shadow_params' map; fails otherwise."""
+    import torch
+
+    from trident_tpu_torch.ops import deferred, raster, shadow_taps
+    from trident_tpu_torch.ops.shadow import tap_indices
+    from trident_tpu_torch.ops.vertex import triangle_setup_cols, vertex_stage
+    from trident_tpu_torch.render.renderer import frame_geometry, shadow_params
+
+    s, lcam = sinp["shadow_size"], sinp["light_camera"]
+    verts = vertex_stage(sinp["geometry"], sinp["plan"], sinp["params"],
+                         lcam, sinp["palette"], skinned=True)
+    lsetup, lcols = triangle_setup_cols(verts.clip, sinp["plan"].tri_vtx,
+                                        sinp["plan"].tri_valid, s, s)
+    lbins = raster.build_bins(lsetup, s, s, setup_cols=lcols)
+    lntx = -(-s // raster.TILE)
+    dd_k = raster.visibility_depth_tiles(lbins, lntx, lntx * lntx)
+    dd_p = raster.visibility_tiles_plain(lbins, lntx, lntx * lntx,
+                                         depth_only=True)
+    shadow, _saux = shadow_params(
+        sinp["plan"], sinp["params"], sinp["tri_draw"], None, lcam, s, 2e-3,
+        geometry=sinp["geometry"], palette=sinp["palette"], skinned=True)
+    scs, _srec = frame_geometry(
+        sinp["plan"], sinp["tri_draw"], sinp["params"], sinp["shade_table"],
+        sinp["camera"], sinp["textures"], None, vertex_colors=True,
+        width=w, height=h, geometry=sinp["geometry"],
+        palette=sinp["palette"], skinned=True)
+    sgbuf = raster.visibility(scs.setup, w, h, setup_cols=scs.cols.setup)
+    world = deferred.world_positions(sgbuf.depth, sinp["camera"], w, h)
+    bad_taps = {}
+    for pcf in (False, True):
+        ti = tap_indices(shadow, world, pcf)
+        b_k = shadow_taps.shadow_tap_bits(shadow.depth, *ti)
+        b_p = shadow_taps.shadow_tap_bits_plain(shadow.depth, *ti)
+        torch.cuda.synchronize()
+        bad_taps["pcf" if pcf else "hard"] = int((b_k != b_p).sum())
+    bad_depth = int((dd_k.view(torch.int32) != dd_p.view(torch.int32)).sum())
+    map_dk = raster.untile_frame(dd_k, lntx, lntx)[:s, :s]
+    if bad_depth or any(bad_taps.values()) or lbins.aux.tolist() != [0, 0] \
+            or not torch.equal(map_dk, shadow.depth):
+        fail(f"{what} light pass: K1b vs plain {bad_depth} depths, K4 vs "
+             f"plain {bad_taps} taps, aux {lbins.aux.tolist()}, map equal "
+             f"to the light pass's {torch.equal(map_dk, shadow.depth)}")
+    print(f"{what} light pass at {s}²: {int(lbins.n_real)} pairs, "
+          f"{int((dd_k < 1.0).sum())} map texels covered; K1b and K4 (hard "
+          f"and PCF) bit-equal to their plain versions", flush=True)
+
+
 def phase_routes(dev, card: str, kernel_fns: dict, drive, bench) -> dict:
-    """Phase 15: the three frame routes of this slice on the card.
-    (a) the eight 128² PNG goldens (scene_128, flavor_{shadows_pcf, ssaa,
-    bloom, trilinear, skybox, sprite} on the reference raster, flavor_
-    f16_planes on the binned raster with f16 planes) through
+    """Phase 15: the routes of the reference raster, the plane-gather
+    frame and the indexed, skinned geometry path on the card.
+    (a) the nine 128² PNG goldens (scene_128, flavor_{shadows_pcf, ssaa,
+    bloom, trilinear, skybox, sprite, skinned} on the reference raster,
+    flavor_f16_planes on the binned raster with f16 planes) through
     render_viewport against their PNGs under the golden gate, aux [0, 0];
     (b) the plane-gather frame (forward_shading=False) at spheres1080_1m
     with f16 and f32 planes and at shadows1080 (f16 and f32 hard, f16
@@ -2316,8 +2449,8 @@ def phase_routes(dev, card: str, kernel_fns: dict, drive, bench) -> dict:
     against the forward frame of the same scene and the f16 frame
     against the f32 one under the golden gate, PSNR printed; (c) the
     skinned tube crowd at 1080p (144 tubes, 1,105,920 triangles, 2,304
-    bones): K2-vc on its records and K2 on its 32-wide records against
-    their plain versions within RESOLVE_TOL; 12 frames whose poses
+    bones): K1, K2-vc, K2 and K3 on its own inputs against their plain
+    versions (skinned_kernels); 12 frames whose poses
     change, replays bit-equal to eager, aux [0, 0]; one shadowed frame
     (a 1024² map through the indexed light pass): K1b on its light-pass
     bins and K4 on its taps against their plain versions, bit for bit,
@@ -2330,22 +2463,13 @@ def phase_routes(dev, card: str, kernel_fns: dict, drive, bench) -> dict:
     import torch
 
     from trident_tpu_torch.io.image import read_png
-    from trident_tpu_torch.ops import (
-        deferred,
-        planes,
-        raster,
-        resolve,
-        shadow_taps,
-        texel,
-    )
+    from trident_tpu_torch.ops import deferred, planes, raster, resolve, texel
     from trident_tpu_torch.ops.corner import indexed_corner_stage
-    from trident_tpu_torch.ops.shadow import tap_indices
-    from trident_tpu_torch.ops.vertex import triangle_setup_cols, vertex_stage
+    from trident_tpu_torch.ops.vertex import vertex_stage
     from trident_tpu_torch.render.renderer import (
         frame_geometry,
         plane_geometry,
         plane_visibility,
-        shadow_params,
     )
     from trident_tpu_torch.render.types import GBuffer
     from trident_tpu_torch.tools_dev.scenes import (
@@ -2480,44 +2604,8 @@ def phase_routes(dev, card: str, kernel_fns: dict, drive, bench) -> dict:
 
     # (c) the skinned crowd at 1080p
     sk_r, sk_reg = skinned_scene(dev)
-    inp = frame_inputs_at(sk_r)
-    if inp["corner_t"] is not None or not inp["skinned"] \
-            or not inp["vertex_colors"] or inp["draw_stride"] != 0:
-        fail(f"the skinned frame's inputs: corner table "
-             f"{inp['corner_t'] is not None}, skinned {inp['skinned']}, "
-             f"vertex colours {inp['vertex_colors']}, draw_stride "
-             f"{inp['draw_stride']}")
-    sk_geo = dict(width=w, height=h, geometry=inp["geometry"],
-                  palette=inp["palette"], skinned=True)
-    sk_args = (inp["plan"], inp["tri_draw"], inp["params"],
-               inp["shade_table"], inp["camera"], inp["textures"], None)
-    cs, rec40 = frame_geometry(*sk_args, vertex_colors=True, **sk_geo)
-    _cs32, rec32 = frame_geometry(*sk_args, **sk_geo)
-    del _cs32
-    bins = raster.build_bins(cs.setup, w, h, setup_cols=cs.cols.setup)
-    _d, t_k = raster.visibility_tiles(bins, ntx, n_tiles)
-    tri = raster.untile_frame(t_k, ntx, nty)[:h, :w].contiguous()
-    err = {}
-    for what, rec, fn in (("K2-vc", rec40, resolve.resolve_attrs_vc),
-                          ("K2", rec32, resolve.resolve_attrs)):
-        a_k, a_p = fn(tri, rec), resolve.resolve_attrs_plain(tri, rec)
-        torch.cuda.synchronize()
-        err[what] = float((a_k - a_p).abs().max())
-        if not bool(torch.isfinite(a_k).all()) or err[what] > RESOLVE_TOL:
-            fail(f"skinned frame: {what} disagrees with its plain version "
-                 f"by {err[what]}")
-    n_tri = int(inp["plan"].tri_valid.sum())
-    print(f"skinned: {n_tri} triangles, palette "
-          f"{tuple(inp['palette'].shape)}, records {tuple(rec40.shape)} and "
-          f"{tuple(rec32.shape)}, {int((tri >= 0).sum())} covered pixels, "
-          f"bins aux {bins.aux.tolist()}; K2-vc and K2 on its records vs "
-          f"plain, max err {err}", flush=True)
-    if bins.aux.tolist() != [0, 0]:
-        fail(f"binning overflow on the skinned frame: {bins.aux.tolist()}")
-    sk_stage = dict(inp=inp, cs=cs, rec40=rec40, tri=tri,
-                    gbuf=GBuffer(tri_id=tri, depth=raster.untile_frame(
-                        _d, ntx, nty)[:h, :w].contiguous(), aux=bins.aux))
-    del bins, t_k, rec32
+    sk_stage = skinned_kernels(frame_inputs_at(sk_r), "skinned", w, h)
+    inp, cs, rec40, tri = (sk_stage[k] for k in ("inp", "cs", "rec40", "tri"))
 
     sk_held = []
 
@@ -2546,45 +2634,7 @@ def phase_routes(dev, card: str, kernel_fns: dict, drive, bench) -> dict:
     # the shadowed crowd: the indexed light pass's kernels, then its frame
     sh_r, _sh_reg = skinned_scene(dev, shadows=True)
     sinp = frame_inputs_at(sh_r)
-    s, lcam = sinp["shadow_size"], sinp["light_camera"]
-    verts = vertex_stage(sinp["geometry"], sinp["plan"], sinp["params"],
-                         lcam, sinp["palette"], skinned=True)
-    lsetup, lcols = triangle_setup_cols(verts.clip, sinp["plan"].tri_vtx,
-                                        sinp["plan"].tri_valid, s, s)
-    lbins = raster.build_bins(lsetup, s, s, setup_cols=lcols)
-    lntx = -(-s // raster.TILE)
-    dd_k = raster.visibility_depth_tiles(lbins, lntx, lntx * lntx)
-    dd_p = raster.visibility_tiles_plain(lbins, lntx, lntx * lntx,
-                                         depth_only=True)
-    shadow, _saux = shadow_params(
-        sinp["plan"], sinp["params"], sinp["tri_draw"], None, lcam, s, 2e-3,
-        geometry=sinp["geometry"], palette=sinp["palette"], skinned=True)
-    scs, srec = frame_geometry(
-        sinp["plan"], sinp["tri_draw"], sinp["params"], sinp["shade_table"],
-        sinp["camera"], sinp["textures"], None, vertex_colors=True,
-        width=w, height=h, geometry=sinp["geometry"],
-        palette=sinp["palette"], skinned=True)
-    sgbuf = raster.visibility(scs.setup, w, h, setup_cols=scs.cols.setup)
-    world = deferred.world_positions(sgbuf.depth, sinp["camera"], w, h)
-    bad_taps = {}
-    for pcf in (False, True):
-        ti = tap_indices(shadow, world, pcf)
-        b_k = shadow_taps.shadow_tap_bits(shadow.depth, *ti)
-        b_p = shadow_taps.shadow_tap_bits_plain(shadow.depth, *ti)
-        torch.cuda.synchronize()
-        bad_taps["pcf" if pcf else "hard"] = int((b_k != b_p).sum())
-    bad_depth = same_bits(dd_k, dd_p)
-    map_dk = raster.untile_frame(dd_k, lntx, lntx)[:s, :s]
-    if bad_depth or any(bad_taps.values()) or lbins.aux.tolist() != [0, 0] \
-            or not torch.equal(map_dk, shadow.depth):
-        fail(f"skinned light pass: K1b vs plain {bad_depth} depths, K4 vs "
-             f"plain {bad_taps} taps, aux {lbins.aux.tolist()}, map equal "
-             f"to the light pass's {torch.equal(map_dk, shadow.depth)}")
-    print(f"skinned light pass at {s}²: {int(lbins.n_real)} pairs, "
-          f"{int((dd_k < 1.0).sum())} map texels covered; K1b and K4 (hard "
-          f"and PCF) bit-equal to their plain versions", flush=True)
-    del verts, lsetup, lcols, lbins, dd_k, dd_p, map_dk, scs, srec, sgbuf
-    del world, shadow
+    skinned_light_pass(sinp, "skinned", w, h)
 
     def shadow_frame():
         return sh_r.render_viewport()
@@ -2680,6 +2730,227 @@ def phase_routes(dev, card: str, kernel_fns: dict, drive, bench) -> dict:
     }, card)
     del sk_stage, sk, ski, sk_verts, sk_attrs, pcs, pl16, pl32, pgbuf
     del fgbuf, fattrs, ftri, ft, _fd, sk_r, sk_reg, inp, cs, rec40, tri
+    torch.cuda.empty_cache()
+    return launches
+
+
+# phase 16: a glTF crowd loaded, played and animated by the Scene
+LOADED_FRAMES = 60
+LOADED_HELD_EVERY = 5      # frames held against the posed crowd: 12 of 60
+PALETTE_PLAYER_TOL = 3e-5  # tests/test_anim_batch.py:79
+PALETTE_CPU_TOL = 1e-5     # the card's sampler against the CPU's
+PALETTE_BEND_TOL = 1e-4    # against tube_bone_matrices (f64, cast to f32)
+
+
+def spread(xs) -> str:
+    """'median / p90' of a list of ms (p90: the nearest rank)."""
+    xs = sorted(xs)
+    p90 = xs[min(len(xs) - 1, int(np.ceil(0.9 * len(xs))) - 1)]
+    return f"{statistics.median(xs):.4f} / {p90:.4f}"
+
+
+def phase_loaded(dev, card: str, drive) -> dict:
+    """Phase 16: the skinned tube crowd loaded and animated as a game
+    drives it. write_tube_gltf's .glb (one tube of 7,680 triangles, 16
+    joints, a 24-key looping clip) read by load_model and imported once
+    through import_model_entities into a Scene, 144 entities sharing its
+    mesh (tools_dev/scenes.py::loaded_crowd: 1,105,920 triangles, 2,304
+    bones), played: (a) 60 frames of Scene.update(1/60) (the
+    AnimationSystem's batched sampler on the card) + render_viewport,
+    wall and update ms; then in one window Scene.update against
+    AnimationSystem.update on the CPU's sampler on the same registry,
+    frame_bundle, and each sampler alone; the graph replayed alone; (b)
+    every frame's 144 palettes against the port's AnimationPlayer (3e-5),
+    the CPU sampler (1e-5) and tube_bone_matrices of the interpolated key
+    bends (1e-4); (c) every replay bit-equal to eager render_frame, aux
+    [0, 0], and 12 of the frames against skinned_scene posed with those
+    tube_bone_matrices under the golden gate; (d) K1, K2-vc, K3 on the
+    route's own inputs and, on one shadowed loaded frame, K1b and K4
+    against their plain versions. Returns the launch counts of the loaded
+    frames and of the shadowed one."""
+    import os
+    import tempfile
+
+    import torch
+
+    from trident_tpu_torch.anim.batch import BatchedClipSampler
+    from trident_tpu_torch.anim.player import AnimationPlayer
+    from trident_tpu_torch.anim.service import AnimationAssetService
+    from trident_tpu_torch.anim.system import AnimationSystem
+    from trident_tpu_torch.assets.model_loader import load_model
+    from trident_tpu_torch.ecs.components import AnimationComponent
+    from trident_tpu_torch.tools_dev.scenes import (
+        loaded_crowd,
+        skinned_scene,
+        tube_bend_at,
+        tube_bone_matrices,
+        write_tube_gltf,
+    )
+
+    launches = {}
+    td = tempfile.TemporaryDirectory()
+    path = write_tube_gltf(Path(td.name) / "tube.glb")
+    load_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        data = load_model(path)
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+    mesh, clip = data.meshes[0], data.clips[0]
+    crowd = loaded_crowd(dev, path)
+    scene, r = crowd.scene, crowd.renderer
+    w, h = r.config.render.width, r.config.render.height
+    rt = scene.runtime_registry
+    anims = [rt.get(e, AnimationComponent) for e in crowd.entities]
+    print(f"loaded crowd: {os.path.getsize(path)} byte .glb, "
+          f"{mesh.triangle_count} triangles, {len(data.skeleton)} joints, "
+          f"clip {clip.name!r} {clip.duration} s of "
+          f"{len(clip.channels[0].rotation_times)} keys; load_model "
+          f"{load_ms[0]:.3f} ms first, {statistics.median(load_ms):.3f} "
+          f"median of 5; import_model_entities {crowd.import_ms:.3f} ms; "
+          f"{len(anims)} tubes, "
+          f"{len(anims) * mesh.triangle_count} triangles ({card})",
+          flush=True)
+
+    # (a) the frame loop, as a game runs it
+    held, upd_ms, wall_ms = [], [], []
+
+    def loaded_frames():
+        for k in range(LOADED_FRAMES):
+            t0 = time.perf_counter()
+            scene.update(1 / 60)
+            t1 = time.perf_counter()
+            kinp = frame_inputs_at(r)
+            t2 = time.perf_counter()
+            out = r.render_viewport()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            upd_ms.append((t1 - t0) * 1e3)
+            wall_ms.append((t1 - t0 + t3 - t2) * 1e3)
+            held.append((k, out, kinp, np.array([a.time for a in anims]),
+                         np.stack([a.bone_matrices for a in anims])))
+
+    _none, launches["loaded"] = drive(
+        loaded_frames, ("visibility", "resolve_vc", "texel"), (r,))
+    print(f"loaded crowd, {LOADED_FRAMES} frames (median / p90 ms): wall "
+          f"{spread(wall_ms)} (Scene.update + render_viewport + "
+          f"synchronize), Scene.update {spread(upd_ms)}; "
+          f"{r.graphs.captures} graph capture(s), {r.graphs.replays} "
+          f"replays; launches {launches['loaded']} ({card})", flush=True)
+
+    skeleton = AnimationAssetService.get().acquire_skeleton(path)
+    clip = AnimationAssetService.get().acquire_animation_library(path)[0]
+    samplers = {"card": BatchedClipSampler(clip, skeleton, dev),
+                "cpu": BatchedClipSampler(clip, skeleton, "cpu")}
+    times = np.array([a.time for a in anims], np.float32)
+    placed = {"card": [], "cpu": [], "bundle": [], "card_sampler": [],
+              "cpu_sampler": []}
+    for _ in range(LOADED_FRAMES):
+        t0 = time.perf_counter()
+        scene.update(1 / 60)
+        t1 = time.perf_counter()
+        AnimationSystem.update(rt, 1 / 60, device="cpu")
+        t2 = time.perf_counter()
+        r.frame_bundle()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        samplers["card"](times)
+        t4 = time.perf_counter()
+        samplers["cpu"](times)
+        t5 = time.perf_counter()
+        for key, a, b in (("card", t0, t1), ("cpu", t1, t2),
+                          ("bundle", t2, t3), ("card_sampler", t3, t4),
+                          ("cpu_sampler", t4, t5)):
+            placed[key].append((b - a) * 1e3)
+    print(f"loaded crowd, one window of {LOADED_FRAMES} alternations "
+          f"(median / p90 ms): Scene.update, sampler on the card "
+          f"{spread(placed['card'])}; AnimationSystem.update, sampler on "
+          f"the CPU {spread(placed['cpu'])}; frame_bundle "
+          f"{spread(placed['bundle'])}; the sampler alone on "
+          f"{len(times)} times: card {spread(placed['card_sampler'])}, CPU "
+          f"{spread(placed['cpu_sampler'])} ({card})", flush=True)
+    g = r.graphs.graph(r.graphs.last_key)
+    replay_ms = []
+    for _ in range(LOADED_FRAMES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.graph.replay()
+        end.record()
+        end.synchronize()
+        replay_ms.append(start.elapsed_time(end))
+    print(f"loaded crowd, its graph replayed alone {LOADED_FRAMES} times: "
+          f"{spread(replay_ms)} ms median / p90 (CUDA events) ({card})",
+          flush=True)
+    replay_line(r, "loaded crowd", card)
+
+    # (b) every frame's palettes
+    player = AnimationPlayer(skeleton)
+    player.set_clip(clip)
+    err = {"player": 0.0, "cpu": 0.0, "bend": 0.0}
+    for k, _out, _inp, ts, pals in held:
+        cpu = samplers["cpu"](ts)
+        err["cpu"] = max(err["cpu"], float(np.abs(pals - cpu).max()))
+        for t, pal, bend in zip(ts, pals, tube_bend_at(ts)):
+            err["player"] = max(err["player"], float(np.abs(
+                pal - player.evaluate_at(float(t))).max()))
+            err["bend"] = max(err["bend"], float(np.abs(
+                pal - tube_bone_matrices(bend)).max()))
+    if err["player"] > PALETTE_PLAYER_TOL or err["cpu"] > PALETTE_CPU_TOL \
+            or err["bend"] > PALETTE_BEND_TOL:
+        fail(f"loaded crowd palettes: max err {err}")
+    print(f"loaded crowd palettes, {LOADED_FRAMES} frames x {len(anims)} "
+          f"tubes: the card's sampler against the player max err "
+          f"{err['player']:.3g} (<= {PALETTE_PLAYER_TOL}), against the "
+          f"CPU's {err['cpu']:.3g} (<= {PALETTE_CPU_TOL}), against "
+          f"tube_bone_matrices {err['bend']:.3g} (<= {PALETTE_BEND_TOL})",
+          flush=True)
+
+    # (c) replays against eager, and against the posed crowd
+    for k, out, kinp, _t, _p in held:
+        same_as_eager(out, kinp, f"loaded frame {k}")
+    moved = [int((a[1].color != b[1].color).any(-1).sum())
+             for a, b in zip(held, held[1:])]
+    if min(moved) < 1000:
+        fail(f"loaded frames: pixels changed between frames {moved}")
+    ref_r, ref_reg = skinned_scene(dev)
+    ref_anims = [a for _e, (a,) in ref_reg.view(AnimationComponent)]
+    gate = []
+    for k, out, _inp, ts, _p in held[::LOADED_HELD_EVERY]:
+        for a, bend in zip(ref_anims, tube_bend_at(ts)):
+            a.bone_matrices = tube_bone_matrices(bend)
+        ref = ref_r.render_viewport()
+        if ref.aux.tolist() != [0, 0]:
+            fail(f"posed crowd frame {k}: aux {ref.aux.tolist()}")
+        golden_gate(out.color.cpu().numpy(), ref.color.cpu().numpy(),
+                    f"loaded frame {k}", "the posed crowd")
+        gate.append(k)
+    print(f"loaded frames: {LOADED_FRAMES} replays bit-equal to eager "
+          f"render_frame, aux [0, 0]; pixels changed between frames "
+          f"{min(moved)} .. {max(moved)}; frames {gate} within the golden "
+          f"gate of skinned_scene posed by tube_bone_matrices", flush=True)
+    inp = held[-1][2]
+    del held, ref_r, ref_reg, ref_anims
+    torch.cuda.empty_cache()
+
+    # (d) the route's kernels, then one shadowed loaded frame
+    skinned_kernels(inp, "loaded crowd", w, h)
+    del inp
+    sh = loaded_crowd(dev, path, shadows=True)
+    sh.scene.update(1 / 60)
+    sinp = frame_inputs_at(sh.renderer)
+    skinned_light_pass(sinp, "loaded crowd", w, h)
+    sh_out, launches["loaded_shadow"] = drive(
+        sh.renderer.render_viewport, ("visibility", "visibility_depth",
+                                      "resolve_vc", "texel", "shadow_taps"),
+        (sh.renderer,))
+    same_as_eager(sh_out, sinp, "loaded shadowed frame",
+                  ("aux", "shadow_aux"))
+    print(f"loaded shadowed frame: replay bit-equal to eager, aux [0, 0] "
+          f"(and the light pass's); launches {launches['loaded_shadow']}",
+          flush=True)
+    replay_line(sh.renderer, "loaded crowd shadowed", card)
+    del sh, sinp, sh_out, crowd, scene, r, rt, anims, samplers
+    td.cleanup()
     torch.cuda.empty_cache()
     return launches
 
@@ -3198,6 +3469,12 @@ def main() -> None:
     del bench
     torch.cuda.empty_cache()
 
+    # -- phase 16: a glTF crowd loaded and animated by the Scene ------------
+    t16 = time.perf_counter()
+    launches16 = phase_loaded(dev, card, drive)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s; loaded-crowd "
+          f"launches {launches16} ({card})", flush=True)
+
     # launches: each kernel's count in the main-path run of the frame it
     # was held on (phase 4 for the main pass, phase 6 for the shadow pass,
     # phase 9 for the warp, phase 10 for the knob kernels, phase 11 for
@@ -3217,11 +3494,12 @@ def main() -> None:
     kernels = []
     for name in kernel_fns:
         res = {k: v for k, v in results[name].items() if k != "colour_ms"}
-        # the launches of each of phase 15's route runs beside
+        # the launches of each of phase 15's and 16's route runs beside
         kernels.append(dict(name=name, launches=launches[name], **res,
                             route_launches={route: counts.get(name, 0)
                                             for route, counts in
-                                            launches15.items()}))
+                                            {**launches15,
+                                             **launches16}.items()}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

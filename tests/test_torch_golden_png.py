@@ -15,6 +15,10 @@ below 0.35.
     (tools_dev/scenes.py::png_scene) on the plane-gather routes: the
     reference raster, and for f16_planes the binned raster with f16
     attribute planes.
+  * flavor_skinned.png: the glTF rig of tests/test_assets.py::
+    make_skinned_gltf (written by tools_dev/scenes.py::write_rig_gltf)
+    imported into a Scene through import_model_entities, played, and
+    posed by the Scene's AnimationSystem on the reference raster.
 
 The PNGs are read with the JAX package's loader (PIL) and with the port's
 own reader (io/image.py::read_png, the card's machine has no PIL), which
@@ -86,6 +90,35 @@ def test_plane_route_frame_passes_the_png_golden(name):
         assert out.shadow_aux.tolist() == [0, 0]
     assert int((out.tri_id >= 0).sum()) > 1000
     _assert_golden_gate(r.read_frame(out), load_rgba8(str(png_path(name))))
+
+
+def test_skinned_frame_is_posed_by_the_animation_system():
+    """flavor_skinned's frame: the Scene's runtime registry holds the
+    pose the AnimationSystem sampled at 0.5 s (half bent), within 3e-5 of
+    the port's AnimationPlayer, and the frame passes the PNG golden."""
+    from trident_tpu_torch.anim.player import AnimationPlayer
+    from trident_tpu_torch.anim.service import AnimationAssetService
+    from trident_tpu_torch.ecs.components import AnimationComponent
+
+    from test_torch_anim import reset_animation_state
+
+    reset_animation_state()
+    try:
+        r = png_scene("skinned", "cpu")
+        (_e, (anim,)), = list(r.registry.view(AnimationComponent))
+        assert anim.time == 0.5 and anim.bone_matrices.shape == (2, 4, 4)
+        service = AnimationAssetService.get()
+        player = AnimationPlayer(service.acquire_skeleton(anim.skeleton_asset))
+        player.set_clip(service.acquire_animation_library(
+            anim.animation_asset)[0])
+        np.testing.assert_allclose(anim.bone_matrices,
+                                   player.evaluate_at(0.5), atol=3e-5, rtol=0)
+        out = r.render_viewport()
+        assert out.aux.tolist() == [0, 0]
+        _assert_golden_gate(r.read_frame(out),
+                            load_rgba8(str(png_path("skinned"))))
+    finally:
+        reset_animation_state()
 
 
 @pytest.mark.parametrize("path", sorted(p.name for p in GOLDENS.glob("*.png")))

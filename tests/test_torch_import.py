@@ -102,6 +102,63 @@ def test_sources_never_import_jax():
     assert banned.search((ROOT / "tools_dev" / "gather_probe.py").read_text())
 
 
+# the modules of model import, the animation system and the Scene, and a
+# glTF crowd loaded, played and posed with them on the CPU
+_LOADED_MODULES = """
+import sys
+mods = ["mathx.quat", "anim", "anim.data", "anim.pose", "anim.player",
+        "anim.service", "anim.blend_tree", "anim.state_machine",
+        "anim.batch", "anim.system", "io.image", "assets",
+        "assets.model_loader", "assets.gltf_loader", "assets.stl_ply_loader",
+        "assets.scene_loader", "ecs.scene", "tools_dev.scenes"]
+import importlib
+for m in mods:
+    importlib.import_module("trident_tpu_torch." + m)
+import tempfile
+from trident_tpu_torch.tools_dev import scenes
+with tempfile.TemporaryDirectory() as td:
+    path = scenes.write_tube_gltf(td + "/tube.glb", bones=4, keys=5,
+                                  segments=8, rings=4)
+    crowd = scenes.loaded_crowd("cpu", path, grid=2, width=32, height=32)
+    crowd.scene.update(0.5)
+    assert crowd.renderer.read_frame().shape == (32, 32, 4)
+    rig = scenes.write_rig_gltf(td)
+    from trident_tpu_torch.assets.model_loader import load_model
+    assert len(load_model(rig).clips) == 1
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "PIL", "trident_tpu"))
+assert not bad, bad
+print("clean", len(mods))
+"""
+
+
+def test_loaded_modules_import_no_jax_pil_or_reference():
+    """Importing every module of model import, animation and the Scene in
+    a fresh process, and loading, playing and rendering a glTF crowd with
+    them, leaves no jax, PIL or trident_tpu module in sys.modules (the
+    card's machine has neither jax nor PIL)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _LOADED_MODULES], env=env,
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "clean 18" in proc.stdout
+
+
+def test_loading_sources_never_import_pil():
+    """Model import, images, animation, the ECS and the scenes decode
+    without PIL (the card's machine has none)."""
+    banned = re.compile(r"^\s*(import PIL\b|from PIL\b)", re.M)
+    port = ROOT / "trident_tpu_torch"
+    files = [f for d in ("anim", "assets", "io", "ecs", "mathx")
+             for f in sorted((port / d).rglob("*.py"))]
+    files += [port / "tools_dev" / "scenes.py", ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    assert not [str(f) for f in files if banned.search(f.read_text())]
+    assert banned.search((ROOT / "trident_tpu" / "io" / "image.py")
+                         .read_text())
+
+
 def test_tf32_pinned_off():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False

@@ -1,18 +1,26 @@
-"""Procedural textures and the PNG reader.
+"""Image IO without PIL: procedural textures and a PNG decoder.
 
-The port's own copy of `checkerboard` from trident_tpu/io/image.py (the
-PIL-backed loaders stay in the JAX package): the port imports nothing of
-the JAX package. `read_png` decodes the 8-bit, non-interlaced RGB(A) PNGs
-the repo's golden images are, with the standard library's zlib alone, so
-that a machine without PIL can hold a frame against them.
+The port's own copy of `checkerboard` from trident_tpu/io/image.py, and
+PIL-free counterparts of its loaders: `decode_rgba` (embedded images),
+`load_rgba8` and `load_rgba8_mips` (texture files). The JAX package decodes
+through PIL; the card's machine has no PIL, so the port decodes PNG itself
+with the standard library's zlib (non-interlaced grey, grey + alpha,
+palette, RGB and RGBA; 8-bit, and 1/2/4-bit grey and palette) and refuses
+every other format: `load_rgba8`
+raises ValueError naming it, `decode_rgba` returns None with the JAX
+function's warning. `read_png` reads the repo's golden images.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
+from typing import Optional
 
 import numpy as np
+
+from trident_tpu_torch.core.log import get_logger
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -64,35 +72,111 @@ def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
     return out.astype(np.uint8)
 
 
-def read_png(path) -> np.ndarray:
-    """(H, W, 4) uint8 of an 8-bit, non-interlaced RGBA or RGB PNG (RGB
-    gets alpha 255). Raises ValueError on anything else."""
-    with open(path, "rb") as f:
-        data = f.read()
+def _decode_png(data: bytes, name) -> np.ndarray:
+    """(H, W, 4) uint8 of the bytes of a non-interlaced PNG of colour type
+    0 (grey, 1/2/4/8-bit), 2 (RGB), 3 (palette, 1/2/4/8-bit), 4 (grey +
+    alpha) or 6 (RGBA), the last three 8-bit; alpha from the tRNS chunk
+    where there is one, else 255. Raises ValueError on anything else;
+    `name` labels the messages."""
     if not data.startswith(_PNG_SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{name}: not a PNG file")
     pos, header, idat = len(_PNG_SIGNATURE), None, []
-    while pos < len(data):
+    palette, trns = None, None
+    while pos + 8 <= len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
         kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
         pos += 12 + n
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
             break
     if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
+        raise ValueError(f"{name}: no IHDR chunk")
     w, h, depth, colour, _comp, _filt, interlace = header
-    channels = {6: 4, 2: 3}.get(colour)
-    if depth != 8 or channels is None or interlace:
-        raise ValueError(f"{path}: only 8-bit non-interlaced RGB(A) PNGs are "
-                         f"read (depth {depth}, colour type {colour}, "
-                         f"interlace {interlace})")
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}.get(colour)
+    depths = (1, 2, 4, 8) if colour in (0, 3) else (8,)
+    if channels is None or depth not in depths or interlace:
+        raise ValueError(f"{name}: not read: depth {depth}, colour type "
+                         f"{colour}, interlace {interlace} (8-bit samples, "
+                         f"or 1/2/4-bit grey and palette, non-interlaced)")
+    if colour == 3 and palette is None:
+        raise ValueError(f"{name}: palette PNG without a PLTE chunk")
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    img = _unfilter(raw.reshape(h, 1 + w * channels), channels)
-    img = img.reshape(h, w, channels)
-    if channels == 3:
-        img = np.concatenate([img, np.full((h, w, 1), 255, np.uint8)], -1)
+    row_bytes = (w * channels * depth + 7) // 8
+    rows = _unfilter(raw.reshape(h, 1 + row_bytes), max(1, channels * depth // 8))
+    if depth < 8:           # packed samples, most significant bits first
+        bits = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(h, w, depth)
+        img = (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(
+            -1, dtype=np.uint8)[..., None]
+    else:
+        img = rows.reshape(h, w, channels)
+    if colour == 3:
+        if int(img.max(initial=0)) >= len(palette):
+            raise ValueError(f"{name}: palette index outside its "
+                             f"{len(palette)}-entry PLTE")
+        alpha = np.full(len(palette), 255, np.uint8)
+        if trns is not None:
+            alpha[:len(trns)] = trns[:len(palette)]
+        rgba = np.concatenate([palette, alpha[:, None]], -1)
+        return rgba[img[..., 0]]
+    opaque = None
+    if trns is not None and colour in (0, 2):
+        # tRNS names one transparent grey or RGB value (16-bit samples)
+        key = np.frombuffer(trns, ">u2")
+        opaque = (img != key).any(-1)
+    if depth < 8:           # grey scaled to 8 bits
+        img = img * np.uint8(255 // ((1 << depth) - 1))
+    if colour in (0, 4):
+        img = np.concatenate([np.repeat(img[..., :1], 3, -1), img[..., 1:]],
+                             -1)
+    if img.shape[-1] == 3:
+        alpha = np.full((h, w, 1), 255, np.uint8)
+        if opaque is not None:
+            alpha[..., 0] = np.where(opaque, 255, 0)
+        img = np.concatenate([img, alpha], -1)
     return img
+
+
+def read_png(path) -> np.ndarray:
+    """(H, W, 4) uint8 of an 8-bit, non-interlaced PNG file (_decode_png).
+    Raises ValueError on anything else."""
+    with open(path, "rb") as f:
+        return _decode_png(f.read(), path)
+
+
+def decode_rgba(blob: bytes) -> Optional[np.ndarray]:
+    """Bytes of an embedded image (glTF data URIs and GLB views) →
+    (H, W, 4) uint8, or None with a warning when the port cannot decode
+    them (a corrupt payload, or any format but PNG), as the JAX function
+    returns None on a payload PIL cannot read."""
+    try:
+        return _decode_png(bytes(blob), "embedded image")
+    except Exception as exc:
+        get_logger("io.image").warning("embedded image decode failed: %s",
+                                       exc)
+        return None
+
+
+def load_rgba8(path: str) -> np.ndarray:
+    """A texture file → (H, W, 4) uint8. PNG only: any other file raises
+    ValueError naming its format (the JAX package's PIL, .ktx2 and .svg
+    decoders are not ported)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(_PNG_SIGNATURE):
+        ext = os.path.splitext(path)[1].lower() or "(no extension)"
+        raise ValueError(f"{path}: cannot decode {ext} images: the port "
+                         "reads PNG textures only")
+    return _decode_png(data, path)
+
+
+def load_rgba8_mips(path: str):
+    """(rgba, None): load_rgba8's image and no mip chain (the formats that
+    carry their own chain, .ktx2, are not ported)."""
+    return load_rgba8(path), None

@@ -59,6 +59,27 @@ def compose_trs(translation, rotation_euler_deg, scale) -> np.ndarray:
     return m
 
 
+def decompose_trs(matrix):
+    """Best-effort inverse of compose_trs: (translation, euler_deg, scale).
+    Follows the reference's DecomposeWorldTransform semantics (column norms
+    for scale, XYZ euler extraction)."""
+    m = np.asarray(matrix, dtype=np.float32)
+    t = m[:3, 3].copy()
+    scale = np.linalg.norm(m[:3, :3], axis=0)
+    scale = np.where(scale < 1e-8, 1.0, scale)
+    r = m[:3, :3] / scale[None, :]
+    # R = Rx(x)·Ry(y)·Rz(z): r[0,2]=sin(y); see rotate_* definitions.
+    sy = np.clip(r[0, 2], -1.0, 1.0)
+    y = np.arcsin(sy)
+    if abs(sy) < 0.99999:
+        x = np.arctan2(-r[1, 2], r[2, 2])
+        z = np.arctan2(-r[0, 1], r[0, 0])
+    else:  # gimbal lock
+        x = np.arctan2(r[2, 1], r[1, 1])
+        z = 0.0
+    return t, np.degrees(np.array([x, y, z], dtype=np.float32)), scale
+
+
 def look_at(eye, center, up) -> np.ndarray:
     """glm::lookAtRH."""
     eye = np.asarray(eye, dtype=np.float32)

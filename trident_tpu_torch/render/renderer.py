@@ -54,7 +54,7 @@ port does not run (ops/kernel_knobs.py).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import math
 
@@ -76,7 +76,7 @@ from trident_tpu_torch.ecs.components import (
     TransformComponent,
 )
 from trident_tpu_torch.ecs.registry import Registry
-from trident_tpu_torch.geometry.mesh import GeometryCache
+from trident_tpu_torch.geometry.mesh import GeometryCache, Material, Mesh
 from trident_tpu_torch.geometry.primitives import PrimitiveType, build_primitive
 from trident_tpu_torch.io.image import checkerboard
 from trident_tpu_torch.ops import post, raster
@@ -722,6 +722,15 @@ class Renderer:
         return True
 
     # -- assets -----------------------------------------------------------------
+    def append_meshes(self, meshes: List[Mesh], materials: List[Material],
+                      source_path: Optional[str] = None) -> Tuple[int, int]:
+        """Import a model's meshes + materials (Renderer::AppendMeshes) →
+        (first mesh index, first material index). `source_path` registers
+        the model for hot reload. The geometry version bumps, so the next
+        frame uploads the new geometry and captures a new graph."""
+        return self.geometry.append(meshes, materials,
+                                    source_path=source_path)
+
     def ensure_primitive(self, kind: PrimitiveType) -> int:
         if kind not in self._primitive_mesh_indices:
             self._primitive_mesh_indices[kind] = self.geometry.add_mesh(

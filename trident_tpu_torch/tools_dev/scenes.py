@@ -4,11 +4,16 @@ spheres 1.4 apart with one 128² checker, the camera on the axis at
 grid·1.1 + 2 — and cube512's one textured cube), and bench.py's per-frame
 rotation; the plane-gather configs of two of them (PLANE_CONFIGS); the
 128² golden scenes of the forward frame's features and of the repo's PNG
-goldens (png_scene); and the skinned tube crowd (skinned_scene, its numpy
-mesh, layout and poses shared with the JAX twin of the tests).
+goldens (png_scene); the skinned tube crowd (skinned_scene, its numpy
+mesh, layout and poses shared with the JAX twin of the tests); and the
+same crowd loaded and animated: one tube written as a .glb with a looping
+clip (write_tube_gltf), imported into a Scene and played (loaded_crowd),
+and the flavor_skinned rig (write_rig_gltf, skinned_png_scene).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 
@@ -420,18 +425,21 @@ def build_feature_scene(grid: int, device, sampling: str = "trilinear",
 # plane-gather routes
 
 PNG_GOLDENS = ("scene_128", "shadows_pcf", "ssaa", "bloom", "trilinear",
-               "skybox", "sprite", "f16_planes")
+               "skybox", "sprite", "f16_planes", "skinned")
 
 
 def png_scene(name: str, device):
     """The 128² scene of PNG golden `name` (PNG_GOLDENS) on the port, with
     the JAX tests' parameters: scene_128 is tests/test_golden.py's
     build_golden_scene (reference raster, a 128² hard shadow map),
-    f16_planes the Pallas raster with f16 attribute planes, and the others
-    test_golden_flavors.py's flavors on the reference raster →
-    Renderer."""
+    f16_planes the Pallas raster with f16 attribute planes, skinned the
+    glTF rig imported, played and posed through a Scene
+    (skinned_png_scene), and the others test_golden_flavors.py's flavors
+    on the reference raster → Renderer."""
     if name == "scene_128":
         return golden_scene(device)
+    if name == "skinned":
+        return skinned_png_scene(device)
     if name == "f16_planes":
         return golden_base_scene(device, use_pallas=True,
                                  forward_shading=False, plane_f16=True)
@@ -671,3 +679,307 @@ def pose_skinned(reg, k: int, bones: int = SKIN_BONES) -> None:
     anims = [a for _e, (a,) in reg.view(AnimationComponent)]
     for anim, mats in zip(anims, tube_poses(len(anims), k, bones)):
         anim.bone_matrices = mats
+
+
+# -- loaded, animated scenes: model files written with struct and json
+# alone (no PIL), imported through assets/scene_loader.py and posed by the
+# Scene's AnimationSystem
+
+TUBE_CLIP_SECONDS = 2.0
+TUBE_KEYS = 24
+
+
+def _gltf_buffer(arrays: list) -> tuple:
+    """(blob, bufferViews) of numpy arrays laid end to end, each view
+    4-byte aligned."""
+    blob, views = b"", []
+    for a in arrays:
+        blob += b"\0" * (-len(blob) % 4)
+        views.append({"buffer": 0, "byteOffset": len(blob),
+                      "byteLength": a.nbytes})
+        blob += a.tobytes()
+    return blob + b"\0" * (-len(blob) % 4), views
+
+
+def write_rig_gltf(directory) -> str:
+    """tests/test_assets.py::make_skinned_gltf's two-bone quad strip and
+    its 1 s clip rotating bone 1, written to `directory`/rig.gltf (one
+    data-URI buffer) byte for byte as that helper writes it → the path.
+    The rig of the flavor_skinned PNG golden."""
+    import base64
+    import json
+    import os
+
+    positions = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0]], np.float32)
+    normals = np.tile([0, 0, 1], (4, 1)).astype(np.float32)
+    joints = np.array([[0, 0, 0, 0], [0, 0, 0, 0], [1, 0, 0, 0], [1, 0, 0, 0]], np.uint16)
+    weights = np.array([[1, 0, 0, 0]] * 4, np.float32)
+    indices = np.array([0, 1, 2, 2, 1, 3], np.uint16)
+    inv_binds = np.stack([np.eye(4), np.eye(4)]).astype(np.float32)
+    inv_binds[1, 1, 3] = -1.0  # joint1 sits at y=1
+    ibm = inv_binds.transpose(0, 2, 1).reshape(-1)   # column-major
+    times = np.array([0.0, 1.0], np.float32)
+    # rotation of joint1: identity → 90° about z (xyzw)
+    rots = np.array([[0, 0, 0, 1], [0, 0, np.sin(np.pi / 4), np.cos(np.pi / 4)]], np.float32)
+    arrays = [positions, normals, joints, weights, indices, ibm, times, rots]
+    blob = b"".join(a.tobytes() for a in arrays)
+    offsets = np.cumsum([0] + [a.nbytes for a in arrays[:-1]]).tolist()
+    kinds = [(5126, "VEC3"), (5126, "VEC3"), (5123, "VEC4"), (5126, "VEC4"),
+             (5123, "SCALAR"), (5126, "MAT4"), (5126, "SCALAR"),
+             (5126, "VEC4")]
+    counts = [4, 4, 4, 4, 6, 2, 2, 2]
+    doc = {
+        "asset": {"version": "2.0"},
+        "scenes": [{"nodes": [0, 2]}],
+        "nodes": [
+            {"name": "root_joint", "children": [1]},
+            {"name": "tip_joint", "translation": [0, 1, 0]},
+            {"name": "meshnode", "mesh": 0, "skin": 0},
+        ],
+        "skins": [{"joints": [0, 1], "inverseBindMatrices": 5}],
+        "meshes": [{"primitives": [{
+            "attributes": {"POSITION": 0, "NORMAL": 1, "JOINTS_0": 2, "WEIGHTS_0": 3},
+            "indices": 4,
+        }]}],
+        "animations": [{
+            "name": "bend",
+            "samplers": [{"input": 6, "output": 7, "interpolation": "LINEAR"}],
+            "channels": [{"sampler": 0, "target": {"node": 1, "path": "rotation"}}],
+        }],
+        "buffers": [{"byteLength": len(blob),
+                     "uri": "data:application/octet-stream;base64,"
+                            + base64.b64encode(blob).decode()}],
+        "bufferViews": [{"buffer": 0, "byteOffset": o, "byteLength": a.nbytes}
+                        for o, a in zip(offsets, arrays)],
+        "accessors": [{"bufferView": i, "componentType": ct, "count": n,
+                       "type": kind}
+                      for i, ((ct, kind), n) in enumerate(zip(kinds, counts))],
+    }
+    path = os.path.join(str(directory), "rig.gltf")
+    with open(path, "w") as f:
+        f.write(json.dumps(doc))
+    return path
+
+
+def skinned_png_scene(device):
+    """tests/test_golden_flavors.py's flavor_skinned on the port → the
+    Renderer with the played scene's runtime registry active: write_rig_
+    gltf's rig imported through import_model_entities into a Scene, its
+    clip played without looping under a sun, 128² on the reference
+    raster, posed by Scene.update(0.0) then update(0.5) (half bent)."""
+    import tempfile
+
+    from trident_tpu_torch.assets.scene_loader import import_model_entities
+    from trident_tpu_torch.core.config import EngineConfig, RenderConfig
+    from trident_tpu_torch.ecs.components import (
+        AnimationComponent,
+        LightComponent,
+        LightType,
+        TransformComponent,
+    )
+    from trident_tpu_torch.ecs.scene import Scene
+    from trident_tpu_torch.render.renderer import Renderer
+
+    r = Renderer(EngineConfig(render=RenderConfig(
+        width=128, height=128, texture_size=64, use_pallas=False)),
+        device=device)
+    scene = Scene(renderer=r)
+    reg = scene.editor_registry
+    r.set_active_registry(reg)
+    with tempfile.TemporaryDirectory() as td:
+        path = write_rig_gltf(td)
+        ents = import_model_entities(path, reg, r)
+        reg.add(ents[0], AnimationComponent(
+            skeleton_asset=path, animation_asset=path, clip_index=0,
+            playing=True, looping=False))
+        sun = reg.create()
+        reg.add(sun, TransformComponent())
+        reg.add(sun, LightComponent(
+            light_type=LightType.DIRECTIONAL,
+            direction=np.array([0.2, -0.4, -1.0], np.float32),
+            intensity=3.0))
+        r.editor_camera.set_position([0.4, 0.9, 3.2])
+        r.editor_camera.look_at_target([0.2, 0.9, 0])
+        scene.play()
+        r.set_active_registry(scene.runtime_registry)
+        scene.update(0.0)
+        scene.update(0.5)       # half-bent pose
+    return r
+
+
+def tube_key_bends(keys: int = TUBE_KEYS):
+    """(times (keys,), bends (keys,)) of write_tube_gltf's clip: key k at
+    TUBE_CLIP_SECONDS·k/(keys − 1) bends the tube by 0.9·sin(2πk/keys)."""
+    k = np.arange(keys)
+    return ((TUBE_CLIP_SECONDS * k / (keys - 1)).astype(np.float32),
+            0.9 * np.sin(2.0 * np.pi * k / keys))
+
+
+def tube_bend_at(t, keys: int = TUBE_KEYS):
+    """The bend of write_tube_gltf's clip at clip time(s) t: the linear
+    interpolation of the key bends (the slerp of two turns about one axis
+    is the lerp of their angles)."""
+    times, bends = tube_key_bends(keys)
+    return np.interp(np.asarray(t, np.float64), times.astype(np.float64),
+                     bends)
+
+
+def write_tube_gltf(path, bones: int = SKIN_BONES, keys: int = TUBE_KEYS,
+                    segments: int = SKIN_SEGMENTS,
+                    rings: int = SKIN_RINGS) -> str:
+    """One skinned tube as a .glb at `path` → the path, written with
+    struct and json alone: tube_mesh_arrays' mesh (POSITION, NORMAL,
+    TEXCOORD_0, COLOR_0, JOINTS_0 / WEIGHTS_0 with the −1 influences as
+    joint 0 at weight 0; each triangle's winding reversed, which the glTF
+    loader reverses back), a chain of `bones` joints up +y (joint 0 at the
+    base, each next one TUBE_LENGTH/(bones − 1) above) with its inverse
+    binds, and one looping clip "bend" of `keys` rotation keys over
+    TUBE_CLIP_SECONDS: key k turns every joint but the root about z by
+    bend_k/(bones − 1) (tube_key_bends), so bone b turns by
+    bend·b/(bones − 1): the pose of tube_bone_matrices(bend)."""
+    import json
+    import struct
+
+    arrs = tube_mesh_arrays(segments, rings, bones)
+    joints = np.maximum(arrs["bone_indices"], 0).astype(np.uint16)
+    tri = arrs["indices"].reshape(-1, 3)[:, ::-1]
+    indices = np.ascontiguousarray(tri).reshape(-1).astype(np.uint32)
+    seg = TUBE_LENGTH / max(bones - 1, 1)
+    inv_bind = np.tile(np.eye(4, dtype=np.float32), (bones, 1, 1))
+    inv_bind[:, 1, 3] = -seg * np.arange(bones, dtype=np.float32)
+    times, bends = tube_key_bends(keys)
+    half = bends / max(bones - 1, 1) / 2.0
+    rots = np.stack([np.zeros(keys), np.zeros(keys), np.sin(half),
+                     np.cos(half)], -1).astype(np.float32)      # xyzw
+    arrays = [arrs["positions"], arrs["normals"], arrs["uvs"],
+              arrs["colors"], joints, arrs["bone_weights"], indices,
+              np.ascontiguousarray(inv_bind.transpose(0, 2, 1)), times, rots]
+    blob, views = _gltf_buffer(arrays)
+    v = arrs["positions"].shape[0]
+    kinds = [(5126, v, "VEC3"), (5126, v, "VEC3"), (5126, v, "VEC2"),
+             (5126, v, "VEC3"), (5123, v, "VEC4"), (5126, v, "VEC4"),
+             (5125, indices.size, "SCALAR"), (5126, bones, "MAT4"),
+             (5126, keys, "SCALAR"), (5126, keys, "VEC4")]
+    accessors = [{"bufferView": i, "componentType": ct, "count": n,
+                  "type": kind} for i, (ct, n, kind) in enumerate(kinds)]
+    accessors[0].update(min=arrs["positions"].min(0).tolist(),
+                        max=arrs["positions"].max(0).tolist())
+    accessors[8].update(min=[float(times[0])], max=[float(times[-1])])
+    nodes = [{"name": f"joint{j}",
+              "translation": [0.0, seg if j else 0.0, 0.0],
+              **({"children": [j + 1]} if j + 1 < bones else {})}
+             for j in range(bones)]
+    nodes.append({"name": "tube", "mesh": 0, "skin": 0})
+    doc = {
+        "asset": {"version": "2.0", "generator": "trident_tpu_torch"},
+        "scene": 0,
+        "scenes": [{"nodes": [0, bones]}],
+        "nodes": nodes,
+        "skins": [{"joints": list(range(bones)), "inverseBindMatrices": 7}],
+        "meshes": [{"name": "tube", "primitives": [{
+            "attributes": {"POSITION": 0, "NORMAL": 1, "TEXCOORD_0": 2,
+                           "COLOR_0": 3, "JOINTS_0": 4, "WEIGHTS_0": 5},
+            "indices": 6}]}],
+        "animations": [{
+            "name": "bend",
+            "samplers": [{"input": 8, "output": 9,
+                          "interpolation": "LINEAR"}],
+            "channels": [{"sampler": 0,
+                          "target": {"node": j, "path": "rotation"}}
+                         for j in range(1, bones)]}],
+        "buffers": [{"byteLength": len(blob)}],
+        "bufferViews": views,
+        "accessors": accessors,
+    }
+    text = json.dumps(doc).encode()
+    text += b" " * (-len(text) % 4)
+    glb = (struct.pack("<III", 0x46546C67, 2, 12 + 8 + len(text) + 8
+                       + len(blob))
+           + struct.pack("<II", len(text), 0x4E4F534A) + text
+           + struct.pack("<II", len(blob), 0x004E4942) + blob)
+    with open(path, "wb") as f:
+        f.write(glb)
+    return str(path)
+
+
+class LoadedCrowd(NamedTuple):
+    scene: object          # ecs/scene.py::Scene, playing
+    renderer: object       # its Renderer, the runtime registry active
+    entities: list         # the tubes' editor entities, in layout order
+    import_ms: float       # host ms of the one import_model_entities call
+
+
+def loaded_crowd(device, path, grid: int = SKIN_GRID, shadows: bool = False,
+                 width: int = 1920, height: int = 1080,
+                 shadow_map_size: int = 1024) -> LoadedCrowd:
+    """skinned_scene's crowd, loaded and animated: `path` (a
+    write_tube_gltf file) imported once through import_model_entities into
+    a Scene, grid² − 1 more entities sharing its mesh, all in the
+    tube_layout(grid) grid with the 128² checker (each a TextureComponent,
+    as in skinned_scene) and AnimationComponent(skeleton_asset=path,
+    animation_asset=path, clip_index=0, looping=True, speed=0.6 + 0.01·i)
+    so that their clip times differ; with `shadows` skinned_scene's
+    backdrop and sun. Scene.play() has run: its AnimationSystem poses the
+    tubes on the renderer's device. The defaults are the 1080p crowd of
+    skinned_scene: 144 tubes, 1,105,920 triangles, 2,304 bones."""
+    import time
+
+    from trident_tpu_torch.assets.scene_loader import import_model_entities
+    from trident_tpu_torch.core.config import EngineConfig, RenderConfig
+    from trident_tpu_torch.ecs.components import (
+        AnimationComponent,
+        LightComponent,
+        MeshComponent,
+        TextureComponent,
+        TransformComponent,
+    )
+    from trident_tpu_torch.ecs.scene import Scene
+    from trident_tpu_torch.geometry.primitives import PrimitiveType
+    from trident_tpu_torch.io.image import checkerboard
+    from trident_tpu_torch.render.renderer import Renderer
+
+    r = Renderer(EngineConfig(render=RenderConfig(
+        width=width, height=height, shadows=shadows,
+        shadow_map_size=shadow_map_size)), device=device)
+    scene = Scene(renderer=r)
+    reg = scene.editor_registry
+    r.set_active_registry(reg)
+    slot = r.acquire_texture("checker", checkerboard(128, 8))
+    t0 = time.perf_counter()
+    first = import_model_entities(str(path), reg, r)
+    import_ms = (time.perf_counter() - t0) * 1e3
+    if len(first) != 1:
+        raise ValueError(f"{path}: {len(first)} meshes, expected one tube")
+    mesh0 = reg.get(first[0], MeshComponent)
+    entities = []
+    for i, (pos, scale) in enumerate(tube_layout(grid)):
+        e = first[0] if i == 0 else reg.create()
+        t = reg.get(e, TransformComponent) if i == 0 else reg.add(
+            e, TransformComponent())
+        t.position, t.rotation, t.scale = pos, np.zeros(3, np.float32), scale
+        if i:
+            reg.add(e, MeshComponent(mesh_index=mesh0.mesh_index,
+                                     material_index=mesh0.material_index))
+        reg.add(e, TextureComponent(path="checker", slot=slot))
+        reg.add(e, AnimationComponent(
+            skeleton_asset=str(path), animation_asset=str(path),
+            clip_index=0, looping=True, speed=0.6 + 0.01 * i))
+        entities.append(e)
+    if shadows:
+        backdrop = reg.create()
+        bt = reg.add(backdrop, TransformComponent())
+        bt.position = np.array([0.0, 0.0, -1.0], np.float32)
+        bt.scale = np.array([grid * SKIN_SPACING + 1.0,
+                             grid * SKIN_SPACING + 1.0, 0.2], np.float32)
+        reg.add(backdrop, MeshComponent(
+            mesh_index=r.ensure_primitive(PrimitiveType.CUBE)))
+        reg.add(backdrop, TextureComponent(path="checker", slot=slot))
+        sun = reg.create()
+        reg.add(sun, TransformComponent())
+        reg.add(sun, LightComponent(
+            direction=np.array([0.35, -0.3, -1.0], np.float32),
+            intensity=2.5, cast_shadows=True))
+    r.editor_camera.set_position([0, 0, grid * 1.1 + 2])
+    r.editor_camera.look_at_target([0, 0, 0])
+    scene.play()
+    return LoadedCrowd(scene, r, entities, import_ms)
