@@ -193,9 +193,28 @@ Phases (any failure exits non-zero before the final line is printed):
      skinned_scene posed with those matrices under the golden gate; K1,
      K2-vc, K3 on the route's inputs and, on one shadowed loaded frame,
      K1b and K4 against their plain versions
+ 17. the remaining importers (phase_imported): (a) the tube also as
+     binary FBX and as COLLADA (write_tube_fbx, write_tube_dae), each
+     loaded into the 144-tube crowd under a KTX2 cube-map skybox and its
+     mip chain (load_skybox_mips, held against the levels written), 60
+     frames each at the .glb crowd's clip times: palettes within 1e-5 of
+     the .glb crowd's, frames in its golden gate (the share > 3 LSB
+     printed), replays bit-equal to eager, aux [0, 0]; every 12th frame
+     again with the .glb palettes fed in, and skinned_scene given them
+     (the silhouette split); K1, K2-vc, K2, K3 on each route's inputs,
+     K1b and K4 on a shadowed crowd of each; load_model and
+     import_model_entities ms per format; (b) spheres1080_1m's field as
+     one .obj (995,328 triangles) through the native loader (the native
+     path required; median of 3) and once through load_obj, the two
+     ModelData bit-equal; the field scene from the .obj, a .ktx2 checker
+     with file mips and six PNG sky faces, 12 frames bit-equal to the
+     same scene from arrays in memory (the slot and the sky hold the
+     decoded files); (c) a 128² frame textured from an .svg under a KTX1
+     cube map, bit-equal to the scene from the decoded arrays
 Then it prints the kernels as one JSON line (each entry with
-`route_launches`: its launches in each of phase 15's and 16's route
-runs), the card line, and as the last line {"ok": true, "device": {...}}.
+`route_launches`: its launches in each of phase 15's, 16's and 17's
+route runs), the card line, and as the last line {"ok": true, "device":
+{...}}.
 
 Since phase 12's slice the Renderer's frames on the card are graph
 replays, which tick no kernel wrapper's launch count: a kernel's
@@ -2955,6 +2974,348 @@ def phase_loaded(dev, card: str, drive) -> dict:
     return launches
 
 
+# phase 17: the remaining importers on the card
+IMPORT_FORMATS = ("glb", "fbx", "dae")
+IMPORTED_SPLIT_EVERY = 12  # frames whose split is rendered: 5 of 60
+PALETTE_FORMAT_TOL = 1e-5  # a format's palettes against the .glb crowd's
+FIELD_FRAMES = 12
+
+
+def gate_device(frame, ref, what: str, against: str) -> tuple:
+    """golden_gate on the card: (share of values > GOLDEN_LSB off, mean,
+    max) of two RGBA8 frames; fails outside the gate."""
+    diff = (frame.int() - ref.int()).abs()
+    frac = float((diff > GOLDEN_LSB).float().mean())
+    mean, peak = float(diff.float().mean()), int(diff.max())
+    if not (frac < GOLDEN_FRAC and mean < GOLDEN_MEAN):
+        fail(f"{what} vs {against}: {frac:.6f} of values > {GOLDEN_LSB} "
+             f"LSB, mean {mean:.6f}, max {peak}: outside the golden gate")
+    return frac, mean, peak
+
+
+def same_frames(a, b, what: str) -> None:
+    """Two frames bit for bit (color, depth, tri_id) with aux [0, 0]."""
+    bad = differing(a, b)
+    if bad or a.aux.tolist() != [0, 0] or b.aux.tolist() != [0, 0]:
+        fail(f"{what}: frames differ in {bad}, aux {a.aux.tolist()} / "
+             f"{b.aux.tolist()}")
+
+
+def phase_imported(dev, card: str, drive) -> dict:
+    """Phase 17: the remaining importers on the card, each scene through
+    load_model / import_model_entities / Scene.update /
+    render_viewport at full width. (a) write_tube_gltf's tube also as
+    binary FBX and as COLLADA (tools_dev/scenes.py::write_tube_fbx,
+    write_tube_dae), each loaded into loaded_crowd (144 entities,
+    1,105,920 triangles) under a KTX2 cube-map skybox with its mip chain
+    (load_skybox_mips, held against the levels written: not the
+    fallback); 60 frames each, at the same clip times: palettes against
+    the .glb crowd's within PALETTE_FORMAT_TOL, frames within the golden
+    gate of the .glb crowd's, every replay bit-equal to eager, aux [0, 0];
+    every 12th frame rendered again with the .glb crowd's palettes fed in
+    (mesh differences alone), and skinned_scene given the same palettes
+    against the .glb frame; K1, K2-vc, K2 and K3 on each route's inputs
+    and, on one shadowed crowd of each, K1b and K4 against their plain
+    versions; load_model and import_model_entities ms per format. (b)
+    spheres1080_1m's field as one .obj (995,328 triangles) through the
+    native loader (timed, median of 3; the native path must be taken) and
+    once through load_obj (timed): the two ModelData bit-equal; the field
+    scene from the .obj, its checker from a .ktx2 with file mips and its
+    skybox from six PNG faces, against the same scene from the arrays in
+    memory: the texture slot and the sky hold the decoded files, and 12
+    frames (the field turning) bit-equal. (c) a 128² frame of a 2 × 2
+    field textured from an .svg under a KTX1 cube map against the same
+    scene from the decoded arrays, bit-equal. Returns the launch counts
+    of each route run."""
+    import os
+    import tempfile
+
+    import torch
+
+    from trident_tpu_torch.assets.model_loader import load_model, load_obj
+    from trident_tpu_torch.assets.native import get_lib, load_obj_native
+    from trident_tpu_torch.assets.skybox import load_skybox_mips
+    from trident_tpu_torch.ecs.components import (
+        AnimationComponent,
+        TransformComponent,
+    )
+    from trident_tpu_torch.io.svg import rasterize_svg
+    from trident_tpu_torch.tools_dev import scenes
+
+    launches = {}
+    td = tempfile.TemporaryDirectory()
+    d = Path(td.name)
+
+    # (a) the tube as .glb, .fbx and .dae, each a crowd under a KTX2 sky
+    writers = {"glb": scenes.write_tube_gltf, "fbx": scenes.write_tube_fbx,
+               "dae": scenes.write_tube_dae}
+    paths = {fmt: writers[fmt](d / f"tube.{fmt}") for fmt in IMPORT_FORMATS}
+    sky_path = scenes.write_sky_ktx2(d / "sky.ktx2")
+    sky = load_skybox_mips(sky_path)
+    want_sky = scenes.sky_arrays(scenes.sky_levels_u8())
+    if len(sky) != len(want_sky) or any(
+            not np.array_equal(a, b) for a, b in zip(sky, want_sky)):
+        fail(f"the KTX2 skybox loaded {len(sky)} levels that are not the "
+             f"{len(want_sky)} written (the solid fallback?)")
+    load_ms, crowds, sizes = {}, {}, {}
+    for fmt in IMPORT_FORMATS:
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            data = load_model(paths[fmt])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        load_ms[fmt] = statistics.median(ms)
+        sizes[fmt] = (os.path.getsize(paths[fmt]),
+                      data.meshes[0].triangle_count)
+        crowds[fmt] = scenes.loaded_crowd(dev, paths[fmt])
+        crowds[fmt].renderer.set_skybox(sky[0], mips=sky[1:])
+    print("imported crowds: " + "; ".join(
+        f".{fmt} {sizes[fmt][0]} bytes, {sizes[fmt][1]} triangles, "
+        f"load_model {load_ms[fmt]:.3f} ms median of 3, "
+        f"import_model_entities {crowds[fmt].import_ms:.3f} ms"
+        for fmt in IMPORT_FORMATS)
+        + f"; KTX2 sky {len(sky)} levels from {sky[0].shape[1]}² ({card})",
+        flush=True)
+    r0 = crowds["glb"].renderer
+    w, h = r0.config.render.width, r0.config.render.height
+    held = {}
+    for fmt in IMPORT_FORMATS:
+        c, frames, wall = crowds[fmt], [], []
+        rt = c.scene.runtime_registry
+        anims = [rt.get(e, AnimationComponent) for e in c.entities]
+
+        def imported_frames(c=c, frames=frames, wall=wall, anims=anims):
+            for _k in range(LOADED_FRAMES):
+                t0 = time.perf_counter()
+                c.scene.update(1 / 60)
+                t1 = time.perf_counter()
+                kinp = frame_inputs_at(c.renderer)
+                t2 = time.perf_counter()
+                out = c.renderer.render_viewport()
+                torch.cuda.synchronize()
+                wall.append((t1 - t0 + time.perf_counter() - t2) * 1e3)
+                frames.append((out, kinp, np.array([a.time for a in anims]),
+                               np.stack([a.bone_matrices for a in anims])))
+
+        _none, launches[f"imported_{fmt}"] = drive(
+            imported_frames, ("visibility", "resolve_vc", "texel"),
+            (c.renderer,))
+        held[fmt] = frames
+        print(f"imported .{fmt} crowd, {LOADED_FRAMES} frames: wall "
+              f"{spread(wall)} ms median / p90 (Scene.update + "
+              f"render_viewport + synchronize); launches "
+              f"{launches[f'imported_{fmt}']} ({card})", flush=True)
+    for fmt in IMPORT_FORMATS:
+        for k, (out, kinp, _t, _p) in enumerate(held[fmt]):
+            same_as_eager(out, kinp, f"imported .{fmt} frame {k}")
+    for fmt in ("fbx", "dae"):
+        err, shares, peaks = 0.0, [], []
+        for k, ((out, _i, ts, pals), (gout, _gi, gts, gpals)) in enumerate(
+                zip(held[fmt], held["glb"])):
+            if not np.array_equal(ts, gts):
+                fail(f".{fmt} crowd frame {k}: clip times differ from the "
+                     f".glb crowd's")
+            err = max(err, float(np.abs(pals - gpals).max()))
+            frac, _mean, peak = gate_device(out.color, gout.color,
+                                            f".{fmt} frame {k}", ".glb frame")
+            shares.append(frac)
+            peaks.append(peak)
+        if err > PALETTE_FORMAT_TOL:
+            fail(f".{fmt} crowd palettes: max err {err} against the .glb "
+                 f"crowd's (> {PALETTE_FORMAT_TOL})")
+        print(f"imported .{fmt} crowd against the .glb crowd, "
+              f"{LOADED_FRAMES} frames at the same clip times: palettes max "
+              f"err {err:.3g} (<= {PALETTE_FORMAT_TOL}); frames in the "
+              f"golden gate, share of values > {GOLDEN_LSB} LSB "
+              f"{min(shares):.6f} .. {max(shares):.6f}, max "
+              f"{min(peaks)} .. {max(peaks)} LSB; every replay bit-equal "
+              f"to eager render_frame, aux [0, 0]", flush=True)
+
+    # the silhouette split: each crowd given the .glb crowd's palettes
+    ref_r, ref_reg = scenes.skinned_scene(dev)
+    ref_r.set_skybox(sky[0], mips=sky[1:])
+    ref_anims = [a for _e, (a,) in ref_reg.view(AnimationComponent)]
+    for k in range(0, LOADED_FRAMES, IMPORTED_SPLIT_EVERY):
+        gout, _gi, _gt, gpals = held["glb"][k]
+        parts = []
+        for fmt in ("fbx", "dae"):
+            c = crowds[fmt]
+            rt = c.scene.runtime_registry
+            for e, pal in zip(c.entities, gpals):
+                rt.get(e, AnimationComponent).bone_matrices = pal
+            out = c.renderer.render_viewport()
+            diff = (out.color.int() - gout.color.int()).abs()
+            parts.append(f".{fmt} {int((diff > 0).sum())} values off, "
+                         f"{int((diff > GOLDEN_LSB).sum())} > {GOLDEN_LSB} "
+                         f"LSB, max {int(diff.max())}")
+        for a, pal in zip(ref_anims, gpals):
+            a.bone_matrices = pal
+        ref = ref_r.render_viewport()
+        if ref.aux.tolist() != [0, 0]:
+            fail(f"posed crowd given frame {k}'s palettes: aux "
+                 f"{ref.aux.tolist()}")
+        diff = (ref.color.int() - gout.color.int()).abs()
+        parts.append(f"skinned_scene {int((diff > 0).sum())} values off, "
+                     f"{int((diff > GOLDEN_LSB).sum())} > {GOLDEN_LSB} LSB, "
+                     f"max {int(diff.max())}")
+        print(f"silhouette split, .glb frame {k} against the same palettes "
+              f"fed to: " + "; ".join(parts), flush=True)
+    del ref_r, ref_reg, ref_anims
+    for fmt in ("fbx", "dae"):
+        replay_line(crowds[fmt].renderer, f"imported .{fmt} crowd", card)
+        skinned_kernels(held[fmt][-1][1], f"imported .{fmt} crowd", w, h)
+    del held, crowds
+    torch.cuda.empty_cache()
+    for fmt in ("fbx", "dae"):
+        sh = scenes.loaded_crowd(dev, paths[fmt], shadows=True)
+        sh.renderer.set_skybox(sky[0], mips=sky[1:])
+        sh.scene.update(1 / 60)
+        sinp = frame_inputs_at(sh.renderer)
+        skinned_light_pass(sinp, f"imported .{fmt} crowd", w, h)
+        sh_out, launches[f"imported_{fmt}_shadow"] = drive(
+            sh.renderer.render_viewport,
+            ("visibility", "visibility_depth", "resolve_vc", "texel",
+             "shadow_taps"), (sh.renderer,))
+        same_as_eager(sh_out, sinp, f"imported .{fmt} shadowed frame",
+                      ("aux", "shadow_aux"))
+        print(f"imported .{fmt} shadowed frame: replay bit-equal to eager, "
+              f"aux [0, 0] (and the light pass's); launches "
+              f"{launches[f'imported_{fmt}_shadow']}", flush=True)
+        del sh, sinp, sh_out
+    torch.cuda.empty_cache()
+
+    # (b) spheres1080_1m from files
+    t0 = time.perf_counter()
+    obj = scenes.write_field_obj(d, "checker.ktx2")
+    write_s = time.perf_counter() - t0
+    tex = scenes.write_checker_ktx2(d / "checker.ktx2")
+    os.mkdir(d / "sky")
+    scenes.write_sky_faces(d / "sky")
+    if get_lib() is None:
+        fail("the native OBJ loader did not build (g++): load_model would "
+             "take the Python parser")
+    native_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        nat = load_obj_native(obj)
+        native_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    py = load_obj(obj)
+    python_ms = (time.perf_counter() - t0) * 1e3
+    bad = [f for f in ("positions", "normals", "tangents", "bitangents",
+                       "uvs", "colors", "indices", "bone_indices",
+                       "bone_weights")
+           if getattr(nat.meshes[0], f).tobytes()
+           != getattr(py.meshes[0], f).tobytes()]
+    if len(nat.meshes) != 1 or len(py.meshes) != 1 or bad \
+            or [vars(m) for m in nat.materials] \
+            != [vars(m) for m in py.materials] \
+            or [(t.path, t.name) for t in nat.textures] \
+            != [(t.path, t.name) for t in py.textures]:
+        fail(f"field .obj: native and Python ModelData differ in {bad} "
+             f"(or in meshes, materials, textures)")
+    print(f"field .obj: {os.path.getsize(obj)} bytes, "
+          f"{nat.meshes[0].vertex_count} vertices, "
+          f"{nat.meshes[0].triangle_count} triangles, written in "
+          f"{write_s:.3f} s; native loader {statistics.median(native_ms):.3f}"
+          f" ms median of 3 ({', '.join(f'{x:.3f}' for x in native_ms)}), "
+          f"Python load_obj {python_ms:.3f} ms once; the two ModelData "
+          f"bit-equal ({card})", flush=True)
+    del nat, py
+    files = scenes.FieldFiles(obj, tex, str(d / "sky"))
+    ra, rega, slot_a = scenes.field_scene(dev, files=files)
+    rgba, mips = scenes.checker_file()
+    rb, regb, slot_b = scenes.field_scene(
+        dev, texture=(rgba, mips), sky=scenes.sky_arrays(
+            [scenes.sky_levels_u8()[0]]))
+    fa = ra.textures
+    if slot_a != slot_b or slot_a == 0 \
+            or not np.array_equal(fa._images[slot_a], rgba) \
+            or len(fa._mips[slot_a] or []) != len(mips) \
+            or any(not np.array_equal(x, y)
+                   for x, y in zip(fa._mips[slot_a], mips)):
+        fail(f"field texture slot {slot_a} does not hold the decoded "
+             f".ktx2 and its {len(mips)} file mips (the in-memory scene's "
+             f"slot {slot_b})")
+    if len(ra._skybox_chain) != 1 or not torch.equal(
+            ra._skybox_chain[0].cpu(),
+            torch.from_numpy(scenes.sky_arrays(
+                [scenes.sky_levels_u8()[0]])[0])):
+        fail("field skybox: the PNG faces did not load (the fallback?)")
+    ents = {"files": [e for e, _t in rega.view(TransformComponent)],
+            "memory": [e for e, _t in regb.view(TransformComponent)]}
+    pairs, field_ms = [], {"files": [], "memory": []}
+
+    def field_frames():
+        for k in range(FIELD_FRAMES):
+            for key, r, reg in (("files", ra, rega), ("memory", rb, regb)):
+                for e in ents[key]:
+                    reg.get(e, TransformComponent).rotation = np.array(
+                        [0.0, 3.0 * k, 0.0], np.float32)
+                t0 = time.perf_counter()
+                out = r.render_viewport()
+                torch.cuda.synchronize()
+                field_ms[key].append((time.perf_counter() - t0) * 1e3)
+                pairs.append((key, k, out))
+
+    _none, launches["imported_field"] = drive(
+        field_frames, ("visibility", "resolve", "texel"), (ra, rb))
+    for (_ka, k, out_a), (_kb, _k, out_b) in zip(pairs[0::2], pairs[1::2]):
+        same_frames(out_a, out_b, f"field frame {k}, files against memory")
+    covered = int((pairs[0][2].tri_id >= 0).sum())
+    print(f"field from files: texture slot {slot_a} holds the decoded .ktx2 "
+          f"and its {len(mips)} file mips, the sky the PNG faces; "
+          f"{FIELD_FRAMES} frames bit-equal to the in-memory scene's "
+          f"({covered} covered pixels in frame 0); render_viewport + "
+          f"synchronize {spread(field_ms['files'])} ms median / p90 "
+          f"(memory {spread(field_ms['memory'])}); launches "
+          f"{launches['imported_field']} ({card})", flush=True)
+    del ra, rb, rega, regb, pairs
+    torch.cuda.empty_cache()
+
+    # (c) an SVG texture under a KTX1 cube map, 128²
+    svg = d / "texture.svg"
+    svg.write_text(scenes.SVG_TEXTURE)
+    small = d / "small"
+    os.mkdir(small)
+    obj = scenes.write_field_obj(small, str(svg), grid=2)
+    levels = scenes.sky_levels_u8(64)
+    ktx1 = scenes.write_ktx1_cubemap(d / "sky.ktx", levels)
+    files = scenes.FieldFiles(obj, str(svg), ktx1)
+    svg_rgba = rasterize_svg(scenes.SVG_TEXTURE)
+    ra, _rega, slot_a = scenes.field_scene(dev, grid=2, width=128,
+                                           height=128, files=files)
+    rb, _regb, _slot_b = scenes.field_scene(
+        dev, grid=2, width=128, height=128, texture=(svg_rgba, None),
+        sky=scenes.sky_arrays(levels))
+    want = scenes.sky_arrays(levels)
+    if slot_a == 0 or not np.array_equal(ra.textures._images[slot_a],
+                                         svg_rgba):
+        fail("svg texture: the slot does not hold the rasterized .svg")
+    if len(ra._skybox_chain) != len(want) or any(
+            not torch.equal(a.cpu(), torch.from_numpy(b))
+            for a, b in zip(ra._skybox_chain, want)):
+        fail("KTX1 skybox: the levels are not the file's (the fallback?)")
+    outs = {}
+
+    def svg_frames():
+        outs["files"] = ra.render_viewport()
+        outs["memory"] = rb.render_viewport()
+
+    _none, launches["imported_svg"] = drive(
+        svg_frames, ("visibility", "resolve", "texel"), (ra, rb))
+    same_frames(outs["files"], outs["memory"], "svg + KTX1 frame")
+    print(f"svg + KTX1 frame at 128²: the slot holds the rasterized "
+          f"{svg_rgba.shape[1]}x{svg_rgba.shape[0]} .svg, the sky the "
+          f"{len(want)} KTX1 levels; bit-equal to the in-memory scene "
+          f"({int((outs['files'].tri_id >= 0).sum())} covered pixels); "
+          f"launches {launches['imported_svg']}", flush=True)
+    del ra, rb, outs
+    td.cleanup()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     # -- phase 1: the card ---------------------------------------------------
     import torch
@@ -3475,6 +3836,12 @@ def main() -> None:
     print(f"phase 16: {time.perf_counter() - t16:.1f} s; loaded-crowd "
           f"launches {launches16} ({card})", flush=True)
 
+    # -- phase 17: FBX / COLLADA crowds, the field and textures from files --
+    t17 = time.perf_counter()
+    launches17 = phase_imported(dev, card, drive)
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s; imported "
+          f"launches {launches17} ({card})", flush=True)
+
     # launches: each kernel's count in the main-path run of the frame it
     # was held on (phase 4 for the main pass, phase 6 for the shadow pass,
     # phase 9 for the warp, phase 10 for the knob kernels, phase 11 for
@@ -3494,12 +3861,12 @@ def main() -> None:
     kernels = []
     for name in kernel_fns:
         res = {k: v for k, v in results[name].items() if k != "colour_ms"}
-        # the launches of each of phase 15's and 16's route runs beside
+        # the launches of each of phase 15's, 16's and 17's route runs
         kernels.append(dict(name=name, launches=launches[name], **res,
                             route_launches={route: counts.get(name, 0)
                                             for route, counts in
-                                            {**launches15,
-                                             **launches16}.items()}))
+                                            {**launches15, **launches16,
+                                             **launches17}.items()}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,11 @@ array is exact but normals, tangents and bitangents (atol 1e-6); the
 materials, skeleton (bones, parents, binds, inverse binds), clips
 (channels, times, values, durations), textures (paths, decoded pixels)
 and instance transforms are equal. The JAX OBJ path is its Python parser
-(prefer_native=False): the port has no native loader, and
-tests/test_native_loader.py holds the two JAX paths equal.
+(prefer_native=False); the port's default OBJ path is its native loader,
+whose ModelData is its Python parser's (tests/test_torch_native_loader.py).
+.fbx and .dae load (tests/test_torch_{fbx,dae}.py hold them against the
+JAX loaders); garbage in those formats raises a clean exception, and the
+directory import logs and skips it.
 
 The JAX package decodes images with PIL; the port's decoder is its own
 (PNG only) and must give PIL's pixels on every PNG colour type it reads.
@@ -304,8 +307,9 @@ def test_load_model_matches_jax(kind, tmp_path):
 
 
 def test_obj_ignores_prefer_native(tmp_path):
-    """No native loader in the port: both settings take the Python
-    parser."""
+    """prefer_native takes the port's native loader (Python's parser when
+    it cannot be built), whose ModelData is the Python parser's: the
+    setting changes where the model is parsed, not what it is."""
     path = write_obj_textured(tmp_path)
     assert_same_model(pml.load_model(path, prefer_native=True),
                       pml.load_model(path, prefer_native=False))
@@ -313,12 +317,16 @@ def test_obj_ignores_prefer_native(tmp_path):
 
 @pytest.mark.parametrize("ext", [".fbx", ".dae"])
 def test_unported_formats_raise(ext, tmp_path):
+    """.fbx and .dae are ported: a file that is not one raises a clean
+    exception from load_model, as in the JAX package, and the directory
+    import logs and skips it; an unknown extension still raises."""
     path = tmp_path / f"model{ext}"
     path.write_text("not parsed")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        pml.load_model(str(path))
-    with pytest.raises(NotImplementedError):
-        load_scene_directory(str(tmp_path), Registry(), None)
+    for load in (pml.load_model, jml.load_model):
+        with pytest.raises(Exception) as caught:
+            load(str(path))
+        assert not isinstance(caught.value, NotImplementedError)
+    assert load_scene_directory(str(tmp_path), Registry(), None) == []
     with pytest.raises(ValueError, match="unsupported model format"):
         pml.load_model(str(tmp_path / "model.xyz"))
 

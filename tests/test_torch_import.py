@@ -102,47 +102,71 @@ def test_sources_never_import_jax():
     assert banned.search((ROOT / "tools_dev" / "gather_probe.py").read_text())
 
 
-# the modules of model import, the animation system and the Scene, and a
-# glTF crowd loaded, played and posed with them on the CPU
+# the modules of model import (every format), images, skyboxes, the
+# animation system, its graph view and the Scene, and glTF, FBX and
+# COLLADA crowds loaded, played and posed with them on the CPU under a
+# KTX2 skybox, an SVG and a KTX2 texture decoded, all without building
+# the native OBJ loader
 _LOADED_MODULES = """
 import sys
 mods = ["mathx.quat", "anim", "anim.data", "anim.pose", "anim.player",
         "anim.service", "anim.blend_tree", "anim.state_machine",
-        "anim.batch", "anim.system", "io.image", "assets",
-        "assets.model_loader", "assets.gltf_loader", "assets.stl_ply_loader",
+        "anim.batch", "anim.system", "anim.graph_view", "io.image",
+        "io.svg", "assets", "assets.model_loader", "assets.gltf_loader",
+        "assets.stl_ply_loader", "assets.fbx_loader", "assets.dae_loader",
+        "assets.ktx2", "assets.skybox", "assets.native",
         "assets.scene_loader", "ecs.scene", "tools_dev.scenes"]
 import importlib
 for m in mods:
     importlib.import_module("trident_tpu_torch." + m)
+from trident_tpu_torch.assets import native
 import tempfile
+import numpy as np
+from trident_tpu_torch.assets.skybox import load_skybox_mips
+from trident_tpu_torch.io.image import load_rgba8_mips
 from trident_tpu_torch.tools_dev import scenes
+tube = dict(bones=4, keys=5, segments=8, rings=4)
 with tempfile.TemporaryDirectory() as td:
-    path = scenes.write_tube_gltf(td + "/tube.glb", bones=4, keys=5,
-                                  segments=8, rings=4)
-    crowd = scenes.loaded_crowd("cpu", path, grid=2, width=32, height=32)
-    crowd.scene.update(0.5)
-    assert crowd.renderer.read_frame().shape == (32, 32, 4)
+    sky = load_skybox_mips(scenes.write_sky_ktx2(td + "/sky.ktx2", 8))
+    assert len(sky) == 4
+    for write, ext in ((scenes.write_tube_gltf, "glb"),
+                       (scenes.write_tube_fbx, "fbx"),
+                       (scenes.write_tube_dae, "dae")):
+        path = write(td + "/tube." + ext, **tube)
+        crowd = scenes.loaded_crowd("cpu", path, grid=2, width=32,
+                                    height=32)
+        crowd.renderer.set_skybox(sky[0], mips=sky[1:])
+        crowd.scene.update(0.5)
+        assert crowd.renderer.read_frame().shape == (32, 32, 4), path
     rig = scenes.write_rig_gltf(td)
     from trident_tpu_torch.assets.model_loader import load_model
     assert len(load_model(rig).clips) == 1
+    with open(td + "/t.svg", "w") as f:
+        f.write(scenes.SVG_TEXTURE)
+    assert load_rgba8_mips(td + "/t.svg")[0].shape == (64, 64, 4)
+    rgba, mips = load_rgba8_mips(scenes.write_checker_ktx2(td + "/c.ktx2"))
+    assert rgba.shape == (128, 128, 4) and len(mips) == 7
+assert native._lib is None and not native._load_failed
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "PIL", "trident_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "PIL", "trident_tpu",
+                                    "zstandard", "imageio"))
 assert not bad, bad
 print("clean", len(mods))
 """
 
 
 def test_loaded_modules_import_no_jax_pil_or_reference():
-    """Importing every module of model import, animation and the Scene in
-    a fresh process, and loading, playing and rendering a glTF crowd with
-    them, leaves no jax, PIL or trident_tpu module in sys.modules (the
-    card's machine has neither jax nor PIL)."""
+    """Importing every module of model import, images, skyboxes, animation
+    and the Scene in a fresh process, and loading, playing and rendering
+    glTF, FBX and COLLADA crowds with them under a KTX2 skybox, leaves no
+    jax, PIL, zstandard, imageio or trident_tpu module in sys.modules (the
+    card's machine has none of them), and the native OBJ loader unbuilt."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _LOADED_MODULES], env=env,
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert "clean 18" in proc.stdout
+    assert "clean 25" in proc.stdout
 
 
 def test_loading_sources_never_import_pil():

@@ -9,12 +9,13 @@ order kept spatially coherent for the raster binner.
 
 OBJ: full v/vt/vn + fan triangulation + MTL (Kd/Ks/map_Kd/Pm/Pr).
 glTF (.gltf/.glb): see assets/gltf_loader.py (meshes, materials, skins,
-animations). STL and PLY: assets/stl_ply_loader.py.
+animations). STL and PLY: assets/stl_ply_loader.py. FBX (binary 7.x and
+ASCII): assets/fbx_loader.py. COLLADA: assets/dae_loader.py.
 
 The port's own copy of trident_tpu/assets/model_loader.py: the port imports
-nothing of the JAX package. Not ported yet (ROADMAP queue 1): the native
-OBJ loader (assets/native.py), so every .obj takes the Python parser, and
-the .fbx and .dae loaders, which raise NotImplementedError.
+nothing of the JAX package. With prefer_native, .obj files go through the
+port's native loader (assets/native.py, native/loader.cpp), whose ModelData
+is load_obj's bit for bit; when it cannot be built, load_obj.
 """
 
 from __future__ import annotations
@@ -51,20 +52,27 @@ class ModelData:
 
 
 def load_model(path: str, prefer_native: bool = True) -> ModelData:
-    """Load any supported model file → ModelData. `prefer_native` is kept
-    for the JAX signature: the port has no native OBJ loader yet, so .obj
-    always takes load_obj, the Python path that the JAX tests hold equal
-    to the native one (tests/test_native_loader.py)."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".obj":
+        if prefer_native:
+            from trident_tpu_torch.assets.native import load_obj_native
+
+            data = load_obj_native(path)
+            if data is not None:
+                return data
         return load_obj(path)
     if ext in (".gltf", ".glb"):
         from trident_tpu_torch.assets.gltf_loader import load_gltf
 
         return load_gltf(path)
-    if ext in (".fbx", ".dae"):
-        raise NotImplementedError(
-            f"{ext} models are not ported yet (ROADMAP queue 1): {path}")
+    if ext == ".fbx":
+        from trident_tpu_torch.assets.fbx_loader import load_fbx
+
+        return load_fbx(path)
+    if ext == ".dae":
+        from trident_tpu_torch.assets.dae_loader import load_dae
+
+        return load_dae(path)
     if ext == ".stl":
         from trident_tpu_torch.assets.stl_ply_loader import load_stl
 

@@ -6,7 +6,7 @@ transforms + tag.
 
 The port's own copy of trident_tpu/assets/scene_loader.py: the port imports
 nothing of the JAX package. Texture files load through io/image.py::
-load_rgba8_mips (PNG only).
+load_rgba8_mips.
 """
 
 from __future__ import annotations
@@ -36,8 +36,6 @@ def load_scene_directory(directory: str, registry: Registry, renderer) -> List[i
             path = os.path.join(root, name)
             try:
                 entities.extend(import_model_entities(path, registry, renderer))
-            except NotImplementedError:
-                raise           # an unported format is not a bad file
             except Exception as exc:
                 logger.warning("scene import skipped %s: %s", path, exc)
     return entities

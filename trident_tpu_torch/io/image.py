@@ -1,14 +1,17 @@
-"""Image IO without PIL: procedural textures and a PNG decoder.
+"""Image IO without PIL: procedural textures and image decoders.
 
 The port's own copy of `checkerboard` from trident_tpu/io/image.py, and
-PIL-free counterparts of its loaders: `decode_rgba` (embedded images),
-`load_rgba8` and `load_rgba8_mips` (texture files). The JAX package decodes
-through PIL; the card's machine has no PIL, so the port decodes PNG itself
-with the standard library's zlib (non-interlaced grey, grey + alpha,
-palette, RGB and RGBA; 8-bit, and 1/2/4-bit grey and palette) and refuses
-every other format: `load_rgba8`
-raises ValueError naming it, `decode_rgba` returns None with the JAX
-function's warning. `read_png` reads the repo's golden images.
+PIL-free counterparts of its loaders and writer: `decode_rgba` (embedded
+images), `load_rgba8` and `load_rgba8_mips` (texture files), `save_png`.
+The JAX package decodes raster formats through PIL; the port reads and
+writes PNG itself with the standard library's zlib (it reads
+non-interlaced grey, grey + alpha, palette, RGB and RGBA; 8-bit, and
+1/2/4-bit grey and palette). Like the JAX loaders, `load_rgba8`
+and `load_rgba8_mips` hand .ktx2 containers to assets/ktx2.py (with their
+file mip chains) and .svg files to io/svg.py. Every other format (JPEG,
+BMP, TGA, interlaced or 16-bit PNG) is refused: `load_rgba8` raises
+ValueError naming it, `decode_rgba` returns None with the JAX function's
+warning. `read_png` reads the repo's golden images.
 """
 
 from __future__ import annotations
@@ -143,6 +146,32 @@ def _decode_png(data: bytes, name) -> np.ndarray:
     return img
 
 
+def save_png(path, rgba: np.ndarray) -> None:
+    """Write an (H, W), (H, W, 1), (H, W, 3) or (H, W, 4) image as an 8-bit
+    PNG (grey, RGB or RGBA; filter 0 on every row, zlib). Floats are
+    taken as [0, 1] and rounded to bytes, as the JAX package's save_png
+    does; it writes through PIL, the port with zlib alone."""
+    rgba = np.asarray(rgba)
+    if rgba.dtype != np.uint8:
+        rgba = np.clip(np.round(rgba * 255.0), 0, 255).astype(np.uint8)
+    img = rgba if rgba.ndim == 3 else rgba[..., None]
+    h, w, c = img.shape
+    colour = {1: 0, 3: 2, 4: 6}[c]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           img.reshape(h, w * c)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(_PNG_SIGNATURE
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour,
+                                             0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                + chunk(b"IEND", b""))
+
+
 def read_png(path) -> np.ndarray:
     """(H, W, 4) uint8 of an 8-bit, non-interlaced PNG file (_decode_png).
     Raises ValueError on anything else."""
@@ -164,19 +193,32 @@ def decode_rgba(blob: bytes) -> Optional[np.ndarray]:
 
 
 def load_rgba8(path: str) -> np.ndarray:
-    """A texture file → (H, W, 4) uint8. PNG only: any other file raises
-    ValueError naming its format (the JAX package's PIL, .ktx2 and .svg
-    decoders are not ported)."""
+    """A texture file → (H, W, 4) uint8: .ktx2 (level 0, assets/ktx2.py),
+    .svg (rasterized at its declared size, io/svg.py) or PNG; any other
+    file raises ValueError naming its format."""
+    lower = path.lower()
+    if lower.endswith(".ktx2"):
+        from trident_tpu_torch.assets.ktx2 import load_ktx2_rgba8
+
+        return load_ktx2_rgba8(path)
+    if lower.endswith(".svg"):
+        from trident_tpu_torch.io.svg import rasterize_svg_file
+
+        return rasterize_svg_file(path)
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_PNG_SIGNATURE):
         ext = os.path.splitext(path)[1].lower() or "(no extension)"
         raise ValueError(f"{path}: cannot decode {ext} images: the port "
-                         "reads PNG textures only")
+                         "reads PNG, KTX2 and SVG textures only")
     return _decode_png(data, path)
 
 
 def load_rgba8_mips(path: str):
-    """(rgba, None): load_rgba8's image and no mip chain (the formats that
-    carry their own chain, .ktx2, are not ported)."""
+    """(rgba, mips-or-None): load_rgba8's image, and for a .ktx2 with more
+    than one level its level 1.. images (the file's own mip chain)."""
+    if path.lower().endswith(".ktx2"):
+        from trident_tpu_torch.assets.ktx2 import load_ktx2_rgba8_mips
+
+        return load_ktx2_rgba8_mips(path)
     return load_rgba8(path), None

@@ -7,12 +7,20 @@ rotation; the plane-gather configs of two of them (PLANE_CONFIGS); the
 goldens (png_scene); the skinned tube crowd (skinned_scene, its numpy
 mesh, layout and poses shared with the JAX twin of the tests); and the
 same crowd loaded and animated: one tube written as a .glb with a looping
-clip (write_tube_gltf), imported into a Scene and played (loaded_crowd),
-and the flavor_skinned rig (write_rig_gltf, skinned_png_scene).
+clip (write_tube_gltf), or as binary FBX (write_tube_fbx) or COLLADA
+(write_tube_dae), imported into a Scene and played (loaded_crowd), and the
+flavor_skinned rig (write_rig_gltf, skinned_png_scene); spheres1080_1m's
+field as one .obj (write_field_obj) with its checker as a .ktx2 with file
+mips, skyboxes as PNG faces, KTX2 and KTX1 cube maps, an SVG texture, and
+the field's scene from those files or from the same arrays in memory
+(field_scene). Every file is written with struct, zlib, json and text
+alone (no PIL).
 """
 
 from __future__ import annotations
 
+import struct
+import zlib
 from typing import NamedTuple
 
 import numpy as np
@@ -913,7 +921,7 @@ def loaded_crowd(device, path, grid: int = SKIN_GRID, shadows: bool = False,
                  width: int = 1920, height: int = 1080,
                  shadow_map_size: int = 1024) -> LoadedCrowd:
     """skinned_scene's crowd, loaded and animated: `path` (a
-    write_tube_gltf file) imported once through import_model_entities into
+    write_tube_gltf, write_tube_fbx or write_tube_dae file) imported once through import_model_entities into
     a Scene, grid² − 1 more entities sharing its mesh, all in the
     tube_layout(grid) grid with the 128² checker (each a TextureComponent,
     as in skinned_scene) and AnimationComponent(skeleton_asset=path,
@@ -983,3 +991,636 @@ def loaded_crowd(device, path, grid: int = SKIN_GRID, shadows: bool = False,
     r.editor_camera.look_at_target([0, 0, 0])
     scene.play()
     return LoadedCrowd(scene, r, entities, import_ms)
+
+
+
+# -- the same tube as FBX and COLLADA, written with struct, zlib and text
+# alone: each file carries write_tube_gltf's mesh (vertex colours
+# included), joints, inverse binds and clip, laid out so that the loaders'
+# conventions (reversed winding, flipped V, welded corners) give back the
+# .glb's mesh, its triangle and vertex order included
+
+FBX_VERSION = 7400
+FBX_KTIME_PER_SECOND = 46186158000      # FBX time ticks per second
+
+
+def _fbx_prop(p) -> bytes:
+    """One FBX property record: np.int64 → L, bool → C, int → I, float →
+    D, str → S, bytes → R, a numpy array → its array type (zlib-compressed
+    above 16 values, as exporters write them)."""
+    if isinstance(p, np.int64):
+        return b"L" + struct.pack("<q", int(p))
+    if isinstance(p, bool):
+        return b"C" + struct.pack("<B", int(p))
+    if isinstance(p, int):
+        return b"I" + struct.pack("<i", p)
+    if isinstance(p, float):
+        return b"D" + struct.pack("<d", p)
+    if isinstance(p, str):
+        raw = p.encode()
+        return b"S" + struct.pack("<I", len(raw)) + raw
+    if isinstance(p, (bytes, bytearray)):
+        return b"R" + struct.pack("<I", len(p)) + bytes(p)
+    arr = np.ascontiguousarray(p)
+    code = {np.dtype(np.float32): b"f", np.dtype(np.float64): b"d",
+            np.dtype(np.int64): b"l", np.dtype(np.int32): b"i"}[arr.dtype]
+    raw, enc = arr.tobytes(), 0
+    if arr.size > 16:
+        raw, enc = zlib.compress(raw), 1
+    return code + struct.pack("<III", arr.size, enc, len(raw)) + raw
+
+
+def _fbx_node(name: str, props, children, base: int) -> bytes:
+    """A node record (FBX < 7.5: 32-bit offsets) starting at file offset
+    `base`: its properties, then its children closed by a null record."""
+    blob = b"".join(_fbx_prop(p) for p in props)
+    body, pos = b"", base + 13 + len(name) + len(blob)
+    for child in children:
+        sub = _fbx_node(*child, pos)
+        body, pos = body + sub, pos + len(sub)
+    if children:
+        body, pos = body + b"\0" * 13, pos + 13
+    return (struct.pack("<IIIB", pos, len(props), len(blob), len(name))
+            + name.encode() + blob + body)
+
+
+def write_fbx_binary(path, nodes) -> None:
+    """A binary FBX 7.4 file of the top-level `nodes`, each (name, props,
+    children)."""
+    buf = b"Kaydara FBX Binary  \0\x1a\0" + struct.pack("<I", FBX_VERSION)
+    for node in nodes:
+        buf += _fbx_node(*node, len(buf))
+    with open(path, "wb") as f:
+        f.write(buf + b"\0" * 13)
+
+
+def _fbx_p(name: str, ptype: str, label: str, flags: str, *values):
+    """A Properties70 entry."""
+    return ("P", [name, ptype, label, flags, *values], [])
+
+
+def normalized_f32(n: np.ndarray) -> np.ndarray:
+    """(N, 3) f32 rows divided by their f32 length, as the OBJ, FBX and
+    COLLADA loaders normalize the normals they read."""
+    n = np.asarray(n, np.float32)
+    return (n / np.maximum(np.linalg.norm(n, axis=1, keepdims=True),
+                           1e-12)).astype(np.float32)
+
+
+def prenormalized(n: np.ndarray) -> np.ndarray:
+    """Normals to write so that normalized_f32 of them is `n` (f32, (N,
+    3)): n itself where that already holds, else the nearest of its
+    neighbours up to 4 ulps a component that normalizes to n; n where
+    none does."""
+    import itertools
+
+    n = np.asarray(n, np.float32)
+    out = n.copy()
+    todo = np.nonzero((normalized_f32(n) != n).any(1))[0]
+    steps = sorted(itertools.product(range(-4, 5), repeat=3),
+                   key=lambda d: sum(map(abs, d)))[1:]
+    for step in steps:
+        if not todo.size:
+            break
+        cand = n[todo].copy()
+        for axis, d in enumerate(step):
+            for _ in range(abs(d)):
+                cand[:, axis] = np.nextafter(
+                    cand[:, axis], np.float32(np.sign(d) * np.inf))
+        ok = (normalized_f32(cand) == n[todo]).all(1)
+        out[todo[ok]] = cand[ok]
+        todo = todo[~ok]
+    return out
+
+
+def tube_file_arrays(bones: int = SKIN_BONES, keys: int = TUBE_KEYS,
+                     segments: int = SKIN_SEGMENTS,
+                     rings: int = SKIN_RINGS) -> dict:
+    """What the FBX and COLLADA tubes store: tube_mesh_arrays' mesh with
+    each triangle (a, b, c) as (a, c, b) ("corners", (T, 3): the loaders
+    fan it back to (a, b, c)), normals that normalize to the .glb's
+    ("file_normals", prenormalized), V flipped ("file_uvs": the loaders
+    flip it back), each bone's influences ("influences": (vertex
+    ids, f32 weights) of weight > 0 in vertex order, so that a vertex's
+    lower bone comes first, as in the .glb), the joint spacing "seg", the
+    inverse binds (B, 4, 4) f32, and the clip's key times (the .glb's f32
+    times) with the turn of each joint at each key in degrees."""
+    arrs = tube_mesh_arrays(segments, rings, bones)
+    seg = TUBE_LENGTH / max(bones - 1, 1)
+    inv_bind = np.tile(np.eye(4, dtype=np.float32), (bones, 1, 1))
+    inv_bind[:, 1, 3] = -seg * np.arange(bones, dtype=np.float32)
+    times, bends = tube_key_bends(keys)
+    file_uvs = arrs["uvs"].copy()
+    file_uvs[:, 1] = np.float32(1.0) - file_uvs[:, 1]
+    idx, wgt = arrs["bone_indices"], arrs["bone_weights"]
+    influences = []
+    for b in range(bones):
+        v, slot = np.nonzero((idx == b) & (wgt > 0))
+        influences.append((v.astype(np.int32), wgt[v, slot]))
+    return dict(arrs, corners=arrs["indices"].reshape(-1, 3)[:, [0, 2, 1]],
+                file_normals=prenormalized(arrs["normals"]),
+                file_uvs=file_uvs, influences=influences, seg=seg,
+                inv_bind=inv_bind, times=times,
+                degrees=np.degrees(bends / max(bones - 1, 1)))
+
+
+def write_tube_fbx(path, bones: int = SKIN_BONES, keys: int = TUBE_KEYS,
+                   segments: int = SKIN_SEGMENTS,
+                   rings: int = SKIN_RINGS) -> str:
+    """write_tube_gltf's tube as a binary FBX 7.4 file at `path` → the
+    path (tube_file_arrays): one Mesh Model over a Geometry (control
+    points, triangles of reversed winding, ByPolygonVertex normals,
+    IndexToDirect UVs and vertex colours), a chain of `bones` LimbNode
+    Models up +y (Lcl Translation; joint 0 at the base), one Skin with a
+    Cluster per joint (Indexes, Weights, Transform = the inverse bind,
+    TransformLink = the bind), and one AnimationStack "bend" whose layer
+    turns every joint but the root about z: an AnimationCurveNode on each
+    joint's Lcl Rotation with one AnimationCurve per axis (KeyTime in FBX
+    ticks at the .glb's key times, KeyValueFloat in degrees). 1 unit = 1
+    m (UnitScaleFactor 100), Y up."""
+    f = tube_file_arrays(bones, keys, segments, rings)
+    n_v = f["positions"].shape[0]
+    corners = np.ascontiguousarray(f["corners"], np.int32)
+    pvi = corners.copy()
+    pvi[:, 2] ^= -1                        # a polygon's last index XOR −1
+    cvtx = corners.reshape(-1)
+    geo, mesh_model, skin, stack, layer = (
+        np.int64(x) for x in (1000, 2000, 4000, 6000, 6001))
+    joint = [np.int64(3000 + j) for j in range(bones)]
+    cluster = [np.int64(5000 + j) for j in range(bones)]
+    rgba = np.concatenate([f["colors"], np.ones((n_v, 1), np.float32)], 1)
+
+    def layer_element(kind, name, ref, values_name, values, index_name):
+        return (kind, [0], [
+            ("Version", [101], []), ("Name", [name], []),
+            ("MappingInformationType", ["ByPolygonVertex"], []),
+            ("ReferenceInformationType", [ref], []),
+            (values_name, [values.astype(np.float64).reshape(-1)], []),
+            *([(index_name, [cvtx], [])] if index_name else [])])
+
+    objects = [
+        ("Geometry", [geo, "tube\0\x01Geometry", "Mesh"], [
+            ("Vertices", [f["positions"].astype(np.float64).reshape(-1)],
+             []),
+            ("PolygonVertexIndex", [pvi.reshape(-1)], []),
+            ("GeometryVersion", [124], []),
+            layer_element("LayerElementNormal", "", "Direct", "Normals",
+                          f["file_normals"][cvtx], None),
+            layer_element("LayerElementUV", "UVMap", "IndexToDirect", "UV",
+                          f["file_uvs"], "UVIndex"),
+            layer_element("LayerElementColor", "Col", "IndexToDirect",
+                          "Colors", rgba, "ColorIndex"),
+            ("Layer", [0], [("Version", [100], [])] + [
+                ("LayerElement", [], [("Type", [kind], []),
+                                      ("TypedIndex", [0], [])])
+                for kind in ("LayerElementNormal", "LayerElementUV",
+                             "LayerElementColor")]),
+        ]),
+        ("Model", [mesh_model, "tube\0\x01Model", "Mesh"], [
+            ("Version", [232], [])]),
+        ("Deformer", [skin, "\0\x01Deformer", "Skin"], [
+            ("Version", [101], []), ("Link_DeformAcuracy", [50.0], [])]),
+    ]
+    conns = [("C", ["OO", mesh_model, np.int64(0)], []),
+             ("C", ["OO", geo, mesh_model], []),
+             ("C", ["OO", skin, geo], []),
+             ("C", ["OO", layer, stack], [])]
+    for j, (verts, weights) in enumerate(f["influences"]):
+        objects.append(("Model", [joint[j], f"joint{j}\0\x01Model",
+                                  "LimbNode"], [
+            ("Version", [232], []),
+            ("Properties70", [], [
+                _fbx_p("Lcl Translation", "Lcl Translation", "", "A", 0.0,
+                       f["seg"] if j else 0.0, 0.0)])]))
+        inv_bind = f["inv_bind"][j].astype(np.float64)
+        objects.append(("Deformer", [cluster[j], "\0\x01SubDeformer",
+                                     "Cluster"], [
+            ("Version", [100], []),
+            ("Indexes", [verts], []),
+            ("Weights", [weights.astype(np.float64)], []),
+            ("Transform", [inv_bind.T.reshape(-1)], []),  # column-major
+            ("TransformLink", [np.linalg.inv(inv_bind).T.reshape(-1)], [])]))
+        conns += [("C", ["OO", joint[j], joint[j - 1] if j else np.int64(0)],
+                   []),
+                  ("C", ["OO", cluster[j], skin], []),
+                  ("C", ["OO", joint[j], cluster[j]], [])]
+    ticks = np.round(f["times"].astype(np.float64)
+                     * FBX_KTIME_PER_SECOND).astype(np.int64)
+    objects += [
+        ("AnimationStack", [stack, "bend\0\x01AnimStack", ""], [
+            ("Properties70", [], [
+                _fbx_p("LocalStop", "KTime", "Time", "", ticks[-1]),
+                _fbx_p("ReferenceStop", "KTime", "Time", "", ticks[-1])])]),
+        ("AnimationLayer", [layer, "BaseLayer\0\x01AnimLayer", ""], []),
+    ]
+    turn = f["degrees"].astype(np.float32)
+    for j in range(1, bones):
+        node = np.int64(7000 + j)
+        objects.append(("AnimationCurveNode",
+                        [node, "R\0\x01AnimCurveNode", ""], [
+            ("Properties70", [], [_fbx_p(f"d|{a}", "Number", "", "A", 0.0)
+                                  for a in "XYZ"])]))
+        conns += [("C", ["OO", node, layer], []),
+                  ("C", ["OP", node, joint[j], "Lcl Rotation"], [])]
+        for a, values in zip("XYZ", (np.zeros_like(turn),
+                                     np.zeros_like(turn), turn)):
+            curve = np.int64(8000 + 3 * j + "XYZ".index(a))
+            objects.append(("AnimationCurve", [curve, "\0\x01AnimCurve", ""],
+                            [("Default", [0.0], []), ("KeyVer", [4009], []),
+                             ("KeyTime", [ticks], []),
+                             ("KeyValueFloat", [values], [])]))
+            conns.append(("C", ["OP", curve, node, f"d|{a}"], []))
+    write_fbx_binary(path, [
+        ("FBXHeaderExtension", [], [
+            ("FBXHeaderVersion", [1003], []),
+            ("FBXVersion", [FBX_VERSION], []),
+            ("Creator", ["trident_tpu_torch tools_dev/scenes.py"], [])]),
+        ("GlobalSettings", [], [
+            ("Version", [1000], []),
+            ("Properties70", [], [
+                _fbx_p("UpAxis", "int", "Integer", "", 1),
+                _fbx_p("UnitScaleFactor", "double", "Number", "", 100.0)])]),
+        ("Objects", [], objects),
+        ("Connections", [], conns),
+    ])
+    return str(path)
+
+
+def _dae_floats(a) -> str:
+    """Floats as text that parses back to the same doubles (repr)."""
+    return " ".join(map(repr, np.asarray(a, np.float64).ravel().tolist()))
+
+
+def _dae_ints(a) -> str:
+    return " ".join(map(str, np.asarray(a).ravel().tolist()))
+
+
+def _dae_source(sid: str, values, stride: int, params: str,
+                ptype: str = "float") -> str:
+    """A <source> of a float_array (a Name_array for ptype "name") with
+    its accessor: `params` names the stride's fields, each of `ptype`."""
+    if ptype != "name":
+        n = int(np.asarray(values).size)
+        array = (f'<float_array id="{sid}-array" count="{n}">'
+                 f'{_dae_floats(values)}</float_array>')
+    else:
+        n = len(values)
+        array = (f'<Name_array id="{sid}-array" count="{n}">'
+                 f'{" ".join(values)}</Name_array>')
+    fields = "".join(f'<param name="{p}" type="{ptype}"/>'
+                     for p in params.split())
+    return (f'<source id="{sid}">{array}<technique_common>'
+            f'<accessor source="#{sid}-array" count="{n // stride}" '
+            f'stride="{stride}">{fields}</accessor></technique_common>'
+            f'</source>')
+
+
+def write_tube_dae(path, bones: int = SKIN_BONES, keys: int = TUBE_KEYS,
+                   segments: int = SKIN_SEGMENTS,
+                   rings: int = SKIN_RINGS) -> str:
+    """write_tube_gltf's tube as a COLLADA 1.4.1 document at `path` → the
+    path (tube_file_arrays): one geometry whose <triangles> of reversed
+    winding index positions, normals, UVs and vertex colours with one
+    index a corner; a <skin> controller (identity bind shape, the joints,
+    their inverse binds, each vertex's influences of weight > 0); a joint
+    node chain up +y (translate, then a rotateZ of 0 degrees; joint 0 at
+    the base) beside the node that instances the controller; and one
+    animation a joint but the root, its rotateZ.ANGLE over the .glb's key
+    times in degrees. Floats are written as repr of their doubles, so they
+    read back exactly. 1 unit = 1 m, Y up."""
+    f = tube_file_arrays(bones, keys, segments, rings)
+    n_v, n_t = f["positions"].shape[0], f["corners"].shape[0]
+    names = [f"joint{j}" for j in range(bones)]
+    per_vertex = [[] for _ in range(n_v)]
+    for j, (verts, weights) in enumerate(f["influences"]):
+        for v, w in zip(verts.tolist(), weights.tolist()):
+            per_vertex[v].append((j, w))
+    weights = [w for inf in per_vertex for _j, w in inf]
+    pairs, k = [], 0
+    for inf in per_vertex:
+        for j, _w in inf:
+            pairs += [j, k]
+            k += 1
+    geometry = (
+        '<geometry id="tube-mesh" name="tube"><mesh>'
+        + _dae_source("tube-positions", f["positions"], 3, "X Y Z")
+        + _dae_source("tube-normals", f["file_normals"], 3, "X Y Z")
+        + _dae_source("tube-uvs", f["file_uvs"], 2, "S T")
+        + _dae_source("tube-colors", f["colors"], 3, "R G B")
+        + '<vertices id="tube-vertices"><input semantic="POSITION" '
+          'source="#tube-positions"/></vertices>'
+        + f'<triangles count="{n_t}">'
+          '<input semantic="VERTEX" source="#tube-vertices" offset="0"/>'
+          '<input semantic="NORMAL" source="#tube-normals" offset="0"/>'
+          '<input semantic="TEXCOORD" source="#tube-uvs" offset="0" '
+          'set="0"/>'
+          '<input semantic="COLOR" source="#tube-colors" offset="0"/>'
+        + f'<p>{_dae_ints(f["corners"])}</p></triangles></mesh></geometry>')
+    controller = (
+        '<controller id="tube-skin"><skin source="#tube-mesh">'
+        f'<bind_shape_matrix>{_dae_floats(np.eye(4))}</bind_shape_matrix>'
+        + _dae_source("tube-joints", names, 1, "JOINT", "name")
+        + _dae_source("tube-binds", f["inv_bind"], 16, "TRANSFORM",
+                      "float4x4")
+        + _dae_source("tube-weights", np.asarray(weights, np.float32), 1,
+                      "WEIGHT")
+        + '<joints><input semantic="JOINT" source="#tube-joints"/>'
+          '<input semantic="INV_BIND_MATRIX" source="#tube-binds"/></joints>'
+        + f'<vertex_weights count="{n_v}">'
+          '<input semantic="JOINT" source="#tube-joints" offset="0"/>'
+          '<input semantic="WEIGHT" source="#tube-weights" offset="1"/>'
+        + f'<vcount>{_dae_ints([len(i) for i in per_vertex])}</vcount>'
+        + f'<v>{_dae_ints(pairs)}</v></vertex_weights></skin></controller>')
+    animations = []
+    for j in range(1, bones):
+        a = f"joint{j}-rotateZ"
+        animations.append(
+            f'<animation id="{a}">'
+            + _dae_source(f"{a}-input", f["times"], 1, "TIME")
+            + _dae_source(f"{a}-output", f["degrees"], 1, "ANGLE")
+            + _dae_source(f"{a}-interpolation", ["LINEAR"] * keys, 1,
+                          "INTERPOLATION", "name")
+            + f'<sampler id="{a}-sampler">'
+              f'<input semantic="INPUT" source="#{a}-input"/>'
+              f'<input semantic="OUTPUT" source="#{a}-output"/>'
+              f'<input semantic="INTERPOLATION" '
+              f'source="#{a}-interpolation"/></sampler>'
+            + f'<channel source="#{a}-sampler" '
+              f'target="joint{j}/rotateZ.ANGLE"/></animation>')
+    chain = ""
+    for j in reversed(range(bones)):
+        chain = (f'<node id="joint{j}" sid="joint{j}" name="joint{j}" '
+                 f'type="JOINT"><translate sid="translate">'
+                 f'{_dae_floats([0.0, f["seg"] if j else 0.0, 0.0])}'
+                 '</translate><rotate sid="rotateZ">0 0 1 0</rotate>'
+                 f'{chain}</node>')
+    doc = (
+        '<?xml version="1.0" encoding="utf-8"?>\n'
+        '<COLLADA xmlns="http://www.collada.org/2005/11/COLLADASchema" '
+        'version="1.4.1"><asset><contributor><authoring_tool>'
+        'trident_tpu_torch tools_dev/scenes.py</authoring_tool>'
+        '</contributor><unit name="meter" meter="1"/>'
+        '<up_axis>Y_UP</up_axis></asset>'
+        f'<library_geometries>{geometry}</library_geometries>'
+        f'<library_controllers>{controller}</library_controllers>'
+        f'<library_animations>{"".join(animations)}</library_animations>'
+        '<library_visual_scenes><visual_scene id="scene">'
+        f'{chain}<node id="tube" name="tube" type="NODE">'
+        '<instance_controller url="#tube-skin"><skeleton>#joint0'
+        '</skeleton></instance_controller></node></visual_scene>'
+        '</library_visual_scenes><scene><instance_visual_scene '
+        'url="#scene"/></scene></COLLADA>\n')
+    with open(path, "w") as fh:
+        fh.write(doc)
+    return str(path)
+
+
+# -- spheres1080_1m from files: its sphere field as one .obj whose .mtl
+# takes the checker from a .ktx2 with its file mips, and skyboxes as six
+# PNG faces, a KTX2 and a KTX1 cube map; field_scene builds the frame from
+# those files or from the same arrays in memory
+
+FIELD_MATERIAL = dict(name="field", base_color=(1.0, 1.0, 1.0, 1.0),
+                      metallic=0.0, roughness=0.5)
+SKY_EDGE = 256
+
+
+def field_mesh_arrays(grid: int = 36) -> dict:
+    """spheres1080_1m's grid × grid sphere field as one mesh's arrays (the
+    sphere primitive at bench.py's positions, 1.4 apart, unrotated; 36²
+    spheres of 768 triangles: 995,328), V rounded so that 1 − V is exact
+    in f32 (the OBJ loaders flip V), and "file_normals": normals that
+    normalized_f32 takes to the sphere's (prenormalized), so that a file
+    written from these arrays loads back to them bit for bit. Keys:
+    positions, normals, file_normals, uvs (f32), indices (T·3 i32, each
+    sphere's Morton order)."""
+    from trident_tpu_torch.geometry.primitives import build_sphere
+
+    sphere = build_sphere()
+    nv = sphere.positions.shape[0]
+    ij = np.stack(np.meshgrid(np.arange(grid), np.arange(grid),
+                              indexing="ij"), -1).reshape(-1, 2)
+    offsets = np.zeros((ij.shape[0], 3), np.float32)
+    offsets[:, :2] = ((ij - grid / 2) * 1.4).astype(np.float32)
+    positions = (sphere.positions[None] + offsets[:, None]).reshape(-1, 3)
+    file_normals = prenormalized(sphere.normals)
+    if (normalized_f32(file_normals) != sphere.normals).any():
+        raise ValueError("no file normals normalize to the sphere's")
+    uvs = sphere.uvs.copy()
+    one = np.float32(1.0)
+    uvs[:, 1] = one - (one - uvs[:, 1])
+    indices = (sphere.indices[None] + nv * np.arange(ij.shape[0],
+                                                     dtype=np.int32)[:, None])
+    return dict(positions=positions.astype(np.float32),
+                normals=np.tile(sphere.normals, (ij.shape[0], 1)),
+                file_normals=np.tile(file_normals, (ij.shape[0], 1)),
+                uvs=np.tile(uvs, (ij.shape[0], 1)),
+                indices=indices.reshape(-1).astype(np.int32))
+
+
+def write_field_obj(directory, texture: str, grid: int = 36,
+                    name: str = "field") -> str:
+    """field_mesh_arrays(grid) as `directory`/name.obj with name.mtl (one
+    material, FIELD_MATERIAL's values, map_Kd `texture`, a file name
+    beside it) → the .obj's path. Each vertex is one v / vt / vn line
+    (%.9g: each f32 reads back exactly; vt holds 1 − V, vn the file
+    normals), each triangle
+    (a, b, c) one face a c b, which the loaders fan back to (a, b, c)."""
+    import os
+
+    f = field_mesh_arrays(grid)
+    one = np.float32(1.0)
+    vt = np.stack([f["uvs"][:, 0], one - f["uvs"][:, 1]], 1)
+    tri = f["indices"].reshape(-1, 3)[:, [0, 2, 1]] + 1
+    n_v, n_t = f["positions"].shape[0], tri.shape[0]
+    m = FIELD_MATERIAL
+    with open(os.path.join(str(directory), f"{name}.mtl"), "w") as fh:
+        fh.write(f"newmtl {m['name']}\nKd {' '.join(map(repr, m['base_color'][:3]))}\n"
+                 f"Pm {m['metallic']!r}\nPr {m['roughness']!r}\n"
+                 f"map_Kd {texture}\n")
+    path = os.path.join(str(directory), f"{name}.obj")
+    with open(path, "w") as fh:
+        fh.write(f"# {grid}x{grid} sphere field: {n_v} vertices, {n_t} "
+                 f"triangles\nmtllib {name}.mtl\n")
+        fh.write(("v %.9g %.9g %.9g\n" * n_v)
+                 % tuple(f["positions"].astype(np.float64).ravel().tolist()))
+        fh.write(("vt %.9g %.9g\n" * n_v)
+                 % tuple(vt.astype(np.float64).ravel().tolist()))
+        fh.write(("vn %.9g %.9g %.9g\n" * n_v)
+                 % tuple(f["file_normals"].astype(np.float64).ravel()
+                         .tolist()))
+        fh.write(f"usemtl {m['name']}\n")
+        fh.write(("f %d/%d/%d %d/%d/%d %d/%d/%d\n" * n_t)
+                 % tuple(np.repeat(tri.reshape(-1), 3).tolist()))
+    return path
+
+
+def box_mips(rgba: np.ndarray) -> list:
+    """The levels below a square power-of-two RGBA8 image, each the
+    rounded mean of 2×2 texels of the one above, down to 1×1."""
+    chain, cur = [], np.asarray(rgba, np.uint8)
+    while cur.shape[0] > 1:
+        s = (cur[0::2, 0::2].astype(np.uint16) + cur[1::2, 0::2]
+             + cur[0::2, 1::2] + cur[1::2, 1::2] + 2) // 4
+        cur = s.astype(np.uint8)
+        chain.append(cur)
+    return chain
+
+
+def checker_file() -> tuple:
+    """(rgba, mips): bench.py's 128² checker and the file mip chain its
+    .ktx2 carries (box_mips)."""
+    from trident_tpu_torch.io.image import checkerboard
+
+    rgba = checkerboard(128, 8)
+    return rgba, box_mips(rgba)
+
+
+def write_checker_ktx2(path, scheme: int = 3) -> str:
+    """checker_file() as a KTX2 (RGBA8, its mip chain, zlib
+    supercompression by default) at `path` → the path."""
+    from trident_tpu_torch.assets.ktx2 import write_ktx2
+
+    rgba, mips = checker_file()
+    write_ktx2(str(path), rgba, scheme=scheme, mips=mips)
+    return str(path)
+
+
+def sky_levels_u8(edge: int = SKY_EDGE) -> list:
+    """The file skybox: gradient_faces as RGBA8 cube maps, (6, e, e, 4) at
+    edge, edge/2, … 1 (each level the gradient at its own size)."""
+    levels, e = [], edge
+    while e >= 1:
+        rgb = np.round(gradient_faces(e) * 255.0).astype(np.uint8)
+        levels.append(np.concatenate(
+            [rgb, np.full((6, e, e, 1), 255, np.uint8)], -1))
+        e //= 2
+    return levels
+
+
+def sky_arrays(levels_u8: list) -> list:
+    """RGBA8 cube-map levels as the skybox loaders return them: rgb
+    float32 / 255, (6, e, e, 3) each."""
+    return [lv[..., :3].astype(np.float32) / 255.0 for lv in levels_u8]
+
+
+def write_sky_ktx2(path, edge: int = SKY_EDGE, scheme: int = 0) -> str:
+    """sky_levels_u8(edge) as a KTX2 cube map with its mip chain."""
+    from trident_tpu_torch.assets.ktx2 import write_ktx2
+
+    levels = sky_levels_u8(edge)
+    write_ktx2(str(path), levels[0], cubemap=True, scheme=scheme,
+               mips=levels[1:])
+    return str(path)
+
+
+def write_ktx1_cubemap(path, levels_u8: list) -> str:
+    """RGBA8 cube-map levels ((6, e, e, 4) each, edge halved a level) as a
+    little-endian KTX1 file (GL_RGBA / GL_UNSIGNED_BYTE, imageSize one
+    face's bytes, faces 4-byte aligned) → the path."""
+    e = levels_u8[0].shape[1]
+    head = (b"\xabKTX 11\xbb\r\n\x1a\n"
+            + struct.pack("<13I", 0x04030201, 0x1401, 1, 0x1908, 0x8058,
+                          0x1908, e, e, 0, 0, 6, len(levels_u8), 0))
+    body = b""
+    for lv in levels_u8:
+        face = np.ascontiguousarray(lv, np.uint8)
+        size = face[0].nbytes
+        body += struct.pack("<I", size)
+        for f in face:
+            body += f.tobytes() + b"\0" * (-size % 4)
+    with open(path, "wb") as fh:
+        fh.write(head + body)
+    return str(path)
+
+
+def write_sky_faces(directory, edge: int = SKY_EDGE) -> str:
+    """Level 0 of sky_levels_u8(edge) as six PNG faces sky_px.png …
+    sky_nz.png in `directory` → the directory."""
+    import os
+
+    from trident_tpu_torch.io.image import save_png
+
+    faces = sky_levels_u8(edge)[0]
+    for face, token in zip(faces, ("px", "nx", "py", "ny", "pz", "nz")):
+        save_png(os.path.join(str(directory), f"sky_{token}.png"), face)
+    return str(directory)
+
+
+# a 64² SVG texture: a blue ground, a stroked yellow disc, a translucent
+# red triangle and a cubic stroke (rect, circle, path; fill, stroke,
+# opacity)
+SVG_TEXTURE = (
+    '<svg xmlns="http://www.w3.org/2000/svg" width="64" height="64" '
+    'viewBox="0 0 64 64">'
+    '<rect width="64" height="64" fill="#2050c0"/>'
+    '<circle cx="32" cy="30" r="18" fill="#f0c020" stroke="#202020" '
+    'stroke-width="3"/>'
+    '<path d="M6 58 L32 40 L58 58 Z" fill="#c03030" fill-opacity="0.8"/>'
+    '<path d="M4 8 C20 0 44 16 60 8" fill="none" stroke="#ffffff" '
+    'stroke-width="2"/></svg>')
+
+
+class FieldFiles(NamedTuple):
+    obj: str        # the field's .obj (its .mtl names the texture file)
+    texture: str    # the texture file the .mtl names
+    sky: str        # a skybox source for load_skybox_mips
+
+
+def field_scene(device, grid: int = 36, width: int = 1920,
+                height: int = 1080, files: FieldFiles = None,
+                texture=None, sky=None):
+    """spheres1080_1m's field as one mesh under one textured material
+    (FIELD_MATERIAL) before a skybox, seen from bench.py's camera → (the
+    Renderer, the Registry, the texture's slot). From `files`:
+    import_model_entities of the .obj (load_model: the native OBJ loader
+    when it builds; the texture through the .mtl and load_rgba8_mips)
+    and load_skybox_mips(files.sky). Else from arrays in memory: the
+    Mesh of field_mesh_arrays(grid), `texture` = (rgba, mips) through
+    acquire_texture(mips=), `sky` = the skybox levels through
+    set_skybox. The two differ only in where the bytes came from."""
+    import os
+
+    from trident_tpu_torch.assets.scene_loader import import_model_entities
+    from trident_tpu_torch.assets.skybox import load_skybox_mips
+    from trident_tpu_torch.core.config import EngineConfig, RenderConfig
+    from trident_tpu_torch.ecs.components import (
+        MeshComponent,
+        TransformComponent,
+    )
+    from trident_tpu_torch.ecs.registry import Registry
+    from trident_tpu_torch.geometry.mesh import Material, Mesh
+    from trident_tpu_torch.render.renderer import Renderer
+
+    r = Renderer(EngineConfig(render=RenderConfig(width=width,
+                                                  height=height)),
+                 device=device)
+    reg = Registry()
+    r.set_active_registry(reg)
+    if files is not None:
+        import_model_entities(files.obj, reg, r)
+        sky = load_skybox_mips(files.sky)
+        slot = r.textures.lookup(
+            os.path.normpath(os.path.abspath(files.texture)))
+    else:
+        f = field_mesh_arrays(grid)
+        from trident_tpu_torch.assets.model_loader import _compute_tangents
+
+        tan, bit = _compute_tangents(f["positions"], f["normals"], f["uvs"],
+                                     f["indices"])
+        slot = r.acquire_texture("field_texture", texture[0],
+                                 mips=texture[1])
+        mat = Material(**FIELD_MATERIAL, base_color_texture=0)
+        mat.texture_slot = slot
+        mesh_base, mat_base = r.append_meshes(
+            [Mesh(f["positions"], f["indices"], normals=f["normals"],
+                  tangents=tan, bitangents=bit, uvs=f["uvs"],
+                  name=FIELD_MATERIAL["name"])], [mat])
+        e = reg.create()
+        reg.add(e, TransformComponent())
+        reg.add(e, MeshComponent(mesh_index=mesh_base,
+                                 material_index=mat_base))
+    r.set_skybox(sky[0], mips=sky[1:])
+    r.editor_camera.set_position([0, 0, grid * 1.1 + 2])
+    r.editor_camera.look_at_target([0, 0, 0])
+    return r, reg, slot
