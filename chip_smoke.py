@@ -211,9 +211,33 @@ Phases (any failure exits non-zero before the final line is printed):
      same scene from arrays in memory (the slot and the sky hold the
      decoded files); (c) a 128² frame textured from an .svg under a KTX1
      cube map, bit-equal to the scene from the decoded arrays
+ 18. the banded frame (phase_bands; parallel/framebuffer.py), n bands on
+     this one card through Renderer.render_viewport(devices=[card] * n)
+     (render_frame_banded_bundled), at 1920×1024 (1024 rows split into
+     whole 32-row tiles for 2, 4 and 8 bands; the scenes keep their
+     triangles, textures, lights and maps): (a) spheres1080_1m's field at
+     n = 2, 4, 8, (b) shadows1080 over 8 bands with its 1024² map banded
+     over 8, hard and PCF (the bundled frame against render_frame_banded
+     and its host-to-device copies per frame), (c) the ckern, fuse and
+     tiled_shade knobs on the field over 4, (d) the skinned crowd over 4
+     (default, fuse, tiled_shade) and the field's f16 plane-gather frame
+     over 2, (e) the field's :ai frame (960×512 → 1920×1024 over 2, two
+     frames, the second warping the first): every frame bit-equal to the
+     one-device frame (colour, depth, ids) with every band's aux [0, 0],
+     each :ai frame to the one-device half-size frame upscaled by the V1
+     path; (f) the Renderer with bands=2 warns on one card and renders
+     bit-equal to bands=1 (across two cards where there are two); each of
+     the nine band kernel instances against its plain version on a band
+     with a nonzero offset, and at offset 0 bit-equal to its offset-free
+     instance on the one-device frame's inputs, both timed in one window
+     (K1 and K2 also on every band of the field's 4); (g) the field's
+     frame at n = 1, 2, 4, 8: device ms (CUDA events), busy, wall, and
+     each band's binning, visibility and resolve busy
 Then it prints the kernels as one JSON line (each entry with
 `route_launches`: its launches in each of phase 15's, 16's and 17's
-route runs), the card line, and as the last line {"ok": true, "device":
+route runs; a band instance also its `offset_free_ms` and `offset0_ms`,
+the offset-free and the band instance at offset 0 timed in one window),
+the card line, and as the last line {"ok": true, "device":
 {...}}.
 
 Since phase 12's slice the Renderer's frames on the card are graph
@@ -3316,6 +3340,593 @@ def phase_imported(dev, card: str, drive) -> dict:
     return launches
 
 
+# phase 18: the banded frame (parallel/framebuffer.py): n bands on one
+# card, every band kernel instance through its band branch, at 1920×1024
+# (1024 rows are 32 whole tiles, so they split into 2, 4 or 8 bands; the
+# 1080 of the bench's scenes do not, and the Renderer renders those on one
+# device)
+BAND_W, BAND_H = 1920, 1024
+BAND_NS = (2, 4, 8)
+# each band instance: (CUDA source, the TPU kernel's band-offset line)
+BAND_KERNELS = {
+    "visibility_band": ("visibility.cu", "raster_pallas.py:993"),
+    "visibility_depth_band": ("visibility.cu", "raster_pallas.py:993"),
+    "visibility_ck_band": ("visibility_ck.cu", "raster_pallas.py:1255"),
+    "resolve_band": ("resolve.cu", "resolve_pallas.py:430"),
+    "resolve_tiled_band": ("resolve.cu", "resolve_pallas.py:430"),
+    "resolve_vc_band": ("resolve.cu", "resolve_pallas.py:430"),
+    "resolve_tiled_vc_band": ("resolve.cu", "resolve_pallas.py:430"),
+    "visibility_resolve_band": ("visibility_resolve.cu",
+                                "resolve_pallas.py:294"),
+    "visibility_resolve_vc_band": ("visibility_resolve.cu",
+                                   "resolve_pallas.py:294"),
+}
+
+
+class BandCase(NamedTuple):
+    """One band instance's check: `band()` and `plain()` on a band's
+    inputs (tile offset ≠ 0), `free()` and `band0()` the offset-free and
+    the band instance (offset 0) on the one-device frame's inputs, its
+    bound (bytes, ops) on the band's inputs, and whether its output is
+    attributes (held within RESOLVE_TOL; ids and depths bit for bit)."""
+
+    band: object
+    plain: object
+    free: object
+    band0: object
+    work: tuple
+    attrs: bool
+
+
+def _flat(out) -> list:
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def _bit_diffs(a, b) -> int:
+    import torch
+
+    return sum(int((x.view(torch.int32) != y.view(torch.int32)).sum())
+               for x, y in zip(_flat(a), _flat(b)))
+
+
+def sized(r, w: int = BAND_W, h: int = BAND_H):
+    """Renderer `r` with viewport 0 and the editor camera at w × h."""
+    r.set_viewport(0, w, h)
+    r.editor_camera.set_viewport_size(w, h)
+    return r
+
+
+def band_geometry(inp: dict):
+    """(corner stage output, records) of the one-device frame of `inp`."""
+    from trident_tpu_torch.render.renderer import frame_geometry
+
+    return frame_geometry(
+        inp["plan"], inp["tri_draw"], inp["params"], inp["shade_table"],
+        inp["camera"], inp["textures"], inp["corner_t"],
+        width=inp["width"], height=inp["height"],
+        draw_stride=inp["draw_stride"], real_draws=inp["real_draws"],
+        vertex_colors=inp["vertex_colors"], geometry=inp["geometry"],
+        palette=inp["palette"], skinned=inp["skinned"])
+
+
+def band_cases(setup, cols, records, w: int, h: int, n: int, b: int,
+               names) -> dict:
+    """BandCase of each band instance in `names` on band b of n of the
+    frame with full-frame setup (setup, cols) and resolve `records`, and
+    on the one-device frame's own inputs."""
+    import torch
+
+    from trident_tpu_torch.ops import raster, resolve
+    from trident_tpu_torch.ops.vertex import band_slice_setup
+
+    bh = h // n
+    y0, ty = b * bh, b * bh // raster.TILE
+    ntx = w // raster.TILE
+    nt_b, nt = ntx * (bh // raster.TILE), ntx * (h // raster.TILE)
+    s_band = band_slice_setup(setup, y0, bh, cull=False)
+    ck = any("_ck_" in x for x in names)
+    bins = raster.build_bins(s_band, w, bh, setup_cols=cols,
+                             ck_bank=8 if ck else 0)
+    full = raster.build_bins(setup, w, h, setup_cols=cols,
+                             ck_bank=8 if ck else 0)
+    for bb in (bins, full):
+        if bb.aux.tolist() != [0, 0]:
+            fail(f"band binning overflow: aux {bb.aux.tolist()}")
+    _d, t_b = raster.visibility_tiles_band(bins, ntx, nt_b, ty)
+    _d, t_f = raster.visibility_tiles(full, ntx, nt)
+    tri_b = raster.untile_frame(t_b, ntx, bh // raster.TILE).contiguous()
+    tri_f = raster.untile_frame(t_f, ntx, h // raster.TILE).contiguous()
+    vis = vis_work(bins, s_band, ntx, nt_b, 8)
+    row = records.shape[1] * 4
+    n_win = int(torch.unique(t_b[t_b >= 0]).numel())
+    px_t = nt_b * raster.TILE_PX
+    res_bytes = px_t * 4 * (1 + resolve.CHANNELS) + n_win * row
+    cases = {
+        "visibility_band": lambda: BandCase(
+            lambda: raster.visibility_tiles_band(bins, ntx, nt_b, ty),
+            lambda: raster.visibility_tiles_plain(bins, ntx, nt_b,
+                                                  tile_y_offset=ty),
+            lambda: raster.visibility_tiles(full, ntx, nt),
+            lambda: raster.visibility_tiles_band(full, ntx, nt, 0),
+            (vis.bytes, vis.ops), False),
+        "visibility_depth_band": lambda: BandCase(
+            lambda: raster.visibility_depth_tiles_band(bins, ntx, nt_b, ty),
+            lambda: raster.visibility_tiles_plain(
+                bins, ntx, nt_b, depth_only=True, tile_y_offset=ty),
+            lambda: raster.visibility_depth_tiles(full, ntx, nt),
+            lambda: raster.visibility_depth_tiles_band(full, ntx, nt, 0),
+            (vis.bytes - px_t * 4, vis.ops), False),
+        "visibility_ck_band": lambda: BandCase(
+            lambda: raster.visibility_ck_tiles_band(bins, ntx, nt_b, 8, ty),
+            lambda: raster.visibility_ck_tiles_plain(bins, ntx, nt_b, 8,
+                                                     tile_y_offset=ty),
+            lambda: raster.visibility_ck_tiles(full, ntx, nt, 8),
+            lambda: raster.visibility_ck_tiles_band(full, ntx, nt, 8, 0),
+            (int(bins.nhit.sum()) * raster.SUB * raster.REC * 4
+             + bins.nhit.numel() * 4 + (nt_b + 1) * 4 + px_t * 8, vis.ops),
+            False),
+        "resolve_band": lambda: BandCase(
+            lambda: resolve.resolve_attrs_band(tri_b, records, y0),
+            lambda: resolve.resolve_attrs_plain(tri_b, records, y0),
+            lambda: resolve.resolve_attrs(tri_f, records),
+            lambda: resolve.resolve_attrs_band(tri_f, records, 0),
+            (w * bh * 4 * (1 + resolve.CHANNELS) + n_win * row, 0), True),
+        "resolve_vc_band": lambda: BandCase(
+            lambda: resolve.resolve_attrs_vc_band(tri_b, records, y0),
+            lambda: resolve.resolve_attrs_plain(tri_b, records, y0),
+            lambda: resolve.resolve_attrs_vc(tri_f, records),
+            lambda: resolve.resolve_attrs_vc_band(tri_f, records, 0),
+            (w * bh * 4 * (1 + resolve.CHANNELS) + n_win * row, 0), True),
+        "resolve_tiled_band": lambda: BandCase(
+            lambda: resolve.resolve_attrs_tiled_band(t_b, records, ntx, ty),
+            lambda: resolve.resolve_attrs_tiled_plain(t_b, records, ntx, ty),
+            lambda: resolve.resolve_attrs_tiled(t_f, records, ntx),
+            lambda: resolve.resolve_attrs_tiled_band(t_f, records, ntx, 0),
+            (res_bytes, 0), True),
+        "resolve_tiled_vc_band": lambda: BandCase(
+            lambda: resolve.resolve_attrs_tiled_vc_band(t_b, records, ntx,
+                                                        ty),
+            lambda: resolve.resolve_attrs_tiled_plain(t_b, records, ntx, ty),
+            lambda: resolve.resolve_attrs_tiled_vc(t_f, records, ntx),
+            lambda: resolve.resolve_attrs_tiled_vc_band(t_f, records, ntx,
+                                                        0),
+            (res_bytes, 0), True),
+        "visibility_resolve_band": lambda: BandCase(
+            lambda: resolve.fused_visibility_resolve_band(bins, records, ntx,
+                                                          nt_b, ty),
+            lambda: resolve.fused_visibility_resolve_plain(bins, records,
+                                                           ntx, nt_b, ty),
+            lambda: resolve.fused_visibility_resolve(full, records, ntx, nt),
+            lambda: resolve.fused_visibility_resolve_band(full, records, ntx,
+                                                          nt, 0),
+            (vis.bytes + px_t * 4 * resolve.CHANNELS + n_win * row, vis.ops),
+            True),
+        "visibility_resolve_vc_band": lambda: BandCase(
+            lambda: resolve.fused_visibility_resolve_vc_band(
+                bins, records, ntx, nt_b, ty),
+            lambda: resolve.fused_visibility_resolve_plain(bins, records,
+                                                           ntx, nt_b, ty),
+            lambda: resolve.fused_visibility_resolve_vc(full, records, ntx,
+                                                        nt),
+            lambda: resolve.fused_visibility_resolve_vc_band(
+                full, records, ntx, nt, 0),
+            (vis.bytes + px_t * 4 * resolve.CHANNELS + n_win * row, vis.ops),
+            True),
+    }
+    return {name: cases[name]() for name in names}
+
+
+def hold_band_case(name: str, case: BandCase, results: dict,
+                   card: str) -> None:
+    """Band instance `name` against its plain version on its band's
+    inputs (ids and depths bit-equal, attributes within RESOLVE_TOL), and
+    at offset 0 against its offset-free instance on the one-device frame's
+    inputs, bit for bit; its times, and both instances' in one window
+    (offset-free, band, band, offset-free); its results entry."""
+    import torch
+
+    k, p = case.band(), case.plain()
+    torch.cuda.synchronize()
+    k, p = _flat(k), _flat(p)
+    err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(k, p))
+    ids_depths = k[:2] if case.attrs and len(k) == 3 else (
+        [] if case.attrs else k)
+    bad = _bit_diffs(tuple(ids_depths), tuple(p[:len(ids_depths)]))
+    attrs = k[-1] if case.attrs else None
+    if bad or (case.attrs and (err > RESOLVE_TOL
+                               or not bool(torch.isfinite(attrs).all()))):
+        fail(f"{name} disagrees with its plain version: {bad} id/depth "
+             f"values, max err {err}")
+    free, band0 = case.free(), case.band0()
+    torch.cuda.synchronize()
+    bad0 = _bit_diffs(free, band0)
+    if bad0:
+        fail(f"{name} at offset 0 differs from the offset-free instance in "
+             f"{bad0} values")
+    t = [cuda_ms(fn) for fn in (case.free, case.band0, case.band0,
+                                case.free)]
+    b_ms, b_by = bound(*case.work)
+    src, repl = BAND_KERNELS[name]
+    results[name] = dict(
+        route="cuda", source=f"trident_tpu_torch/csrc/{src}",
+        replaces=f"trident_tpu/ops/{repl}", max_abs_err=err,
+        ms=cuda_ms(case.band), plain_ms=cuda_ms(case.plain), bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        offset_free_ms=(t[0] + t[3]) / 2, offset0_ms=(t[1] + t[2]) / 2)
+    res = results[name]
+    print(f"{name}: on its band max err {err} vs plain; at offset 0 "
+          f"bit-equal to the offset-free instance; kernel {res['ms']:.4f} ms"
+          f" (busy {device_busy(case.band)[0]:.4f}), plain "
+          f"{res['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); one "
+          f"window offset-free / offset-0 band {t[0]:.4f} {t[1]:.4f} "
+          f"{t[2]:.4f} {t[3]:.4f} ms, ratio "
+          f"{res['offset0_ms'] / res['offset_free_ms']:.4f} ({card})",
+          flush=True)
+
+
+def band_stage_busy(setup, cols, records, w: int, h: int, n: int) -> list:
+    """Per band of n: (binning, visibility, resolve) device busy ms of the
+    field's band b (n = 1: the one-device frame's stages, offset-free)."""
+    from trident_tpu_torch.ops import raster, resolve
+    from trident_tpu_torch.ops.vertex import band_slice_setup
+
+    bh = h // n
+    ntx, nty = w // raster.TILE, bh // raster.TILE
+    out = []
+    for b in range(n):
+        y0 = b * bh
+        ty = None if n == 1 else y0 // raster.TILE
+
+        def binning(y0=y0):
+            s = (setup if n == 1
+                 else band_slice_setup(setup, y0, bh, cull=False))
+            return raster.build_bins(s, w, bh, setup_cols=cols)
+
+        bins = binning()
+        _d, t = raster.visibility_tiles(bins, ntx, ntx * nty,
+                                        tile_y_offset=ty)
+        tri = raster.untile_frame(t, ntx, nty).contiguous()
+        yo = None if n == 1 else y0
+        out.append(tuple(round(device_busy(fn, reps=3)[0], 4) for fn in (
+            binning,
+            lambda bins=bins, ty=ty: raster.visibility_tiles(
+                bins, ntx, ntx * nty, tile_y_offset=ty),
+            lambda tri=tri, yo=yo: resolve.resolve_attrs(tri, records, yo))))
+    return out
+
+
+class _WarnLog:
+    """Collects the port Renderer's warnings (its logger does not
+    propagate)."""
+
+    def __init__(self):
+        import logging
+
+        self.messages = []
+        outer = self
+
+        class H(logging.Handler):
+            def emit(self, record):
+                outer.messages.append(record.getMessage())
+
+        self.handler = H(logging.WARNING)
+        self.log = logging.getLogger("trident.renderer_torch")
+
+    def __enter__(self):
+        self.log.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.log.removeHandler(self.handler)
+
+
+def phase_bands(dev, card: str, kernel_fns: dict, drive,
+                results: dict) -> dict:
+    """Phase 18 (module docstring): the banded frame on [dev] * n bands at
+    1920×1024, held bit for bit to the one-device frame; the band kernel
+    instances against their plain versions and their offset-free
+    instances; the Renderer's bands; banded times. Returns the main
+    path's launch counts."""
+    import torch
+
+    from trident_tpu_torch.ops.kernel_knobs import KernelKnobs
+    from trident_tpu_torch.parallel.framebuffer import render_frame_banded
+    from trident_tpu_torch.render.graphs import frame_kernels
+    from trident_tpu_torch.render.renderer import render_frame
+    from trident_tpu_torch.tools_dev.banded import (
+        banded_kwargs,
+        frame_diffs,
+        one_device_v1,
+    )
+    from trident_tpu_torch.tools_dev.scenes import (
+        build_plane_scene,
+        skinned_scene,
+    )
+    from trident_tpu_torch.tools_dev.timing import uploads_per_call
+
+    t18 = time.perf_counter()
+    kernel_fns.update({k: fn for k, fn in frame_kernels().items()
+                       if k.endswith("_band")})
+    r, reg = build_bench_scene(BENCH_GRID, dev)
+    rotate(reg, 0)
+    sized(r)
+    rs, sreg = build_bench_scene(SHADOW_GRID, dev, "shadows1080")
+    rotate(sreg, 0)
+    sized(rs)
+    rp, _reg = build_plane_scene("spheres1080_1m:planes_f16", dev, reg=reg)
+    sized(rp)
+    rk, _kreg = skinned_scene(dev, height=BAND_H)
+    sized(rk)
+    ra, _areg = build_bench_scene(BENCH_GRID, dev, ai=True, reg=reg)
+    sized(ra)
+    knob_sets = {"ckern": CKERN, "fuse": {"fuse": True},
+                 "tiled_shade": {"tiled_shade": True}}
+    knobs = {k: KernelKnobs.from_config(v) for k, v in knob_sets.items()}
+    bands = lambda n: [dev] * n                       # noqa: E731
+    ai_prev, ai_inp = [], []
+    r_knobs, rk_knobs = r.knobs, rk.knobs
+
+    # the main path: every banded frame through Renderer.render_viewport
+    # (render_frame_banded_bundled), every count set to 0 just before
+    def banded_frames():
+        outs = {}
+        for n in BAND_NS:                                     # (a)
+            outs[f"field/{n}"] = r.render_viewport(devices=bands(n))
+        outs["planes_f16/2"] = rp.render_viewport(devices=bands(2))
+        for name, k in knobs.items():                         # (c)
+            r.knobs = k
+            outs[f"{name}/4"] = r.render_viewport(devices=bands(4))
+        r.knobs = r_knobs
+        outs["shadows/8"] = rs.render_viewport(devices=bands(8))  # (b)
+        rs.config.render.shadow_pcf = True
+        outs["shadows_pcf/8"] = rs.render_viewport(devices=bands(8))
+        rs.config.render.shadow_pcf = False
+        for name in ("default", "fuse", "tiled_shade"):       # (d)
+            rk.knobs = knobs.get(name, rk_knobs)
+            outs[f"skinned_{name}/4"] = rk.render_viewport(devices=bands(4))
+        rk.knobs = rk_knobs
+        for k in range(2):                                    # (e)
+            if k:
+                rotate(reg, 1)
+                ra.editor_camera.orbit([0, 0, 0], 6.0, 4.0)
+            ai_prev.append(ra.prev_state)
+            outs[f"ai{k}/2"] = ra.render_viewport(devices=bands(2))
+            # the frame's inputs as it rendered them (no kernel launches)
+            ai_inp.append(ra.frame_inputs())
+        rotate(reg, 0)
+        return outs
+
+    outs, launches = drive(banded_frames, tuple(BAND_KERNELS))
+    print(f"banded frames' launches "
+          f"{ {k: v for k, v in launches.items() if v} } ({card})",
+          flush=True)
+
+    # each against the one-device frame of the same inputs
+    def held(name, out, one, n):
+        diffs = frame_diffs(out, one)
+        aux = out.aux.tolist()
+        saux = [] if out.shadow_aux is None else out.shadow_aux.tolist()
+        if diffs or any(aux) or any(saux) or len(aux) != 2 * n:
+            bh = out.tri_id.shape[0] // n
+            per_band = [int((out.tri_id[b * bh:(b + 1) * bh]
+                             != one.tri_id[b * bh:(b + 1) * bh]).sum())
+                        for b in range(n)]
+            fail(f"banded {name}: differs in {diffs} from the one-device "
+                 f"frame (ids per band {per_band}); band aux {aux}, light "
+                 f"pass aux {saux}")
+
+    finp = r.frame_inputs()
+    one = render_frame(**finp)
+    for n in BAND_NS:
+        held(f"field n={n}", outs[f"field/{n}"], one, n)
+    print(f"banded field (spheres1080_1m at {BAND_W}x{BAND_H}, "
+          f"{int(finp['plan'].tri_valid.sum())} triangles): n = {BAND_NS} "
+          f"bit-equal to the one-device frame (colour, depth, ids), every "
+          f"band's aux [0, 0]", flush=True)
+    culled_cut_line(finp, one, card)
+    held("planes_f16", outs["planes_f16/2"],
+         render_frame(**rp.frame_inputs()), 2)
+    for name, k in knobs.items():
+        r.knobs = k
+        held(name, outs[f"{name}/4"], render_frame(**r.frame_inputs()), 4)
+    r.knobs = r_knobs
+    print(f"banded knob frames (ckern, fuse, tiled_shade; 4 bands) and the "
+          f"f16 plane-gather frame (2 bands) bit-equal to the one-device "
+          f"frames", flush=True)
+    one_s = render_frame(**rs.frame_inputs())
+    held("shadows", outs["shadows/8"], one_s, 8)
+    rs.config.render.shadow_pcf = True
+    held("shadows_pcf", outs["shadows_pcf/8"],
+         render_frame(**rs.frame_inputs()), 8)
+    # the bundled frame against the unbundled one on the same inputs, and
+    # its host-to-device uploads per frame
+    sinp = rs.frame_inputs()
+    unbundled = render_frame_banded(bands(8), **banded_kwargs(sinp))
+    if frame_diffs(outs["shadows_pcf/8"], unbundled):
+        fail("the bundled banded frame differs from render_frame_banded")
+    uploads = uploads_per_call(lambda: rs.render_viewport(devices=bands(8)))
+    rs.config.render.shadow_pcf = False
+    covered = int((outs["shadows/8"].tri_id >= 0).sum())
+    if uploads != 2 and uploads == uploads:
+        fail(f"the bundled banded frame made {uploads} uploads a frame")
+    print(f"banded render OK: 8 bands (pallas+shadows), covered "
+          f"px={covered}; the 1024² light pass banded too, hard and PCF "
+          f"({card})", flush=True)
+    print(f"bundled banded OK: 8 bands, 2-blob uploads (measured "
+          f"{uploads} host-to-device copies a frame)", flush=True)
+    for name in ("default", "fuse", "tiled_shade"):
+        rk.knobs = knobs.get(name, rk_knobs)
+        kinp = rk.frame_inputs()
+        held(f"skinned {name}", outs[f"skinned_{name}/4"],
+             render_frame(**kinp), 4)
+    rk.knobs = rk_knobs
+    print(f"banded skinned crowd ({int(kinp['plan'].tri_valid.sum())} "
+          f"triangles, vertex colours {kinp['vertex_colors']}, the indexed "
+          f"path split over vertices; default, fuse, tiled_shade; 4 bands) "
+          f"bit-equal to the one-device frames", flush=True)
+    # (e) each :ai frame is the one-device half-size frame upscaled by V1
+    for k in range(2):
+        color, depth = one_device_v1(ai_inp[k], ai_prev[k])
+        out = outs[f"ai{k}/2"]
+        if (not torch.equal(out.color, color) or tuple(out.color.shape)
+                != (BAND_H, BAND_W, 4) or any(out.aux.tolist())
+                or not torch.equal(out.depth.view(torch.int32),
+                                   depth.view(torch.int32))):
+            fail(f"banded :ai frame {k} differs from the one-device "
+                 f"half-size frame upscaled by V1")
+        if (ai_prev[k] is None) != (k == 0):
+            fail("the second :ai frame had no history to warp")
+    print(f"banded ai_upscale OK: {BAND_W // 2}x{BAND_H // 2}->"
+          f"{BAND_W}x{BAND_H} over 2 bands (two frames, the second warping "
+          f"the first's RGBA8 frame through warp_previous; each bit-equal "
+          f"to the one-device half-size frame through apply_upscaler)",
+          flush=True)
+    del outs, unbundled, one, one_s, ai_inp, ai_prev
+
+    # (f) the Renderer's bands on this machine's cards
+    with _WarnLog() as wl:
+        r.config.render.bands = 2
+        ctx = r.viewports[0]
+        ctx.last_sig = None
+        warned = r.render_viewport()
+        r.config.render.bands = 1
+        ctx.last_sig = None
+        single = r.render_viewport()
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        if not any("but only" in m for m in wl.messages):
+            fail(f"bands=2 on {n_cards} card did not warn: {wl.messages}")
+        if frame_diffs(warned, single):
+            fail("bands=2 on one card differs from bands=1")
+        print(f"Renderer bands=2 on {n_cards} card: warned "
+              f"({wl.messages[-1]!r}) and rendered bit-equal to bands=1; "
+              f"the two-card run is skipped: this machine has {n_cards} "
+              f"card", flush=True)
+    else:
+        r.config.render.bands = 2
+        two = r.render_viewport()
+        r.config.render.bands = 1
+        if frame_diffs(two, single) or two.aux.numel() != 4:
+            fail("bands=2 across two cards differs from bands=1")
+        print(f"Renderer bands=2 across cuda:0 and cuda:1 bit-equal to "
+              f"bands=1 ({n_cards} cards)", flush=True)
+
+    # the band instances against their plain versions and, at offset 0,
+    # their offset-free instances
+    fcs, frec = band_geometry(finp)
+    for name, case in band_cases(fcs.setup, fcs.cols.setup, frec, BAND_W,
+                                 BAND_H, 4, 3, (
+                                     "visibility_band", "visibility_ck_band",
+                                     "resolve_band", "resolve_tiled_band",
+                                     "visibility_resolve_band")).items():
+        hold_band_case(name, case, results, card)
+    for b in range(4):          # K1 and K2 on every band of the field's 4
+        for name, case in band_cases(fcs.setup, fcs.cols.setup, frec, BAND_W,
+                                     BAND_H, 4, b, ("visibility_band",
+                                                    "resolve_band")).items():
+            k, p = case.band(), case.plain()
+            torch.cuda.synchronize()
+            e = max(float((x - y).abs().max()) for x, y in zip(
+                _flat(k), _flat(p)))
+            if (not case.attrs and _bit_diffs(k, p)) or e > RESOLVE_TOL:
+                fail(f"{name} on band {b} of 4 disagrees: max err {e}")
+    print("visibility_band and resolve_band on each of the field's 4 bands "
+          "equal to their plain versions", flush=True)
+    sinp = rs.frame_inputs()
+    lcam, s = sinp["light_camera"], sinp["shadow_size"]
+    lcs = corner_stage_for(sinp, lcam, s)
+    hold_band_case("visibility_depth_band", band_cases(   # a middle band
+        lcs.setup, lcs.cols.setup, frec, s, s, 8, 4,
+        ("visibility_depth_band",))["visibility_depth_band"], results, card)
+    kinp = rk.frame_inputs()
+    kcs, krec = band_geometry(kinp)
+    for name, case in band_cases(kcs.setup, kcs.cols.setup, krec, BAND_W,
+                                 BAND_H, 4, 3, (
+                                     "resolve_vc_band",
+                                     "resolve_tiled_vc_band",
+                                     "visibility_resolve_vc_band")).items():
+        hold_band_case(name, case, results, card)
+    del kcs, krec
+
+    # (g) times: the field's frame at n = 1 (the one-device frame), 2, 4, 8;
+    # the geometry on the one-device frame's uniform-instancing broadcast
+    # path against the draw-row gather that the banded frame's slices take
+    geo = {name: device_busy(lambda kw=kw: band_geometry({**finp, **kw}),
+                             reps=3)[0]
+           for name, kw in (("broadcast", {}), ("gather", dict(
+               draw_stride=0, real_draws=0)))}
+    print(f"banded field geometry busy: the one-device broadcast path "
+          f"{geo['broadcast']:.4f} ms, the banded frame's gather path "
+          f"{geo['gather']:.4f} ms (the path of its slices, run on the "
+          f"whole plan) ({card})",
+          flush=True)
+    for n in (1,) + BAND_NS:
+        fn = ((lambda: render_frame(**finp)) if n == 1 else
+              (lambda n=n: render_frame_banded(bands(n),
+                                               **banded_kwargs(finp))))
+        dev_ms = cuda_ms(fn, reps=5, warmup=1)
+        busy_ms, acts = device_busy(fn, reps=2)
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        stages = band_stage_busy(fcs.setup, fcs.cols.setup, frec, BAND_W,
+                                 BAND_H, n)
+        print(f"banded field n={n}: frame {dev_ms:.3f} ms device (CUDA "
+              f"events), {busy_ms:.3f} ms busy in {acts:.0f} activities, "
+              f"wall median {statistics.median(walls):.3f} ms; per band "
+              f"(binning, visibility, resolve) busy ms {stages} ({card})",
+              flush=True)
+    r.config.render.bands = 1
+    del r, reg, rs, sreg, rp, rk, ra, fcs, frec, finp, lcs
+    torch.cuda.empty_cache()
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s ({card})", flush=True)
+    return launches
+
+
+def culled_cut_line(inp: dict, one, card: str) -> None:
+    """How many of the field's pixels the JAX package's band cut (culled:
+    band_slice_setup(cull=True), the triangles that miss the band
+    invalid) would change at n = 2, 4, 8 against the one-device frame's
+    ids, band by band through K1's band instance; the banded frame's cut
+    (cull=False) changes none (held above)."""
+    from trident_tpu_torch.ops import raster
+    from trident_tpu_torch.ops.vertex import band_slice_setup
+
+    fcs, _rec = band_geometry(inp)
+    ntx = BAND_W // raster.TILE
+    counts = {}
+    for n in BAND_NS:
+        bh = BAND_H // n
+        bad = []
+        for b in range(n):
+            bins = raster.build_bins(
+                band_slice_setup(fcs.setup, b * bh, bh), BAND_W, bh,
+                setup_cols=fcs.cols.setup)
+            _d, t = raster.visibility_tiles_band(
+                bins, ntx, ntx * (bh // raster.TILE), b * bh // raster.TILE)
+            tri = raster.untile_frame(t, ntx, bh // raster.TILE)
+            bad.append(int((tri != one.tri_id[b * bh:(b + 1) * bh]).sum()))
+        counts[n] = bad
+    print(f"the culled band cut (the JAX band_slice_setup) would change "
+          f"ids per band {counts} of the one-device frame; the banded "
+          f"frame's cut keeps every triangle valid ({card})", flush=True)
+
+
+def corner_stage_for(inp: dict, cam, size: int):
+    """The light pass's corner stage of frame inputs `inp` at camera
+    `cam` on a size² map (phase 6's light_geometry)."""
+    from trident_tpu_torch.ops.corner import build_draw_rows, corner_stage
+
+    rows = build_draw_rows(inp["params"], cam, size, size)
+    return corner_stage(inp["corner_t"], rows, inp["tri_draw"],
+                        inp["plan"].tri_valid, size, size,
+                        draw_stride=inp["draw_stride"],
+                        real_draws=inp["real_draws"])
+
+
 def main() -> None:
     # -- phase 1: the card ---------------------------------------------------
     import torch
@@ -3842,10 +4453,14 @@ def main() -> None:
     print(f"phase 17: {time.perf_counter() - t17:.1f} s; imported "
           f"launches {launches17} ({card})", flush=True)
 
+    # -- phase 18: the banded frame, n bands on this card -------------------
+    launches18 = phase_bands(dev, card, kernel_fns, drive, results)
+
     # launches: each kernel's count in the main-path run of the frame it
     # was held on (phase 4 for the main pass, phase 6 for the shadow pass,
     # phase 9 for the warp, phase 10 for the knob kernels, phase 11 for
-    # the probes, phase 14 for the vertex-colour instances)
+    # the probes, phase 14 for the vertex-colour instances, phase 18 for
+    # the band instances)
     launches = {**launches4, "visibility_depth": launches6["visibility_depth"],
                 "shadow_taps": launches6["shadow_taps"],
                 "warp": launches9["warp"],
@@ -3857,7 +4472,8 @@ def main() -> None:
                     "lut_gather", "split_select")},
                 **{n: launches14[n] for n in (
                     "resolve_vc", "resolve_tiled_vc",
-                    "visibility_resolve_vc")}}
+                    "visibility_resolve_vc")},
+                **{n: launches18[n] for n in BAND_KERNELS}}
     kernels = []
     for name in kernel_fns:
         res = {k: v for k, v in results[name].items() if k != "colour_ms"}

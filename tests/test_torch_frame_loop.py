@@ -591,6 +591,20 @@ KERNEL_SOURCES = {
     "texel_planar": ("texel.cu", "texel_kernel", "<true>"),
     "shadow_taps": ("shadow_taps.cu", "taps4_kernel", ""),
     "warp": ("warp.cu", "warp_kernel", ""),
+    "visibility_band": ("visibility.cu", "visibility_band_kernel", "<false>"),
+    "visibility_depth_band": ("visibility.cu", "visibility_band_kernel",
+                              "<true>"),
+    "visibility_ck_band": ("visibility_ck.cu", "visibility_ck_band_kernel",
+                           ""),
+    "visibility_resolve_band": ("visibility_resolve.cu",
+                                "visibility_resolve_band_kernel", ""),
+    "visibility_resolve_vc_band": ("visibility_resolve.cu",
+                                   "visibility_resolve_vc_band_kernel", ""),
+    "resolve_band": ("resolve.cu", "resolve_band_kernel", ""),
+    "resolve_vc_band": ("resolve.cu", "resolve_vc_band_kernel", ""),
+    "resolve_tiled_band": ("resolve.cu", "resolve_tiled_band_kernel", ""),
+    "resolve_tiled_vc_band": ("resolve.cu", "resolve_tiled_vc_band_kernel",
+                              ""),
 }
 
 

@@ -206,10 +206,13 @@ def test_cuda_request_without_card_raises(monkeypatch):
 def test_unported_features_raise():
     from trident_tpu_torch.core.config import EngineConfig, RenderConfig
 
-    for kw in ({"bands": 2}, {"kernel": {"chunk": 128}},
+    for kw in ({"kernel": {"chunk": 128}},
                {"kernel": {"resolve_prec": "bf16"}}):
         with pytest.raises(NotImplementedError):
             Renderer(EngineConfig(render=RenderConfig(**kw)), device="cpu")
+    # the banded frame is ported: n bands run on the CPU device
+    r = Renderer(EngineConfig(render=RenderConfig(bands=2)), device="cpu")
+    assert r._band_devices() == [torch.device("cpu")] * 2
     # the reference raster and the plane-gather frame are ported routes
     for kw in ({"use_pallas": False}, {"forward_shading": False},
                {"forward_shading": False, "plane_f16": False},

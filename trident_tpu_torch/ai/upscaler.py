@@ -15,11 +15,18 @@ these convs to `flax.linen.Conv`, outside any Pallas kernel). The convs
 run in f32 with TF32 pinned off (package __init__); the JAX package's
 bf16 conv variant (UPSCALE_DTYPE) is not ported.
 
+The V1 path is the banded frame's (parallel/framebuffer.py, as the JAX
+package's banded frame upscales): `apply_upscaler` adds the head's
+depth-to-spaced detail to a 2× bilinear resize of the frame
+(`resize_bilinear_2x`, jax.image.resize's weights) and clips, in f32, and
+its temporal input is the previous RGBA8 frame reprojected by
+`warp_previous`, a plain row gather (the JAX function has no kernel).
+The two paths share the net's params.
+
 Weights: `load_upscaler` reads the numpy export of the shipped checkpoint
 (assets/upscaler_2x.npz, written by scripts/export_upscaler_npz.py); the
 arrays keep their flax names and layouts, and `params_from_flax` maps
-them onto the module. The V1 path (`apply_upscaler`, `warp_previous`,
-full-resolution history) and training are not ported.
+them onto the module. Training is not ported.
 """
 
 from __future__ import annotations
@@ -102,14 +109,19 @@ class UpscalerNet(nn.Module):
         nn.init.zeros_(self.convs[3].weight)
         nn.init.zeros_(self.convs[3].bias)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def head(self, x: Tensor) -> Tensor:
+        """(h, w, C) → (h, w, 12): the convs' residual detail in block
+        layout, before any base is added."""
         c0, c1, c2, c3 = self.convs
         h = x.float().permute(2, 0, 1)[None]            # (1, C, h, w)
         h = F.relu(c0(h))
         h = F.relu(c1(h)) + h
         h = F.relu(c2(h))
-        head = c3(h)[0].permute(1, 2, 0)
-        return torch.clamp(base_blocks(x[..., :3].float()) + head, 0.0, 1.0)
+        return c3(h)[0].permute(1, 2, 0)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return torch.clamp(base_blocks(x[..., :3].float()) + self.head(x),
+                           0.0, 1.0)
 
 
 def params_from_flax(tree) -> dict:
@@ -229,24 +241,54 @@ def warp_from_blocks(prev_blocks: Tensor, cur_depth: Tensor,
     return torch.cat([fetched * (1.0 / 255.0) * valid, valid], dim=-1)
 
 
+def warp_previous(prev_rgb: Tensor, cur_depth: Tensor, cur_vp_inv: Tensor,
+                  prev_vp: Tensor, full_width: int,
+                  full_height: int) -> Tensor:
+    """V1 warp (trident_tpu/ai/upscaler.py:267-293): the previous
+    full-resolution frame prev_rgb (H, W, 3) f32 reprojected into the
+    current view at the half-res grid of cur_depth (h, w) → (h, w, 13):
+    the 2×2 full-res block under each reprojected point (space-to-depth,
+    channel (dy·2+dx)·3+c) and a validity channel, 0 where the point
+    leaves the frame, lies behind the previous camera or is background. A
+    plain row gather; matrices are the full frame's view·proj (current
+    inverted)."""
+    px, py, pw = _reproject_half(cur_depth, cur_vp_inv, prev_vp,
+                                 full_width, full_height)
+    hh, ww2 = prev_rgb.shape[0] // 2, prev_rgb.shape[1] // 2
+    s2d = prev_rgb[:hh * 2, :ww2 * 2].reshape(hh, 2, ww2, 2, 3) \
+        .permute(0, 2, 1, 3, 4).reshape(hh, ww2, 12)
+    bx = torch.round(px * 0.5 - 0.5).to(torch.int32)
+    by = torch.round(py * 0.5 - 0.5).to(torch.int32)
+    in_bounds = ((bx >= 0) & (bx < ww2) & (by >= 0) & (by < hh)
+                 & (pw > 1e-6) & (cur_depth < 1.0))
+    block = s2d[torch.clamp(by, 0, hh - 1).long(),
+                torch.clamp(bx, 0, ww2 - 1).long()]
+    valid = in_bounds[..., None].float()
+    return torch.cat([block * valid, valid], dim=-1)
+
+
 def temporal_from_prev(net: UpscalerNet, prev, cur_depth: Tensor, camera,
                        out_width: int, out_height: int) -> Optional[Tensor]:
-    """The temporal input: `prev` is (previous (h, w, 12) uint8 history,
-    previous view·proj) or None. Returns the warp channels for a temporal
-    net, or None without history or for a spatial-only net. A 4-channel
-    `prev` (the V1 packed-colour history) raises."""
+    """The temporal input: `prev` is (previous history, previous
+    view·proj) or None. The history is the V2 (h, w, 12) uint8 blocks
+    (warp_from_blocks) or the V1 full-resolution frame, (H, W, ≥3) RGBA8
+    or f32, whose rgb warp_previous reprojects (uint8 scaled by 1/255).
+    Returns the warp channels for a temporal net, or None without history
+    or for a spatial-only net."""
     if prev is None or not upscaler_wants_temporal(net):
         return None
     prev_hist, prev_vp = prev
-    if prev_hist.shape[-1] != 12:
-        raise NotImplementedError(
-            "the V1 full-resolution history is not ported to "
-            "trident_tpu_torch")
     # inv_ex: the same inverse as linalg.inv without its error check,
     # which waits for the device
     vp_inv = torch.linalg.inv_ex(camera.proj @ camera.view).inverse
-    return warp_from_blocks(prev_hist, cur_depth, vp_inv, prev_vp,
-                            out_width, out_height)
+    if prev_hist.shape[-1] == 12:
+        return warp_from_blocks(prev_hist, cur_depth, vp_inv, prev_vp,
+                                out_width, out_height)
+    prev_rgb = prev_hist[..., :3]
+    if prev_rgb.dtype == torch.uint8:
+        prev_rgb = prev_rgb.float() * (1.0 / 255.0)
+    return warp_previous(prev_rgb, cur_depth, vp_inv, prev_vp, out_width,
+                         out_height)
 
 
 def _assemble_inputs(net: UpscalerNet, image: Tensor, temporal, depth):
@@ -262,6 +304,44 @@ def _assemble_inputs(net: UpscalerNet, image: Tensor, temporal, depth):
                                    dtype=torch.float32, device=image.device)
         parts.append(temporal)
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def _resize_axis_2x(v: Tensor, axis: int) -> Tensor:
+    """2× linear upsampling along `axis` with jax.image.resize's
+    "bilinear" weights (half-pixel centres, triangle kernel): output 2i
+    samples input i − 0.25 (0.25·v[i−1] + 0.75·v[i]), output 2i+1 input
+    i + 0.25 (0.75·v[i] + 0.25·v[i+1]), each sum in ascending input
+    order; at the two ends the one in-range weight normalizes to 1, so the
+    end samples are copies."""
+    n = v.shape[axis]
+    lo = v.narrow(axis, 0, n - 1)
+    hi = v.narrow(axis, 1, n - 1)
+    even = torch.cat([v.narrow(axis, 0, 1), 0.25 * lo + 0.75 * hi],
+                     dim=axis)
+    odd = torch.cat([0.75 * lo + 0.25 * hi, v.narrow(axis, n - 1, 1)],
+                    dim=axis)
+    out = torch.stack([even, odd], dim=axis + 1)
+    return out.reshape(*v.shape[:axis], 2 * n, *v.shape[axis + 1:])
+
+
+def resize_bilinear_2x(rgb: Tensor) -> Tensor:
+    """(h, w, C) → (2h, 2w, C): jax.image.resize(…, "bilinear") at 2×,
+    rows then columns, in f32. XLA evaluates each axis as a dot over a
+    weight matrix whose accumulation order follows its blocking, so the
+    two agree within an ulp or two per axis, not bit for bit."""
+    return _resize_axis_2x(_resize_axis_2x(rgb.float(), 0), 1)
+
+
+def apply_upscaler(net: UpscalerNet, image: Tensor,
+                   temporal: Optional[Tensor] = None,
+                   depth: Optional[Tensor] = None) -> Tensor:
+    """V1 (trident_tpu/ai/upscaler.py:320-332): (H, W, 3) [0,1] → (2H, 2W,
+    3) f32, the 2× bilinear resize of `image` plus the net's
+    depth-to-spaced detail, clipped to [0, 1]. `temporal` is the (H, W,
+    13) warp_previous output; inputs as apply_upscaler_v2 takes them."""
+    detail = depth_to_space(net.head(_assemble_inputs(net, image, temporal,
+                                                      depth)))
+    return torch.clamp(resize_bilinear_2x(image[..., :3]) + detail, 0.0, 1.0)
 
 
 def apply_upscaler_v2(net: UpscalerNet, image: Tensor,

@@ -37,6 +37,14 @@
 //   coalesced 128-byte store per warp.
 // Uncovered pixels get zeros; ragged frames (W not a multiple of 32, H not
 // a multiple of 8) mask the lanes and warps outside the frame.
+//
+// Band instances (the *_band_kernel, kBand): one band of a taller frame
+// (trident_tpu_torch/parallel/framebuffer.py). The ids are the band's
+// rows; each pixel centre is the full frame's: the (H, W) kernels add
+// y_offset pixels to the row, the tiled ones tile_y_offset tiles to the
+// tile row (resolve_pallas.py:430, `ty = tile // ntx + band_ref[0]`). The
+// offset-free kernels take no offset and compile to the code they had
+// before the band instances existed.
 
 #include "resolve_common.cuh"
 
@@ -59,12 +67,13 @@ __device__ __forceinline__ int stage_slot(int p, int q) {
 }
 
 // (H, W) ids → (H, W, 16) attributes, the block's part; grid
-// (ceil(W/32), ceil(H/8)); `stage` is the block's shared staging buffer
-template <int kWidth>
+// (ceil(W/32), ceil(H/8)); `stage` is the block's shared staging buffer;
+// y_offset is read only by the band instance
+template <int kWidth, bool kBand>
 __device__ __forceinline__ void resolve_block(
     const int* __restrict__ tri, const float* __restrict__ records,
     int width, int height, float* __restrict__ out,
-    float4 (&stage)[kBlockH][kBlockW * kQuads]) {
+    float4 (&stage)[kBlockH][kBlockW * kQuads], int y_offset) {
   const int lane = threadIdx.x % kBlockW, warp = threadIdx.x / kBlockW;
   const int y = blockIdx.y * kBlockH + warp;
   if (y >= height) return;             // warp-uniform: only warp syncs follow
@@ -76,7 +85,9 @@ __device__ __forceinline__ void resolve_block(
     float a[kChannels];
     resolve_pixel<kWidth>(record_row<kWidth>(records, tri[p0 + lane]),
                           static_cast<float>(x0 + lane) + 0.5f,
-                          static_cast<float>(y) + 0.5f, a);
+                          static_cast<float>(kBand ? y + y_offset : y) +
+                              0.5f,
+                          a);
 #pragma unroll
     for (int q = 0; q < kQuads; ++q)
       s[stage_slot(lane, q)] =
@@ -94,30 +105,31 @@ __device__ __forceinline__ void resolve_block(
 
 // tile-layout ids (n_tiles, 1024) → (n_tiles, 16, 1024), the block's part;
 // block b covers rows 8(b % 4) .. 8(b % 4) + 7 of tile b / 4, one warp per
-// row
-template <int kWidth>
+// row; tile_y_offset is read only by the band instance
+template <int kWidth, bool kBand>
 __device__ __forceinline__ void resolve_tiled_block(
     const int* __restrict__ tri, const float* __restrict__ records, int ntx,
-    float* __restrict__ out) {
+    float* __restrict__ out, int tile_y_offset) {
   const int p = blockIdx.x * kThreads + threadIdx.x;
   const int tile = p / kTilePx, r = p % kTilePx;
+  const int ty = kBand ? tile / ntx + tile_y_offset : tile / ntx;
   float a[kChannels];
   resolve_pixel<kWidth>(
       record_row<kWidth>(records, tri[p]),
       static_cast<float>(tile % ntx * kTile + r % kTile) + 0.5f,
-      static_cast<float>(tile / ntx * kTile + r / kTile) + 0.5f, a);
+      static_cast<float>(ty * kTile + r / kTile) + 0.5f, a);
   float* o = out + static_cast<size_t>(tile) * kChannels * kTilePx + r;
 #pragma unroll
   for (int c = 0; c < kChannels; ++c) o[c * kTilePx] = a[c];
 }
 
-// one kernel per layout and record width, each named for the profiler's
-// records (tools_dev/timing.py KERNEL_RECORDS)
+// one kernel per layout, record width and band form, each named for the
+// profiler's records (tools_dev/timing.py KERNEL_RECORDS)
 __global__ void __launch_bounds__(kThreads)
 resolve_kernel(const int* __restrict__ tri, const float* __restrict__ records,
                int width, int height, float* __restrict__ out) {
   __shared__ float4 stage[kBlockH][kBlockW * kQuads];
-  resolve_block<kRecWidth>(tri, records, width, height, out, stage);
+  resolve_block<kRecWidth, false>(tri, records, width, height, out, stage, 0);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -125,42 +137,83 @@ resolve_vc_kernel(const int* __restrict__ tri,
                   const float* __restrict__ records, int width, int height,
                   float* __restrict__ out) {
   __shared__ float4 stage[kBlockH][kBlockW * kQuads];
-  resolve_block<kRecWidthVColor>(tri, records, width, height, out, stage);
+  resolve_block<kRecWidthVColor, false>(tri, records, width, height, out,
+                                        stage, 0);
 }
 
 __global__ void __launch_bounds__(kThreads)
 resolve_tiled_kernel(const int* __restrict__ tri,
                      const float* __restrict__ records, int ntx,
                      float* __restrict__ out) {
-  resolve_tiled_block<kRecWidth>(tri, records, ntx, out);
+  resolve_tiled_block<kRecWidth, false>(tri, records, ntx, out, 0);
 }
 
 __global__ void __launch_bounds__(kThreads)
 resolve_tiled_vc_kernel(const int* __restrict__ tri,
                         const float* __restrict__ records, int ntx,
                         float* __restrict__ out) {
-  resolve_tiled_block<kRecWidthVColor>(tri, records, ntx, out);
+  resolve_tiled_block<kRecWidthVColor, false>(tri, records, ntx, out, 0);
 }
 
-using ResolveKernel = void (*)(const int*, const float*, int, int, float*);
-using TiledKernel = void (*)(const int*, const float*, int, float*);
+__global__ void __launch_bounds__(kThreads)
+resolve_band_kernel(const int* __restrict__ tri,
+                    const float* __restrict__ records, int width, int height,
+                    float* __restrict__ out, int y_offset) {
+  __shared__ float4 stage[kBlockH][kBlockW * kQuads];
+  resolve_block<kRecWidth, true>(tri, records, width, height, out, stage,
+                                 y_offset);
+}
 
-int launch_resolve(ResolveKernel kernel, const int* tri, const float* records,
-                   int width, int height, float* out, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+resolve_vc_band_kernel(const int* __restrict__ tri,
+                       const float* __restrict__ records, int width,
+                       int height, float* __restrict__ out, int y_offset) {
+  __shared__ float4 stage[kBlockH][kBlockW * kQuads];
+  resolve_block<kRecWidthVColor, true>(tri, records, width, height, out,
+                                       stage, y_offset);
+}
+
+__global__ void __launch_bounds__(kThreads)
+resolve_tiled_band_kernel(const int* __restrict__ tri,
+                          const float* __restrict__ records, int ntx,
+                          float* __restrict__ out, int tile_y_offset) {
+  resolve_tiled_block<kRecWidth, true>(tri, records, ntx, out, tile_y_offset);
+}
+
+__global__ void __launch_bounds__(kThreads)
+resolve_tiled_vc_band_kernel(const int* __restrict__ tri,
+                             const float* __restrict__ records, int ntx,
+                             float* __restrict__ out, int tile_y_offset) {
+  resolve_tiled_block<kRecWidthVColor, true>(tri, records, ntx, out,
+                                             tile_y_offset);
+}
+
+// the launches; `offset` is the band instances' trailing argument (none
+// for the offset-free kernels)
+template <typename... Offset>
+int launch_resolve(void (*kernel)(const int*, const float*, int, int, float*,
+                                  Offset...),
+                   const int* tri, const float* records, int width,
+                   int height, float* out, cudaStream_t stream,
+                   Offset... offset) {
   if (width > 0 && height > 0) {
     const dim3 grid((width + kBlockW - 1) / kBlockW,
                     (height + kBlockH - 1) / kBlockH);
-    kernel<<<grid, kThreads, 0, stream>>>(tri, records, width, height, out);
+    kernel<<<grid, kThreads, 0, stream>>>(tri, records, width, height, out,
+                                          offset...);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_resolve_tiled(TiledKernel kernel, const int* tri,
-                         const float* records, int ntx, int n_tiles,
-                         float* out, cudaStream_t stream) {
+template <typename... Offset>
+int launch_resolve_tiled(void (*kernel)(const int*, const float*, int, float*,
+                                        Offset...),
+                         const int* tri, const float* records, int ntx,
+                         int n_tiles, float* out, cudaStream_t stream,
+                         Offset... offset) {
   if (n_tiles > 0) {
     kernel<<<n_tiles * (kTilePx / kThreads), kThreads, 0, stream>>>(
-        tri, records, ntx, out);
+        tri, records, ntx, out, offset...);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -193,4 +246,35 @@ extern "C" int trident_resolve_tiled_vc(const int* tri, const float* records,
                                         cudaStream_t stream) {
   return launch_resolve_tiled(resolve_tiled_vc_kernel, tri, records, ntx,
                               n_tiles, out, stream);
+}
+
+extern "C" int trident_resolve_band(const int* tri, const float* records,
+                                    int width, int height, int y_offset,
+                                    float* out, cudaStream_t stream) {
+  return launch_resolve(resolve_band_kernel, tri, records, width, height,
+                        out, stream, y_offset);
+}
+
+extern "C" int trident_resolve_vc_band(const int* tri, const float* records,
+                                       int width, int height, int y_offset,
+                                       float* out, cudaStream_t stream) {
+  return launch_resolve(resolve_vc_band_kernel, tri, records, width, height,
+                        out, stream, y_offset);
+}
+
+extern "C" int trident_resolve_tiled_band(const int* tri,
+                                          const float* records, int ntx,
+                                          int n_tiles, int tile_y_offset,
+                                          float* out, cudaStream_t stream) {
+  return launch_resolve_tiled(resolve_tiled_band_kernel, tri, records, ntx,
+                              n_tiles, out, stream, tile_y_offset);
+}
+
+extern "C" int trident_resolve_tiled_vc_band(const int* tri,
+                                             const float* records, int ntx,
+                                             int n_tiles, int tile_y_offset,
+                                             float* out,
+                                             cudaStream_t stream) {
+  return launch_resolve_tiled(resolve_tiled_vc_band_kernel, tri, records,
+                              ntx, n_tiles, out, stream, tile_y_offset);
 }

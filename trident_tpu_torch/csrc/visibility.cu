@@ -34,9 +34,42 @@
 
 #include "visibility_common.cuh"
 
+// Band instances (kBand): the same kernel for one band of a taller frame
+// (the banded multi-device frame, trident_tpu_torch/parallel/
+// framebuffer.py): tile row r of the band is global tile row
+// r + tile_y_offset, so the pixel centres and the region corners are the
+// full frame's (raster_pallas.py:993, `ty = tile // ntx + band_ref[0]`)
+// and the band's depths and ids are the one-device frame's rows bit for
+// bit. The offset-free kernels (visibility_kernel) take no offset and
+// compile to the code they had before the band instances existed.
+
 namespace {
 
 using namespace trident;
+
+// one tile; tile_y_offset is read only by the band instance
+template <bool kDepthOnly, bool kBand>
+__device__ __forceinline__ void visibility_tile(
+    const float* __restrict__ records, const int* __restrict__ pair_chunk,
+    const int* __restrict__ pair_mask, const int* __restrict__ tile_start,
+    int ntx, float* __restrict__ depth_out, int* __restrict__ tri_out,
+    int tile_y_offset, VisRegionStage& stage) {
+  const int tile = blockIdx.x;
+  const int ty0 = kBand ? tile_y_offset : 0;
+  float px[kPxPerThread], py[kPxPerThread], best_d[kPxPerThread];
+  int best_t[kPxPerThread];
+  vis_region_begin(tile, ntx, px, py, best_d, best_t, ty0);
+  vis_region_walk<kDepthOnly>(records, pair_chunk, pair_mask,
+                              tile_start[tile], tile_start[tile + 1], tile,
+                              ntx, stage, px, py, best_d, best_t, ty0);
+#pragma unroll
+  for (int k = 0; k < kPxPerThread; ++k) {
+    const size_t o =
+        static_cast<size_t>(tile) * kTilePx + vis_region_pixel(k);
+    depth_out[o] = best_d[k];
+    if (!kDepthOnly) tri_out[o] = best_t[k];
+  }
+}
 
 template <bool kDepthOnly>
 __global__ void __launch_bounds__(kVisThreads)
@@ -46,20 +79,23 @@ visibility_kernel(const float* __restrict__ records,
                   const int* __restrict__ tile_start, int ntx,
                   float* __restrict__ depth_out, int* __restrict__ tri_out) {
   __shared__ VisRegionStage stage;
-  const int tile = blockIdx.x;
-  float px[kPxPerThread], py[kPxPerThread], best_d[kPxPerThread];
-  int best_t[kPxPerThread];
-  vis_region_begin(tile, ntx, px, py, best_d, best_t);
-  vis_region_walk<kDepthOnly>(records, pair_chunk, pair_mask,
-                              tile_start[tile], tile_start[tile + 1], tile,
-                              ntx, stage, px, py, best_d, best_t);
-#pragma unroll
-  for (int k = 0; k < kPxPerThread; ++k) {
-    const size_t o =
-        static_cast<size_t>(tile) * kTilePx + vis_region_pixel(k);
-    depth_out[o] = best_d[k];
-    if (!kDepthOnly) tri_out[o] = best_t[k];
-  }
+  visibility_tile<kDepthOnly, false>(records, pair_chunk, pair_mask,
+                                     tile_start, ntx, depth_out, tri_out, 0,
+                                     stage);
+}
+
+template <bool kDepthOnly>
+__global__ void __launch_bounds__(kVisThreads)
+visibility_band_kernel(const float* __restrict__ records,
+                       const int* __restrict__ pair_chunk,
+                       const int* __restrict__ pair_mask,
+                       const int* __restrict__ tile_start, int ntx,
+                       float* __restrict__ depth_out,
+                       int* __restrict__ tri_out, int tile_y_offset) {
+  __shared__ VisRegionStage stage;
+  visibility_tile<kDepthOnly, true>(records, pair_chunk, pair_mask,
+                                    tile_start, ntx, depth_out, tri_out,
+                                    tile_y_offset, stage);
 }
 
 }  // namespace
@@ -84,6 +120,37 @@ extern "C" int trident_visibility_depth(const float* records,
   if (n_tiles > 0) {
     visibility_kernel<true><<<n_tiles, kVisThreads, 0, stream>>>(
         records, pair_chunk, pair_mask, tile_start, ntx, depth_out, nullptr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int trident_visibility_band(const float* records,
+                                       const int* pair_chunk,
+                                       const int* pair_mask,
+                                       const int* tile_start, int n_tiles,
+                                       int ntx, int tile_y_offset,
+                                       float* depth_out, int* tri_out,
+                                       cudaStream_t stream) {
+  if (n_tiles > 0) {
+    visibility_band_kernel<false><<<n_tiles, kVisThreads, 0, stream>>>(
+        records, pair_chunk, pair_mask, tile_start, ntx, depth_out, tri_out,
+        tile_y_offset);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int trident_visibility_depth_band(const float* records,
+                                             const int* pair_chunk,
+                                             const int* pair_mask,
+                                             const int* tile_start,
+                                             int n_tiles, int ntx,
+                                             int tile_y_offset,
+                                             float* depth_out,
+                                             cudaStream_t stream) {
+  if (n_tiles > 0) {
+    visibility_band_kernel<true><<<n_tiles, kVisThreads, 0, stream>>>(
+        records, pair_chunk, pair_mask, tile_start, ntx, depth_out, nullptr,
+        tile_y_offset);
   }
   return static_cast<int>(cudaGetLastError());
 }

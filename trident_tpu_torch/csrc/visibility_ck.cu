@@ -93,23 +93,25 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
   }
 }
 
-__global__ void __launch_bounds__(kVisThreads)
-visibility_ck_kernel(const float* __restrict__ banks,
-                     const int* __restrict__ nhit,
-                     const int* __restrict__ tile_start, int ntx, int nbank,
-                     float* __restrict__ depth_out,
-                     int* __restrict__ tri_out) {
-  __shared__ CkStage st;
+// one tile; tile_y_offset (whole tiles: a band's first global tile row,
+// raster_pallas.py:1255) is read only by the band instance
+template <bool kBand>
+__device__ __forceinline__ void visibility_ck_tile(
+    const float* __restrict__ banks, const int* __restrict__ nhit,
+    const int* __restrict__ tile_start, int ntx, int nbank,
+    float* __restrict__ depth_out, int* __restrict__ tri_out,
+    int tile_y_offset, CkStage& st) {
   const int tile = blockIdx.x;
   const int t = threadIdx.x;
+  const int ty0 = kBand ? tile_y_offset : 0;
   const int col0 = (tile % ntx) * kTile;
-  const int row0 = (tile / ntx) * kTile;
+  const int row0 = (tile / ntx + ty0) * kTile;
   const int p_begin = tile_start[tile];
   const int p_end = tile_start[tile + 1];
   const size_t pair_floats = static_cast<size_t>(nbank) * kSlotFloats;
   float px[kPxPerThread], py[kPxPerThread], best_d[kPxPerThread];
   int best_t[kPxPerThread];
-  vis_region_begin(tile, ntx, px, py, best_d, best_t);
+  vis_region_begin(tile, ntx, px, py, best_d, best_t, ty0);
 
   // pair p's live slots into ring buffer (p - p_begin) % 2 (thread 0)
   auto stage = [&](int p) {
@@ -162,6 +164,29 @@ visibility_ck_kernel(const float* __restrict__ banks,
   }
 }
 
+__global__ void __launch_bounds__(kVisThreads)
+visibility_ck_kernel(const float* __restrict__ banks,
+                     const int* __restrict__ nhit,
+                     const int* __restrict__ tile_start, int ntx, int nbank,
+                     float* __restrict__ depth_out,
+                     int* __restrict__ tri_out) {
+  __shared__ CkStage st;
+  visibility_ck_tile<false>(banks, nhit, tile_start, ntx, nbank, depth_out,
+                            tri_out, 0, st);
+}
+
+// the band instance: one band of a taller frame (parallel/framebuffer.py)
+__global__ void __launch_bounds__(kVisThreads)
+visibility_ck_band_kernel(const float* __restrict__ banks,
+                          const int* __restrict__ nhit,
+                          const int* __restrict__ tile_start, int ntx,
+                          int nbank, float* __restrict__ depth_out,
+                          int* __restrict__ tri_out, int tile_y_offset) {
+  __shared__ CkStage st;
+  visibility_ck_tile<true>(banks, nhit, tile_start, ntx, nbank, depth_out,
+                           tri_out, tile_y_offset, st);
+}
+
 }  // namespace
 
 // banks: (n_pairs, nbank*16, 16) f32, 16-byte aligned; nbank =
@@ -178,6 +203,26 @@ extern "C" int trident_visibility_ck(const float* banks, const int* nhit,
   if (n_tiles > 0) {
     visibility_ck_kernel<<<n_tiles, kVisThreads, 0, stream>>>(
         banks, nhit, tile_start, ntx, nbank, depth_out, tri_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the band instance: tile row r of the grid is global tile row
+// r + tile_y_offset
+extern "C" int trident_visibility_ck_band(const float* banks,
+                                          const int* nhit,
+                                          const int* tile_start, int n_tiles,
+                                          int ntx, int ck_bank, int nbank,
+                                          int tile_y_offset,
+                                          float* depth_out, int* tri_out,
+                                          cudaStream_t stream) {
+  if (ck_bank < 1 || nbank < kSubsPerChunk || nbank % ck_bank != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_tiles > 0) {
+    visibility_ck_band_kernel<<<n_tiles, kVisThreads, 0, stream>>>(
+        banks, nhit, tile_start, ntx, nbank, depth_out, tri_out,
+        tile_y_offset);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -88,14 +88,17 @@ __device__ __forceinline__ int vis_region_pixel(int k) {
 }
 
 // Pixel centres of this thread's pixels in `tile` under the region map;
-// background state (depth 1, id -1).
+// background state (depth 1, id -1). A band of a taller frame passes its
+// first tile row as tile_y_offset (whole tiles), so the centres are the
+// full frame's global pixel rows (raster_pallas.py:993, band_ref).
 __device__ __forceinline__ void vis_region_begin(int tile, int ntx,
                                                  float (&px)[kPxPerThread],
                                                  float (&py)[kPxPerThread],
                                                  float (&best_d)[kPxPerThread],
-                                                 int (&best_t)[kPxPerThread]) {
+                                                 int (&best_t)[kPxPerThread],
+                                                 int tile_y_offset = 0) {
   const int tx = tile % ntx;
-  const int ty = tile / ntx;
+  const int ty = tile / ntx + tile_y_offset;
 #pragma unroll
   for (int k = 0; k < kPxPerThread; ++k) {
     const int r = vis_region_pixel(k);
@@ -223,16 +226,18 @@ __device__ __forceinline__ void vis_region_pair(
 }
 
 // The walk over the sorted pairs [p_begin, p_end) of one tile, one
-// vis_region_pair each (kDense: all 16 sub-blocks of every pair).
+// vis_region_pair each (kDense: all 16 sub-blocks of every pair); the
+// regions' rows are global under a band's tile_y_offset, as
+// vis_region_begin's.
 template <bool kDepthOnly, bool kDense = false>
 __device__ __forceinline__ void vis_region_walk(
     const float* __restrict__ records, const int* __restrict__ pair_chunk,
     const int* __restrict__ pair_mask, int p_begin, int p_end, int tile,
     int ntx, VisRegionStage& st, const float (&px)[kPxPerThread],
     const float (&py)[kPxPerThread], float (&best_d)[kPxPerThread],
-    int (&best_t)[kPxPerThread]) {
+    int (&best_t)[kPxPerThread], int tile_y_offset = 0) {
   const int col0 = (tile % ntx) * kTile;
-  const int row0 = (tile / ntx) * kTile;
+  const int row0 = (tile / ntx + tile_y_offset) * kTile;
   for (int p = p_begin; p < p_end; ++p) {
     vis_region_pair<kDepthOnly, kDense>(
         records, pair_chunk[p], kDense ? 0xFFFFu

@@ -30,6 +30,12 @@
 // Outputs: depth and ids (n_tiles, 1024), attributes channel-planar
 // (n_tiles, 16, 1024), at tile index row*32 + col under the region map, so
 // each warp store is two 64-byte runs.
+// Band instances (*_band_kernel, kBand): one band of a taller frame
+// (trident_tpu_torch/parallel/framebuffer.py); tile row r is global tile
+// row r + tile_y_offset (resolve_pallas.py:294, `ty = tile // ntx +
+// band_ref[0]`), so the walk's pixel centres, its region corners and the
+// resolve's centres are the full frame's. The offset-free kernels take no
+// offset and compile to the code they had before the band instances.
 
 #include "resolve_common.cuh"
 #include "visibility_common.cuh"
@@ -39,21 +45,22 @@ namespace {
 using namespace trident;
 
 // one tile's walk and resolve (the block's work); `stage` is its shared
-// staging buffer
-template <int kWidth>
+// staging buffer; tile_y_offset is read only by the band instance
+template <int kWidth, bool kBand>
 __device__ __forceinline__ void visibility_resolve_block(
     const float* __restrict__ records, const int* __restrict__ pair_chunk,
     const int* __restrict__ pair_mask, const int* __restrict__ tile_start,
     int ntx, const float* __restrict__ res_records,
     float* __restrict__ depth_out, int* __restrict__ tri_out,
-    float* __restrict__ attr_out, VisRegionStage& stage) {
+    float* __restrict__ attr_out, VisRegionStage& stage, int tile_y_offset) {
   const int tile = blockIdx.x;
+  const int ty0 = kBand ? tile_y_offset : 0;
   float px[kPxPerThread], py[kPxPerThread], best_d[kPxPerThread];
   int best_t[kPxPerThread];
-  vis_region_begin(tile, ntx, px, py, best_d, best_t);
+  vis_region_begin(tile, ntx, px, py, best_d, best_t, ty0);
   vis_region_walk<false>(records, pair_chunk, pair_mask, tile_start[tile],
                          tile_start[tile + 1], tile, ntx, stage, px, py,
-                         best_d, best_t);
+                         best_d, best_t, ty0);
 #pragma unroll
   for (int k = 0; k < kPxPerThread; ++k) {
     const int r = vis_region_pixel(k);
@@ -69,8 +76,8 @@ __device__ __forceinline__ void visibility_resolve_block(
   }
 }
 
-// one kernel per record width, each named for the profiler's records
-// (tools_dev/timing.py KERNEL_RECORDS)
+// one kernel per record width and band form, each named for the
+// profiler's records (tools_dev/timing.py KERNEL_RECORDS)
 __global__ void __launch_bounds__(kVisThreads)
 visibility_resolve_kernel(const float* __restrict__ records,
                           const int* __restrict__ pair_chunk,
@@ -81,9 +88,9 @@ visibility_resolve_kernel(const float* __restrict__ records,
                           int* __restrict__ tri_out,
                           float* __restrict__ attr_out) {
   __shared__ VisRegionStage stage;
-  visibility_resolve_block<kRecWidth>(records, pair_chunk, pair_mask,
-                                      tile_start, ntx, res_records,
-                                      depth_out, tri_out, attr_out, stage);
+  visibility_resolve_block<kRecWidth, false>(
+      records, pair_chunk, pair_mask, tile_start, ntx, res_records,
+      depth_out, tri_out, attr_out, stage, 0);
 }
 
 __global__ void __launch_bounds__(kVisThreads)
@@ -96,23 +103,57 @@ visibility_resolve_vc_kernel(const float* __restrict__ records,
                              int* __restrict__ tri_out,
                              float* __restrict__ attr_out) {
   __shared__ VisRegionStage stage;
-  visibility_resolve_block<kRecWidthVColor>(
+  visibility_resolve_block<kRecWidthVColor, false>(
       records, pair_chunk, pair_mask, tile_start, ntx, res_records,
-      depth_out, tri_out, attr_out, stage);
+      depth_out, tri_out, attr_out, stage, 0);
 }
 
-using FusedKernel = void (*)(const float*, const int*, const int*,
-                             const int*, int, const float*, float*, int*,
-                             float*);
+__global__ void __launch_bounds__(kVisThreads)
+visibility_resolve_band_kernel(const float* __restrict__ records,
+                               const int* __restrict__ pair_chunk,
+                               const int* __restrict__ pair_mask,
+                               const int* __restrict__ tile_start, int ntx,
+                               const float* __restrict__ res_records,
+                               float* __restrict__ depth_out,
+                               int* __restrict__ tri_out,
+                               float* __restrict__ attr_out,
+                               int tile_y_offset) {
+  __shared__ VisRegionStage stage;
+  visibility_resolve_block<kRecWidth, true>(
+      records, pair_chunk, pair_mask, tile_start, ntx, res_records,
+      depth_out, tri_out, attr_out, stage, tile_y_offset);
+}
 
-int launch(FusedKernel kernel, const float* records, const int* pair_chunk,
-           const int* pair_mask, const int* tile_start, int n_tiles, int ntx,
+__global__ void __launch_bounds__(kVisThreads)
+visibility_resolve_vc_band_kernel(const float* __restrict__ records,
+                                  const int* __restrict__ pair_chunk,
+                                  const int* __restrict__ pair_mask,
+                                  const int* __restrict__ tile_start, int ntx,
+                                  const float* __restrict__ res_records,
+                                  float* __restrict__ depth_out,
+                                  int* __restrict__ tri_out,
+                                  float* __restrict__ attr_out,
+                                  int tile_y_offset) {
+  __shared__ VisRegionStage stage;
+  visibility_resolve_block<kRecWidthVColor, true>(
+      records, pair_chunk, pair_mask, tile_start, ntx, res_records,
+      depth_out, tri_out, attr_out, stage, tile_y_offset);
+}
+
+// the launch; `offset` is the band instances' trailing argument (none for
+// the offset-free kernels)
+template <typename... Offset>
+int launch(void (*kernel)(const float*, const int*, const int*, const int*,
+                          int, const float*, float*, int*, float*,
+                          Offset...),
+           const float* records, const int* pair_chunk, const int* pair_mask,
+           const int* tile_start, int n_tiles, int ntx,
            const float* res_records, float* depth_out, int* tri_out,
-           float* attr_out, cudaStream_t stream) {
+           float* attr_out, cudaStream_t stream, Offset... offset) {
   if (n_tiles > 0) {
     kernel<<<n_tiles, kVisThreads, 0, stream>>>(
         records, pair_chunk, pair_mask, tile_start, ntx, res_records,
-        depth_out, tri_out, attr_out);
+        depth_out, tri_out, attr_out, offset...);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -137,4 +178,24 @@ extern "C" int trident_visibility_resolve_vc(
   return launch(visibility_resolve_vc_kernel, records, pair_chunk,
                 pair_mask, tile_start, n_tiles, ntx, res_records, depth_out,
                 tri_out, attr_out, stream);
+}
+
+extern "C" int trident_visibility_resolve_band(
+    const float* records, const int* pair_chunk, const int* pair_mask,
+    const int* tile_start, int n_tiles, int ntx, int tile_y_offset,
+    const float* res_records, float* depth_out, int* tri_out,
+    float* attr_out, cudaStream_t stream) {
+  return launch(visibility_resolve_band_kernel, records, pair_chunk,
+                pair_mask, tile_start, n_tiles, ntx, res_records, depth_out,
+                tri_out, attr_out, stream, tile_y_offset);
+}
+
+extern "C" int trident_visibility_resolve_vc_band(
+    const float* records, const int* pair_chunk, const int* pair_mask,
+    const int* tile_start, int n_tiles, int ntx, int tile_y_offset,
+    const float* res_records, float* depth_out, int* tri_out,
+    float* attr_out, cudaStream_t stream) {
+  return launch(visibility_resolve_vc_band_kernel, records, pair_chunk,
+                pair_mask, tile_start, n_tiles, ntx, res_records, depth_out,
+                tri_out, attr_out, stream, tile_y_offset);
 }

@@ -19,6 +19,12 @@ PBR or a custom shader (render/shader_hook.py), Reinhard tonemap + gamma
 the clamp. `apply_ai_blend` is the frame's final mix with the
 interpolated AI frame, which render_frame applies once at display
 resolution.
+
+Every entry point shades a band of a taller frame as well (the banded
+frame, parallel/framebuffer.py): `y_offset` is the band's first global
+row and `full_height` the frame's height, so the pixel centres, the world
+reconstruction and the background's rays are the full frame's, as in
+trident_tpu/ops/deferred.py:43-54,75-95,225-251.
 """
 
 from __future__ import annotations
@@ -46,12 +52,15 @@ Tensor = torch.Tensor
 
 
 def _background(camera: CameraParams, skybox: Optional[SkyboxCube],
-                width: int, height: int, clear_color, device) -> Tensor:
+                width: int, height: int, clear_color, device,
+                y_offset: int = 0,
+                full_height: Optional[int] = None) -> Tensor:
     """(H, W, 3) background (trident_tpu/ops/deferred.py:41-66): the
     skybox sampled along each pixel centre's world-space view ray, or the
     clear color without one (or where skybox.valid is False). The ray is
     the projective xy map inverted at z_view = −1 and turned by the view's
-    3×3 rows, written out as three f32 products and sums. The clear color
+    3×3 rows, written out as three f32 products and sums; a band's rows
+    are the rows y_offset.. of a full_height frame. The clear color
     is a device fill per channel, not a host-to-device copy, so that a
     CUDA graph can capture it."""
     clear = torch.cat([torch.full((1,), c, dtype=torch.float32,
@@ -59,8 +68,9 @@ def _background(camera: CameraParams, skybox: Optional[SkyboxCube],
                        for c in clear_color[:3]]).expand(height, width, 3)
     if skybox is None:
         return clear
-    ys = (torch.arange(height, dtype=torch.float32, device=device)
-          + 0.5) / height * 2.0 - 1.0
+    fh = height if full_height is None else full_height
+    ys = ((torch.arange(height, device=device) + y_offset).float()
+          + 0.5) / fh * 2.0 - 1.0
     xs = (torch.arange(width, dtype=torch.float32, device=device)
           + 0.5) / width * 2.0 - 1.0
     ny, nx = torch.meshgrid(ys, xs, indexing="ij")
@@ -150,19 +160,22 @@ def sample_attrs_texture(attrs: Tensor, covered: Tensor,
 
 
 def world_positions(depth: Tensor, camera: CameraParams, width: int,
-                    height: int) -> Tensor:
+                    height: int, y_offset: int = 0,
+                    full_height: Optional[int] = None) -> Tensor:
     """(H, W, 3) world position of each pixel centre from its depth:
     world_h = (P·V)⁻¹ · (ndc, 1), in f32 with TF32 off (pinned in the
-    package __init__)."""
+    package __init__); a band's rows are the rows y_offset.. of a
+    full_height frame."""
     dev = depth.device
-    ys = torch.arange(height, dtype=torch.float32, device=dev) + 0.5
+    fh = height if full_height is None else full_height
+    ys = (torch.arange(height, device=dev) + y_offset).float() + 0.5
     xs = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
     py, px = torch.meshgrid(ys, xs, indexing="ij")
     # inv_ex: the same inverse as linalg.inv without its error check,
     # which waits for the device (and cannot be captured in a graph)
     vp_inv = torch.linalg.inv_ex(camera.proj @ camera.view).inverse
     ndc_x = px * (2.0 / width) - 1.0
-    ndc_y = py * (2.0 / height) - 1.0
+    ndc_y = py * (2.0 / fh) - 1.0
     ndc = torch.stack([ndc_x, ndc_y, depth, torch.ones_like(ndc_x)], dim=-1)
     world_h = ndc @ vp_inv.T
     wh = world_h[..., 3:4]
@@ -178,7 +191,8 @@ def deferred_shade_attrs(gbuffer: GBuffer, attrs: Tensor,
                          tonemap: bool = True,
                          skybox: Optional[SkyboxCube] = None,
                          sampling: str = "bilinear",
-                         shader_fn=None) -> Tensor:
+                         shader_fn=None, y_offset: int = 0,
+                         full_height: Optional[int] = None) -> Tensor:
     """Shade from the resolved attribute image (ops/resolve.py channel
     layout) → (H, W, 4) f32 display-space frame in [0, 1]. The texture is
     sampled in `sampling` mode (sample_texture_at). `shadow` (the light
@@ -186,7 +200,8 @@ def deferred_shade_attrs(gbuffer: GBuffer, attrs: Tensor,
     `shader_fn` (a custom shader's `shade`, render/shader_hook.py)
     replaces shade_pbr. `skybox` fills the uncovered pixels instead of the
     clear color. tonemap=False returns linear HDR instead (background
-    treated as linear, no clamp) for bloom to work on."""
+    treated as linear, no clamp) for bloom to work on. y_offset and
+    full_height place a band in its frame (the module note)."""
     return _shade_common(
         gbuffer, shading._normalize(attrs[..., rp.CH_NX:rp.CH_NZ + 1]),
         attrs[..., rp.CH_U:rp.CH_V + 1], attrs[..., rp.CH_MIP],
@@ -195,7 +210,7 @@ def deferred_shade_attrs(gbuffer: GBuffer, attrs: Tensor,
         attrs[..., rp.CH_ROUGH:rp.CH_ROUGH + 1],
         attrs[..., rp.CH_AMB:rp.CH_AMB + 1], textures, camera, lights,
         width, height, clear_color, shadow, shadow_pcf, tonemap, skybox,
-        sampling, shader_fn)
+        sampling, shader_fn, y_offset, full_height)
 
 
 def deferred_shade(gbuffer: GBuffer, planes: AttributePlanes,
@@ -207,17 +222,22 @@ def deferred_shade(gbuffer: GBuffer, planes: AttributePlanes,
                    tonemap: bool = True,
                    skybox: Optional[SkyboxCube] = None,
                    sampling: str = "bilinear",
-                   shader_fn=None) -> Tensor:
+                   shader_fn=None, y_offset: int = 0,
+                   full_height: Optional[int] = None) -> Tensor:
     """Shade the plane-gather frame (trident_tpu/ops/deferred.py:69-154):
-    each pixel's plane_attributes, then what deferred_shade_attrs does."""
+    each pixel's plane_attributes, then what deferred_shade_attrs does
+    (y_offset and full_height as there)."""
     return _shade_common(
-        gbuffer, *plane_attributes(gbuffer, planes, textures, width, height),
+        gbuffer, *plane_attributes(gbuffer, planes, textures, width, height,
+                                   y_offset),
         textures, camera, lights, width, height, clear_color, shadow,
-        shadow_pcf, tonemap, skybox, sampling, shader_fn)
+        shadow_pcf, tonemap, skybox, sampling, shader_fn, y_offset,
+        full_height)
 
 
 def plane_attributes(gbuffer: GBuffer, planes: AttributePlanes,
-                     textures: TextureArrays, width: int, height: int):
+                     textures: TextureArrays, width: int, height: int,
+                     y_offset: int = 0):
     """(normal, uv, mip, texture geometry, colour factor, metallic,
     roughness, ambient strength) of each pixel from its winner's plane
     rows (f16 tables are widened to f32), evaluated at the pixel centre
@@ -225,12 +245,13 @@ def plane_attributes(gbuffer: GBuffer, planes: AttributePlanes,
     from the analytic UV derivatives (d(u)/dx = (gU_x − u·g1_x) / g1·p)
     scaled by the slot's level-0 size; the colour factor's rgb times the
     interpolated vertex colour when table_c is there. The slot's sizes row
-    is gathered once and is the sampler's texture geometry."""
+    is gathered once and is the sampler's texture geometry. Row r's pixel
+    centres lie on global row r + y_offset (a band's)."""
     dev = gbuffer.tri_id.device
     tri = gbuffer.tri_id.clamp_min(0).long()
     a = planes.table_a[tri].float()                            # (H,W,16)
     b = planes.table_b[tri].float()
-    ys = torch.arange(height, dtype=torch.float32, device=dev) + 0.5
+    ys = (torch.arange(height, device=dev) + y_offset).float() + 0.5
     xs = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
     py, px = torch.meshgrid(ys, xs, indexing="ij")
     px_l = px - b[..., 11]
@@ -275,25 +296,28 @@ def _shade_common(gbuffer: GBuffer, normal: Tensor, uv: Tensor, mip: Tensor,
                   lights: LightParams, width: int, height: int, clear_color,
                   shadow: Optional[ShadowParams], shadow_pcf: bool,
                   tonemap: bool, skybox: Optional[SkyboxCube], sampling: str,
-                  shader_fn) -> Tensor:
+                  shader_fn, y_offset: int = 0,
+                  full_height: Optional[int] = None) -> Tensor:
     """Texture sample + lighting + background/tonemap, shared by both
     entry points (trident_tpu/ops/deferred.py:201-286): normal
     (normalized), uv, fractional mip and texture geometry `hint` per
     pixel; color factor (..., 4), metallic, roughness and ambient strength
-    (..., 1)."""
+    (..., 1); a band's rows placed by y_offset and full_height."""
     dev = normal.device
     covered = gbuffer.tri_id >= 0
     sampled = sample_texture_at(uv, mip, hint, covered, textures, sampling)
     albedo = sampled[..., :3] * color_factor[..., :3]
     alpha = color_factor[..., 3:4] * sampled[..., 3:4]
 
-    world = world_positions(gbuffer.depth, camera, width, height)
+    world = world_positions(gbuffer.depth, camera, width, height, y_offset,
+                            full_height)
     dir_shadow = (None if shadow is None
                   else shadow_factor(shadow, world, pcf=shadow_pcf))
     shade = shading.shade_pbr if shader_fn is None else shader_fn
     lit = shade(world, normal, albedo, metallic, roughness, ambient_strength,
                 camera.position, lights, dir_shadow=dir_shadow)
-    background = _background(camera, skybox, width, height, clear_color, dev)
+    background = _background(camera, skybox, width, height, clear_color, dev,
+                             y_offset, full_height)
     a_out = torch.where(covered[..., None], alpha, clear_color[3])
     if not tonemap:
         rgb = torch.where(covered[..., None], lit, background)

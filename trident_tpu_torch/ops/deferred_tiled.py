@@ -136,11 +136,15 @@ def shade_attrs_tiled(tri_tiles: Tensor, depth_tiles: Tensor,
                       camera: CameraParams, lights: LightParams, width: int,
                       height: int, shadow: Optional[ShadowParams] = None,
                       shadow_pcf: bool = False,
-                      tonemap: bool = True) -> Tensor:
+                      tonemap: bool = True, tile_y_offset: int = 0,
+                      full_height: Optional[int] = None) -> Tensor:
     """(n_tiles, CHANNELS, 1024) resolved attrs of (n_tiles, 1024) winners
     and depths → (n_tiles, 4, 1024) frame: tonemapped (or linear HDR when
     tonemap=False) lit rgb + raw alpha. Background, alpha clear and clamp
-    are the caller's, after the untile."""
+    are the caller's, after the untile. A band of a full_height frame
+    whose first tile row is global tile row tile_y_offset reconstructs its
+    world positions at the full frame's pixel centres
+    (trident_tpu/ops/deferred_tiled.py:140-141,196-205)."""
     nt = attrs_t.shape[0]
     ntx = -(-width // raster.TILE)
 
@@ -166,10 +170,11 @@ def shade_attrs_tiled(tri_tiles: Tensor, depth_tiles: Tensor,
 
     # world position from depth, at tile pixel centres
     px, py = raster.tile_centres(torch.arange(nt, device=attrs_t.device),
-                                 ntx)
+                                 ntx, tile_y_offset)
     vp_inv = torch.linalg.inv_ex(camera.proj @ camera.view).inverse
+    fh = height if full_height is None else full_height
     ndc_x = px * (2.0 / width) - 1.0
-    ndc_y = py * (2.0 / height) - 1.0
+    ndc_y = py * (2.0 / fh) - 1.0
 
     def wrow(c):
         return (vp_inv[c, 0] * ndc_x + vp_inv[c, 1] * ndc_y

@@ -27,6 +27,15 @@ dropped and counted in aux[0]. Overflow drops geometry, never writes
 garbage. Tiles no pair touches come out as background (depth 1, id −1)
 straight from the kernel, which writes every tile.
 
+A band of a taller frame (the banded multi-device frame, parallel/
+framebuffer.py) bins its band-local bboxes (ops/vertex.py::
+band_slice_setup) as any frame, and its visibility takes the band's first
+global tile row, `tile_y_offset` (whole tiles): the kernels' band
+instances (`*_band`, their own launch counts) and the plain versions then
+evaluate every pixel centre at its row of the full frame, so a band's
+depths and ids are the one-device frame's rows bit for bit. The
+offset-free call (tile_y_offset None) launches the offset-free instance.
+
 The `ckern` knob (build_bins(ck_bank=...)) adds the compact-bank table of
 raster_pallas.py:835-857: per kept pair, its hit sub-blocks' record rows
 gathered contiguous (ascending q, padded with copies of the first hit to
@@ -240,21 +249,24 @@ def _ck_banks(records: Tensor, pair_chunk: Tensor, pair_mask: Tensor,
     return banks, nhit
 
 
-def tile_centres(tiles: Tensor, ntx: int):
+def tile_centres(tiles: Tensor, ntx: int, tile_y_offset: int = 0):
     """Pixel centres (pxf, pyf), each (N, 1024) f32, of the pixels of
-    tiles `tiles` (N,) in a row of ntx tiles — the kernels' coordinates."""
+    tiles `tiles` (N,) in a row of ntx tiles — the kernels' coordinates;
+    a band's tile row r is global tile row r + tile_y_offset
+    (raster_pallas.py:993)."""
     r = torch.arange(TILE_PX, device=tiles.device)
     pxf = (tiles[:, None] % ntx * TILE + r % TILE).float() + 0.5
-    pyf = (tiles[:, None] // ntx * TILE + r // TILE).float() + 0.5
+    pyf = ((tiles[:, None] // ntx + tile_y_offset) * TILE
+           + r // TILE).float() + 0.5
     return pxf, pyf
 
 
-def _tile_cover(rc: Tensor, et: Tensor, ntx: int):
+def _tile_cover(rc: Tensor, et: Tensor, ntx: int, tile_y_offset: int = 0):
     """(cover, depth), each (B, 16, 1024), of record rows rc (B, 16, 16)
-    at every pixel centre of tiles et (B,): the visibility kernels' cover
-    test and depth, with their per-op rounding (depth is meaningful where
-    cover holds)."""
-    px, py = (c[:, None, :] for c in tile_centres(et, ntx))
+    at every pixel centre of tiles et (B,) (tile rows offset by
+    tile_y_offset): the visibility kernels' cover test and depth, with
+    their per-op rounding (depth is meaningful where cover holds)."""
+    px, py = (c[:, None, :] for c in tile_centres(et, ntx, tile_y_offset))
 
     def col(k):
         return rc[:, :, k:k + 1]                              # (B,16,1)
@@ -281,12 +293,13 @@ def _cover_keys(cover: Tensor, d: Tensor, tid: Tensor,
 
 
 def _tile_keys(rc: Tensor, tid: Tensor, et: Tensor, ntx: int,
-               depth_only: bool) -> Tensor:
+               depth_only: bool, tile_y_offset: int = 0) -> Tensor:
     """The visibility kernels' merge of record rows rc (B, 16, 16) with
     triangle ids tid (B, 16) against every pixel of tiles et (B,): the
     _cover_keys of _tile_cover reduced over the 16 rows with amin:
     (B, 1024)."""
-    return _cover_keys(*_tile_cover(rc, et, ntx), tid, depth_only).amin(dim=1)
+    return _cover_keys(*_tile_cover(rc, et, ntx, tile_y_offset), tid,
+                       depth_only).amin(dim=1)
 
 
 def _keys_to_frame(keys: Tensor, depth_only: bool):
@@ -319,13 +332,15 @@ def hit_sub_blocks(bins: Bins, dense: bool = False):
 
 def visibility_tiles_plain(bins: Bins, ntx: int, n_tiles: int,
                            batch: int = 2048, depth_only: bool = False,
-                           dense: bool = False):
+                           dense: bool = False, tile_y_offset: int = 0):
     """Plain PyTorch twin of the visibility kernel: the same triangles
     (every hit sub-block of every kept pair), the same per-op rounding, and
     the same lexicographic merge (_tile_keys). Returns (depth (n_tiles,
     1024) f32, tri (n_tiles, 1024) i32). depth_only (the light pass)
     returns the depth alone. dense (the kbench "nobranch" probe) evaluates
-    all 16 sub-blocks of every kept pair, whatever its mask."""
+    all 16 sub-blocks of every kept pair, whatever its mask. A band's
+    tile rows start at global tile row tile_y_offset (the band
+    instance's)."""
     dev = bins.records.device
     e_tile, e_base = hit_sub_blocks(bins, dense)
     sub = torch.arange(SUB, device=dev)
@@ -333,7 +348,8 @@ def visibility_tiles_plain(bins: Bins, ntx: int, n_tiles: int,
     for b in range(0, e_tile.shape[0], batch):
         et, eb = e_tile[b:b + batch], e_base[b:b + batch]
         tid = eb[:, None] + sub                               # (B,16)
-        key = _tile_keys(bins.records[tid], tid, et, ntx, depth_only)
+        key = _tile_keys(bins.records[tid], tid, et, ntx, depth_only,
+                         tile_y_offset)
         keys.scatter_reduce_(0, et[:, None].expand_as(key), key, "amin")
     return _keys_to_frame(keys, depth_only)
 
@@ -384,11 +400,13 @@ def region_kept(bins: Bins, ntx: int, n_tiles: int,
 
 
 def visibility_ck_tiles_plain(bins: Bins, ntx: int, n_tiles: int,
-                              ck_bank: int, batch: int = 2048):
+                              ck_bank: int, batch: int = 2048,
+                              tile_y_offset: int = 0):
     """Plain PyTorch twin of the compact-bank kernel, evaluating the bank
     table as the TPU kernel does: every slot of every bank b with
     nhit > b·ck_bank, padding copies included, ids from column 15 →
-    (depth, tri) (n_tiles, 1024)."""
+    (depth, tri) (n_tiles, 1024); tile rows from global row
+    tile_y_offset, as visibility_tiles_plain's."""
     banks = bins.banks
     dev = banks.device
     n_pairs, rows, _ = banks.shape
@@ -403,7 +421,7 @@ def visibility_ck_tiles_plain(bins: Bins, ntx: int, n_tiles: int,
         et = e_tile[b:b + batch]
         rc = slots[p_idx[b:b + batch], s_idx[b:b + batch]]   # (B,16,16)
         key = _tile_keys(rc, rc[:, :, REC - 1].to(torch.int32), et, ntx,
-                         False)
+                         False, tile_y_offset)
         keys.scatter_reduce_(0, et[:, None].expand_as(key), key, "amin")
     return _keys_to_frame(keys, False)
 
@@ -430,74 +448,112 @@ def check_bins(bins: Bins, n_tiles: int) -> None:
              "tile_start must have n_tiles + 1 entries")
 
 
-def visibility_tiles(bins: Bins, ntx: int, n_tiles: int,
-                     depth_only: bool = False):
-    """Per-tile (depth, tri) for binned triangles: the CUDA kernel for
-    tensors on the card, the plain version for tensors on the CPU.
-    depth_only returns the light pass's depth alone (visibility_depth_tiles,
-    the kernel's depth-only instance)."""
-    if depth_only:
-        return visibility_depth_tiles(bins, ntx, n_tiles)
+def _launch_vis(name: str, bins: Bins, ntx: int, n_tiles: int,
+                band: tuple, depth_only: bool):
+    """Entry point `name` of csrc/visibility.cu (band: (tile_y_offset,)
+    for a band instance, () for the offset-free one) on the records'
+    device, made current for the launch → depth, or (depth, tri)."""
     rec = bins.records
-    if rec.device.type == "cpu":
-        return visibility_tiles_plain(bins, ntx, n_tiles)
     check_bins(bins, n_tiles)
     depth = torch.empty((n_tiles, TILE_PX), dtype=torch.float32,
                         device=rec.device)
-    tri = torch.empty((n_tiles, TILE_PX), dtype=torch.int32, device=rec.device)
-    fn = _build.kernel("trident_visibility",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * 3)
-    err = fn(rec.data_ptr(), bins.pair_chunk.data_ptr(),
-             bins.pair_mask.data_ptr(), bins.tile_start.data_ptr(), n_tiles,
-             ntx, depth.data_ptr(), tri.data_ptr(),
-             torch.cuda.current_stream(rec.device).cuda_stream)
-    _build.check_launch("trident_visibility", err)
+    tri = None if depth_only else torch.empty(
+        (n_tiles, TILE_PX), dtype=torch.int32, device=rec.device)
+    fn = _build.kernel(name, [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * (2 + len(band))
+                       + [ctypes.c_void_p] * (2 if depth_only else 3))
+    outs = (depth.data_ptr(),) + (() if depth_only else (tri.data_ptr(),))
+    with torch.cuda.device(rec.device):
+        err = fn(rec.data_ptr(), bins.pair_chunk.data_ptr(),
+                 bins.pair_mask.data_ptr(), bins.tile_start.data_ptr(),
+                 n_tiles, ntx, *band, *outs,
+                 torch.cuda.current_stream(rec.device).cuda_stream)
+    _build.check_launch(name, err)
+    return depth if depth_only else (depth, tri)
+
+
+def visibility_tiles(bins: Bins, ntx: int, n_tiles: int,
+                     depth_only: bool = False,
+                     tile_y_offset: Optional[int] = None):
+    """Per-tile (depth, tri) for binned triangles: the CUDA kernel for
+    tensors on the card, the plain version for tensors on the CPU.
+    depth_only returns the light pass's depth alone (visibility_depth_tiles,
+    the kernel's depth-only instance). tile_y_offset (whole tiles, 0
+    included) renders one band of a taller frame through the band
+    instance (visibility_tiles_band); None is the one-device frame's
+    offset-free instance."""
+    if depth_only:
+        return visibility_depth_tiles(bins, ntx, n_tiles, tile_y_offset)
+    if tile_y_offset is not None:
+        return visibility_tiles_band(bins, ntx, n_tiles, tile_y_offset)
+    if bins.records.device.type == "cpu":
+        return visibility_tiles_plain(bins, ntx, n_tiles)
+    out = _launch_vis("trident_visibility", bins, ntx, n_tiles, (), False)
     visibility_tiles.launches += 1
-    return depth, tri
+    return out
 
 
 visibility_tiles.launches = 0
 
 
-def visibility_depth_tiles(bins: Bins, ntx: int, n_tiles: int) -> Tensor:
+def visibility_tiles_band(bins: Bins, ntx: int, n_tiles: int,
+                          tile_y_offset: int):
+    """visibility_tiles for one band whose first tile row is global tile
+    row tile_y_offset: the kernel's band instance for tensors on the card,
+    the plain version with the offset for tensors on the CPU."""
+    if bins.records.device.type == "cpu":
+        return visibility_tiles_plain(bins, ntx, n_tiles,
+                                      tile_y_offset=tile_y_offset)
+    out = _launch_vis("trident_visibility_band", bins, ntx, n_tiles,
+                      (int(tile_y_offset),), False)
+    visibility_tiles_band.launches += 1
+    return out
+
+
+visibility_tiles_band.launches = 0
+
+
+def visibility_depth_tiles(bins: Bins, ntx: int, n_tiles: int,
+                           tile_y_offset: Optional[int] = None) -> Tensor:
     """Per-tile min depth (n_tiles, 1024) f32 of binned triangles, the
     shadow map's light pass: the depth-only CUDA kernel for tensors on the
-    card, the plain version for tensors on the CPU."""
-    rec = bins.records
-    if rec.device.type == "cpu":
+    card, the plain version for tensors on the CPU; with a tile_y_offset,
+    one band of the map (visibility_depth_tiles_band)."""
+    if tile_y_offset is not None:
+        return visibility_depth_tiles_band(bins, ntx, n_tiles, tile_y_offset)
+    if bins.records.device.type == "cpu":
         return visibility_tiles_plain(bins, ntx, n_tiles, depth_only=True)
-    check_bins(bins, n_tiles)
-    depth = torch.empty((n_tiles, TILE_PX), dtype=torch.float32,
-                        device=rec.device)
-    fn = _build.kernel("trident_visibility_depth",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * 2)
-    err = fn(rec.data_ptr(), bins.pair_chunk.data_ptr(),
-             bins.pair_mask.data_ptr(), bins.tile_start.data_ptr(), n_tiles,
-             ntx, depth.data_ptr(),
-             torch.cuda.current_stream(rec.device).cuda_stream)
-    _build.check_launch("trident_visibility_depth", err)
+    out = _launch_vis("trident_visibility_depth", bins, ntx, n_tiles, (),
+                      True)
     visibility_depth_tiles.launches += 1
-    return depth
+    return out
 
 
 visibility_depth_tiles.launches = 0
 
 
-def visibility_ck_tiles(bins: Bins, ntx: int, n_tiles: int, ck_bank: int):
-    """Per-tile (depth, tri) from the compact-bank table of
-    build_bins(ck_bank=...): the CUDA kernel for tensors on the card, the
-    plain version for tensors on the CPU. Equal to visibility_tiles on the
-    same scene, bit for bit. The kernel stages each pair's first
-    min(nhit, 16) slots whatever ck_bank, which shapes the table (and the
-    plain version's TPU bank schedule) only."""
+def visibility_depth_tiles_band(bins: Bins, ntx: int, n_tiles: int,
+                                tile_y_offset: int) -> Tensor:
+    """visibility_depth_tiles for one band of the light pass's map whose
+    first tile row is global tile row tile_y_offset: the depth-only band
+    instance on the card, the plain version on the CPU."""
+    if bins.records.device.type == "cpu":
+        return visibility_tiles_plain(bins, ntx, n_tiles, depth_only=True,
+                                      tile_y_offset=tile_y_offset)
+    out = _launch_vis("trident_visibility_depth_band", bins, ntx, n_tiles,
+                      (int(tile_y_offset),), True)
+    visibility_depth_tiles_band.launches += 1
+    return out
+
+
+visibility_depth_tiles_band.launches = 0
+
+
+def _launch_ck(name: str, bins: Bins, ntx: int, n_tiles: int, ck_bank: int,
+               band: tuple):
+    """Entry point `name` of csrc/visibility_ck.cu (band as _launch_vis's)
+    on the banks' device, made current for the launch."""
     banks = bins.banks
-    if banks is None or bins.nhit is None:
-        raise ValueError("bins carry no compact-bank table: build them with "
-                         "build_bins(ck_bank=...)")
-    if banks.device.type == "cpu":
-        return visibility_ck_tiles_plain(bins, ntx, n_tiles, ck_bank)
     _require(banks.device.type == "cuda", f"unsupported device {banks.device}")
     nbank = -(-NSUB // ck_bank) * ck_bank
     _require(banks.dtype == torch.float32 and banks.dim() == 3
@@ -515,19 +571,63 @@ def visibility_ck_tiles(bins: Bins, ntx: int, n_tiles: int, ck_bank: int):
                         device=banks.device)
     tri = torch.empty((n_tiles, TILE_PX), dtype=torch.int32,
                       device=banks.device)
-    fn = _build.kernel("trident_visibility_ck",
-                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    fn = _build.kernel(name, [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * (4 + len(band))
                        + [ctypes.c_void_p] * 3)
-    err = fn(banks.data_ptr(), bins.nhit.data_ptr(),
-             bins.tile_start.data_ptr(), n_tiles, ntx, ck_bank, nbank,
-             depth.data_ptr(), tri.data_ptr(),
-             torch.cuda.current_stream(banks.device).cuda_stream)
-    _build.check_launch("trident_visibility_ck", err)
-    visibility_ck_tiles.launches += 1
+    with torch.cuda.device(banks.device):
+        err = fn(banks.data_ptr(), bins.nhit.data_ptr(),
+                 bins.tile_start.data_ptr(), n_tiles, ntx, ck_bank, nbank,
+                 *band, depth.data_ptr(), tri.data_ptr(),
+                 torch.cuda.current_stream(banks.device).cuda_stream)
+    _build.check_launch(name, err)
     return depth, tri
 
 
+def _ck_table(bins: Bins) -> Tensor:
+    if bins.banks is None or bins.nhit is None:
+        raise ValueError("bins carry no compact-bank table: build them with "
+                         "build_bins(ck_bank=...)")
+    return bins.banks
+
+
+def visibility_ck_tiles(bins: Bins, ntx: int, n_tiles: int, ck_bank: int,
+                        tile_y_offset: Optional[int] = None):
+    """Per-tile (depth, tri) from the compact-bank table of
+    build_bins(ck_bank=...): the CUDA kernel for tensors on the card, the
+    plain version for tensors on the CPU. Equal to visibility_tiles on the
+    same scene, bit for bit. The kernel stages each pair's first
+    min(nhit, 16) slots whatever ck_bank, which shapes the table (and the
+    plain version's TPU bank schedule) only. With a tile_y_offset, one
+    band (visibility_ck_tiles_band)."""
+    if tile_y_offset is not None:
+        return visibility_ck_tiles_band(bins, ntx, n_tiles, ck_bank,
+                                        tile_y_offset)
+    if _ck_table(bins).device.type == "cpu":
+        return visibility_ck_tiles_plain(bins, ntx, n_tiles, ck_bank)
+    out = _launch_ck("trident_visibility_ck", bins, ntx, n_tiles, ck_bank,
+                     ())
+    visibility_ck_tiles.launches += 1
+    return out
+
+
 visibility_ck_tiles.launches = 0
+
+
+def visibility_ck_tiles_band(bins: Bins, ntx: int, n_tiles: int,
+                             ck_bank: int, tile_y_offset: int):
+    """visibility_ck_tiles for one band whose first tile row is global
+    tile row tile_y_offset: the compact-bank band instance on the card,
+    the plain version on the CPU."""
+    if _ck_table(bins).device.type == "cpu":
+        return visibility_ck_tiles_plain(bins, ntx, n_tiles, ck_bank,
+                                         tile_y_offset=tile_y_offset)
+    out = _launch_ck("trident_visibility_ck_band", bins, ntx, n_tiles,
+                     ck_bank, (int(tile_y_offset),))
+    visibility_ck_tiles_band.launches += 1
+    return out
+
+
+visibility_ck_tiles_band.launches = 0
 
 
 def untile_frame(flat: Tensor, ntx: int, nty: int) -> Tensor:
@@ -545,19 +645,23 @@ def untile_channels(flat: Tensor, ntx: int, nty: int) -> Tensor:
 
 def visibility(setup: TriangleSetup, width: int, height: int,
                setup_cols: Optional[SetupCols] = None, ck_bank: int = 0,
-               **bin_kw) -> GBuffer:
+               tile_y_offset: Optional[int] = None, **bin_kw) -> GBuffer:
     """Binned visibility → contiguous per-pixel winner id + depth, with
     aux (the untiled visibility of trident_tpu/ops/raster_pallas.py:1443,
     the plane-gather frame's raster). ck_bank > 0 (the ckern knob) runs
     the compact-bank kernel, as the JAX package's visibility does under
-    CKERN. `bin_kw` are build_bins' capacities."""
+    CKERN. A band of a taller frame (its setup band-sliced) passes its
+    first global tile row as tile_y_offset. `bin_kw` are build_bins'
+    capacities."""
     ntx, nty = -(-width // TILE), -(-height // TILE)
     bins = build_bins(setup, width, height, setup_cols=setup_cols,
                       ck_bank=ck_bank, **bin_kw)
     if ck_bank:
-        depth, tri = visibility_ck_tiles(bins, ntx, ntx * nty, ck_bank)
+        depth, tri = visibility_ck_tiles(bins, ntx, ntx * nty, ck_bank,
+                                         tile_y_offset)
     else:
-        depth, tri = visibility_tiles(bins, ntx, ntx * nty)
+        depth, tri = visibility_tiles(bins, ntx, ntx * nty,
+                                      tile_y_offset=tile_y_offset)
     return GBuffer(
         tri_id=untile_frame(tri, ntx, nty)[:height, :width].contiguous(),
         depth=untile_frame(depth, ntx, nty)[:height, :width].contiguous(),

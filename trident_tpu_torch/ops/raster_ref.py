@@ -23,13 +23,16 @@ from trident_tpu_torch.render.types import GBuffer
 
 
 def visibility_ref(setup: TriangleSetup, width: int, height: int,
-                   chunk: int = 64, depth_clear: float = 1.0) -> GBuffer:
+                   chunk: int = 64, depth_clear: float = 1.0,
+                   y_offset: int = 0) -> GBuffer:
     """Per-pixel winner id (−1 background) and depth of every valid
     triangle, with aux a (2,) i32 zero on the setup's device (nothing is
-    binned, so nothing can be dropped)."""
+    binned, so nothing can be dropped). The rows are the global rows
+    [y_offset, y_offset + height) of a full-frame setup (a band of the
+    banded frame, trident_tpu/ops/raster_ref.py:26-41)."""
     dev = setup.edge.device
     t = setup.edge.shape[0]
-    ys = torch.arange(height, dtype=torch.float32, device=dev) + 0.5
+    ys = (torch.arange(height, device=dev) + y_offset).float() + 0.5
     xs = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
     py, px = torch.meshgrid(ys, xs, indexing="ij")            # (H,W)
     best_depth = torch.full((height, width), depth_clear, dtype=torch.float32,

@@ -17,6 +17,13 @@ are the 40-wide instances' wrappers, each with its own launch count.
 Every wrapper takes only a contiguous (T, RW) f32 table with a
 16-byte-aligned base on the ids' device, RW a width it has an instance
 for, and raises on anything else.
+
+One band of a taller frame (the banded multi-device frame, parallel/
+framebuffer.py) resolves its rows at their global pixel centres: the
+(H, W) wrappers take `y_offset` (the band's first global row), the tiled
+and fused ones `tile_y_offset` (whole tiles); an offset, 0 included,
+launches the kernels' band instances (the `*_band` wrappers, each with
+its own launch count), None the offset-free ones.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from typing import Optional
 
 from trident_tpu_torch import _build
 from trident_tpu_torch.ops import planes as P
@@ -116,15 +125,17 @@ def _vc(records: Tensor) -> bool:
     return records.shape[1] == P.RR_WIDTH_VCOLOR
 
 
-def resolve_attrs_plain(tri_id: Tensor, records: Tensor) -> Tensor:
+def resolve_attrs_plain(tri_id: Tensor, records: Tensor,
+                        y_offset: int = 0) -> Tensor:
     """Plain PyTorch twin of the resolve kernel (both widths): (H, W)
     winner ids and the (T, RW) records → (H, W, CHANNELS) f32, zeros where
-    tri_id < 0."""
+    tri_id < 0; row r's pixel centres lie on global row r + y_offset (a
+    band's)."""
     h, w = tri_id.shape
     dev = tri_id.device
     flat = tri_id.reshape(-1)
     sel = _winner_rows(records, flat)                        # (RW, H·W)
-    ys = torch.arange(h, dtype=torch.float32, device=dev) + 0.5
+    ys = (torch.arange(h, device=dev) + y_offset).float() + 0.5
     xs = torch.arange(w, dtype=torch.float32, device=dev) + 0.5
     pyf = ys[:, None].expand(h, w).reshape(-1)
     pxf = xs[None, :].expand(h, w).reshape(-1)
@@ -133,8 +144,11 @@ def resolve_attrs_plain(tri_id: Tensor, records: Tensor) -> Tensor:
     return attrs.reshape(h, w, CHANNELS)
 
 
-def _launch_resolve(name: str, tri_id: Tensor, records: Tensor) -> Tensor:
-    """Entry point `name` of csrc/resolve.cu on (H, W) ids."""
+def _launch_resolve(name: str, tri_id: Tensor, records: Tensor,
+                    band: tuple = ()) -> Tensor:
+    """Entry point `name` of csrc/resolve.cu on (H, W) ids (band:
+    (y_offset,) for a band instance), on their device, made current for
+    the launch."""
     if tri_id.device.type != "cuda":
         raise ValueError(f"unsupported device {tri_id.device}")
     if tri_id.dtype != torch.int32 or tri_id.dim() != 2 \
@@ -144,20 +158,27 @@ def _launch_resolve(name: str, tri_id: Tensor, records: Tensor) -> Tensor:
     out = torch.empty((h, w, CHANNELS), dtype=torch.float32,
                       device=tri_id.device)
     fn = _build.kernel(name,
-                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    err = fn(tri_id.data_ptr(), records.data_ptr(), w, h, out.data_ptr(),
-             torch.cuda.current_stream(tri_id.device).cuda_stream)
+                       [ctypes.c_void_p, ctypes.c_void_p]
+                       + [ctypes.c_int] * (2 + len(band))
+                       + [ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(tri_id.device):
+        err = fn(tri_id.data_ptr(), records.data_ptr(), w, h, *band,
+                 out.data_ptr(),
+                 torch.cuda.current_stream(tri_id.device).cuda_stream)
     _build.check_launch(name, err)
     return out
 
 
-def resolve_attrs(tri_id: Tensor, records: Tensor) -> Tensor:
+def resolve_attrs(tri_id: Tensor, records: Tensor,
+                  y_offset: Optional[int] = None) -> Tensor:
     """(H, W, CHANNELS) attribute image: the CUDA kernel for tensors on
     the card (its 40-wide instance, resolve_attrs_vc, for a table with
-    vertex colours), the plain version for tensors on the CPU."""
+    vertex colours), the plain version for tensors on the CPU. With a
+    y_offset, the ids are one band's (resolve_attrs_band)."""
     if _check_records(records, tri_id.device):
-        return resolve_attrs_vc(tri_id, records)
+        return resolve_attrs_vc(tri_id, records, y_offset)
+    if y_offset is not None:
+        return resolve_attrs_band(tri_id, records, y_offset)
     if tri_id.device.type == "cpu":
         return resolve_attrs_plain(tri_id, records)
     out = _launch_resolve("trident_resolve", tri_id, records)
@@ -168,10 +189,31 @@ def resolve_attrs(tri_id: Tensor, records: Tensor) -> Tensor:
 resolve_attrs.launches = 0
 
 
-def resolve_attrs_vc(tri_id: Tensor, records: Tensor) -> Tensor:
+def resolve_attrs_band(tri_id: Tensor, records: Tensor,
+                       y_offset: int) -> Tensor:
+    """resolve_attrs on a (T, RR_WIDTH) table for one band whose first row
+    is global row y_offset: the kernel's band instance on the card, the
+    plain version with the offset on the CPU."""
+    _check_records(records, tri_id.device, (P.RR_WIDTH,))
+    if tri_id.device.type == "cpu":
+        return resolve_attrs_plain(tri_id, records, y_offset)
+    out = _launch_resolve("trident_resolve_band", tri_id, records,
+                          (int(y_offset),))
+    resolve_attrs_band.launches += 1
+    return out
+
+
+resolve_attrs_band.launches = 0
+
+
+def resolve_attrs_vc(tri_id: Tensor, records: Tensor,
+                     y_offset: Optional[int] = None) -> Tensor:
     """resolve_attrs on a (T, RR_WIDTH_VCOLOR) table (vertex colours): the
     kernel's 40-wide instance for tensors on the card, the plain version
-    for tensors on the CPU. Raises on a table of any other width."""
+    for tensors on the CPU. Raises on a table of any other width. With a
+    y_offset, one band's ids (resolve_attrs_vc_band)."""
+    if y_offset is not None:
+        return resolve_attrs_vc_band(tri_id, records, y_offset)
     _check_records(records, tri_id.device, (P.RR_WIDTH_VCOLOR,))
     if tri_id.device.type == "cpu":
         return resolve_attrs_plain(tri_id, records)
@@ -183,15 +225,33 @@ def resolve_attrs_vc(tri_id: Tensor, records: Tensor) -> Tensor:
 resolve_attrs_vc.launches = 0
 
 
+def resolve_attrs_vc_band(tri_id: Tensor, records: Tensor,
+                          y_offset: int) -> Tensor:
+    """resolve_attrs_vc for one band whose first row is global row
+    y_offset: the 40-wide band instance on the card, the plain version on
+    the CPU."""
+    _check_records(records, tri_id.device, (P.RR_WIDTH_VCOLOR,))
+    if tri_id.device.type == "cpu":
+        return resolve_attrs_plain(tri_id, records, y_offset)
+    out = _launch_resolve("trident_resolve_vc_band", tri_id, records,
+                          (int(y_offset),))
+    resolve_attrs_vc_band.launches += 1
+    return out
+
+
+resolve_attrs_vc_band.launches = 0
+
+
 def resolve_attrs_tiled_plain(tri_tiles: Tensor, records: Tensor,
-                              ntx: int) -> Tensor:
+                              ntx: int, tile_y_offset: int = 0) -> Tensor:
     """Plain PyTorch twin of the tiled resolve kernel: (n_tiles, 1024)
     winner ids in tile layout → (n_tiles, CHANNELS, 1024) f32, zeros
-    where tri < 0 — the (H, W) resolve's values, permuted."""
+    where tri < 0 — the (H, W) resolve's values, permuted; tile rows from
+    global tile row tile_y_offset (a band's)."""
     n_tiles = tri_tiles.shape[0]
     flat = tri_tiles.reshape(-1)
     pxf, pyf = raster.tile_centres(
-        torch.arange(n_tiles, device=tri_tiles.device), ntx)
+        torch.arange(n_tiles, device=tri_tiles.device), ntx, tile_y_offset)
     attrs = eval_interpolants(_winner_rows(records, flat),
                               pxf.reshape(-1), pyf.reshape(-1),
                               _vc(records))
@@ -201,8 +261,10 @@ def resolve_attrs_tiled_plain(tri_tiles: Tensor, records: Tensor,
 
 
 def _launch_resolve_tiled(name: str, tri_tiles: Tensor, records: Tensor,
-                          ntx: int) -> Tensor:
-    """Entry point `name` of csrc/resolve.cu on tile-layout ids."""
+                          ntx: int, band: tuple = ()) -> Tensor:
+    """Entry point `name` of csrc/resolve.cu on tile-layout ids (band:
+    (tile_y_offset,) for a band instance), on their device, made current
+    for the launch."""
     if tri_tiles.device.type != "cuda":
         raise ValueError(f"unsupported device {tri_tiles.device}")
     if (tri_tiles.dtype != torch.int32 or tri_tiles.dim() != 2
@@ -214,24 +276,30 @@ def _launch_resolve_tiled(name: str, tri_tiles: Tensor, records: Tensor,
     out = torch.empty((n_tiles, CHANNELS, raster.TILE_PX),
                       dtype=torch.float32, device=tri_tiles.device)
     fn = _build.kernel(name,
-                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    err = fn(tri_tiles.data_ptr(), records.data_ptr(), ntx, n_tiles,
-             out.data_ptr(),
-             torch.cuda.current_stream(tri_tiles.device).cuda_stream)
+                       [ctypes.c_void_p, ctypes.c_void_p]
+                       + [ctypes.c_int] * (2 + len(band))
+                       + [ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(tri_tiles.device):
+        err = fn(tri_tiles.data_ptr(), records.data_ptr(), ntx, n_tiles,
+                 *band, out.data_ptr(),
+                 torch.cuda.current_stream(tri_tiles.device).cuda_stream)
     _build.check_launch(name, err)
     return out
 
 
-def resolve_attrs_tiled(tri_tiles: Tensor, records: Tensor,
-                        ntx: int) -> Tensor:
+def resolve_attrs_tiled(tri_tiles: Tensor, records: Tensor, ntx: int,
+                        tile_y_offset: Optional[int] = None) -> Tensor:
     """(n_tiles, CHANNELS, 1024) attributes of (n_tiles, 1024) tile-layout
     winner ids (resolve_attrs_pallas(tiled=True)): the CUDA kernel for
     tensors on the card (its 40-wide instance, resolve_attrs_tiled_vc, for
     a table with vertex colours), the plain version for tensors on the
-    CPU."""
+    CPU. With a tile_y_offset, one band's tiles
+    (resolve_attrs_tiled_band)."""
     if _check_records(records, tri_tiles.device):
-        return resolve_attrs_tiled_vc(tri_tiles, records, ntx)
+        return resolve_attrs_tiled_vc(tri_tiles, records, ntx, tile_y_offset)
+    if tile_y_offset is not None:
+        return resolve_attrs_tiled_band(tri_tiles, records, ntx,
+                                        tile_y_offset)
     if tri_tiles.device.type == "cpu":
         return resolve_attrs_tiled_plain(tri_tiles, records, ntx)
     out = _launch_resolve_tiled("trident_resolve_tiled", tri_tiles, records,
@@ -243,12 +311,34 @@ def resolve_attrs_tiled(tri_tiles: Tensor, records: Tensor,
 resolve_attrs_tiled.launches = 0
 
 
-def resolve_attrs_tiled_vc(tri_tiles: Tensor, records: Tensor,
-                           ntx: int) -> Tensor:
+def resolve_attrs_tiled_band(tri_tiles: Tensor, records: Tensor, ntx: int,
+                             tile_y_offset: int) -> Tensor:
+    """resolve_attrs_tiled on a (T, RR_WIDTH) table for one band whose
+    first tile row is global tile row tile_y_offset: the tiled band
+    instance on the card, the plain version on the CPU."""
+    _check_records(records, tri_tiles.device, (P.RR_WIDTH,))
+    if tri_tiles.device.type == "cpu":
+        return resolve_attrs_tiled_plain(tri_tiles, records, ntx,
+                                         tile_y_offset)
+    out = _launch_resolve_tiled("trident_resolve_tiled_band", tri_tiles,
+                                records, ntx, (int(tile_y_offset),))
+    resolve_attrs_tiled_band.launches += 1
+    return out
+
+
+resolve_attrs_tiled_band.launches = 0
+
+
+def resolve_attrs_tiled_vc(tri_tiles: Tensor, records: Tensor, ntx: int,
+                           tile_y_offset: Optional[int] = None) -> Tensor:
     """resolve_attrs_tiled on a (T, RR_WIDTH_VCOLOR) table (vertex
     colours): the kernel's 40-wide instance for tensors on the card, the
     plain version for tensors on the CPU. Raises on a table of any other
-    width."""
+    width. With a tile_y_offset, one band's tiles
+    (resolve_attrs_tiled_vc_band)."""
+    if tile_y_offset is not None:
+        return resolve_attrs_tiled_vc_band(tri_tiles, records, ntx,
+                                           tile_y_offset)
     _check_records(records, tri_tiles.device, (P.RR_WIDTH_VCOLOR,))
     if tri_tiles.device.type == "cpu":
         return resolve_attrs_tiled_plain(tri_tiles, records, ntx)
@@ -261,18 +351,42 @@ def resolve_attrs_tiled_vc(tri_tiles: Tensor, records: Tensor,
 resolve_attrs_tiled_vc.launches = 0
 
 
+def resolve_attrs_tiled_vc_band(tri_tiles: Tensor, records: Tensor,
+                                ntx: int, tile_y_offset: int) -> Tensor:
+    """resolve_attrs_tiled_vc for one band whose first tile row is global
+    tile row tile_y_offset: the 40-wide tiled band instance on the card,
+    the plain version on the CPU."""
+    _check_records(records, tri_tiles.device, (P.RR_WIDTH_VCOLOR,))
+    if tri_tiles.device.type == "cpu":
+        return resolve_attrs_tiled_plain(tri_tiles, records, ntx,
+                                         tile_y_offset)
+    out = _launch_resolve_tiled("trident_resolve_tiled_vc_band", tri_tiles,
+                                records, ntx, (int(tile_y_offset),))
+    resolve_attrs_tiled_vc_band.launches += 1
+    return out
+
+
+resolve_attrs_tiled_vc_band.launches = 0
+
+
 def fused_visibility_resolve_plain(bins: raster.Bins, records: Tensor,
-                                   ntx: int, n_tiles: int):
+                                   ntx: int, n_tiles: int,
+                                   tile_y_offset: int = 0):
     """Plain PyTorch twin of the fused kernel: visibility_tiles_plain, then
     resolve_attrs_tiled_plain on its winners → (depth, tri) (n_tiles,
-    1024) and attrs (n_tiles, CHANNELS, 1024)."""
-    depth, tri = raster.visibility_tiles_plain(bins, ntx, n_tiles)
-    return depth, tri, resolve_attrs_tiled_plain(tri, records, ntx)
+    1024) and attrs (n_tiles, CHANNELS, 1024); tile rows from global tile
+    row tile_y_offset (a band's)."""
+    depth, tri = raster.visibility_tiles_plain(bins, ntx, n_tiles,
+                                               tile_y_offset=tile_y_offset)
+    return depth, tri, resolve_attrs_tiled_plain(tri, records, ntx,
+                                                 tile_y_offset)
 
 
 def _launch_fused(name: str, bins: raster.Bins, records: Tensor, ntx: int,
-                  n_tiles: int):
-    """Entry point `name` of csrc/visibility_resolve.cu."""
+                  n_tiles: int, band: tuple = ()):
+    """Entry point `name` of csrc/visibility_resolve.cu (band:
+    (tile_y_offset,) for a band instance), on the records' device, made
+    current for the launch."""
     rec = bins.records
     raster.check_bins(bins, n_tiles)
     dev = rec.device
@@ -283,27 +397,34 @@ def _launch_fused(name: str, bins: raster.Bins, records: Tensor, ntx: int,
     attrs = torch.empty((n_tiles, CHANNELS, raster.TILE_PX),
                         dtype=torch.float32, device=dev)
     fn = _build.kernel(name,
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * (2 + len(band))
                        + [ctypes.c_void_p] * 5)
-    err = fn(rec.data_ptr(), bins.pair_chunk.data_ptr(),
-             bins.pair_mask.data_ptr(), bins.tile_start.data_ptr(), n_tiles,
-             ntx, records.data_ptr(), depth.data_ptr(),
-             tri.data_ptr(), attrs.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = fn(rec.data_ptr(), bins.pair_chunk.data_ptr(),
+                 bins.pair_mask.data_ptr(), bins.tile_start.data_ptr(),
+                 n_tiles, ntx, *band, records.data_ptr(), depth.data_ptr(),
+                 tri.data_ptr(), attrs.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(name, err)
     return depth, tri, attrs
 
 
 def fused_visibility_resolve(bins: raster.Bins, records: Tensor, ntx: int,
-                             n_tiles: int):
+                             n_tiles: int,
+                             tile_y_offset: Optional[int] = None):
     """Visibility and resolve in one pass over the bins (the `fuse` knob,
     fused_visibility_resolve_pallas): (depth, tri) (n_tiles, 1024) and
     attrs (n_tiles, CHANNELS, 1024), equal to visibility_tiles followed by
     resolve_attrs_tiled. The CUDA kernel for tensors on the card (its
     40-wide instance, fused_visibility_resolve_vc, for a table with vertex
-    colours), the plain version for tensors on the CPU."""
+    colours), the plain version for tensors on the CPU. With a
+    tile_y_offset, one band (fused_visibility_resolve_band)."""
     if _check_records(records, bins.records.device):
-        return fused_visibility_resolve_vc(bins, records, ntx, n_tiles)
+        return fused_visibility_resolve_vc(bins, records, ntx, n_tiles,
+                                           tile_y_offset)
+    if tile_y_offset is not None:
+        return fused_visibility_resolve_band(bins, records, ntx, n_tiles,
+                                             tile_y_offset)
     if bins.records.device.type == "cpu":
         return fused_visibility_resolve_plain(bins, records, ntx, n_tiles)
     out = _launch_fused("trident_visibility_resolve", bins, records, ntx,
@@ -315,12 +436,36 @@ def fused_visibility_resolve(bins: raster.Bins, records: Tensor, ntx: int,
 fused_visibility_resolve.launches = 0
 
 
+def fused_visibility_resolve_band(bins: raster.Bins, records: Tensor,
+                                  ntx: int, n_tiles: int,
+                                  tile_y_offset: int):
+    """fused_visibility_resolve on a (T, RR_WIDTH) table for one band
+    whose first tile row is global tile row tile_y_offset: the fused band
+    instance on the card, the plain version on the CPU."""
+    _check_records(records, bins.records.device, (P.RR_WIDTH,))
+    if bins.records.device.type == "cpu":
+        return fused_visibility_resolve_plain(bins, records, ntx, n_tiles,
+                                              tile_y_offset)
+    out = _launch_fused("trident_visibility_resolve_band", bins, records,
+                        ntx, n_tiles, (int(tile_y_offset),))
+    fused_visibility_resolve_band.launches += 1
+    return out
+
+
+fused_visibility_resolve_band.launches = 0
+
+
 def fused_visibility_resolve_vc(bins: raster.Bins, records: Tensor, ntx: int,
-                                n_tiles: int):
+                                n_tiles: int,
+                                tile_y_offset: Optional[int] = None):
     """fused_visibility_resolve on a (T, RR_WIDTH_VCOLOR) table (vertex
     colours, fused_visibility_resolve_pallas(vertex_colors=True)): the
     kernel's 40-wide instance for tensors on the card, the plain version
-    for tensors on the CPU. Raises on a table of any other width."""
+    for tensors on the CPU. Raises on a table of any other width. With a
+    tile_y_offset, one band (fused_visibility_resolve_vc_band)."""
+    if tile_y_offset is not None:
+        return fused_visibility_resolve_vc_band(bins, records, ntx, n_tiles,
+                                                tile_y_offset)
     _check_records(records, bins.records.device, (P.RR_WIDTH_VCOLOR,))
     if bins.records.device.type == "cpu":
         return fused_visibility_resolve_plain(bins, records, ntx, n_tiles)
@@ -331,3 +476,22 @@ def fused_visibility_resolve_vc(bins: raster.Bins, records: Tensor, ntx: int,
 
 
 fused_visibility_resolve_vc.launches = 0
+
+
+def fused_visibility_resolve_vc_band(bins: raster.Bins, records: Tensor,
+                                     ntx: int, n_tiles: int,
+                                     tile_y_offset: int):
+    """fused_visibility_resolve_vc for one band whose first tile row is
+    global tile row tile_y_offset: the 40-wide fused band instance on the
+    card, the plain version on the CPU."""
+    _check_records(records, bins.records.device, (P.RR_WIDTH_VCOLOR,))
+    if bins.records.device.type == "cpu":
+        return fused_visibility_resolve_plain(bins, records, ntx, n_tiles,
+                                              tile_y_offset)
+    out = _launch_fused("trident_visibility_resolve_vc_band", bins, records,
+                        ntx, n_tiles, (int(tile_y_offset),))
+    fused_visibility_resolve_vc_band.launches += 1
+    return out
+
+
+fused_visibility_resolve_vc_band.launches = 0

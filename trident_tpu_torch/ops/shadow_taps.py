@@ -71,10 +71,11 @@ def shadow_tap_bits(depth_map: Tensor, y0: Tensor, x0: Tensor,
     fn = _build.kernel("trident_shadow_taps",
                        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
                        + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    err = fn(depth_map.data_ptr(), depth_map.shape[0], y0.data_ptr(),
-             x0.data_ptr(), y1.data_ptr() if pcf else None,
-             x1.data_ptr() if pcf else None, h * w, out.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = fn(depth_map.data_ptr(), depth_map.shape[0], y0.data_ptr(),
+                 x0.data_ptr(), y1.data_ptr() if pcf else None,
+                 x1.data_ptr() if pcf else None, h * w, out.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("trident_shadow_taps", err)
     shadow_tap_bits.launches += 1
     return out

@@ -69,9 +69,10 @@ def sample_bilinear(quads: Tensor, idx: Tensor, fx: Tensor,
     fn = _build.kernel("trident_texel",
                        [ctypes.c_void_p] * 4 + [ctypes.c_int]
                        + [ctypes.c_void_p] * 2)
-    err = fn(idx.data_ptr(), fx.data_ptr(), fy.data_ptr(), quads.data_ptr(),
-             idx.numel(), out.data_ptr(),
-             torch.cuda.current_stream(idx.device).cuda_stream)
+    with torch.cuda.device(idx.device):
+        err = fn(idx.data_ptr(), fx.data_ptr(), fy.data_ptr(),
+                 quads.data_ptr(), idx.numel(), out.data_ptr(),
+                 torch.cuda.current_stream(idx.device).cuda_stream)
     _build.check_launch("trident_texel", err)
     sample_bilinear.launches += 1
     return out
@@ -105,9 +106,10 @@ def sample_bilinear_planar(quads: Tensor, idx: Tensor, fx: Tensor,
     fn = _build.kernel("trident_texel_planar",
                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p] * 2)
-    err = fn(idx.data_ptr(), fx.data_ptr(), fy.data_ptr(), quads.data_ptr(),
-             rows, npx, out.data_ptr(),
-             torch.cuda.current_stream(idx.device).cuda_stream)
+    with torch.cuda.device(idx.device):
+        err = fn(idx.data_ptr(), fx.data_ptr(), fy.data_ptr(),
+                 quads.data_ptr(), rows, npx, out.data_ptr(),
+                 torch.cuda.current_stream(idx.device).cuda_stream)
     _build.check_launch("trident_texel_planar", err)
     sample_bilinear_planar.launches += 1
     return out

@@ -229,3 +229,32 @@ def triangle_setup_cols(clip: Tensor, tri_vtx, tri_valid: Tensor,
     sx = [(x + w) * (0.5 * width) for x, w in zip(xs, ws)]
     sy = [(y + w) * (0.5 * height) for y, w in zip(ys, ws)]
     return planar_setup_cols(sx, sy, ws, zs, tri_valid, width, height)
+
+
+def band_slice_setup(setup: TriangleSetup, y0: int, band_h: int,
+                     cull: bool = True) -> TriangleSetup:
+    """Restrict a full-frame setup to the pixel rows [y0, y0 + band_h)
+    (trident_tpu/ops/vertex.py:281-296): the bboxes shift to band-local
+    rows, clipped to the band, and with `cull` a triangle whose rows miss
+    the band goes invalid, as in the JAX package. Edge functions, z and w
+    stay in global pixel coordinates; the rasterizers take the band's
+    offset, so a band evaluates what the one-device frame evaluates on its
+    rows.
+
+    cull=False keeps every triangle's validity (the banded frame's cut,
+    parallel/framebuffer.py). The binner claims for each 16-triangle
+    sub-block the tiles of the union of its triangles' bboxes, and the
+    union of the clipped bboxes is the clipped union, so the band's pairs
+    are then the full frame's pairs on its rows, records and masks alike:
+    its winners are the full frame's bit for bit, rounding hits included
+    (a near-degenerate triangle covering a pixel centre just outside its
+    own bbox, inside a sibling's). Culled, a sub-block that straddles the
+    band loses its out-of-band triangles' share of the union and their
+    records, and such a hit can go (chip_smoke.py phase 18 counts them on
+    spheres1080_1m's field)."""
+    by0 = torch.clamp(setup.bbox[:, 1] - y0, 0, band_h)
+    by1 = torch.clamp(setup.bbox[:, 3] - y0, 0, band_h)
+    bbox = torch.stack([setup.bbox[:, 0], by0, setup.bbox[:, 2], by1], dim=-1)
+    valid = setup.valid & (by1 > by0) if cull else setup.valid
+    return TriangleSetup(edge=setup.edge, z=setup.z, w=setup.w, bbox=bbox,
+                         valid=valid)

@@ -83,9 +83,10 @@ def warp_fetch(hist: Tensor, by: Tensor, bx: Tensor) -> Tensor:
                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
                        + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                        + [ctypes.c_void_p] * 2)
-    err = fn(hist.data_ptr(), hist.shape[0], hist.shape[1], by.data_ptr(),
-             bx.data_ptr(), by.numel(), out.data_ptr(),
-             torch.cuda.current_stream(by.device).cuda_stream)
+    with torch.cuda.device(by.device):
+        err = fn(hist.data_ptr(), hist.shape[0], hist.shape[1],
+                 by.data_ptr(), bx.data_ptr(), by.numel(), out.data_ptr(),
+                 torch.cuda.current_stream(by.device).cuda_stream)
     _build.check_launch("trident_warp", err)
     warp_fetch.launches += 1
     return out

@@ -77,7 +77,19 @@ def frame_kernels() -> Dict[str, Callable]:
             "texel": texel.sample_bilinear,
             "texel_planar": texel.sample_bilinear_planar,
             "shadow_taps": shadow_taps.shadow_tap_bits,
-            "warp": warp.warp_fetch}
+            "warp": warp.warp_fetch,
+            # the band instances: the banded frame runs eagerly, so no
+            # capture records them; they are here to be counted by name
+            "visibility_band": raster.visibility_tiles_band,
+            "visibility_depth_band": raster.visibility_depth_tiles_band,
+            "visibility_ck_band": raster.visibility_ck_tiles_band,
+            "visibility_resolve_band": resolve.fused_visibility_resolve_band,
+            "visibility_resolve_vc_band":
+                resolve.fused_visibility_resolve_vc_band,
+            "resolve_band": resolve.resolve_attrs_band,
+            "resolve_vc_band": resolve.resolve_attrs_vc_band,
+            "resolve_tiled_band": resolve.resolve_attrs_tiled_band,
+            "resolve_tiled_vc_band": resolve.resolve_attrs_tiled_vc_band}
 
 
 def _launch_counts() -> Dict[str, int]:

@@ -46,9 +46,16 @@ interpolated AI frame into the display frame. Sprites are quads drawn
 with the meshes, `set_skybox` sets the background's cube map (with an
 optional mip chain, one level picked per viewport), `set_custom_shader`
 a user shading module (render/shader_hook.py), and `acquire_texture`
-takes a file mip chain. Bands are not part of the ported slice:
-configuring them raises NotImplementedError, and so does a kernel knob the
-port does not run (ops/kernel_knobs.py).
+takes a file mip chain. A kernel knob the port does not run raises
+NotImplementedError (ops/kernel_knobs.py).
+
+With RenderConfig.bands = n > 1 the viewport renders as n row bands
+(parallel/framebuffer.py::render_frame_banded_bundled) on cuda:0 ..
+cuda:n−1, or n bands on the CPU device, eagerly, outside the CUDA graphs;
+the Renderer falls back to the one-device frame, with the JAX Renderer's
+warnings, where the JAX Renderer does (trident_tpu/render/renderer.py:
+712-738,810-910): fewer cards than bands, or band heights that are not
+whole raster tiles.
 """
 
 from __future__ import annotations
@@ -255,7 +262,9 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
                           shadow_pcf: bool = False, tonemap: bool = True,
                           knobs: KernelKnobs = KernelKnobs(),
                           skybox: Optional[SkyboxCube] = None,
-                          sampling: str = "bilinear", shader_fn=None):
+                          sampling: str = "bilinear", shader_fn=None,
+                          y_offset: Optional[int] = None,
+                          full_height: Optional[int] = None):
     """Rasterize + shade a frame from prebuilt per-triangle inputs →
     (frame (H,W,4) f32, GBuffer), routed by the kernel knobs as
     trident_tpu/render/renderer.py:99-193 routes them: visibility by the
@@ -265,41 +274,56 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
     resolve (or the fused attributes) and channel-planar shading in tile
     layout; else the (H, W) attribute image and deferred_shade_attrs. The
     records' width picks the resolve kernels' instance (vertex colours or
-    not)."""
+    not).
+
+    A band of a taller frame (the banded frame, parallel/framebuffer.py)
+    passes its first global row as y_offset (whole tiles) with the frame's
+    full_height, and a band-sliced setup: every kernel runs its band
+    instance, every pixel centre is the full frame's, and the tiled gate
+    reads the full frame's size, so a band takes the full frame's route
+    and its rows come out bit-equal to it. y_offset None is the
+    one-device frame."""
     ntx, nty = -(-width // raster.TILE), -(-height // raster.TILE)
     n_tiles = ntx * nty
+    tile_y = None if y_offset is None else y_offset // raster.TILE
     bins = raster.build_bins(setup, width, height, setup_cols=setup_cols,
                              ck_bank=knobs.ck_bank if knobs.ckern else 0)
     attrs_t = None
     if knobs.fuse:
-        depth_t, tri_t, attrs_t = fused_visibility_resolve(bins, records,
-                                                           ntx, n_tiles)
+        depth_t, tri_t, attrs_t = fused_visibility_resolve(
+            bins, records, ntx, n_tiles, tile_y)
     elif knobs.ckern:
         depth_t, tri_t = raster.visibility_ck_tiles(bins, ntx, n_tiles,
-                                                    knobs.ck_bank)
+                                                    knobs.ck_bank, tile_y)
     else:
-        depth_t, tri_t = raster.visibility_tiles(bins, ntx, n_tiles)
+        depth_t, tri_t = raster.visibility_tiles(bins, ntx, n_tiles,
+                                                 tile_y_offset=tile_y)
     gbuf = GBuffer(
         tri_id=raster.untile_frame(tri_t, ntx, nty)[:height, :width]
         .contiguous(),
         depth=raster.untile_frame(depth_t, ntx, nty)[:height, :width]
         .contiguous(),
         aux=bins.aux)
-    # the JAX package's gate (renderer.py:140-144): bilinear sampling, no
-    # custom shader, and its TPU texel kernel's pixel and table limits
+    # the JAX package's gate (renderer.py:139-144): bilinear sampling, no
+    # custom shader, and its TPU texel kernel's pixel and table limits at
+    # the full frame's size
+    fh = height if full_height is None else full_height
     use_tiled = (knobs.tiled_shade and sampling == "bilinear"
-                 and shader_fn is None and width * height <= TILED_MAX_PIX
+                 and shader_fn is None and width * fh <= TILED_MAX_PIX
                  and textures.quads.shape[0] <= TILED_MAX_TABLE)
+    y0 = 0 if y_offset is None else y_offset
     if use_tiled:
         if attrs_t is None:
-            attrs_t = resolve_attrs_tiled(tri_t, records, ntx)
+            attrs_t = resolve_attrs_tiled(tri_t, records, ntx, tile_y)
         rgba_t = shade_attrs_tiled(tri_t, depth_t, attrs_t, textures, camera,
                                    lights, width, height, shadow=shadow,
-                                   shadow_pcf=shadow_pcf, tonemap=tonemap)
+                                   shadow_pcf=shadow_pcf, tonemap=tonemap,
+                                   tile_y_offset=y0 // raster.TILE,
+                                   full_height=full_height)
         frame4 = raster.untile_channels(rgba_t, ntx, nty)[:height, :width]
         covered = (gbuf.tri_id >= 0)[..., None]
         bg = _background(camera, skybox, width, height, clear_color,
-                         frame4.device)
+                         frame4.device, y0, full_height)
         rgb = torch.where(covered, frame4[..., :3], bg)
         a_out = torch.where(covered, frame4[..., 3:4], clear_color[3])
         frame = torch.cat([rgb, a_out], dim=-1)
@@ -310,25 +334,32 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
         attrs = raster.untile_channels(attrs_t, ntx, nty)[:height, :width] \
             .contiguous()
     else:
-        attrs = resolve_attrs(gbuf.tri_id, records)
+        attrs = resolve_attrs(gbuf.tri_id, records, y_offset)
     frame = deferred_shade_attrs(gbuf, attrs, textures, camera, lights,
                                  width, height, clear_color=clear_color,
                                  shadow=shadow, shadow_pcf=shadow_pcf,
                                  tonemap=tonemap, skybox=skybox,
-                                 sampling=sampling, shader_fn=shader_fn)
+                                 sampling=sampling, shader_fn=shader_fn,
+                                 y_offset=y0, full_height=full_height)
     return frame, gbuf
 
 
 def plane_visibility(setup, setup_cols, width: int, height: int,
                      raster_mode: str,
-                     knobs: KernelKnobs = KernelKnobs()) -> GBuffer:
+                     knobs: KernelKnobs = KernelKnobs(),
+                     y_offset: Optional[int] = None) -> GBuffer:
     """The plane-gather routes' G-buffer: the reference raster (chunk 64,
     trident_tpu/render/renderer.py:200-202) or the binned visibility
-    kernel, untiled (:195-199; the compact-bank kernel under ckern)."""
+    kernel, untiled (:195-199; the compact-bank kernel under ckern). A
+    band passes its first global row as y_offset (whole tiles) with a
+    band-sliced setup, as _visibility_and_shade's."""
     if raster_mode == "ref":
-        return visibility_ref(setup, width, height, chunk=64)
-    return raster.visibility(setup, width, height, setup_cols=setup_cols,
-                             ck_bank=knobs.ck_bank if knobs.ckern else 0)
+        return visibility_ref(setup, width, height, chunk=64,
+                              y_offset=0 if y_offset is None else y_offset)
+    return raster.visibility(
+        setup, width, height, setup_cols=setup_cols,
+        ck_bank=knobs.ck_bank if knobs.ckern else 0,
+        tile_y_offset=None if y_offset is None else y_offset // raster.TILE)
 
 
 def render_frame(plan, tri_draw, params, shade_table, camera, lights,
@@ -489,15 +520,20 @@ def render_frame_bundled(plan, tri_draw, f32, i32, textures, corner_t,
         skinned=skinned, geometry=geometry, palette=palette)
 
 
+def _banded_frame():
+    """parallel/framebuffer.py's bundled banded frame (imported at use:
+    that module builds on this one)."""
+    from trident_tpu_torch.parallel.framebuffer import (
+        render_frame_banded_bundled,
+    )
+
+    return render_frame_banded_bundled
+
+
 def _check_slice(rc: RenderConfig) -> None:
     if rc.sampling not in SAMPLING_MODES:
         raise ValueError(f"unknown sampling mode {rc.sampling!r}; expected "
                          f"one of {SAMPLING_MODES}")
-    unported = {"bands": rc.bands > 1}
-    bad = [name for name, on in unported.items() if on]
-    if bad:
-        raise NotImplementedError(
-            f"not ported to trident_tpu_torch yet: {', '.join(bad)}")
 
 
 @dataclass
@@ -541,7 +577,8 @@ class FrameBundle(NamedTuple):
     state: _FrameState
     f32: np.ndarray                  # the two blobs (render/bundle.py)
     i32: np.ndarray
-    key: tuple                       # its graph key (graphs.frame_key)
+    key: Optional[tuple]             # its graph key (graphs.frame_key);
+                                     # None for a banded frame
     prev: Optional[tuple]            # (history, view·proj) warped in
     ai: torch.Tensor                 # the AI image mixed in (device)
     frame_fn: Callable               # (f32, i32, prev, ai) on the device
@@ -549,6 +586,8 @@ class FrameBundle(NamedTuple):
     keep: tuple                      # the device-resident inputs it reads
     upscaled: bool
     sig: tuple                       # the idle-frame signature
+    bands: Optional[list] = None     # the band devices of a banded frame
+                                     # (blobs go to bands[0]), else None
 
 
 class Renderer:
@@ -647,6 +686,7 @@ class Renderer:
         self._skybox_version = 0
         self._vertex_colors = False
         self._vertex_colors_version = -1
+        self._banded_indivisible_warned = False
         self.stats_models = 0
         self.stats_triangles = 0
 
@@ -918,11 +958,69 @@ class Renderer:
         plan's corner table for a rigid one."""
         if not st.skinned:
             return None, self._plan_cache.corner_table(st.packed)
+        return self._geometry_buffers_now(st), None
+
+    def _geometry_buffers_now(self, st: _FrameState) -> GeometryBuffers:
+        """The geometry's device buffers, uploaded once per version."""
         if self._geometry_buffers_version != self.geometry.version:
             self._geometry_buffers = geometry_to_device(st.packed,
                                                         self.device)
             self._geometry_buffers_version = self.geometry.version
-        return self._geometry_buffers, None
+        return self._geometry_buffers
+
+    def _band_devices(self) -> Optional[list]:
+        """The devices of a banded frame (trident_tpu/render/renderer.py:
+        712-738): n = RenderConfig.bands copies of the CPU device on the
+        CPU, cuda:0 .. cuda:n−1 on the card; None (one device) when n ≤ 1,
+        or, with the JAX Renderer's warning, when fewer cards than bands
+        are visible."""
+        n = int(self.config.render.bands)
+        if n <= 1:
+            return None
+        if self.device.type == "cpu":
+            return [self.device] * n
+        count = torch.cuda.device_count()
+        if count < n:
+            logger.warning("bands=%d but only %d devices; rendering "
+                           "single-chip", n, count)
+            return None
+        return [torch.device("cuda", i) for i in range(n)]
+
+    def _banded_sizes(self, ctx: ViewportContext, devices) -> Optional[dict]:
+        """The banded frame's render size and upscaler for viewport `ctx`
+        (trident_tpu/render/renderer.py:817-851), or None when its band
+        heights are not whole: each band must be a whole number of raster
+        tile rows (the kernel route) and supersample rows. With ai_upscale
+        the bands render at half size; an odd target, or a half height
+        that does not split, falls back to native-size bands; a native
+        height that does not split renders on one device, with one warning
+        per Renderer."""
+        n = len(devices)
+        ss = max(int(self.config.render.supersample), 1)
+
+        def bands_ok(h: int) -> bool:
+            bh, rem = divmod(h * ss, n)
+            if rem or (self._raster_mode() == "pallas"
+                       and bh % raster.TILE):
+                return False
+            return bh % ss == 0
+
+        net = self._upscale_params()
+        w_r, h_r = ctx.width, ctx.height
+        if net is not None:
+            if ctx.width % 2 or ctx.height % 2 or not bands_ok(ctx.height // 2):
+                net = None
+            else:
+                w_r, h_r = ctx.width // 2, ctx.height // 2
+        if not bands_ok(h_r):
+            if not self._banded_indivisible_warned:
+                self._banded_indivisible_warned = True
+                logger.warning(
+                    "bands=%d: height %d (supersample %d) does not split "
+                    "into whole %dpx raster tile rows per band — rendering "
+                    "single-chip", n, h_r, ss, raster.TILE)
+            return None
+        return {"width": w_r, "height": h_r, "upscale_params": net}
 
     def frame_inputs(self) -> dict:
         """render_frame's arguments for the current scene, on the device,
@@ -957,11 +1055,14 @@ class Renderer:
             skybox=self._skybox_for(rc.height, self.editor_camera.fov_deg),
             shader_fn=self.shader_hook.fn, **statics)
 
-    def frame_bundle(self, viewport_id: int = 0) -> FrameBundle:
+    def frame_bundle(self, viewport_id: int = 0,
+                     devices: Optional[list] = None) -> FrameBundle:
         """The viewport's frame as render_viewport renders it: the scene's
         host state packed into the two blobs, the frame's graph key and
         the eager frame over device blobs (render_frame_bundled with
-        everything else bound)."""
+        everything else bound). `devices` (a list, one band each) makes it
+        a banded frame over them whatever RenderConfig.bands says, with
+        the same fallback when its bands are not whole tiles."""
         ctx = self._viewport(viewport_id)
         cam = self._camera_for(ctx)
         st = self._frame_state()
@@ -969,6 +1070,13 @@ class Renderer:
         f32, i32, shape = pack_frame(st.params, st.palette, st.shade,
                                      cam.host_params(), st.lights,
                                      st.light_camera, ai_blend)
+        if devices is None:
+            devices = self._band_devices()
+        banded = (None if devices is None
+                  else self._banded_sizes(ctx, devices))
+        if banded is not None:
+            return self._banded_bundle(ctx, cam, st, f32, i32, shape,
+                                       ai_image, devices, banded)
         sizes = self._upscale_kwargs(ctx.width, ctx.height, ctx.prev_state)
         net, prev = sizes.get("upscale_params"), sizes.get("prev")
         w_r, h_r = sizes["width"], sizes["height"]
@@ -1003,17 +1111,50 @@ class Renderer:
              geometry),
             net is not None, sig)
 
-    def render_viewport(self, viewport_id: int = 0) -> FrameOutput:
+    def _banded_bundle(self, ctx: ViewportContext, cam, st: _FrameState,
+                       f32, i32, shape, ai_image, devices,
+                       sizes: dict) -> FrameBundle:
+        """frame_bundle's banded frame: render_frame_banded_bundled over
+        `devices` at `sizes` (_banded_sizes), the geometry's device buffers
+        always at hand (a rigid frame whose triangles do not split into n
+        slices takes the indexed path), `prev` the viewport's (RGBA8
+        frame, view·proj) when upscaling. No graph key: it runs eagerly."""
+        net = sizes["upscale_params"]
+        statics = self._statics(st.shadow_size, st.skinned)
+        for k in ("draw_stride", "real_draws"):
+            del statics[k]
+        skybox = self._skybox_for(ctx.height, cam.fov_deg)
+        textures = self.textures.device_arrays(self.device)
+        geometry = self._geometry_buffers_now(st)
+        corner_t = (None if st.skinned
+                    else self._plan_cache.corner_table(st.packed))
+        plan, tri_draw = st.plan, st.tri_draw
+        prev = ctx.prev_state if net is not None else None
+        kw = dict(shape=shape, width=sizes["width"], height=sizes["height"],
+                  knobs=self.knobs, shader_fn=self.shader_hook.fn, **statics)
+        return FrameBundle(
+            st, f32, i32, None, prev, ai_image,
+            lambda f, i, p, a: _banded_frame()(
+                devices, geometry, plan, tri_draw, f, i, textures, skybox, a,
+                corner_t, net, p, **kw),
+            (plan, tri_draw, textures, corner_t, net, skybox, geometry),
+            net is not None, (), devices)
+
+    def render_viewport(self, viewport_id: int = 0,
+                        devices: Optional[list] = None) -> FrameOutput:
         """Render one viewport (trident_tpu/render/renderer.py:749-971):
         pack the frame (frame_bundle); when every input is byte-identical
         to the viewport's last frame, return that frame (the idle-frame
         cache); else replay the frame's graph on the card (eager
-        render_frame_bundled on the CPU). An upscaled frame's (history,
-        view·proj) becomes the viewport's next `prev`. The idle-frame
+        render_frame_bundled on the CPU); a banded frame
+        (RenderConfig.bands) renders eagerly, never from the cache, and
+        leaves no signature; `devices` bands it as frame_bundle says. An
+        upscaled frame's (history, view·proj) becomes the viewport's next
+        `prev`. The idle-frame
         signature is kept only once the frame is rendered, so a frame
         that raises is rendered anew on the next call."""
         ctx = self._viewport(viewport_id)
-        fb = self.frame_bundle(viewport_id)
+        fb = self.frame_bundle(viewport_id, devices)
         st = fb.state
         self.stats_models = len(st.draws)
         self.stats_triangles = sum(
@@ -1021,6 +1162,18 @@ class Renderer:
             for m in st.draws.mesh_index.tolist())
         self._last_draws = st.draws
         self._last_tri_draw = st.tri_draw
+        if fb.bands is not None:
+            # the banded frame, eagerly; its (RGBA8 frame, view·proj) is
+            # the next one's warp input, and its signature is none: a
+            # later one-device frame must not match it
+            dev0 = fb.bands[0]
+            out = fb.frame_fn(torch.from_numpy(fb.f32).to(dev0),
+                              torch.from_numpy(fb.i32).to(dev0), fb.prev,
+                              fb.ai)
+            if fb.upscaled:
+                ctx.prev_state = (out.color, out.view_proj)
+            ctx.last_frame, ctx.last_sig = out, None
+            return out
         # idle-frame cache: if EVERY input is byte-identical to the
         # previous frame of this viewport, skip the frame and reuse its
         # output (what an editor does while nothing moves)

@@ -58,6 +58,18 @@ KERNEL_RECORDS = {
     "texel_planar": r"(?<!\w)texel_kernel<true>",
     "shadow_taps": r"(?<!\w)taps[14]_kernel(?!\w)",
     "warp": r"(?<!\w)warp_kernel(?!\w)",
+    # the band instances of the banded frame (parallel/framebuffer.py)
+    "visibility_band": r"(?<!\w)visibility_band_kernel<false>",
+    "visibility_depth_band": r"(?<!\w)visibility_band_kernel<true>",
+    "visibility_ck_band": r"(?<!\w)visibility_ck_band_kernel(?!\w)",
+    "visibility_resolve_band":
+        r"(?<!\w)visibility_resolve_band_kernel(?!\w)",
+    "visibility_resolve_vc_band":
+        r"(?<!\w)visibility_resolve_vc_band_kernel(?!\w)",
+    "resolve_band": r"(?<!\w)resolve_band_kernel(?!\w)",
+    "resolve_vc_band": r"(?<!\w)resolve_vc_band_kernel(?!\w)",
+    "resolve_tiled_band": r"(?<!\w)resolve_tiled_band_kernel(?!\w)",
+    "resolve_tiled_vc_band": r"(?<!\w)resolve_tiled_vc_band_kernel(?!\w)",
 }
 
 
