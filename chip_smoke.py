@@ -233,9 +233,33 @@ Phases (any failure exits non-zero before the final line is printed):
      (K1 and K2 also on every band of the field's 4); (g) the field's
      frame at n = 1, 2, 4, 8: device ms (CUDA events), busy, wall, and
      each band's binning, visibility and resolve busy
+ 19. training (phase_training): (a) the 2× upscaler's trainer
+     (trident_tpu_torch/scripts/train_upscaler.py) at full width: its
+     three pools render 48 --temporal --depth pairs at 256² (the main
+     path, K1, K2 and K3 on every pool, K1b and K4 on the shadowed one;
+     ms a pair), 200 Adam steps of the 32-channel, 17-input net at batch
+     8 (ms a step by CUDA events against 3 × the forward's f32 FLOPs over
+     67 TFLOP/s; val PSNR of net and bilinear before and after, not
+     gated), the saved checkpoint through a cube512:ai Renderer's
+     ai.upscaler_path (two 512² frames, aux [0, 0]); (b) the interpolation
+     net: 24 orbit frames of a pool scene at 256² written as PNG, train()
+     for 2 epochs at 32 channels and batch 4 (each epoch's line),
+     validate_checkpoint OK, train_step ms against 3 × unet_flops, and
+     FrameGenerator.initialise(checkpoint dir) with one inference; (c)
+     one train_step on the card against the same step on the CPU (same
+     init and batch), in f32 and in f64: each loss within 1e-4
+     relative; in f64 every gradient within rtol 1e-3 / atol 1e-6 (the
+     f32 gradients' differences printed beside the CPU's own f32 step
+     against its f64 step: float32 summation order and the ReLU / L1
+     kinks it moves put both beyond that tolerance at 256²); (d)
+     run_dryrun(8): eight processes on the
+     card (gloo on its CUDA tensors, NCCL refusing two ranks on one
+     device), the dp×tp and explicit-collective steps' lines and their
+     1e-4 check, then the banded frame over the eight
 Then it prints the kernels as one JSON line (each entry with
 `route_launches`: its launches in each of phase 15's, 16's and 17's
-route runs; a band instance also its `offset_free_ms` and `offset0_ms`,
+route runs and in phase 19's pair rendering, `train_pairs`; a band
+instance also its `offset_free_ms` and `offset0_ms`,
 the offset-free and the band instance at offset 0 timed in one window),
 the card line, and as the last line {"ok": true, "device":
 {...}}.
@@ -3927,6 +3951,227 @@ def corner_stage_for(inp: dict, cam, size: int):
                         real_draws=inp["real_draws"])
 
 
+# phase 19: training — the 2× upscaler's and the interpolation net's
+# trainers on rendered data, a train step on the card against the CPU,
+# and the multi-device dry run
+TRAIN_RES = 256            # the upscaler trainer's --res
+TRAIN_PAIRS = 48           # --pairs (--temporal --depth: 17 input channels)
+TRAIN_STEPS = 200          # --steps
+TRAIN_BATCH = 8            # --batch
+TRAIN_CHANNELS = 32        # --channels
+INTERP_FRAMES = 24         # orbit frames rendered for the interpolation net
+INTERP_RES = 256
+INTERP_CHANNELS = 32
+INTERP_BATCH = 4
+DRYRUN_N = 8               # run_dryrun's ranks (processes) on the card
+STEP_LOSS_RTOL = 1e-4      # a train step on the card against the CPU
+STEP_GRAD_RTOL, STEP_GRAD_ATOL = 1e-3, 1e-6
+PAIR_KERNELS = ("visibility", "resolve", "texel", "visibility_depth",
+                "shadow_taps")
+
+
+def phase_training(dev, card: str, drive) -> dict:
+    """Phase 19 (module docstring). Returns {"train_pairs": the kernels'
+    launches while the upscaler trainer rendered its pairs}."""
+    import shutil
+
+    import torch
+
+    from trident_tpu_torch.ai import train as tr
+    from trident_tpu_torch.ai import upscaler as up
+    from trident_tpu_torch.ai.dataset import TripletDataset
+    from trident_tpu_torch.ai.frame_generator import FrameGenerator
+    from trident_tpu_torch.ai.model import unet_flops
+    from trident_tpu_torch.ai.validate import validate_checkpoint
+    from trident_tpu_torch.io.image import save_png
+    from trident_tpu_torch.parallel.dryrun import run_dryrun
+    from trident_tpu_torch.scripts import train_upscaler as tu
+    from trident_tpu_torch.tools_dev.timing import F32_OPS_PER_S
+
+    t19 = time.perf_counter()
+    work = ROOT / "build" / "phase19"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    # (a) the upscaler trainer at full width; its main path is the pairs'
+    # rendering (K1, K2, K3 on every pool, K1b and K4 on the shadowed one)
+    pools = tu.build_pools(TRAIN_RES, 0, dev)
+    t0 = time.perf_counter()
+    datasets, counts = drive(
+        lambda: tu.render_datasets([TRAIN_RES], TRAIN_PAIRS, 0,
+                                   temporal=True, depth=True, device=dev,
+                                   pools={TRAIN_RES: pools}),
+        PAIR_KERNELS, [p[0] for p in pools])
+    pair_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_PAIRS
+    tr_in, _tr_tg, v_in, _v_tg, _res = datasets[0]
+    if tr_in.shape[-1] != 17 or not torch.isfinite(tr_in).all():
+        fail(f"train_upscaler inputs {tuple(tr_in.shape)}")
+    print(f"train_upscaler pairs: {TRAIN_PAIRS} (--temporal --depth, 17 "
+          f"channels) at {TRAIN_RES}² over {len(pools)} pools, {pair_ms:.3f} "
+          f"ms a pair (wall: three frames, the warp, the first frame of "
+          f"each key captured); launches "
+          f"{ {k: v for k, v in counts.items() if v} } ({card})", flush=True)
+    net = up.init_upscaler(torch.Generator().manual_seed(0), TRAIN_CHANNELS,
+                           in_channels=17, device=dev)
+    net_before, base_before, _ = tu.eval_all(net, datasets)
+    fit = tu.fit(net, datasets, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                 lr=2e-3, edge_weight=0.25, seed=0,
+                 out=str(work / "upscaler"))
+    if not (np.isfinite(fit["net_psnr"]) and np.isfinite(fit["best"])):
+        fail(f"train_upscaler diverged: {fit}")
+    h = TRAIN_RES // 2
+    step_bound = 3 * up.upscaler_flops(TRAIN_CHANNELS, 17, h, h) \
+        * TRAIN_BATCH / F32_OPS_PER_S * 1e3
+    print(f"train_upscaler steps: {TRAIN_STEPS} at batch {TRAIN_BATCH} "
+          f"({h}² inputs), {fit['step_ms']:.4f} ms a step (CUDA events, "
+          f"median), f32 bound {step_bound:.4f} ms (3 × the forward's conv "
+          f"FLOPs over 67 TFLOP/s): {step_bound / fit['step_ms']:.3f} of "
+          f"it; val PSNR net {net_before:.4f} → {fit['net_psnr']:.4f} dB, "
+          f"bilinear {base_before:.4f} → {fit['bilinear_psnr']:.4f} dB "
+          f"({len(v_in)} held-out pairs) ({card})", flush=True)
+    loaded, bc = up.load_upscaler(work / "upscaler", dev)
+    r2, _reg2 = build_bench_scene(0, dev, "cube512", ai=True,
+                                  upscaler_path=str(work / "upscaler"))
+    f0 = r2.render_viewport()
+    r2.editor_camera.orbit([0, 0, 0], 6.0, 4.0)
+    f1 = r2.render_viewport()
+    torch.cuda.synchronize()
+    if (bc, up.upscaler_in_channels(loaded)) != (TRAIN_CHANNELS, 17) \
+            or any(tuple(f.color.shape) != (512, 512, 4) or any(
+                f.aux.tolist()) for f in (f0, f1)) \
+            or not bool((f1.tri_id >= 0).any()):
+        fail(f"the trained checkpoint's 2× frame: {bc} channels, "
+             f"{up.upscaler_in_channels(loaded)} inputs, frames "
+             f"{[tuple(f.color.shape) for f in (f0, f1)]}, aux "
+             f"{[f.aux.tolist() for f in (f0, f1)]}")
+    print(f"trained upscaler checkpoint ({bc} channels, "
+          f"{up.upscaler_in_channels(loaded)} inputs) through a Renderer's "
+          f"ai.upscaler_path: two 2× frames at 512² (cube512:ai, the second "
+          f"warping the first's history), aux [0, 0] ({card})", flush=True)
+    del datasets, pools, r2, f0, f1, net, loaded
+    torch.cuda.empty_cache()
+
+    # (b) the interpolation net on frames the port renders
+    pool = tu.build_pool(INTERP_RES, 11, device=dev, **tu.POOL_SPECS[0])
+    tgt = tu.randomize(*pool[:5], *pool[5])
+    frames = work / "frames"
+    frames.mkdir()
+    for k in range(INTERP_FRAMES):
+        pool[0].editor_camera.orbit(tgt, 2.0, 0.0)
+        save_png(frames / f"frame_{k:04d}.png",
+                 pool[0].render_viewport().color.cpu().numpy())
+    cfg = tr.TrainConfig(source=str(frames), resolution=(INTERP_RES,) * 2,
+                         base_channels=INTERP_CHANNELS,
+                         batch_size=INTERP_BATCH, epochs=2,
+                         checkpoint_dir=str(work / "framegen"),
+                         log_path=str(work / "framegen.jsonl"))
+    t0 = time.perf_counter()
+    summary = tr.train(cfg, device=dev)
+    train_s = time.perf_counter() - t0
+    records = [json.loads(line) for line in
+               (work / "framegen.jsonl").read_text().splitlines()]
+    if len(records) != 2 or not all(np.isfinite(r["train_l1"])
+                                    for r in records):
+        fail(f"train(): {records}")
+    for rec in records:
+        print(f"interpolation net epoch {rec['epoch']}: {rec['seconds']:.3f} "
+              f"s, train L1 {rec['train_l1']:.4f}, val L1 "
+              f"{rec['val_l1']:.4f}, val PSNR {rec['val_psnr']:.2f} dB, "
+              f"SSIM {rec['val_ssim']:.4f} ({card})", flush=True)
+    res = validate_checkpoint(cfg.checkpoint_dir, cfg.resolution,
+                              INTERP_CHANNELS, device=dev)
+    print(("OK: " if res.ok else "FAIL: ") + res.message, flush=True)
+    if not res.ok:
+        fail("validate_checkpoint failed on train()'s checkpoint")
+    ds = TripletDataset(cfg.source, cfg.resolution)
+    x_np, y_np = next(ds.batches(range(len(ds)), INTERP_BATCH))
+    nchw = lambda a, d: torch.from_numpy(a).to(d).permute(  # noqa: E731
+        0, 3, 1, 2).contiguous()
+    state = tr.create_state(cfg, device=dev)
+    x, y = nchw(x_np, dev), nchw(y_np, dev)
+    step_ms = cuda_ms(lambda: tr.train_step(state, x, y), reps=10)
+    unet_bound = 3 * unet_flops(INTERP_CHANNELS, *cfg.resolution) \
+        * INTERP_BATCH / F32_OPS_PER_S * 1e3
+    print(f"interpolation net: {len(ds)} triplets of {INTERP_FRAMES} orbit "
+          f"frames at {INTERP_RES}², train() {train_s:.2f} s for 2 epochs "
+          f"(best val PSNR {summary['best_psnr']:.2f} dB); train_step "
+          f"{step_ms:.4f} ms at batch {INTERP_BATCH} (CUDA events, median "
+          f"of 10), f32 bound {unet_bound:.4f} ms (3 × unet_flops): "
+          f"{unet_bound / step_ms:.3f} of it ({card})", flush=True)
+    gen = FrameGenerator(resolution=cfg.resolution, device=dev)
+    if not gen.initialise(cfg.checkpoint_dir):
+        fail("FrameGenerator.initialise(checkpoint dir) did not start")
+    for a in (x_np[0, ..., :3], x_np[0, ..., 3:]):
+        gen.process_frame(a)
+    t0, got = time.perf_counter(), None
+    while got is None and time.perf_counter() - t0 < FRAMEGEN_WAIT_S:
+        got = gen.try_consume_output()
+        time.sleep(0.005)
+    gen.shutdown()
+    if got is None or got[1].shape != (INTERP_RES, INTERP_RES, 3) \
+            or not np.isfinite(got[1]).all():
+        fail("FrameGenerator on train()'s checkpoint gave no frame")
+    print(f"FrameGenerator.initialise({cfg.checkpoint_dir}) (through "
+          f"latest.json): one inference in "
+          f"{gen.stats.last_inference_ms:.3f} ms host time ({card})",
+          flush=True)
+
+    # (c) one train step on the card against the same step on the CPU:
+    # same init, same batch, in f32 (the trainer's) and in f64. The f32
+    # gradients differ by float32 summation order and the ReLU / L1 kinks
+    # it moves (the CPU's own f32 step is as far from its f64 step), so
+    # the gradients are held at STEP_GRAD_RTOL / ATOL in f64; f32 holds
+    # the loss and prints its gradient differences
+    def step(device, dtype):
+        st = tr.create_state(cfg, device=device)
+        st.model.to(dtype)
+        _s, loss, _o = tr.train_step(st, nchw(x_np, device).to(dtype),
+                                     nchw(y_np, device).to(dtype))
+        return float(loss), {n: p.grad.double().cpu()
+                             for n, p in st.model.named_parameters()}
+
+    def outside(a, b):
+        """(values of a outside the tolerance around b, max |a − b|)."""
+        n_out = sum(int(((a[k] - b[k]).abs() > STEP_GRAD_ATOL
+                         + STEP_GRAD_RTOL * b[k].abs()).sum()) for k in b)
+        return n_out, max(float((a[k] - b[k]).abs().max()) for k in b)
+
+    steps = {(side, bits): step(d, {32: torch.float32,
+                                    64: torch.float64}[bits])
+             for side, d in (("cpu", "cpu"), ("card", dev))
+             for bits in (32, 64)}
+    for bits in (32, 64):
+        (l_cpu, g_cpu), (l_card, g_card) = steps["cpu", bits], \
+            steps["card", bits]
+        if not np.isfinite(l_card) \
+                or abs(l_card - l_cpu) > STEP_LOSS_RTOL * abs(l_cpu):
+            fail(f"train step f{bits} card vs CPU: loss {l_card} vs {l_cpu}")
+        n_out, worst = outside(g_card, g_cpu)
+        if bits == 64 and n_out:
+            fail(f"train step f64 card vs CPU: {n_out} gradient values "
+                 f"outside rtol {STEP_GRAD_RTOL} / atol {STEP_GRAD_ATOL} "
+                 f"(max |diff| {worst:.3e})")
+        print(f"train step card vs CPU, f{bits} (same init and batch): loss "
+              f"{l_card:.9f} vs {l_cpu:.9f}; {n_out} gradient values "
+              f"outside rtol {STEP_GRAD_RTOL} / atol {STEP_GRAD_ATOL}, max "
+              f"|diff| {worst:.3e} ({card})", flush=True)
+    n_out, worst = outside(steps["cpu", 32][1], steps["cpu", 64][1])
+    print(f"the CPU's f32 step against its f64 step: {n_out} gradient values "
+          f"outside that tolerance, max |diff| {worst:.3e}", flush=True)
+    del state, x, y, steps
+    torch.cuda.empty_cache()
+
+    # (d) the multi-device dry run: DRYRUN_N processes on this card's
+    # devices (cuda:(rank % count)), then the banded frame over them
+    t0 = time.perf_counter()
+    run_dryrun(DRYRUN_N, device=dev)
+    print(f"run_dryrun({DRYRUN_N}): {time.perf_counter() - t0:.1f} s "
+          f"({DRYRUN_N} processes) ({card})", flush=True)
+    print(f"phase 19: {time.perf_counter() - t19:.1f} s ({card})",
+          flush=True)
+    return {"train_pairs": counts}
+
+
 def main() -> None:
     # -- phase 1: the card ---------------------------------------------------
     import torch
@@ -4456,6 +4701,9 @@ def main() -> None:
     # -- phase 18: the banded frame, n bands on this card -------------------
     launches18 = phase_bands(dev, card, kernel_fns, drive, results)
 
+    # -- phase 19: training ----------------------------------------------------
+    launches19 = phase_training(dev, card, drive)
+
     # launches: each kernel's count in the main-path run of the frame it
     # was held on (phase 4 for the main pass, phase 6 for the shadow pass,
     # phase 9 for the warp, phase 10 for the knob kernels, phase 11 for
@@ -4478,11 +4726,13 @@ def main() -> None:
     for name in kernel_fns:
         res = {k: v for k, v in results[name].items() if k != "colour_ms"}
         # the launches of each of phase 15's, 16's and 17's route runs
+        # and of phase 19's pair rendering
         kernels.append(dict(name=name, launches=launches[name], **res,
                             route_launches={route: counts.get(name, 0)
                                             for route, counts in
                                             {**launches15, **launches16,
-                                             **launches17}.items()}))
+                                             **launches17,
+                                             **launches19}.items()}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -238,3 +238,56 @@ def test_chip_smoke_fails_without_card():
                           timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+# the training path with jax, PIL and the JAX package unimportable (the
+# card's machine has no PIL): frames written and decoded without PIL,
+# train() with its checkpoints, validate_checkpoint, the upscaler's save
+# and load, and the dataset recorder
+_TRAINING = """
+import sys
+for name in ("jax", "trident_tpu", "PIL"):
+    sys.modules[name] = None
+import json, tempfile
+import numpy as np, torch
+torch.set_num_threads(1)
+from trident_tpu_torch import models
+from trident_tpu_torch.ai import upscaler as up
+from trident_tpu_torch.io.dataset_recorder import FrameDatasetRecorder
+from trident_tpu_torch.io.image import save_png
+from trident_tpu_torch.parallel import dryrun, mesh
+from trident_tpu_torch.scripts import train_frame_generator, train_upscaler
+with tempfile.TemporaryDirectory() as td:
+    base = np.random.default_rng(0).random((16, 16, 3)).astype(np.float32)
+    for i in range(5):
+        save_png(f"{td}/frame_{i:02d}.png", np.roll(base, i, 1))
+    cfg = models.TrainConfig(source=td, resolution=(12, 12), base_channels=4,
+                             batch_size=2, epochs=1, checkpoint_every=0,
+                             checkpoint_dir=td + "/ck")
+    summary = models.train(cfg, device="cpu")
+    assert summary["epochs_run"] == 1, summary
+    assert models.validate_checkpoint(td + "/ck", (12, 12), 4,
+                                      device="cpu").ok
+    net = up.init_upscaler(torch.Generator().manual_seed(0), 4, 17,
+                           device="cpu")
+    back, bc = up.load_upscaler(up.save_upscaler(net, td + "/up"), "cpu")
+    assert bc == 4 and up.upscaler_in_channels(back) == 17
+    rec = FrameDatasetRecorder(td + "/rec")
+    rec.start()
+    rec.record_input_frame(base, now=0.0)
+    rec.stop()
+    assert rec.written_count == 1
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and m.split(".")[0] in ("jax", "jaxlib", "PIL", "trident_tpu"))
+assert not bad, bad
+print("trained", json.dumps(summary["epochs_run"]))
+"""
+
+
+def test_training_runs_without_jax_or_pil():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _TRAINING], env=env,
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "trained 1" in proc.stdout

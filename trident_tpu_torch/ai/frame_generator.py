@@ -15,6 +15,7 @@ never synchronizes the device or stalls the render stream.
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
@@ -26,6 +27,7 @@ import torch
 
 from trident_tpu_torch import resolve_device
 from trident_tpu_torch.ai.model import InterpolationUNet, load_frame_generator
+from trident_tpu_torch.ai.train import load_checkpoint
 from trident_tpu_torch.core.log import get_logger
 
 logger = get_logger("ai.framegen")
@@ -62,12 +64,17 @@ class FrameGenerator:
     # -- lifecycle -----------------------------------------------------------------
     def initialise(self, path=None,
                    net: Optional[InterpolationUNet] = None) -> bool:
-        """Load the weights (the .npz export, ai/model.py::
-        load_frame_generator; a file that cannot be loaded raises) or
-        adopt an in-memory net, and start the worker. False when there is
-        no net to run."""
+        """Load the weights or adopt an in-memory net, and start the
+        worker. `path` is a checkpoint directory that ai/train.py wrote
+        (resolved through its latest.json, ai/train.py::load_checkpoint,
+        as the JAX generator restores its orbax directory) or the .npz
+        export (ai/model.py::load_frame_generator); anything that cannot be
+        loaded raises. False when there is no net to run."""
         if net is not None:
             self._net = net
+        elif path is not None and os.path.isfile(
+                os.path.join(path, "latest.json")):
+            self._net = load_checkpoint(path, device=self.device)
         elif path is not None:
             self._net, _bc = load_frame_generator(path, self.device)
         if self._net is None:

@@ -21,12 +21,16 @@ depth-to-spaced detail to a 2× bilinear resize of the frame
 (`resize_bilinear_2x`, jax.image.resize's weights) and clips, in f32, and
 its temporal input is the previous RGBA8 frame reprojected by
 `warp_previous`, a plain row gather (the JAX function has no kernel).
-The two paths share the net's params.
+The two paths share the net's params. Training runs the V1 forward,
+batched (`UpscalerNet.upscale`), as the JAX trainer does
+(trident_tpu_torch/scripts/train_upscaler.py).
 
-Weights: `load_upscaler` reads the numpy export of the shipped checkpoint
-(assets/upscaler_2x.npz, written by scripts/export_upscaler_npz.py); the
-arrays keep their flax names and layouts, and `params_from_flax` maps
-them onto the module. Training is not ported.
+Weights: `init_upscaler` draws a trainable net as flax initializes the JAX
+one; `load_upscaler` reads the numpy export of the shipped checkpoint
+(assets/upscaler_2x.npz, written by scripts/export_upscaler_npz.py) or a
+directory that `save_upscaler` wrote. The arrays keep their flax names and
+layouts; `params_from_flax` maps them onto the module and
+`params_to_flax` back.
 """
 
 from __future__ import annotations
@@ -40,12 +44,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from trident_tpu_torch import resolve_device
+from trident_tpu_torch.ai.model import lecun_normal_
 from trident_tpu_torch.ops.warp import band_ok_mask, warp_fetch, warp_hpad
 
 Tensor = torch.Tensor
 
+UPSCALER_FILE = "upscaler_2x.npz"   # the file save_upscaler writes in its dir
 DEFAULT_WEIGHTS = Path(__file__).resolve().parents[1] / "assets" / \
-    "upscaler_2x.npz"
+    UPSCALER_FILE
+D2S_MODES = ("convt", "pad", "xla")
 
 TEMPORAL_CHANNELS = 16   # 3 current + 12 warped blocks + 1 validity
 WARP_CHANNELS = 13       # warp output width
@@ -71,8 +78,14 @@ def base_blocks(rgb: Tensor) -> Tensor:
     return torch.cat(phases, dim=-1)
 
 
-def depth_to_space(blocks: Tensor) -> Tensor:
-    """(…, h, w, 12) → (…, 2h, 2w, 3): an exact relayout of the blocks."""
+def depth_to_space(blocks: Tensor, mode: Optional[str] = None) -> Tensor:
+    """(…, h, w, 12) → (…, 2h, 2w, 3): an exact relayout of the blocks.
+    `mode` names one of the JAX package's three relayouts (convt, pad,
+    xla), which it holds bit-exact to each other; each is this one. Any
+    other mode raises ValueError."""
+    if mode is not None and mode not in D2S_MODES:
+        raise ValueError(f"depth_to_space mode {mode!r}: expected "
+                         "convt|pad|xla")
     *lead, h, w, _ = blocks.shape
     x = blocks.reshape(*lead, h, w, 2, 2, 3)
     n = len(lead)
@@ -110,18 +123,48 @@ class UpscalerNet(nn.Module):
         nn.init.zeros_(self.convs[3].bias)
 
     def head(self, x: Tensor) -> Tensor:
-        """(h, w, C) → (h, w, 12): the convs' residual detail in block
-        layout, before any base is added."""
+        """(h, w, C) or (B, h, w, C) → (…, h, w, 12): the convs' residual
+        detail in block layout, before any base is added. The convs take
+        views of the input: a batch's is channels-last; a frame's, with
+        its unit batch dimension strided by C, is not, so the frame path's
+        convs stay NCHW."""
         c0, c1, c2, c3 = self.convs
-        h = x.float().permute(2, 0, 1)[None]            # (1, C, h, w)
+        batched = x.dim() == 4
+        h = x.float().movedim(-1, -3)
+        if not batched:
+            h = h[None]                                   # (1, C, h, w)
         h = F.relu(c0(h))
         h = F.relu(c1(h)) + h
         h = F.relu(c2(h))
-        return c3(h)[0].permute(1, 2, 0)
+        out = c3(h).movedim(-3, -1)
+        return out if batched else out[0]
 
     def forward(self, x: Tensor) -> Tensor:
         return torch.clamp(base_blocks(x[..., :3].float()) + self.head(x),
                            0.0, 1.0)
+
+    def upscale(self, x: Tensor) -> Tensor:
+        """The V1 forward, what training runs: (h, w, C) or (B, h, w, C)
+        assembled inputs → (…, 2h, 2w, 3), the 2× bilinear resize of the
+        rgb plus the depth-to-spaced detail, clipped to [0, 1] (the JAX
+        UpscalerNet with blocks=False)."""
+        return torch.clamp(resize_bilinear_2x(x[..., :3])
+                           + depth_to_space(self.head(x)), 0.0, 1.0)
+
+
+def init_upscaler(generator: torch.Generator, base_channels: int = 32,
+                  in_channels: int = 3, device=None) -> UpscalerNet:
+    """A trainable UpscalerNet drawn as flax initializes the JAX net
+    (trident_tpu/ai/upscaler.py:183): the first three kernels lecun_normal
+    from `generator` (flax's draws differ, its distribution is the same),
+    every bias and the detail head zero, so the untrained net is the
+    bilinear base. Drawn on the CPU, then moved to `device` (the card
+    unless given)."""
+    net = UpscalerNet(in_channels=in_channels, base_channels=base_channels)
+    for conv in net.convs[:3]:
+        lecun_normal_(conv.weight, conv.weight[0].numel(), generator)
+        nn.init.zeros_(conv.bias)
+    return net.to(resolve_device(device))
 
 
 def params_from_flax(tree) -> dict:
@@ -139,6 +182,39 @@ def params_from_flax(tree) -> dict:
     return state
 
 
+def params_to_flax(net: UpscalerNet) -> dict:
+    """The inverse of params_from_flax: `net`'s weights as the JAX
+    package's params, `Conv_i/{kernel (3,3,I,O) HWIO, bias}` f32 numpy."""
+    tree = {}
+    for i, conv in enumerate(net.convs):
+        w = conv.weight.detach().cpu().numpy()
+        tree[f"Conv_{i}"] = {
+            "kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+            "bias": conv.bias.detach().cpu().numpy().copy()}
+    return tree
+
+
+def save_upscaler(net: UpscalerNet, directory) -> Path:
+    """Write `net` into `directory` (made if missing) as UPSCALER_FILE, the
+    form load_upscaler reads: each array under its flax name
+    ("Conv_0/kernel", HWIO), and the meta fields base_channels, scale and
+    in_channels as 0-d integers, inferred from the arrays as the JAX
+    save_upscaler infers them (trident_tpu/ai/upscaler.py:366-381).
+    Returns the file's path."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    tree = params_to_flax(net)
+    arrays = {f"{mod}/{name}": a for mod, leaves in tree.items()
+              for name, a in leaves.items()}
+    kernel = tree["Conv_0"]["kernel"]
+    arrays.update(base_channels=np.asarray(kernel.shape[-1], np.int64),
+                  scale=np.asarray(2, np.int64),
+                  in_channels=np.asarray(kernel.shape[-2], np.int64))
+    path = directory / UPSCALER_FILE
+    np.savez(path, **arrays)
+    return path
+
+
 def upscaler_from_flax(tree, device=None) -> UpscalerNet:
     """An inference UpscalerNet (no gradients) holding the JAX package's
     params `tree`, on `device` (the card unless given)."""
@@ -152,9 +228,12 @@ def upscaler_from_flax(tree, device=None) -> UpscalerNet:
 
 def load_upscaler(path=None, device=None) -> Tuple[UpscalerNet, int]:
     """(net, base_channels) from the numpy export (`scripts/
-    export_upscaler_npz.py`; default assets/upscaler_2x.npz). Raises if
-    the file is missing or its meta fields disagree with the arrays."""
+    export_upscaler_npz.py`; default assets/upscaler_2x.npz), or from the
+    UPSCALER_FILE in a directory that save_upscaler wrote. Raises if the
+    file is missing or its meta fields disagree with the arrays."""
     path = Path(path) if path else DEFAULT_WEIGHTS
+    if path.is_dir():
+        path = path / UPSCALER_FILE
     with np.load(path) as z:
         tree, meta = {}, {}
         for key in z.files:
@@ -207,19 +286,30 @@ def _reproject_half(cur_depth: Tensor, cur_vp_inv: Tensor, prev_vp: Tensor,
     return px, py, pw
 
 
-def warp_indices(prev_blocks: Tensor, cur_depth: Tensor, cur_vp_inv: Tensor,
+def _warp_blocks(hh: int, ww2: int, cur_depth: Tensor, cur_vp_inv: Tensor,
                  prev_vp: Tensor, full_width: int, full_height: int):
-    """(by, bx, in_bounds, ok) of the V2 warp: each half-res pixel's source
-    block in the (h, w, 12) history, whether it lies inside the history
-    in front of the previous camera on geometry, and whether it also fits
-    the band window (`band_ok_mask`)."""
-    hh, ww2 = prev_blocks.shape[0], prev_blocks.shape[1]
+    """(by, bx, in_bounds): each half-res pixel's source block in an
+    (hh, ww2, 12) history, and whether it lies inside the history in
+    front of the previous camera on geometry."""
     px, py, pw = _reproject_half(cur_depth, cur_vp_inv, prev_vp,
                                  full_width, full_height)
     bx = torch.round(px * 0.5 - 0.5).to(torch.int32)
     by = torch.round(py * 0.5 - 0.5).to(torch.int32)
     in_bounds = ((bx >= 0) & (bx < ww2) & (by >= 0) & (by < hh)
                  & (pw > 1e-6) & (cur_depth < 1.0))
+    return by, bx, in_bounds
+
+
+def warp_indices(prev_blocks: Tensor, cur_depth: Tensor, cur_vp_inv: Tensor,
+                 prev_vp: Tensor, full_width: int, full_height: int):
+    """(by, bx, in_bounds, ok) of the V2 warp: each half-res pixel's source
+    block in the (h, w, 12) history, whether it lies inside the history
+    in front of the previous camera on geometry, and whether it also fits
+    the band window (`band_ok_mask`)."""
+    hh = prev_blocks.shape[0]
+    by, bx, in_bounds = _warp_blocks(hh, prev_blocks.shape[1], cur_depth,
+                                     cur_vp_inv, prev_vp, full_width,
+                                     full_height)
     ok = band_ok_mask(by, in_bounds, warp_hpad(hh))
     return by, bx, in_bounds, ok
 
@@ -227,12 +317,21 @@ def warp_indices(prev_blocks: Tensor, cur_depth: Tensor, cur_vp_inv: Tensor,
 def warp_from_blocks(prev_blocks: Tensor, cur_depth: Tensor,
                      cur_vp_inv: Tensor, prev_vp: Tensor, full_width: int,
                      full_height: int) -> Tensor:
-    """V2 warp of the uint8 (h, w, 12) history into the current view →
-    (h', w', 13): the 12 history bytes / 255 at each half-res pixel's
-    reprojected block, then the validity channel; 0 where invalid."""
+    """V2 warp of the (h, w, 12) history into the current view → (h', w',
+    13): the history at each half-res pixel's reprojected block, then the
+    validity channel; 0 where invalid. A uint8 history (bytes / 255) goes
+    through the warp kernel, valid only inside the band window
+    (`warp_indices`); a float history is a plain clipped row gather,
+    valid wherever `in_bounds` holds (trident_tpu/ai/upscaler.py:259-264:
+    the JAX package's kernel takes only the uint8 history)."""
     if prev_blocks.dtype != torch.uint8:
-        raise NotImplementedError(
-            "only the uint8 block history is ported to trident_tpu_torch")
+        hh, ww2 = prev_blocks.shape[0], prev_blocks.shape[1]
+        by, bx, in_bounds = _warp_blocks(hh, ww2, cur_depth, cur_vp_inv,
+                                         prev_vp, full_width, full_height)
+        block = prev_blocks.float()[torch.clamp(by, 0, hh - 1).long(),
+                                    torch.clamp(bx, 0, ww2 - 1).long()]
+        valid = in_bounds[..., None].float()
+        return torch.cat([block * valid, valid], dim=-1)
     by, bx, _in_bounds, ok = warp_indices(prev_blocks, cur_depth, cur_vp_inv,
                                           prev_vp, full_width, full_height)
     fetched = warp_fetch(prev_blocks, torch.where(ok, by, -1).contiguous(),
@@ -252,15 +351,11 @@ def warp_previous(prev_rgb: Tensor, cur_depth: Tensor, cur_vp_inv: Tensor,
     leaves the frame, lies behind the previous camera or is background. A
     plain row gather; matrices are the full frame's view·proj (current
     inverted)."""
-    px, py, pw = _reproject_half(cur_depth, cur_vp_inv, prev_vp,
-                                 full_width, full_height)
     hh, ww2 = prev_rgb.shape[0] // 2, prev_rgb.shape[1] // 2
     s2d = prev_rgb[:hh * 2, :ww2 * 2].reshape(hh, 2, ww2, 2, 3) \
         .permute(0, 2, 1, 3, 4).reshape(hh, ww2, 12)
-    bx = torch.round(px * 0.5 - 0.5).to(torch.int32)
-    by = torch.round(py * 0.5 - 0.5).to(torch.int32)
-    in_bounds = ((bx >= 0) & (bx < ww2) & (by >= 0) & (by < hh)
-                 & (pw > 1e-6) & (cur_depth < 1.0))
+    by, bx, in_bounds = _warp_blocks(hh, ww2, cur_depth, cur_vp_inv,
+                                     prev_vp, full_width, full_height)
     block = s2d[torch.clamp(by, 0, hh - 1).long(),
                 torch.clamp(bx, 0, ww2 - 1).long()]
     valid = in_bounds[..., None].float()
@@ -325,11 +420,12 @@ def _resize_axis_2x(v: Tensor, axis: int) -> Tensor:
 
 
 def resize_bilinear_2x(rgb: Tensor) -> Tensor:
-    """(h, w, C) → (2h, 2w, C): jax.image.resize(…, "bilinear") at 2×,
-    rows then columns, in f32. XLA evaluates each axis as a dot over a
+    """(…, h, w, C) → (…, 2h, 2w, C): jax.image.resize(…, "bilinear") at
+    2×, rows then columns, in f32. XLA evaluates each axis as a dot over a
     weight matrix whose accumulation order follows its blocking, so the
     two agree within an ulp or two per axis, not bit for bit."""
-    return _resize_axis_2x(_resize_axis_2x(rgb.float(), 0), 1)
+    n = rgb.dim()
+    return _resize_axis_2x(_resize_axis_2x(rgb.float(), n - 3), n - 2)
 
 
 def apply_upscaler(net: UpscalerNet, image: Tensor,
@@ -339,9 +435,7 @@ def apply_upscaler(net: UpscalerNet, image: Tensor,
     3) f32, the 2× bilinear resize of `image` plus the net's
     depth-to-spaced detail, clipped to [0, 1]. `temporal` is the (H, W,
     13) warp_previous output; inputs as apply_upscaler_v2 takes them."""
-    detail = depth_to_space(net.head(_assemble_inputs(net, image, temporal,
-                                                      depth)))
-    return torch.clamp(resize_bilinear_2x(image[..., :3]) + detail, 0.0, 1.0)
+    return net.upscale(_assemble_inputs(net, image, temporal, depth))
 
 
 def apply_upscaler_v2(net: UpscalerNet, image: Tensor,
@@ -352,6 +446,15 @@ def apply_upscaler_v2(net: UpscalerNet, image: Tensor,
     zeros (temporal: validity 0) or background depth 1."""
     blocks = net(_assemble_inputs(net, image, temporal, depth))
     return depth_to_space(blocks), blocks
+
+
+def upscaler_flops(base_channels: int, in_channels: int, height: int,
+                   width: int) -> int:
+    """Multiply-adds × 2 of one forward pass of the net's four 3×3 convs on
+    an (height, width) input (the half-size frame); ReLUs, the residual,
+    the base and the clip are not counted."""
+    c = base_channels
+    return 2 * 9 * height * width * (in_channels * c + 2 * c * c + c * 12)
 
 
 def psnr(a: Tensor, b: Tensor) -> Tensor:

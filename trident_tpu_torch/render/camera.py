@@ -5,8 +5,9 @@ matrices are rebuilt lazily on the host in numpy. `host_params()` hands
 them over as numpy (the frame bundle packs them, render/bundle.py) and
 `params(device)` as tensors on a device (the same values, uploaded).
 EditorCamera: free camera with euler orientation or an explicit look-at,
-and the orbit control (dolly and pan are not ported). RuntimeCamera:
-driven by a scene CameraComponent and its entity's transform.
+and the orbit, dolly and pan controls; `frame_entity` aims a camera at an
+entity (the editor's F key). RuntimeCamera: driven by a scene
+CameraComponent and its entity's transform.
 """
 
 from __future__ import annotations
@@ -126,7 +127,7 @@ class Camera:
 
 
 class EditorCamera(Camera):
-    """Free camera with the orbit control (ApplicationLayer.h:104-138)."""
+    """Free camera with orbit/fly controls (ApplicationLayer.h:104-138)."""
 
     def orbit(self, pivot, d_yaw_deg: float, d_pitch_deg: float) -> None:
         """Turn the camera about `pivot` by yaw and pitch (degrees, pitch
@@ -146,6 +147,39 @@ class EditorCamera(Camera):
             np.float32)
         self.set_position(pivot + offset)
         self.look_at_target(pivot)
+
+    def _basis(self):
+        """(right, up, forward) from the current view matrix — correct in
+        both euler and look-at modes."""
+        v = self.view
+        return v[0, :3], v[1, :3], -v[2, :3]
+
+    def dolly(self, amount: float) -> None:
+        """Move along the view direction by `amount`."""
+        _right, _up, forward = self._basis()
+        self.set_position(self.position + forward * amount)
+
+    def pan(self, dx: float, dy: float) -> None:
+        """Move in the view plane: `dx` along right, `dy` along up."""
+        right, up, _forward = self._basis()
+        self.set_position(self.position + right * dx + up * dy)
+
+
+def frame_entity(camera: Camera, registry, entity,
+                 distance_factor: float = 3.0) -> None:
+    """Frame-selection (the editor's F key): aim at the entity and back off
+    proportionally to its scale."""
+    t = registry.try_get(entity, TransformComponent)
+    if t is None:
+        return
+    radius = max(float(np.max(np.abs(t.scale))), 0.5)
+    target = np.asarray(t.position, np.float32)
+    direction = camera.position - target
+    n = np.linalg.norm(direction)
+    direction = direction / n if n > 1e-6 \
+        else np.array([0.0, 0.3, 1.0], np.float32)
+    camera.set_position(target + direction * radius * distance_factor)
+    camera.look_at_target(target)
 
 
 class RuntimeCamera(Camera):
