@@ -256,9 +256,33 @@ Phases (any failure exits non-zero before the final line is printed):
      card (gloo on its CUDA tensors, NCCL refusing two ranks on one
      device), the dp×tp and explicit-collective steps' lines and their
      1e-4 check, then the banded frame over the eight
+ 20. the application shell (phase_shell): (a) an Application at
+     1920×1080 over spheres1080_1m's field, a Layer that spins it and
+     queues two lines of text (sizes 13 and 16), the interpolation net
+     from assets/frame_generator_128.npz at its 66 ms cadence, the
+     dataset recorder and a Y4M session: 120 frames of app.run with
+     present() after each, the median and p90 host ms of the frame,
+     update, render (draw_frame) and _post_frame and present, then the
+     same loop with every consumer off and render_viewport alone; the AI
+     outputs consumed and blended (a blended frame against blend 0), the
+     recorder's pairs, the encoder's submitted / encoded / dropped, and
+     K1, K2, K3's launches in the loop (`app_loop`); (b) the Y4M file's
+     size and its first frame's planes against rgb_to_yuv420 of the first
+     frame submitted; (c) present() against composite_overlay of the
+     read-back frame and the overlay, alpha under each line; (d) hot
+     reload: a rewritten PNG changes only its entity's pixels, a
+     rewritten shader module reloads, a broken model re-import is FAILED
+     and keeps the old geometry; (g) AllocationTracker's device bytes, a
+     Profiler trace naming the port's kernels, compilation_stats against
+     the captures; (e) tests/test_facade.py's sequence through
+     RenderCommand; (f) render_demo (4 frames, shadows, bloom, Y4M) and
+     profile_stages --scale small as subprocesses, the viewer on
+     127.0.0.1 (page, a frame PNG decoded to the presented frame, the
+     entities, /api/state)
 Then it prints the kernels as one JSON line (each entry with
 `route_launches`: its launches in each of phase 15's, 16's and 17's
-route runs and in phase 19's pair rendering, `train_pairs`; a band
+route runs, in phase 19's pair rendering, `train_pairs`, and in phase
+20's application loop, `app_loop`; a band
 instance also its `offset_free_ms` and `offset0_ms`,
 the offset-free and the band instance at offset 0 timed in one window),
 the card line, and as the last line {"ok": true, "device":
@@ -286,6 +310,7 @@ trident_tpu_torch/tools_dev/timing.py and scenes.py.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -4172,6 +4197,506 @@ def phase_training(dev, card: str, drive) -> dict:
     return {"train_pairs": counts}
 
 
+SHELL_FRAMES = 120         # frames of each application loop (phase 20)
+SHELL_W, SHELL_H = 1920, 1080
+SHELL_TEXT = ((13, 6, 6), (16, 6, 26))   # (size, x, y) of the layer's lines
+DEMO_FRAMES = 4
+
+
+def ms_line(xs) -> str:
+    """median / p90 of a list of ms."""
+    a = np.asarray(xs, np.float64)
+    return f"{np.median(a):.3f} / {np.percentile(a, 90):.3f}"
+
+
+def reload_events(app) -> list:
+    """app.process_reload_events() → (file name, kind, status) of each
+    event it handled."""
+    seen = []
+    pop = app.file_watcher.pop_pending
+
+    def spy():
+        e = pop()
+        if e is not None:
+            seen.append(e)
+        return e
+
+    app.file_watcher.pop_pending = spy
+    try:
+        app.process_reload_events()
+    finally:
+        app.file_watcher.pop_pending = pop
+    return sorted((Path(e.path).name, e.kind.name, e.status.name)
+                  for e in seen)
+
+
+def entity_map(r, out) -> np.ndarray:
+    """The entity that drew each pixel of `out` (−1: background)."""
+    tri = out.tri_id.cpu().numpy()
+    tri_draw = r._last_tri_draw.cpu().numpy()
+    ents = np.asarray(r._last_draws.entity)
+    emap = np.full(tri.shape, -1, np.int64)
+    hit = tri >= 0
+    emap[hit] = ents[tri_draw[tri[hit]]]
+    return emap
+
+
+def touch(path: Path, data, mtime: float) -> None:
+    from trident_tpu_torch.io.image import save_png
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if isinstance(data, np.ndarray):
+        save_png(path, data)
+    else:
+        path.write_text(data)
+    os.utime(path, (mtime, mtime))
+
+
+def run_script(args, cwd: Path, what: str) -> str:
+    """`python -m <args>` in a subprocess; its stdout, failing on a non-zero
+    exit."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"{what} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    print(f"{what}: exit 0 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return proc.stdout
+
+
+def phase_shell(dev, card: str, drive) -> dict:
+    """Phase 20 (module docstring). Returns {"app_loop": the kernels'
+    launches in the application loop}."""
+    import gc
+    import re
+    import shutil
+
+    import torch
+
+    from trident_tpu_torch.ai.model import DEFAULT_WEIGHTS
+    from trident_tpu_torch.app import Application, Layer
+    from trident_tpu_torch.core.alloc import AllocationTracker
+    from trident_tpu_torch.core.config import (
+        AiConfig, CaptureConfig, EngineConfig, RenderConfig,
+    )
+    from trident_tpu_torch.ecs.components import TextureComponent
+    from trident_tpu_torch.geometry.primitives import PrimitiveType
+    from trident_tpu_torch.io.image import checkerboard, load_rgba8
+    from trident_tpu_torch.io.text_overlay import composite_overlay
+    from trident_tpu_torch.io.video import rgb_to_yuv420
+    from trident_tpu_torch.tools_dev.scenes import populate_field
+    from trident_tpu_torch.tools_dev.timing import KERNEL_RECORDS
+    from trident_tpu_torch.utils import Profiler, compilation_stats
+
+    t20 = time.perf_counter()
+    work = ROOT / "build" / "phase20"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "Assets").mkdir(parents=True)
+
+    # (a) the application loop at full size: spheres1080_1m's field, a
+    # layer that spins it and queues two lines of text, the interpolation
+    # net at its 66 ms cadence, the dataset recorder and a Y4M session
+    W, H = SHELL_W, SHELL_H
+    cfg = EngineConfig(
+        render=RenderConfig(width=W, height=H),
+        ai=AiConfig(enabled=True, model_path=str(DEFAULT_WEIGHTS)),
+        capture=CaptureConfig(dataset_enabled=True,
+                              dataset_dir=str(work / "dataset"),
+                              perf_dir=str(work / "perf")),
+        assets_root=str(work / "Assets"), log_file=None)
+    app = Application(cfg, device=dev)
+    r, reg = app.renderer, app.scene.editor_registry
+    slot = r.acquire_texture("checker", checkerboard(128, 8))
+    field = populate_field(reg, BENCH_GRID,
+                           r.ensure_primitive(PrimitiveType.SPHERE), slot)
+    r.editor_camera.set_position([0, 0, BENCH_GRID * 1.1 + 2])
+    r.editor_camera.look_at_target([0, 0, 0])
+
+    class ShellLayer(Layer):
+        """Spins the field each update (as bench.py rotates it) and queues
+        the two overlay lines each render."""
+
+        def __init__(self):
+            self.k, self.spin = 0, True
+
+        def update(self, app, dt):
+            if self.spin:
+                rotate(reg, self.k)
+                self.k += 1
+
+        def render(self, app):
+            (s0, x0, y0), (s1, x1, y1) = SHELL_TEXT
+            app.renderer.queue_text(0, f"frame {self.k}  "
+                                    f"{app.renderer.stats_triangles} tris",
+                                    x0, y0, (1, 1, 0, 1), s0)
+            app.renderer.queue_text(0, "trident_tpu_torch shell", x1, y1,
+                                    (0.6, 0.9, 1, 0.85), s1)
+
+    layer = ShellLayer()
+    app.push_layer(layer)
+    if not app.frame_generator.stats.enabled:
+        fail("the FrameGenerator did not initialise from "
+             f"{DEFAULT_WEIGHTS}")
+    if not app.video_encoder.begin_session(str(work / "shell.y4m"), W, H):
+        fail("the Y4M session did not begin")
+    first_sent = []
+    submit = app.video_encoder.submit_frame
+
+    def keep_first(frame):
+        ok = submit(frame)
+        if ok and not first_sent:
+            first_sent.append(np.array(frame[..., :3]))
+        return ok
+
+    app.video_encoder.submit_frame = keep_first
+
+    # each part's host time: the instance attributes wrap the methods the
+    # loop calls (no synchronize added: draw_frame returns after the
+    # replay's launch, and _post_frame's readback waits for the card)
+    split = {k: [] for k in ("frame", "update", "render", "draw_frame",
+                             "_post_frame", "present")}
+
+    def timed(name, fn):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            split[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    app.update = timed("update", app.update)
+    app.render = timed("render", app.render)
+    r.draw_frame = timed("draw_frame", r.draw_frame)
+    app._post_frame = timed("_post_frame", app._post_frame)
+    present = timed("present", r.present)
+    blended = []
+
+    def loop(frames: int):
+        for v in split.values():
+            v.clear()
+        t_prev = [time.perf_counter()]
+
+        def on_frame(k, out):
+            present()
+            blended.append(r.ai_blend > 0)
+            now = time.perf_counter()
+            split["frame"].append((now - t_prev[0]) * 1e3)
+            t_prev[0] = now
+
+        app.run(frames, on_frame=on_frame)
+        torch.cuda.synchronize()
+        return {k: list(v) for k, v in split.items()}
+
+    full, launches = drive(lambda: loop(SHELL_FRAMES),
+                           ("visibility", "resolve", "texel"), (r,))
+    stats = app.frame_generator.stats
+    if stats.completed_count < 1 or not any(blended):
+        fail(f"no AI output reached the frame: {stats.completed_count} "
+             f"consumed, {sum(blended)} frames blended")
+    # a blended frame against the same frame at blend 0
+    with_ai = r.read_frame()
+    r.set_ai_frame(None, 0.0)
+    without = r.read_frame()
+    n_diff = int((with_ai != without).any(-1).sum())
+    if not n_diff:
+        fail("the blended frame equals the blend-0 frame")
+    app.frame_generator.shutdown()
+    app.dataset_recorder.stop()
+    enc = app.video_encoder
+    y4m = Path(enc.end_session())
+    names = sorted(p.name for p in (work / "dataset").glob("*.npy"))
+    inputs = {n.split("_")[1] for n in names if n.endswith("_input.npy")}
+    outputs = {n.split("_")[1] for n in names if n.endswith("_output.npy")}
+    print(f"app loop AI: {stats.completed_count} outputs consumed, "
+          f"{sum(blended)} of {len(blended)} frames blended at "
+          f"{cfg.ai.blend}, last inference {stats.last_inference_ms:.3f} ms "
+          f"(mean {stats.average_inference_ms:.3f}); the blended frame "
+          f"differs from blend 0 at {n_diff} pixels; recorder: "
+          f"{len(inputs)} input frames, {len(inputs & outputs)} pairs "
+          f"written; encoder: {enc.frames_submitted} submitted, "
+          f"{enc.frames_encoded} encoded, {enc.frames_dropped} dropped "
+          f"({card})", flush=True)
+
+    # the same loop with every consumer off (no readback in _post_frame)
+    # and render_viewport alone, in the same window
+    free = loop(SHELL_FRAMES)
+    layer_k = layer.k
+    alone = []
+    for k in range(SHELL_FRAMES):
+        rotate(reg, layer_k + k)
+        t0 = time.perf_counter()
+        r.render_viewport()
+        torch.cuda.synchronize()
+        alone.append((time.perf_counter() - t0) * 1e3)
+    for what, sp in (("app loop (AI, recorder, Y4M on)", full),
+                     ("app loop, consumers off", free)):
+        print(f"{what}, {W}x{H} spheres1080_1m field + text, "
+              f"{SHELL_FRAMES} frames, median / p90 ms: frame "
+              f"{ms_line(sp['frame'])}, update {ms_line(sp['update'])}, "
+              f"render {ms_line(sp['render'])} (draw_frame "
+              f"{ms_line(sp['draw_frame'])}), _post_frame "
+              f"{ms_line(sp['_post_frame'])}, present "
+              f"{ms_line(sp['present'])} ({card})", flush=True)
+    print(f"render_viewport alone (+ synchronize), {SHELL_FRAMES} frames: "
+          f"{ms_line(alone)} ms median / p90 ({card})", flush=True)
+    print(f"app loop launches (route_launches app_loop): {launches}",
+          flush=True)
+    if min(launches[n] for n in ("visibility", "resolve", "texel")) \
+            < SHELL_FRAMES:
+        fail(f"the app loop replayed fewer than one frame a loop frame: "
+             f"{launches}")
+
+    # (b) the Y4M file: its size, and its first frame's planes
+    header = f"YUV4MPEG2 W{W} H{H} F30:1 Ip A1:1 C420\n".encode()
+    frame_bytes = W * H * 3 // 2
+    size = y4m.stat().st_size
+    if size != len(header) + enc.frames_encoded * (6 + frame_bytes):
+        fail(f"{y4m}: {size} bytes for {enc.frames_encoded} frames")
+    with open(y4m, "rb") as f:
+        if f.read(len(header)) != header or f.read(6) != b"FRAME\n":
+            fail(f"{y4m}: header or frame marker wrong")
+        planes = np.frombuffer(f.read(frame_bytes), np.uint8)
+    y, u, v = rgb_to_yuv420(first_sent[0])
+    if not (planes == np.concatenate([y.ravel(), u.ravel(), v.ravel()])).all():
+        fail("the first Y4M frame is not the first frame submitted")
+    print(f"Y4M: {size} bytes = header + {enc.frames_encoded} × (6 + "
+          f"{frame_bytes}); frame 0's Y, U, V planes equal rgb_to_yuv420 "
+          "of the first frame submitted", flush=True)
+    y4m.unlink()
+
+    # (c) text: present() against the overlay composited by hand
+    layer.spin = False
+    layer.render(app)
+    overlay = r.text.render_overlay(0, W, H)
+    want = composite_overlay(r.read_frame(), overlay)
+    got = r.present()
+    if not (got == want).all() or r.text.has_text(0):
+        fail("present() is not composite_overlay(read_frame(), overlay) "
+             "or did not consume the queue")
+    for size_px, x, yy in SHELL_TEXT:
+        if not overlay[yy:yy + size_px + 4, x:x + 10 * size_px, 3].any():
+            fail(f"no overlay alpha under the size-{size_px} line")
+    print(f"text: present() equals the composited overlay "
+          f"({int((overlay[..., 3] > 0).sum())} overlay pixels)",
+          flush=True)
+
+    # (d) hot reload through the watched Assets directories
+    assets = work / "Assets"
+    tex = assets / "Textures" / "t.png"
+    touch(tex, np.full((16, 16, 4), (220, 40, 40, 255), np.uint8), 1000.0)
+    shader = assets / "Shaders" / "unlit.py"
+    body = ("def shade(world, normal, albedo, metallic, roughness,\n"
+            "          ambient_strength, camera_pos, lights,\n"
+            "          dir_shadow=None):\n    return albedo * {k}\n")
+    touch(shader, body.format(k=1.0), 1000.0)
+    obj = assets / "Models" / "tri.obj"
+    touch(obj, "v 0 0 6\nv 1 0 6\nv 0 1 6\nf 1 2 3\n", 1000.0)
+    target = field[len(field) // 2 + BENCH_GRID // 2]
+    reg.get(target, TextureComponent).path = str(tex)
+    reg.get(target, TextureComponent).slot = r.acquire_texture(
+        str(tex), load_rgba8(str(tex)))
+    if not app.import_assets([str(obj)]):
+        fail("the model import made no entity")
+    time.sleep(0.6)
+    reload_events(app)                         # the new files' baseline
+    out0 = r.render_viewport()
+    frame0, emap = out0.color.cpu().numpy().copy(), entity_map(r, out0)
+    touch(tex, np.full((16, 16, 4), (30, 220, 60, 255), np.uint8), 2000.0)
+    time.sleep(0.6)
+    ev = reload_events(app)
+    frame1 = r.render_viewport().color.cpu().numpy()
+    changed = (frame1 != frame0).any(-1)
+    if ev != [("t.png", "TEXTURE", "SUCCESS")] or not changed.any() \
+            or (emap[changed] != target).any():
+        fail(f"texture reload: events {ev}, {int(changed.sum())} pixels "
+             f"changed, {int((emap[changed] != target).sum())} of them off "
+             "the entity that uses it")
+    if not r.set_custom_shader(str(shader)):
+        fail(f"set_custom_shader: {r.shader_hook.last_error}")
+    frame2 = r.render_viewport().color.cpu().numpy()
+    meshes = [m.positions.copy() for m in r.geometry.meshes]
+    touch(shader, body.format(k=0.5), 3000.0)
+    touch(obj, "", 3000.0)                      # a broken re-import
+    time.sleep(0.6)
+    ev2 = reload_events(app)
+    frame3 = r.render_viewport().color.cpu().numpy()
+    kept = all((m.positions == p).all() for m, p in
+               zip(r.geometry.meshes, meshes))
+    if ev2 != [("tri.obj", "MODEL", "FAILED"),
+               ("unlit.py", "SHADER", "SUCCESS")] or not kept \
+            or not (frame3 != frame2).any():
+        fail(f"shader / model reload: events {ev2}, old geometry kept "
+             f"{kept}, frame changed {(frame3 != frame2).any()}")
+    r.clear_custom_shader()
+    print(f"hot reload: texture {ev} ({int(changed.sum())} pixels changed, "
+          f"all on its entity), then {ev2} (the old geometry kept)",
+          flush=True)
+
+    # (g) telemetry: device bytes, a trace with the port's kernels, and
+    # the graph captures counted
+    tracker = AllocationTracker(device=dev)
+    tracker.begin_frame()
+    app.run(1)
+    tracker.end_frame()
+    am = tracker.stats()
+    if am.device_bytes_in_use <= 0:
+        fail(f"AllocationTracker read {am.device_bytes_in_use} device bytes")
+    prof = Profiler(str(work / "traces"))
+    prof.start()
+    layer.spin = True
+    app.run(3)
+    torch.cuda.synchronize()
+    trace = prof.stop()
+    events = json.loads(Path(trace).read_text())["traceEvents"]
+    kernel_names = {e.get("name", "") for e in events
+                    if e.get("cat") == "kernel"}
+    found = sorted(n for n, pat in KERNEL_RECORDS.items()
+                   if any(re.search(pat, k) for k in kernel_names))
+    if not found:
+        fail(f"the trace {trace} names none of the port's kernels "
+             f"({len(kernel_names)} kernel names)")
+    gc.collect()            # dead caches leave LIVE now, not mid-window
+    c0, g0 = compilation_stats().render_frame_variants, r.graphs.captures
+    r.set_viewport(2, 960, 540)
+    app.run(1)
+    c1, g1 = compilation_stats().render_frame_variants, r.graphs.captures
+    if c1 - c0 != g1 - g0 or g1 == g0:
+        fail(f"compilation_stats moved {c1 - c0}, the captures {g1 - g0}")
+    print(f"telemetry: {am.device_bytes_in_use} device bytes in use "
+          f"(peak {am.device_peak_bytes}); the trace "
+          f"({os.path.getsize(trace)} bytes) names {found}; a new viewport "
+          f"captured {g1 - g0} graph(s), compilation_stats moved "
+          f"{c1 - c0} to {c1}", flush=True)
+    app.shutdown()
+    del app, r, reg
+    torch.cuda.empty_cache()
+    shell_tools(dev, card, work)
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 20: {time.perf_counter() - t20:.1f} s ({card})",
+          flush=True)
+    return {"app_loop": launches}
+
+
+def shell_tools(dev, card: str, work: Path) -> None:
+    """Phase 20 (e) and (f): the facade's sequence, the scripts and the
+    viewer, with `work` as their working directory."""
+    import threading
+    import urllib.request
+
+    from trident_tpu_torch.core.config import (
+        CaptureConfig, EngineConfig, RenderConfig,
+    )
+    from trident_tpu_torch.ecs.components import (
+        MeshComponent, TransformComponent,
+    )
+    from trident_tpu_torch.geometry.primitives import PrimitiveType
+    from trident_tpu_torch.io.image import decode_rgba
+    from trident_tpu_torch.render.command import RenderCommand as RC
+    from trident_tpu_torch.scripts import viewer
+
+    # (e) tests/test_facade.py's sequence through RenderCommand
+    RC.init(EngineConfig(render=RenderConfig(width=64, height=64,
+                                             use_pallas=False),
+                         capture=CaptureConfig(perf_dir=str(work / "perf")),
+                         assets_root=str(work / "Assets"), log_file=None),
+            device=dev)
+    freg = RC.get_registry()
+    e = freg.create()
+    freg.add(e, TransformComponent())
+    freg.add(e, MeshComponent(
+        mesh_index=RC.renderer().ensure_primitive(PrimitiveType.CUBE)))
+    RC.set_editor_camera([0, 0, 3], target=[0, 0, 0])
+    RC.queue_text(0, "hi", 2, 2)
+    RC.begin_performance_capture()
+    RC.draw_frame()
+    img = RC.get_viewport_texture(0)
+    csv = RC.end_performance_capture()
+    picked = RC.pick_entity(32, 32)
+    m = RC.get_world_transform(e)
+    m[0, 3] = 2.5
+    RC.set_world_transform(e, m)
+    pos = freg.get(e, TransformComponent).position
+    back = RC.get_world_transform(e)
+    if (img.shape != (64, 64, 4) or not (csv or "").endswith(".csv")
+            or RC.get_frame_timing_stats().sample_count < 1
+            or picked != e or abs(float(pos[0]) - 2.5) > 1e-4
+            or np.abs(back - m).max() > 1e-6
+            or RC.get_ai_debug_stats().enabled):
+        fail(f"the facade sequence: image {img.shape}, csv {csv}, pick "
+             f"{picked} (want {e}), position {pos}")
+    RC.set_ai_blend_strength(0.4)
+    blend = RC.app().config.ai.blend
+    RC.shutdown()
+    print(f"facade: the test_facade sequence on the card (pick {picked}, "
+          f"world matrix round trip {float(np.abs(back - m).max()):.1e}, "
+          f"blend {blend})", flush=True)
+
+    # (f) the scripts: render_demo and profile_stages as subprocesses, the
+    # viewer in process on 127.0.0.1
+    out = run_script(["trident_tpu_torch.scripts.render_demo", "--frames",
+                      str(DEMO_FRAMES), "--shadows", "--bloom", "--video",
+                      str(work / "demo.y4m"), "--out", str(work / "demo")],
+                     work, "render_demo")
+    pngs = sorted((work / "demo").glob("frame_*.png"))
+    demo_y4m = work / "demo.y4m"
+    want_size = (len(b"YUV4MPEG2 W640 H480 F30:1 Ip A1:1 C420\n")
+                 + DEMO_FRAMES * (6 + 640 * 480 * 3 // 2))
+    if len(pngs) != DEMO_FRAMES or not demo_y4m.is_file() \
+            or demo_y4m.stat().st_size != want_size:
+        fail(f"render_demo wrote {len(pngs)} PNGs and "
+             f"{demo_y4m.stat().st_size if demo_y4m.is_file() else 0} "
+             f"bytes of Y4M:\n{out[-1000:]}")
+    out = run_script(["trident_tpu_torch.scripts.profile_stages", "--scale",
+                      "small"], work, "profile_stages --scale small")
+    stages = ["vertex", "setup", "bins", "visibility(incl bins)", "planes",
+              "deferred[bilinear]", "deferred[nearest]", "resolve records",
+              "vis+records+resolve", "deferred_attrs[bilinear]",
+              "corner stage (geom+setup+attrs)"]
+    stages += [f"FULL[{n}]" for n in ("gather", "forward", "forward+corner",
+                                       "forward+corner+stride")]
+    stages += [f"ABLATE[{s}]" for s in ("draw_rows", "corner", "geom", "bins",
+                                         "vis", "resolve_tiled", "resolve")]
+    missing = [s for s in stages if f"  {s}: " not in out]
+    if missing or "DONE" not in out:
+        fail(f"profile_stages printed no line for {missing}")
+    for line in out.splitlines():
+        if "ABLATE" in line or "FULL" in line:
+            print(f"profile_stages {line.strip()} ({card})", flush=True)
+
+    class Args:
+        width, height, model, scene, shadows = 512, 512, [], None, False
+
+    vapp = viewer.build_app(Args, device=dev)
+    srv = viewer.ViewerServer(vapp, "127.0.0.1", 0)
+    serve = threading.Thread(target=srv.serve_forever, daemon=True)
+    serve.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    page = urllib.request.urlopen(base + "/", timeout=60).read()
+    png = urllib.request.urlopen(base + "/api/frame?vp=1", timeout=120).read()
+    with srv.lock:
+        shown = vapp.renderer.read_frame(viewport_id=srv._last_vp)
+    ents = json.loads(urllib.request.urlopen(base + "/api/entities",
+                                             timeout=60).read())
+    state = json.loads(urllib.request.urlopen(base + "/api/state",
+                                              timeout=60).read())
+    srv.shutdown()
+    serve.join(timeout=10)
+    vapp.shutdown()
+    frame = decode_rgba(png)
+    tags = {x["tag"] for x in ents["entities"]}
+    if (b"trident_tpu viewer" not in page or frame is None
+            or not (frame == shown).all() or not {"cube", "sphere"} <= tags
+            or state["width"] != 512 or state["triangles"] <= 0):
+        fail(f"viewer: page {len(page)} bytes, frame equal "
+             f"{frame is not None and (frame == shown).all()}, tags {tags}, "
+             f"state {state}")
+    print(f"viewer: GET / ({len(page)} bytes), /api/frame ({len(png)} bytes "
+          f"of PNG, decoded equal to the presented 512x512 frame), "
+          f"/api/entities {sorted(tags)}, /api/state {state['triangles']} "
+          f"triangles; shut down", flush=True)
+
+
 def main() -> None:
     # -- phase 1: the card ---------------------------------------------------
     import torch
@@ -4704,6 +5229,9 @@ def main() -> None:
     # -- phase 19: training ----------------------------------------------------
     launches19 = phase_training(dev, card, drive)
 
+    # -- phase 20: the application shell ---------------------------------------
+    launches20 = phase_shell(dev, card, drive)
+
     # launches: each kernel's count in the main-path run of the frame it
     # was held on (phase 4 for the main pass, phase 6 for the shadow pass,
     # phase 9 for the warp, phase 10 for the knob kernels, phase 11 for
@@ -4725,14 +5253,14 @@ def main() -> None:
     kernels = []
     for name in kernel_fns:
         res = {k: v for k, v in results[name].items() if k != "colour_ms"}
-        # the launches of each of phase 15's, 16's and 17's route runs
-        # and of phase 19's pair rendering
+        # the launches of each of phase 15's, 16's and 17's route runs,
+        # of phase 19's pair rendering and of phase 20's application loop
         kernels.append(dict(name=name, launches=launches[name], **res,
                             route_launches={route: counts.get(name, 0)
                                             for route, counts in
                                             {**launches15, **launches16,
-                                             **launches17,
-                                             **launches19}.items()}))
+                                             **launches17, **launches19,
+                                             **launches20}.items()}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

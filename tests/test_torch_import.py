@@ -291,3 +291,82 @@ def test_training_runs_without_jax_or_pil():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "trained 1" in proc.stdout
+
+
+# the application shell's modules with jax, PIL and the JAX package
+# unimportable (the card's machine has no PIL): each imports, an
+# Application renders, presents text and records a Y4M file, the facade
+# and the inspector answer, and the three scripts import
+_SHELL = """
+import sys
+for name in ("jax", "trident_tpu", "PIL"):
+    sys.modules[name] = None
+import importlib, tempfile
+import numpy as np, torch
+torch.set_num_threads(1)
+mods = ["app", "core.events", "core.input", "core.filewatch",
+        "core.threadcheck", "core.alloc", "ecs.inspect", "utils",
+        "utils.profiling", "io.text_overlay", "io.video", "render.command",
+        "scripts.render_demo", "scripts.profile_stages", "scripts.viewer",
+        "tools_dev.make_font_atlas"]
+for m in mods:
+    importlib.import_module("trident_tpu_torch." + m)
+from trident_tpu_torch.app import Application
+from trident_tpu_torch.core.config import EngineConfig, RenderConfig
+from trident_tpu_torch.render.command import RenderCommand
+from trident_tpu_torch.render.renderer import build_entry_renderer
+from trident_tpu_torch.utils import Profiler, profile_block
+with tempfile.TemporaryDirectory() as td:
+    app = Application(EngineConfig(render=RenderConfig(width=32, height=32),
+                                   assets_root=td, log_file=None),
+                      device="cpu")
+    entry = build_entry_renderer(32, 32, device="cpu")
+    app.renderer.geometry, app.renderer.textures = (entry.geometry,
+                                                    entry.textures)
+    app.scene.editor_registry = entry.registry
+    app.renderer.set_active_registry(entry.registry)
+    app.renderer.editor_camera = entry.editor_camera
+    assert app.video_encoder.begin_session(td + "/v.y4m", 32, 32)
+    p = Profiler(td + "/traces")
+    p.start()
+    with profile_block("shell"):
+        app.run(2)
+    assert p.stop()
+    app.renderer.queue_text(0, "ok", 1, 1, (1, 1, 1, 1), 12)
+    shown = app.renderer.present()
+    assert (shown != app.renderer.read_frame()).any()
+    app.shutdown()
+    assert app.video_encoder.frames_encoded == 2
+    RenderCommand._app = app
+    assert "Transform" in RenderCommand.inspect_entity(
+        next(iter(entry.registry.alive())))
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and m.split(".")[0] in ("jax", "jaxlib", "PIL", "trident_tpu"))
+assert not bad, bad
+print("shell", len(mods))
+"""
+
+
+def test_shell_runs_without_jax_or_pil():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _SHELL], env=env,
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "shell 16" in proc.stdout
+
+
+def test_shell_sources_never_import_pil():
+    """The shell draws text from its atlas and encodes PNG with zlib: none
+    of its modules imports PIL (the atlas generator imports it inside its
+    functions, on a machine that has it)."""
+    banned = re.compile(r"^(import PIL\b|from PIL\b)", re.M)
+    port = ROOT / "trident_tpu_torch"
+    files = [port / f for f in (
+        "app.py", "core/events.py", "core/input.py", "core/filewatch.py",
+        "core/threadcheck.py", "core/alloc.py", "ecs/inspect.py",
+        "utils/__init__.py", "utils/profiling.py", "io/text_overlay.py",
+        "io/video.py", "render/command.py", "render/renderer.py",
+        "scripts/render_demo.py", "scripts/profile_stages.py",
+        "scripts/viewer.py", "tools_dev/make_font_atlas.py")]
+    assert not [str(f) for f in files if banned.search(f.read_text())]

@@ -39,3 +39,10 @@ def resolve_device(device=None) -> torch.device:
             f"device {dev} requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+# TRIDENT_THREAD_CHECKS=1: install the cross-thread mutation detector
+# (core/threadcheck.py — the validation-layer analogue). No-op otherwise.
+from trident_tpu_torch.core.threadcheck import maybe_install as _maybe_threadcheck  # noqa: E402
+
+_maybe_threadcheck()

@@ -151,6 +151,12 @@ def save_png(path, rgba: np.ndarray) -> None:
     PNG (grey, RGB or RGBA; filter 0 on every row, zlib). Floats are
     taken as [0, 1] and rounded to bytes, as the JAX package's save_png
     does; it writes through PIL, the port with zlib alone."""
+    with open(path, "wb") as f:
+        f.write(encode_png(rgba))
+
+
+def encode_png(rgba: np.ndarray) -> bytes:
+    """save_png's file as bytes."""
     rgba = np.asarray(rgba)
     if rgba.dtype != np.uint8:
         rgba = np.clip(np.round(rgba * 255.0), 0, 255).astype(np.uint8)
@@ -164,12 +170,10 @@ def save_png(path, rgba: np.ndarray) -> None:
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
-    with open(path, "wb") as f:
-        f.write(_PNG_SIGNATURE
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour,
-                                             0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(rows.tobytes()))
-                + chunk(b"IEND", b""))
+    return (_PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + chunk(b"IEND", b""))
 
 
 def read_png(path) -> np.ndarray:

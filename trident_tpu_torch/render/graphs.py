@@ -32,7 +32,9 @@ No host-to-device copy, no synchronize.
 
 A new key captures: one eager warm-up run on a side stream (the kernel
 library loads, the allocator and cuDNN settle outside the capture), then
-the capture. The kernel wrappers' `.launches` ticks during the capture
+the capture, in the thread-local error mode: another thread's CUDA work
+(the FrameGenerator's worker, on its own stream) neither fails nor
+invalidates it. The kernel wrappers' `.launches` ticks during the capture
 are the graph's launch list; replays tick no wrapper's count (they launch
 one graph, not kernels), so each FrameGraphs tallies the launches its
 captures recorded (`captured`) and its replays ran (`replayed`). A
@@ -43,6 +45,7 @@ an evicted graph's pool is freed.
 
 from __future__ import annotations
 
+import weakref
 from collections import Counter, OrderedDict
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -111,6 +114,10 @@ def frame_key(shape: BundleShape, width: int, height: int, statics: dict,
             tuple(versions), tuple(ai_shape), sky, int(shader_version))
 
 
+# the FrameGraphs instances alive in this process
+LIVE: "weakref.WeakSet" = weakref.WeakSet()
+
+
 class FrameGraph(NamedTuple):
     """One captured frame: the graph, its input buffers and outputs."""
 
@@ -140,7 +147,9 @@ def _pinned(buf: Optional[torch.Tensor], n: int, dtype) -> torch.Tensor:
 
 
 class FrameGraphs:
-    """The graph cache of one Renderer on one CUDA device."""
+    """The graph cache of one Renderer on one CUDA device. Every live
+    instance is in LIVE (utils/profiling.py::compilation_stats sums their
+    captures)."""
 
     def __init__(self, device, capacity: int = 4, staging: int = 3) -> None:
         self.device = torch.device(device)
@@ -159,6 +168,7 @@ class FrameGraphs:
         self.replayed: Counter = Counter()
         self.last_key: Optional[tuple] = None
         self.last_launches: Dict[str, int] = {}
+        LIVE.add(self)
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -207,7 +217,10 @@ class FrameGraphs:
             frame_fn(bufs.f32, bufs.i32, bufs.prev, bufs.ai)
         stream.wait_stream(side)
         before = _launch_counts()
-        with torch.cuda.graph(bufs.graph):
+        # thread_local: only this thread's unsafe calls end the capture;
+        # the FrameGenerator's worker may run its convs on its own stream
+        # meanwhile (the default, global, invalidates both)
+        with torch.cuda.graph(bufs.graph, capture_error_mode="thread_local"):
             out = frame_fn(bufs.f32, bufs.i32, bufs.prev, bufs.ai)
         after = _launch_counts()
         launches = {n: after[n] - before[n] for n in after

@@ -86,6 +86,7 @@ from trident_tpu_torch.ecs.registry import Registry
 from trident_tpu_torch.geometry.mesh import GeometryCache, Material, Mesh
 from trident_tpu_torch.geometry.primitives import PrimitiveType, build_primitive
 from trident_tpu_torch.io.image import checkerboard
+from trident_tpu_torch.io.text_overlay import TextOverlay, composite_overlay
 from trident_tpu_torch.ops import post, raster
 from trident_tpu_torch.ops.corner import (
     CornerStageOut,
@@ -264,7 +265,8 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
                           skybox: Optional[SkyboxCube] = None,
                           sampling: str = "bilinear", shader_fn=None,
                           y_offset: Optional[int] = None,
-                          full_height: Optional[int] = None):
+                          full_height: Optional[int] = None,
+                          profile_stop: str = ""):
     """Rasterize + shade a frame from prebuilt per-triangle inputs →
     (frame (H,W,4) f32, GBuffer), routed by the kernel knobs as
     trident_tpu/render/renderer.py:99-193 routes them: visibility by the
@@ -282,14 +284,30 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
     instance, every pixel centre is the full frame's, and the tiled gate
     reads the full frame's size, so a band takes the full frame's route
     and its rows come out bit-equal to it. y_offset None is the
-    one-device frame."""
+    one-device frame.
+
+    `profile_stop` "bins", "vis", "resolve_tiled" or "resolve" ends the
+    frame after that stage (trident_tpu/render/renderer.py:82-186): the
+    fused kernel and the tiled shading are off, and the frame returned
+    is a probe of the stage's outputs (render_frame's ablation stops)."""
     ntx, nty = -(-width // raster.TILE), -(-height // raster.TILE)
     n_tiles = ntx * nty
     tile_y = None if y_offset is None else y_offset // raster.TILE
     bins = raster.build_bins(setup, width, height, setup_cols=setup_cols,
                              ck_bank=knobs.ck_bank if knobs.ckern else 0)
+    if profile_stop == "bins":
+        probe = (bins.pair_tile.sum() + bins.pair_chunk.sum()
+                 + bins.pair_mask.sum()).float()
+        dev = setup.edge.device
+        frame = (torch.zeros((height, width, 4), dtype=torch.float32,
+                             device=dev) + probe * 1e-20)
+        return frame, GBuffer(
+            tri_id=torch.full((height, width), -1, dtype=torch.int32,
+                              device=dev),
+            depth=torch.ones((height, width), dtype=torch.float32,
+                             device=dev), aux=bins.aux)
     attrs_t = None
-    if knobs.fuse:
+    if knobs.fuse and not profile_stop:
         depth_t, tri_t, attrs_t = fused_visibility_resolve(
             bins, records, ntx, n_tiles, tile_y)
     elif knobs.ckern:
@@ -304,13 +322,24 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
         depth=raster.untile_frame(depth_t, ntx, nty)[:height, :width]
         .contiguous(),
         aux=bins.aux)
+    if profile_stop == "vis":
+        frame = ((gbuf.depth[..., None]
+                  + gbuf.tri_id[..., None].float() * 1e-20)
+                 * torch.ones((1, 1, 4), dtype=torch.float32,
+                              device=gbuf.depth.device))
+        return frame, gbuf
+    if profile_stop == "resolve_tiled":
+        at = resolve_attrs_tiled(tri_t, records, ntx, tile_y)
+        return torch.zeros((height, width, 4), dtype=torch.float32,
+                           device=at.device) + at.sum() * 1e-20, gbuf
     # the JAX package's gate (renderer.py:139-144): bilinear sampling, no
     # custom shader, and its TPU texel kernel's pixel and table limits at
     # the full frame's size
     fh = height if full_height is None else full_height
     use_tiled = (knobs.tiled_shade and sampling == "bilinear"
                  and shader_fn is None and width * fh <= TILED_MAX_PIX
-                 and textures.quads.shape[0] <= TILED_MAX_TABLE)
+                 and textures.quads.shape[0] <= TILED_MAX_TABLE
+                 and not profile_stop)
     y0 = 0 if y_offset is None else y_offset
     if use_tiled:
         if attrs_t is None:
@@ -335,6 +364,9 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
             .contiguous()
     else:
         attrs = resolve_attrs(gbuf.tri_id, records, y_offset)
+    if profile_stop == "resolve":
+        return torch.zeros((height, width, 4), dtype=torch.float32,
+                           device=attrs.device) + attrs.sum() * 1e-20, gbuf
     frame = deferred_shade_attrs(gbuf, attrs, textures, camera, lights,
                                  width, height, clear_color=clear_color,
                                  shadow=shadow, shadow_pcf=shadow_pcf,
@@ -362,6 +394,42 @@ def plane_visibility(setup, setup_cols, width: int, height: int,
         tile_y_offset=None if y_offset is None else y_offset // raster.TILE)
 
 
+PROFILE_STOPS = ("draw_rows", "corner", "geom", "bins", "vis",
+                 "resolve_tiled", "resolve")
+
+
+def _probe_output(probe, width: int, height: int, device) -> FrameOutput:
+    """An ablation stop's FrameOutput (trident_tpu/render/renderer.py:
+    212-220): it depends on `probe`, so the stages feeding it run, and on
+    nothing after them."""
+    z = torch.zeros((height, width), dtype=torch.float32,
+                    device=device) + probe * 1e-30
+    return FrameOutput(
+        color=pack_rgba8(z[..., None] * torch.ones(
+            (1, 1, 4), dtype=torch.float32, device=device)),
+        depth=z + 1.0, tri_id=z.to(torch.int32) - 1,
+        aux=torch.zeros(2, dtype=torch.int32, device=device))
+
+
+def _corner_probe(stop: str, params, camera, corner_t, tri_draw, plan,
+                  draw_consts, *, width: int, height: int, out_w: int,
+                  out_h: int, draw_stride: int, real_draws: int,
+                  vertex_colors: bool) -> FrameOutput:
+    """The "draw_rows" and "corner" stops of the corner path
+    (trident_tpu/render/renderer.py:271-283): the draw rows, or the
+    corner stage's planar columns, summed into the probe."""
+    rows = build_draw_rows(params, camera, width, height,
+                           draw_consts=draw_consts)
+    if stop == "draw_rows":
+        return _probe_output(rows.sum(), out_w, out_h, rows.device)
+    cc = corner_stage(corner_t, rows, tri_draw, plan.tri_valid, width,
+                      height, draw_stride=draw_stride,
+                      real_draws=real_draws,
+                      vertex_colors=vertex_colors).cols
+    probe = sum(c.sum() for c in (*cc.setup.e, *cc.nrm, *cc.uv, *cc.consts))
+    return _probe_output(probe, out_w, out_h, rows.device)
+
+
 def render_frame(plan, tri_draw, params, shade_table, camera, lights,
                  textures, corner_t, *, width: int, height: int, clear_color,
                  draw_stride: int = 0, real_draws: int = 0,
@@ -379,7 +447,8 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
                  forward_shading: bool = True, plane_f16: bool = False,
                  skinned: bool = False,
                  geometry: Optional[GeometryBuffers] = None,
-                 palette: Optional[torch.Tensor] = None) -> FrameOutput:
+                 palette: Optional[torch.Tensor] = None,
+                 profile_stop: str = "") -> FrameOutput:
     """One frame (the JAX `_render_frame_impl`): main-pass geometry at
     (W·ss, H·ss) → the light pass when `light_camera` and `shadow_size`
     are given → visibility, resolve and shading (linear HDR when
@@ -411,16 +480,45 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
     by the meshes' interpolated vertex colours (the (T, 40) records),
     `sampling` is the texture sampling mode (shading.SAMPLING_MODES),
     `skybox` the background's cube map and `shader_fn` a custom shader's
-    `shade` in place of the built-in PBR."""
+    `shade` in place of the built-in PBR.
+
+    `profile_stop` (one of PROFILE_STOPS; tools' ablation ladder,
+    scripts/profile_stages.py) ends the frame after that stage and
+    returns a probe of its outputs as the JAX frame does: "draw_rows" and
+    "corner" on the corner path, "geom" after the geometry (and records),
+    each as `_probe_output`; on the forward route "bins" (ids −1, depth 1,
+    the bins' aux), "vis" (the G-buffer, its depth as colour),
+    "resolve_tiled" and "resolve" (the G-buffer, the attributes summed
+    into the colour), at the render size, before any post. No stop runs
+    the light pass, which only shading reads. A stop the route does not
+    have raises ValueError (the JAX frame returns the shaded frame
+    there): the plane-gather routes have "geom" and the corner path's two
+    stops, the indexed path neither of those two."""
     if raster_mode not in RASTER_MODES:
         raise ValueError(f"unknown raster mode {raster_mode!r}; expected "
                          f"one of {RASTER_MODES}")
     ss = max(int(supersample), 1)
     rw, rh = width * ss, height * ss
     forward = raster_mode == "pallas" and forward_shading
+    corner_path = corner_t is not None and not skinned
+    stops = [p for p in PROFILE_STOPS[:3 + 4 * forward]
+             if corner_path or p not in ("draw_rows", "corner")]
+    if profile_stop and profile_stop not in stops:
+        raise ValueError(f"no profile stop {profile_stop!r} on this route: "
+                         f"it has {stops}")
     geo_kw = dict(width=rw, height=rh, draw_stride=draw_stride,
                   real_draws=real_draws, vertex_colors=vertex_colors,
                   geometry=geometry, palette=palette, skinned=skinned)
+    if profile_stop in ("draw_rows", "corner"):
+        draw_consts = None
+        if forward:
+            tex_row = textures.sizes[params.texture_slot.long()].float()
+            draw_consts = torch.cat([shade_table, tex_row], dim=1)
+        return _corner_probe(profile_stop, params, camera, corner_t,
+                             tri_draw, plan, draw_consts, width=rw,
+                             height=rh, out_w=width, out_h=height,
+                             draw_stride=draw_stride, real_draws=real_draws,
+                             vertex_colors=vertex_colors)
     if forward:
         cs, records = frame_geometry(plan, tri_draw, params, shade_table,
                                      camera, textures, corner_t, **geo_kw)
@@ -428,8 +526,13 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
         cs, planes = plane_geometry(plan, tri_draw, params, shade_table,
                                     camera, corner_t, plane_f16=plane_f16,
                                     **geo_kw)
+    if profile_stop == "geom":
+        probe = sum(c.sum() for c in cs.cols.setup.e)
+        if forward:
+            probe = probe + records.sum()
+        return _probe_output(probe, width, height, probe.device)
     shadow = shadow_aux = None
-    if shadow_size and light_camera is not None:
+    if shadow_size and light_camera is not None and not profile_stop:
         shadow, shadow_aux = shadow_params(
             plan, params, tri_draw, corner_t, light_camera, shadow_size,
             shadow_bias, draw_stride=draw_stride, real_draws=real_draws,
@@ -441,7 +544,12 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
     if forward:
         frame, gbuf = _visibility_and_shade(
             cs.setup, cs.cols.setup, records, textures, camera, lights,
-            width=rw, height=rh, knobs=knobs, **shade_kw)
+            width=rw, height=rh, knobs=knobs, profile_stop=profile_stop,
+            **shade_kw)
+        if profile_stop:
+            return FrameOutput(color=pack_rgba8(torch.clamp(frame, 0.0, 1.0)),
+                               depth=gbuf.depth, tri_id=gbuf.tri_id,
+                               aux=gbuf.aux)
     else:
         gbuf = plane_visibility(cs.setup, cs.cols.setup, rw, rh,
                                 raster_mode, knobs)
@@ -594,7 +702,8 @@ class Renderer:
     """Host-side scene state + the forward frame on one device (the card
     unless `device` says otherwise), with the JAX Renderer's interactive
     loop: viewports, the idle-frame cache, draw_frame's pacing and
-    timing, picking and the runtime camera.
+    timing, picking and the runtime camera, and the queued text that
+    `present` composites onto the read-back viewport.
 
     Each frame's host state ships as the two blobs of render/bundle.py.
     On the card every frame replays a CUDA graph captured once per frame
@@ -689,6 +798,7 @@ class Renderer:
         self._banded_indivisible_warned = False
         self.stats_models = 0
         self.stats_triangles = 0
+        self._text_overlay: Optional[TextOverlay] = None
 
     # -- registry / cameras / viewports -----------------------------------------
     def set_active_registry(self, registry: Registry) -> None:
@@ -1259,6 +1369,31 @@ class Renderer:
         out = self.render_viewport(vid)
         return self._tri_map_entity(out.tri_id.cpu().numpy(), x, y,
                                     self.viewports[vid])
+
+    # -- text overlay + presentation (TextRenderer analogue) --------------------
+    @property
+    def text(self) -> TextOverlay:
+        """The viewports' text queues (io/text_overlay.py)."""
+        if self._text_overlay is None:
+            self._text_overlay = TextOverlay()
+        return self._text_overlay
+
+    def queue_text(self, viewport_id: int, text: str, x: int, y: int,
+                   color=(1.0, 1.0, 1.0, 1.0), size: int = 16) -> None:
+        self.text.queue_text(viewport_id, text, x, y, color, size)
+
+    def present(self, viewport_id: Optional[int] = None) -> np.ndarray:
+        """Read back the viewport and composite its queued text on the
+        host — what a frontend blits to the screen. A presented queue is
+        consumed (draw-list semantics: callers re-queue each frame)."""
+        vid = self.active_viewport if viewport_id is None else viewport_id
+        frame = self.read_frame(viewport_id=vid)
+        ctx = self.viewports[vid]
+        overlay = self.text.render_overlay(vid, ctx.width, ctx.height)
+        if overlay is not None:
+            frame = composite_overlay(frame, overlay)
+            self.text.clear_viewport(vid)
+        return frame
 
     def pick(self, x: int, y: int, viewport_id: Optional[int] = None) -> int:
         """Entity under pixel (x,y) of the LAST rendered frame (no

@@ -123,14 +123,7 @@ def build_bench_scene(grid: int, device, config: str = "spheres1080_1m",
         reg.add(e, TransformComponent())
         reg.add(e, MeshComponent(mesh_index=mesh_idx))
         reg.add(e, TextureComponent(path="checker", slot=slot))
-    for i in range(grid):
-        for j in range(grid):
-            e = reg.create()
-            t = reg.add(e, TransformComponent())
-            t.position = np.array(
-                [(i - grid / 2) * 1.4, (j - grid / 2) * 1.4, 0], np.float32)
-            reg.add(e, MeshComponent(mesh_index=mesh_idx))
-            reg.add(e, TextureComponent(path="checker", slot=slot))
+    populate_field(reg, grid, mesh_idx, slot)
     if config == "shadows1080":
         backdrop = reg.create()
         bt = reg.add(backdrop, TransformComponent())
@@ -145,6 +138,29 @@ def build_bench_scene(grid: int, device, config: str = "spheres1080_1m",
             direction=np.array([0.35, -0.3, -1.0], np.float32),
             intensity=2.5, cast_shadows=True))
     return r, reg
+
+
+def populate_field(reg, grid: int, mesh_idx: int, slot: int) -> list:
+    """bench.py's grid × grid field into `reg`: spheres (mesh `mesh_idx`)
+    1.4 apart in the z = 0 plane, each textured with slot `slot`; returns
+    the entities."""
+    from trident_tpu_torch.ecs.components import (
+        MeshComponent,
+        TextureComponent,
+        TransformComponent,
+    )
+
+    out = []
+    for i in range(grid):
+        for j in range(grid):
+            e = reg.create()
+            t = reg.add(e, TransformComponent())
+            t.position = np.array(
+                [(i - grid / 2) * 1.4, (j - grid / 2) * 1.4, 0], np.float32)
+            reg.add(e, MeshComponent(mesh_index=mesh_idx))
+            reg.add(e, TextureComponent(path="checker", slot=slot))
+            out.append(e)
+    return out
 
 
 def rotate(reg, k: int) -> None:
