@@ -279,12 +279,45 @@ Phases (any failure exits non-zero before the final line is printed):
      profile_stages --scale small as subprocesses, the viewer on
      127.0.0.1 (page, a frame PNG decoded to the presented frame, the
      entities, /api/state)
+ 21. every kernel knob the JAX package accepts (phase_knob_set): (a) the
+     twelve bf16 instances (resolve_prec="bf16": K2, tiled K2 and K-FUSE,
+     each 32- and 40-wide, offset-free on spheres1080_1m's own ids, bins
+     and (T, 32) / (T, 40) records, the band ones on band 2 of 4 of phase
+     18's 1920×1024 field), each bit-equal to its exact instance on the
+     bf16-rounded table, its ids and depths bit-equal to its plain version
+     and its attributes within RESOLVE_TOL of it, the pixels it moves off
+     the exact instance, event and busy ms of both in one window; (f)
+     kbench's bins through the indexed path (vertex_stage,
+     triangle_setup_cols): K1 on them bit-equal to its plain version, the
+     ids and depths off K1 on the corner-stage bins counted, and the
+     drift of the frame through the indexed path from the corner-stage
+     frame printed; then the main path: spheres1080_1m at
+     1920×1024 and the 128² vertex-coloured cube under resolve_prec
+     "bf16" alone, with tiled_shade and with fuse, replays bit-equal to
+     eager and each frame over 2 bands of this card bit-equal to the
+     one-device frame (every bf16 instance launched); spheres1080_1m:ai
+     with the V2 defaults, upscale_v2=False (V1: the next frame warps the
+     RGBA8 frame), upscale_dtype="bf16" and warp_mxu=False, two chained
+     frames each (the second after the camera moves) bit-equal to eager;
+     one frame of the 128² golden base scene (shadows, a 256² map) under
+     each knob the card runs as a no-op, bit-equal to the default frame,
+     and under tiled_shade and three routing limits (texel_max_pix,
+     texel_max_q, texel_mxu), each taking the route the JAX gate names;
+     (a') each bf16 spheres frame's pixels off the exact frame; (b) the
+     V1 and V2 frames' graphs replayed alone; (c) the net at 960×540 in
+     bf16 against f32 (PSNR over 40 dB, busy and event ms in one window),
+     the bf16-conv frame's PSNR against the f32 frame; (d) on the
+     windowless-warp Renderer's moving-camera frame, K8 on the windowless
+     indices bit-equal to its plain version and the pixels whose validity
+     differs from the windowed warp
 Then it prints the kernels as one JSON line (each entry with
 `route_launches`: its launches in each of phase 15's, 16's and 17's
 route runs, in phase 19's pair rendering, `train_pairs`, and in phase
 20's application loop, `app_loop`; a band
 instance also its `offset_free_ms` and `offset0_ms`,
-the offset-free and the band instance at offset 0 timed in one window),
+the offset-free and the band instance at offset 0 timed in one window; a
+bf16 instance its exact instance's `exact_ms` and `exact_busy_ms` timed
+in one window with its own `busy_ms`, and `pixels_off_exact`),
 the card line, and as the last line {"ok": true, "device":
 {...}}.
 
@@ -4697,6 +4730,421 @@ def shell_tools(dev, card: str, work: Path) -> None:
           f"triangles; shut down", flush=True)
 
 
+# -- phase 21: every kernel knob ------------------------------------------
+KNOB_BAND_N, KNOB_BAND_B = 4, 2          # (a)'s band: band 2 of the field's 4
+# each bf16 instance: (CUDA source, the exact instance it rounds)
+BF16_KERNELS = {
+    "resolve_bf16": ("resolve.cu", "resolve"),
+    "resolve_vc_bf16": ("resolve.cu", "resolve_vc"),
+    "resolve_tiled_bf16": ("resolve.cu", "resolve_tiled"),
+    "resolve_tiled_vc_bf16": ("resolve.cu", "resolve_tiled_vc"),
+    "visibility_resolve_bf16": ("visibility_resolve.cu",
+                                "visibility_resolve"),
+    "visibility_resolve_vc_bf16": ("visibility_resolve.cu",
+                                   "visibility_resolve_vc"),
+    "resolve_band_bf16": ("resolve.cu", "resolve_band"),
+    "resolve_vc_band_bf16": ("resolve.cu", "resolve_vc_band"),
+    "resolve_tiled_band_bf16": ("resolve.cu", "resolve_tiled_band"),
+    "resolve_tiled_vc_band_bf16": ("resolve.cu", "resolve_tiled_vc_band"),
+    "visibility_resolve_band_bf16": ("visibility_resolve.cu",
+                                     "visibility_resolve_band"),
+    "visibility_resolve_vc_band_bf16": ("visibility_resolve.cu",
+                                        "visibility_resolve_vc_band"),
+}
+BF16_REPLACES = "trident_tpu/ops/resolve_pallas.py:133"   # the raw bf16 pass
+# the bf16 knob sets of the main path: suffix → kernel dict
+BF16_SETS = {"": {"resolve_prec": "bf16"},
+             "_tiled": {"resolve_prec": "bf16", "tiled_shade": True},
+             "_fuse": {"resolve_prec": "bf16", "fuse": True}}
+# one non-default value of each knob the card runs as a no-op (e)
+NOOP_KNOBS = (
+    {"tile_h": 16}, {"tile_w": 64}, {"chunk": 128}, {"sub": 32},
+    {"span0": 3}, {"max_global": 1}, {"sort_pad": True},
+    {"exact_bins": True}, {"cover_gate": True},
+    {"qgate": True, "dynhit": False}, {"recpad": True},
+    {"rect": True, "dynhit": False}, {"treset": False}, {"dynhit": False},
+    {"acc": False, "dynhit": False}, {"zskip": True, "zorder": True},
+    {"pair_budget": 4096}, {"planar": False}, {"resolve_skip": True},
+    {"resolve_half": True}, {"resolve_compact": True},
+    {"resolve_prec": "fp32"}, {"resolve_tr": False}, {"texel_mxu": False},
+    {"texel_slab": 256}, {"texel_br": 16}, {"texel_bc": 128},
+    {"shadow_mxu": False})
+BF16_PSNR_MIN = 40.0       # tests/test_upscaler.py:368-389's bound
+
+
+class Bf16Case(NamedTuple):
+    """One bf16 instance's check: `bf16()` the instance, `rounded()` its
+    exact instance on the bf16-rounded table (the same arithmetic:
+    bit-equal), `plain()` the plain version on that table, `exact()` the
+    exact instance on the table as it is; its bound (bytes, ops)."""
+
+    bf16: object
+    rounded: object
+    plain: object
+    exact: object
+    work: tuple
+
+
+def bf16_cases(setup, cols, rec32, rec40, w: int, h: int,
+               band=None) -> dict:
+    """Bf16Case of each instance of BF16_KERNELS of one form: the
+    offset-free ones on the w × h frame's ids and bins, or with `band` =
+    (n, b) the band ones on band b of n of it (band_slice_setup,
+    cull=False, as the banded frame cuts)."""
+    import torch
+
+    from trident_tpu_torch.ops import raster, resolve
+    from trident_tpu_torch.ops.vertex import band_slice_setup
+
+    ntx = -(-w // raster.TILE)
+    key, y0, off = "", None, None
+    if band is not None:
+        n, b = band
+        h //= n
+        key, y0, off = "_band", b * h, b * h // raster.TILE
+        setup = band_slice_setup(setup, y0, h, cull=False)
+    nt = ntx * -(-h // raster.TILE)
+    bins = raster.build_bins(setup, w, h, setup_cols=cols)
+    if bins.aux.tolist() != [0, 0]:
+        fail(f"bf16 cases: binning overflow {bins.aux.tolist()}")
+    _d, t = raster.visibility_tiles(bins, ntx, nt, tile_y_offset=off)
+    tri = raster.untile_frame(t, ntx, -(-h // raster.TILE))[:h, :w] \
+        .contiguous()
+    vis = vis_work(bins, setup, ntx, nt, 8)
+    n_win = int(torch.unique(t[t >= 0]).numel())
+    px = nt * raster.TILE_PX
+    cases = {}
+    for vc, rec in (("", rec32), ("_vc", rec40)):
+        rr = resolve.bf16_records(rec)
+        row = rec.shape[1] * 4
+        cases[f"resolve{vc}{key}_bf16"] = Bf16Case(
+            lambda rec=rec: resolve.resolve_attrs(tri, rec, y0, prec="bf16"),
+            lambda rr=rr: resolve.resolve_attrs(tri, rr, y0),
+            lambda rr=rr: resolve.resolve_attrs_plain(tri, rr, y0 or 0),
+            lambda rec=rec: resolve.resolve_attrs(tri, rec, y0),
+            (w * h * 4 * (1 + resolve.CHANNELS) + n_win * row, 0))
+        cases[f"resolve_tiled{vc}{key}_bf16"] = Bf16Case(
+            lambda rec=rec: resolve.resolve_attrs_tiled(t, rec, ntx, off,
+                                                        prec="bf16"),
+            lambda rr=rr: resolve.resolve_attrs_tiled(t, rr, ntx, off),
+            lambda rr=rr: resolve.resolve_attrs_tiled_plain(t, rr, ntx,
+                                                            off or 0),
+            lambda rec=rec: resolve.resolve_attrs_tiled(t, rec, ntx, off),
+            (px * 4 * (1 + resolve.CHANNELS) + n_win * row, 0))
+        cases[f"visibility_resolve{vc}{key}_bf16"] = Bf16Case(
+            lambda rec=rec: resolve.fused_visibility_resolve(
+                bins, rec, ntx, nt, off, prec="bf16"),
+            lambda rr=rr: resolve.fused_visibility_resolve(bins, rr, ntx, nt,
+                                                           off),
+            lambda rr=rr: resolve.fused_visibility_resolve_plain(
+                bins, rr, ntx, nt, off or 0),
+            lambda rec=rec: resolve.fused_visibility_resolve(bins, rec, ntx,
+                                                             nt, off),
+            (vis.bytes + px * 4 * resolve.CHANNELS + n_win * row, vis.ops))
+    return cases
+
+
+def hold_bf16_case(name: str, case: Bf16Case, results: dict,
+                   card: str) -> None:
+    """A bf16 instance bit-equal to its exact instance on the bf16-rounded
+    table, its ids and depths (fused) bit-equal to its plain version and
+    its attributes within RESOLVE_TOL of it; the pixels whose attributes
+    differ from the exact instance's on the table as it is; event and busy
+    ms of the bf16 and the exact instance in one window; its results
+    entry."""
+    import torch
+
+    k, e, p, x = (_flat(f()) for f in (case.bf16, case.rounded, case.plain,
+                                       case.exact))
+    torch.cuda.synchronize()
+    bits = _bit_diffs(tuple(k), tuple(e))
+    ids = _bit_diffs(tuple(k[:-1]), tuple(p[:-1]))
+    err = float((k[-1] - p[-1]).abs().max())
+    if bits or ids or err > RESOLVE_TOL or not bool(
+            torch.isfinite(k[-1]).all()):
+        fail(f"{name}: {bits} values off its exact instance on the rounded "
+             f"table, {ids} ids / depths off its plain version, attributes "
+             f"max err {err}")
+    ch = -1 if k[-1].shape[-1] == 16 else 1      # (H, W, 16) or tiled
+    off = int((k[-1] != x[-1]).any(dim=ch).sum())
+    fns = (case.exact, case.bf16, case.bf16, case.exact)
+    t = [cuda_ms(fn) for fn in fns]
+    busy = [device_busy(fn)[0] for fn in fns]
+    b_ms, b_by = bound(*case.work)
+    src, exact = BF16_KERNELS[name]
+    results[name] = dict(
+        route="cuda", source=f"trident_tpu_torch/csrc/{src}",
+        replaces=BF16_REPLACES, max_abs_err=err, ms=(t[1] + t[2]) / 2,
+        plain_ms=cuda_ms(case.plain), bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, exact_ms=(t[0] + t[3]) / 2,
+        busy_ms=(busy[1] + busy[2]) / 2, exact_busy_ms=(busy[0] + busy[3]) / 2,
+        pixels_off_exact=off)
+    res = results[name]
+    print(f"{name}: bit-equal to {exact} on the bf16-rounded table, max err "
+          f"{err} vs plain; {off} pixels off {exact} on the table as it is; "
+          f"one window exact / bf16 / bf16 / exact, events "
+          f"{' '.join(f'{v:.4f}' for v in t)} ms, busy "
+          f"{' '.join(f'{v:.4f}' for v in busy)} ms; plain "
+          f"{res['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}) ({card})",
+          flush=True)
+
+
+def phase_knob_set(dev, card: str, kernel_fns: dict, drive,
+                   results: dict) -> dict:
+    """Phase 21 (module docstring): every kernel knob the JAX package
+    accepts. Adds the bf16 instances to `kernel_fns` and `results` and
+    returns the main path's launch counts."""
+    import torch
+
+    from trident_tpu_torch.ai import upscaler as up
+    from trident_tpu_torch.ops import raster, resolve, warp
+    from trident_tpu_torch.render.graphs import frame_kernels
+    from trident_tpu_torch.render.renderer import frame_geometry
+    from trident_tpu_torch.tools_dev import kbench as kb
+
+    t21 = time.perf_counter()
+    kernel_fns.update({k: fn for k, fn in frame_kernels().items()
+                       if k.endswith("_bf16")})
+    kernel_fns["warp"] = warp.warp_fetch
+
+    # (a) the bf16 instances on spheres1080_1m's bins and records (1920 ×
+    # 1080), the band ones on band 2 of 4 of phase 18's field (1920 × 1024)
+    r, reg = build_bench_scene(BENCH_GRID, dev)
+    rotate(reg, 0)
+    for w, h in ((1920, 1080), (BAND_W, BAND_H)):
+        sized(r, w, h)
+        inp = r.frame_inputs()
+        geo = dict(width=w, height=h, draw_stride=inp["draw_stride"],
+                   real_draws=inp["real_draws"])
+        args = (inp["plan"], inp["tri_draw"], inp["params"],
+                inp["shade_table"], inp["camera"], inp["textures"],
+                inp["corner_t"])
+        cs, rec32 = frame_geometry(*args, **geo)
+        _cs40, rec40 = frame_geometry(*args, vertex_colors=True, **geo)
+        cases = bf16_cases(cs.setup, cs.cols.setup, rec32, rec40, w, h,
+                           None if h != BAND_H else (KNOB_BAND_N,
+                                                     KNOB_BAND_B))
+        for name, case in cases.items():
+            hold_bf16_case(name, case, results, card)
+        del inp, cs, rec32, rec40, cases, _cs40
+        torch.cuda.empty_cache()
+
+    # (f) kbench's bins through the indexed path (vertex_stage, the corner
+    # gather, triangle_setup_cols) against the frame's corner-stage bins;
+    # the two geometry paths round the clip coordinates in other orders,
+    # so ids flip where a pixel centre lies on a shared edge: the counts
+    # and the two paths' frames' drift are printed
+    from trident_tpu_torch.render.frame import geometry_to_device
+    from trident_tpu_torch.render.renderer import render_frame
+
+    sized(r, 1920, 1080)
+    kcs, _krec, kbins, w, h = kb.frame_bins(r)
+    inp = r.frame_inputs()
+    cs, _rec = frame_geometry(
+        inp["plan"], inp["tri_draw"], inp["params"], inp["shade_table"],
+        inp["camera"], inp["textures"], inp["corner_t"], width=w, height=h,
+        draw_stride=inp["draw_stride"], real_draws=inp["real_draws"])
+    cbins = raster.build_bins(cs.setup, w, h, setup_cols=cs.cols.setup)
+    ntx, nty = -(-w // raster.TILE), -(-h // raster.TILE)
+    d_i, t_i = raster.visibility_tiles(kbins, ntx, ntx * nty)
+    d_ip, t_ip = raster.visibility_tiles_plain(kbins, ntx, ntx * nty)
+    d_c, t_c = raster.visibility_tiles(cbins, ntx, ntx * nty)
+    torch.cuda.synchronize()
+    bad = _bit_diffs((d_i, t_i), (d_ip, t_ip))
+    covered = int((t_c >= 0).sum())
+    ids_off = int((t_i != t_c).sum())
+    depth_off = int((d_i.view(torch.int32) != d_c.view(torch.int32)).sum())
+    same_id = (t_i == t_c) & (t_c >= 0)
+    ulps = int((d_i.view(torch.int32) - d_c.view(torch.int32))[same_id]
+               .abs().max()) if bool(same_id.any()) else 0
+    idx_frame = render_frame(**{**inp, "corner_t": None,
+                                "geometry": geometry_to_device(
+                                    r.geometry.packed(), dev)})
+    cor_frame = render_frame(**inp)
+    print(f"kbench's indexed-path bins: {int(kbins.n_real)} pairs against "
+          f"the corner stage's {int(cbins.n_real)}, aux "
+          f"{kbins.aux.tolist()}; K1 on them bit-equal to its plain version "
+          f"({bad} values off); against K1 on the corner-stage bins {ids_off}"
+          f" ids and {depth_off} depths off of {covered} covered pixels "
+          f"(max {ulps} ulps where the ids agree), "
+          f"{int(kcs.setup.valid.sum())} against "
+          f"{int(cs.setup.valid.sum())} valid triangles ({card})",
+          flush=True)
+    if bad or kbins.aux.tolist() != [0, 0]:
+        fail(f"kbench's indexed bins: {bad} values off K1's plain version, "
+             f"aux {kbins.aux.tolist()}")
+    diff = (idx_frame.color.int() - cor_frame.color.int()).abs()
+    print(f"spheres1080_1m through the indexed path vs the corner-stage "
+          f"frame: {float((diff > GOLDEN_LSB).float().mean()):.6f} of values "
+          f"> {GOLDEN_LSB} LSB, mean {float(diff.float().mean()):.6f}, max "
+          f"{int(diff.max())} ({card})", flush=True)
+    del kcs, _krec, kbins, inp, cs, _rec, cbins, d_i, t_i, d_ip, t_ip
+    del d_c, t_c, same_id, idx_frame, cor_frame
+    torch.cuda.empty_cache()
+
+    # the main path's Renderers: spheres1080_1m at 1920 × 1024 under each
+    # bf16 set (one-device frames, then over 2 bands of this card); the
+    # 128² vertex-coloured cube likewise; spheres1080_1m:ai with the V2
+    # defaults, V1, bf16 convs and the windowless warp; the 128² golden
+    # base scene with shadows under each no-op knob and each routing limit
+    sph = {s: sized(build_bench_scene(BENCH_GRID, dev, kernel=k, reg=reg)[0])
+           for s, k in BF16_SETS.items()}
+    vco = {s: feature_scene("vcolor", dev, kernel=k)
+           for s, k in BF16_SETS.items()}
+    ai_sets = {"v2": None, "v1": {"upscale_v2": False},
+               "bf16": {"upscale_dtype": "bf16"},
+               "nowindow": {"warp_mxu": False}}
+    ai = {s: build_bench_scene(BENCH_GRID, dev, ai=True, kernel=k, reg=reg)[0]
+          for s, k in ai_sets.items()}
+    base_kw = dict(shadows=True, shadow_map_size=256)
+    noop = [base_scene(dev, kernel=k, **base_kw) for k in NOOP_KNOBS]
+    routes = {"tiled": ({"tiled_shade": True}, True),
+              "texel_max_pix": ({"tiled_shade": True,
+                                 "texel_max_pix": 128 * 128 - 1}, False),
+              "texel_max_q": ({"tiled_shade": True, "texel_max_q": 16},
+                              False),
+              "texel_mxu": ({"tiled_shade": True, "texel_mxu": False},
+                            False)}
+    route_r = {s: base_scene(dev, kernel=k, **base_kw)
+               for s, (k, _t) in routes.items()}
+    base = base_scene(dev, **base_kw)
+    one = {}                # one-device frames, for the banded ones
+    ai_out = {}
+
+    def knob_frames():
+        for s, rr in list(sph.items()) + [(f"{s}_vc", v)
+                                          for s, v in vco.items()]:
+            for k in range(2):
+                rotate(reg, k)
+                out = rr.render_viewport()
+            if out.aux.tolist() != [0, 0]:
+                fail(f"bf16{s} frame: aux {out.aux.tolist()}")
+            replay_check(rr, f"bf16{s} frame", rr.graphs.last_launches)
+            one[s] = rr.render_viewport()
+            banded = rr.render_viewport(devices=[dev, dev])
+            bad = [f for f in ("color", "depth", "tri_id")
+                   if not torch.equal(getattr(banded, f), getattr(one[s], f))]
+            if bad:
+                fail(f"bf16{s} frame over 2 bands differs from one device "
+                     f"in {bad}")
+        for s, rr in ai.items():
+            rr.prev_state = None
+            rotate(reg, 0)
+            first = rr.render_viewport()
+            prev = rr.prev_state
+            rotate(reg, 1)
+            rr.editor_camera.orbit([0.0, 0.0, 0.0], 3.0, 2.0)
+            cam_in = rr.frame_inputs()
+            second = rr.render_viewport()
+            if any(o.aux.tolist() != [0, 0] for o in (first, second)):
+                fail(f"spheres1080_1m:ai {s}: aux")
+            same_as_eager(second, cam_in, f"spheres1080_1m:ai {s} frame 2")
+            ai_out[s] = (first, prev, second, cam_in)
+        default = base.render_viewport()
+        for k, rr in zip(NOOP_KNOBS, noop):
+            bad = differing(rr.render_viewport(), default)
+            if bad:
+                fail(f"no-op knob {k}: the frame differs from the default "
+                     f"frame in {bad}")
+        for s, (k, tiled) in routes.items():
+            out = route_r[s].render_viewport()
+            ran = route_r[s].graphs.last_launches
+            took = ran.get("resolve_tiled", 0) > 0
+            if took != tiled or (not tiled and differing(out, default)):
+                fail(f"routing {k}: launches {ran}, expected the "
+                     f"{'tiled' if tiled else 'untiled'} route")
+        return default
+
+    renderers = (list(sph.values()) + list(vco.values()) + list(ai.values())
+                 + noop + list(route_r.values()) + [base])
+    _default, launches21 = drive(knob_frames,
+                                 list(BF16_KERNELS) + ["warp"], renderers)
+    print(f"phase 21's main path (bf16 frames one-device and over 2 bands, "
+          f":ai V1 / bf16 convs / windowless warp, {len(NOOP_KNOBS)} no-op "
+          f"knob frames bit-equal to the default, 4 routes): launches "
+          f"{ {k: v for k, v in launches21.items() if v} } ({card})",
+          flush=True)
+
+    # (a') the bf16 frames against the exact frames: pixels that differ
+    for s, rr in sph.items():
+        ex = sized(build_bench_scene(BENCH_GRID, dev, reg=reg,
+                                     kernel={k: v for k, v in
+                                             BF16_SETS[s].items()
+                                             if k != "resolve_prec"})[0])
+        rotate(reg, 1)
+        a, b = rr.render_viewport(), ex.render_viewport()
+        n_px = int((a.color != b.color).any(-1).sum())
+        print(f"spheres1080_1m bf16{s} frame at {BAND_W}x{BAND_H}: {n_px} "
+              f"pixels off the exact frame ({card})", flush=True)
+        del ex
+
+    # (b) V1 against V2: each graph replayed alone
+    for s in ("v2", "v1"):
+        replay_line(ai[s], f"spheres1080_1m:ai {s} frame", card)
+    first, prev, second, cam_in = ai_out["v1"]
+    if second.history is not None or prev[0].shape != (1080, 1920, 4):
+        fail("the V1 frame's history is not the RGBA8 frame")
+
+    # (c) bf16 convs: the net on the V2 frame's own half-res input
+    first, prev, second, cam_in = ai_out["v2"]
+    net = ai["v2"]._upscale_params()
+    cam = cam_in["camera"]
+    d_half = second.depth[::2, ::2].contiguous()
+    temporal = up.temporal_from_prev(net, prev, d_half, cam, 1920, 1080)
+    rgb = (second.color[::2, ::2, :3].float() / 255.0).contiguous()
+    x = up._assemble_inputs(net, rgb, temporal, d_half)
+    out32 = up.depth_to_space(net(x, "f32"))
+    out16 = up.depth_to_space(net(x, "bf16"))
+    p = float(up.psnr(out16, out32))
+    nets = {"f32": lambda: net(x, "f32"), "bf16": lambda: net(x, "bf16")}
+    order = ("f32", "bf16", "bf16", "f32")
+    busy = [device_busy(nets[d])[0] for d in order]
+    ev = [cuda_ms(nets[d]) for d in order]
+    fb = ai_out["bf16"][2]
+    p_frame = float(up.psnr(fb.color.float() / 255.0,
+                            second.color.float() / 255.0))
+    print(f"upscaler net at 960x540 (17 inputs, 32 channels): bf16 against "
+          f"f32 {p:.2f} dB (bound {BF16_PSNR_MIN}); one window f32 / bf16 / "
+          f"bf16 / f32, busy {' '.join(f'{v:.4f}' for v in busy)} ms, events "
+          f"{' '.join(f'{v:.4f}' for v in ev)} ms; the bf16 Renderer's "
+          f"frame against the f32 one {p_frame:.2f} dB ({card})", flush=True)
+    if not p > BF16_PSNR_MIN:
+        fail(f"bf16 convs: {p:.2f} dB against f32")
+    replay_line(ai["bf16"], "spheres1080_1m:ai bf16-conv frame", card)
+
+    # (d) the windowless warp on its moving-camera frame's own inputs
+    first, prev, second, cam_in = ai_out["nowindow"]
+    hist, prev_vp = prev
+    cam = cam_in["camera"]
+    d_half = second.depth[::2, ::2].contiguous()
+    vp_inv = torch.linalg.inv(cam.proj @ cam.view)
+    by, bx, in_b, ok_w = up.warp_indices(hist, d_half, vp_inv, prev_vp,
+                                         1920, 1080)
+    ok_n = up.warp_indices(hist, d_half, vp_inv, prev_vp, 1920, 1080,
+                           windowed=False)[3]
+    bym = torch.where(ok_n, by, -1).contiguous()
+    bxm = torch.where(ok_n, bx, -1).contiguous()
+    f_k, f_p = warp.warp_fetch(hist, bym, bxm), warp.warp_fetch_ref(hist, bym,
+                                                                    bxm)
+    torch.cuda.synchronize()
+    bad = int((f_k.view(torch.int32) != f_p.view(torch.int32)).sum())
+    n_diff = int((ok_w != ok_n).sum())
+    print(f"windowless warp on a moving-camera frame: {int(ok_n.sum())} "
+          f"valid (in bounds), {int(ok_w.sum())} in the band window, "
+          f"{n_diff} pixels whose validity differs; K8 on the windowless "
+          f"indices bit-equal to its plain version ({bad} off) ({card})",
+          flush=True)
+    if bad or not bool(torch.equal(ok_n, in_b)):
+        fail(f"windowless warp: {bad} values off the plain fetch")
+    replay_line(ai["nowindow"], "spheres1080_1m:ai windowless-warp frame",
+                card)
+    del sph, vco, ai, noop, route_r, base, one, ai_out, r, reg
+    torch.cuda.empty_cache()
+    print(f"phase 21: {time.perf_counter() - t21:.1f} s ({card})",
+          flush=True)
+    return launches21
+
+
 def main() -> None:
     # -- phase 1: the card ---------------------------------------------------
     import torch
@@ -5232,11 +5680,14 @@ def main() -> None:
     # -- phase 20: the application shell ---------------------------------------
     launches20 = phase_shell(dev, card, drive)
 
+    # -- phase 21: every kernel knob --------------------------------------------
+    launches21 = phase_knob_set(dev, card, kernel_fns, drive, results)
+
     # launches: each kernel's count in the main-path run of the frame it
     # was held on (phase 4 for the main pass, phase 6 for the shadow pass,
     # phase 9 for the warp, phase 10 for the knob kernels, phase 11 for
     # the probes, phase 14 for the vertex-colour instances, phase 18 for
-    # the band instances)
+    # the band instances, phase 21 for the bf16 instances)
     launches = {**launches4, "visibility_depth": launches6["visibility_depth"],
                 "shadow_taps": launches6["shadow_taps"],
                 "warp": launches9["warp"],
@@ -5249,7 +5700,8 @@ def main() -> None:
                 **{n: launches14[n] for n in (
                     "resolve_vc", "resolve_tiled_vc",
                     "visibility_resolve_vc")},
-                **{n: launches18[n] for n in BAND_KERNELS}}
+                **{n: launches18[n] for n in BAND_KERNELS},
+                **{n: launches21[n] for n in BF16_KERNELS}}
     kernels = []
     for name in kernel_fns:
         res = {k: v for k, v in results[name].items() if k != "colour_ms"}

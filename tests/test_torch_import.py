@@ -204,12 +204,17 @@ def test_cuda_request_without_card_raises(monkeypatch):
 
 
 def test_unported_features_raise():
+    """What the port once refused, and what it still refuses: every
+    kernel knob the JAX package accepts now builds a Renderer
+    (test_formerly_unported_kernel_renders renders these two); an unknown
+    sampling mode raises."""
     from trident_tpu_torch.core.config import EngineConfig, RenderConfig
 
     for kw in ({"kernel": {"chunk": 128}},
                {"kernel": {"resolve_prec": "bf16"}}):
-        with pytest.raises(NotImplementedError):
-            Renderer(EngineConfig(render=RenderConfig(**kw)), device="cpu")
+        r = Renderer(EngineConfig(render=RenderConfig(**kw)), device="cpu")
+        assert r.config.render.kernel == kw["kernel"]
+    assert r.knobs.resolve_prec == "bf16"
     # the banded frame is ported: n bands run on the CPU device
     r = Renderer(EngineConfig(render=RenderConfig(bands=2)), device="cpu")
     assert r._band_devices() == [torch.device("cpu")] * 2
@@ -227,6 +232,23 @@ def test_unported_features_raise():
     with pytest.raises(ValueError):
         Renderer(EngineConfig(render=RenderConfig(sampling="aniso")),
                  device="cpu")
+
+
+@pytest.mark.parametrize("kernel", [{"chunk": 128},
+                                    {"resolve_prec": "bf16"}],
+                         ids=["chunk", "resolve_prec"])
+def test_formerly_unported_kernel_renders(kernel):
+    """The two kernel dicts test_unported_features_raise once refused
+    render the golden-base scene: chunk (a TPU blocking) its default
+    frame bit for bit, resolve_prec "bf16" the same winners with the
+    colours of the bf16-rounded records."""
+    from trident_tpu_torch.tools_dev.scenes import golden_base_scene
+
+    out = golden_base_scene("cpu", kernel=kernel).render_viewport()
+    default = golden_base_scene("cpu").render_viewport()
+    assert out.aux.tolist() == [0, 0]
+    assert torch.equal(out.tri_id, default.tri_id)
+    assert torch.equal(out.color, default.color) == ("chunk" in kernel)
 
 
 def test_chip_smoke_fails_without_card():

@@ -1,20 +1,25 @@
 """The default 2× frame against the JAX package's default 2× frame.
 
 The JAX package runs the upscaler's convolutions in bf16 by default
-(trident_tpu/ai/upscaler.py UPSCALE_DTYPE); the port runs them in f32
-(ops/kernel_knobs.py PORT_VALUES). test_torch_frame.py holds the port
-against the JAX frames with f32 forced on the JAX side; this file holds the
-port's default Renderer against the JAX package's default frames (bf16
-convs, no upscale_dtype override, the Pallas warp interpreted): the two
-chained 128² AI-upscaled frames of test_torch_frame._ai_renderer() under
-the golden gate, aux [0, 0] on both sides. Its own file, so that
-`--dist loadfile` gives it a worker of its own (about a minute on the CPU;
-`pytest -s` prints each frame's drift).
+(trident_tpu/ai/upscaler.py UPSCALE_DTYPE); the port runs them in f32 by
+default (ops/kernel_knobs.py, KernelKnobs.upscale_dtype) and in bf16
+under upscale_dtype="bf16". test_torch_frame.py holds the port against
+the JAX frames with f32 forced on the JAX side; this file holds the
+port's Renderer against the JAX package's default frames (bf16 convs, no
+upscale_dtype override, the Pallas warp interpreted): the two chained
+128² AI-upscaled frames of test_torch_frame._ai_renderer() under the
+golden gate, aux [0, 0] on both sides, with the port's default knobs,
+with upscale_dtype="bf16", and with each other d2s_mode (a bit-exact
+relayout in both packages: the port's frames are its default frames).
+Its own file, so that `--dist loadfile` gives it a worker of its own
+(about a minute on the CPU; `pytest -s` prints each frame's drift).
 """
 
 import pathlib
 
 import numpy as np
+import pytest
+import torch
 
 import jax
 
@@ -23,6 +28,7 @@ from trident_tpu.ai.upscaler import load_upscaler
 from trident_tpu.ops import kernel_knobs as jknobs
 
 from trident_tpu_torch.ops import kernel_knobs
+from trident_tpu_torch.ops.kernel_knobs import KernelKnobs
 
 from test_torch_frame import (
     AI_ORBIT,
@@ -51,16 +57,21 @@ def _jax_default_frames(jr):
     return out0, out1
 
 
-def test_default_upscaled_frames_match_jax_default():
-    assert kernel_knobs.PORT_VALUES["upscale_dtype"] == "f32"
-    assert kernel_knobs.JAX_DEFAULTS["upscale_dtype"] == "bf16"
-    jr = _ai_renderer()
-    tr = carry_renderer(jr)
-    assert tr.config.render.kernel is None
-    jouts = _jax_default_frames(jr)
+@pytest.fixture(scope="module")
+def jouts():
+    return _jax_default_frames(_ai_renderer())
+
+
+def _port_frames(kernel=None):
+    """The port's two chained frames of the same scene under `kernel`."""
+    tr = carry_renderer(_ai_renderer(), kernel=kernel)
     outs = [tr.render_viewport()]
     tr.editor_camera.orbit(*AI_ORBIT)
     outs.append(tr.render_viewport())
+    return tr, outs
+
+
+def _hold(tr, outs, jouts):
     for k, (out, jout) in enumerate(zip(outs, jouts)):
         assert out.aux.tolist() == [0, 0], k
         assert np.asarray(jout.aux).tolist() == [0, 0], k
@@ -70,3 +81,38 @@ def test_default_upscaled_frames_match_jax_default():
         print(f"frame {k}: {int((diff > 3).sum())} values off by > 3 LSB, "
               f"max {int(diff.max())}, mean {diff.mean():.4f}")
         _assert_golden_gate(frame, ref)
+
+
+def test_default_upscaled_frames_match_jax_default(jouts):
+    assert KernelKnobs().upscale_dtype == "f32"
+    assert kernel_knobs.JAX_DEFAULTS["upscale_dtype"] == "bf16"
+    tr, outs = _port_frames()
+    assert tr.config.render.kernel is None
+    _hold(tr, outs, jouts)
+
+
+def test_bf16_upscaled_frames_match_jax_default(jouts):
+    """upscale_dtype="bf16": the port's bf16 convs against the JAX
+    default's, the same dtype on both sides."""
+    tr, outs = _port_frames({"upscale_dtype": "bf16"})
+    assert tr.knobs.upscale_dtype == "bf16"
+    _hold(tr, outs, jouts)
+    _tr32, f32 = _port_frames()
+    assert not torch.equal(outs[0].color, f32[0].color)
+
+
+@pytest.mark.parametrize("mode", ["pad", "xla"])
+def test_d2s_mode_frames_are_the_default(mode, jouts):
+    """d2s_mode: the JAX modes are one relayout of the JAX history's
+    blocks, and the port's frames under the mode are its default frames
+    bit for bit, in the gate of the JAX default frames."""
+    blocks = jax.numpy.asarray(np.asarray(jouts[1].history), np.float32)
+    assert (np.asarray(jup.depth_to_space(blocks, mode))
+            == np.asarray(jup.depth_to_space(blocks, "convt"))).all()
+    tr, outs = _port_frames({"d2s_mode": mode})
+    assert tr.knobs.d2s_mode == mode
+    _tr0, default = _port_frames()
+    for out, base in zip(outs, default):
+        assert torch.equal(out.color, base.color)
+        assert torch.equal(out.history, base.history)
+    _hold(tr, outs, jouts)

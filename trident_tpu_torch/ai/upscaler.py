@@ -12,8 +12,13 @@ warp kernel (ops/warp.py, csrc/warp.cu).
 Public functions keep the JAX package's channels-last layout; the net
 converts to NCHW for its four `F.conv2d` calls (the JAX package leaves
 these convs to `flax.linen.Conv`, outside any Pallas kernel). The convs
-run in f32 with TF32 pinned off (package __init__); the JAX package's
-bf16 conv variant (UPSCALE_DTYPE) is not ported.
+run in f32 with TF32 pinned off (package __init__), or, for the V2 path
+with dtype "bf16" (the `upscale_dtype` knob, the JAX package's default),
+as flax runs `Conv(dtype=bfloat16)`: inputs, kernels and biases rounded
+to bf16, each conv accumulated in f32 and rounded to bf16, the bias then
+added in bf16, the ReLUs and the residual in bf16, and the head cast back
+to f32 over the f32 base. The port's default stays f32
+(ops/kernel_knobs.py).
 
 The V1 path is the banded frame's (parallel/framebuffer.py, as the JAX
 package's banded frame upscales): `apply_upscaler` adds the head's
@@ -53,6 +58,7 @@ UPSCALER_FILE = "upscaler_2x.npz"   # the file save_upscaler writes in its dir
 DEFAULT_WEIGHTS = Path(__file__).resolve().parents[1] / "assets" / \
     UPSCALER_FILE
 D2S_MODES = ("convt", "pad", "xla")
+UPSCALE_DTYPES = ("bf16", "f32")     # the V2 convs' dtype (upscale_dtype)
 
 TEMPORAL_CHANNELS = 16   # 3 current + 12 warped blocks + 1 validity
 WARP_CHANNELS = 13       # warp output width
@@ -122,26 +128,41 @@ class UpscalerNet(nn.Module):
         nn.init.zeros_(self.convs[3].weight)
         nn.init.zeros_(self.convs[3].bias)
 
-    def head(self, x: Tensor) -> Tensor:
-        """(h, w, C) or (B, h, w, C) → (…, h, w, 12): the convs' residual
-        detail in block layout, before any base is added. The convs take
+    def head(self, x: Tensor, dtype: str = "f32") -> Tensor:
+        """(h, w, C) or (B, h, w, C) → (…, h, w, 12) f32: the convs'
+        residual detail in block layout, before any base is added, with
+        the convs in `dtype` (UPSCALE_DTYPES; "bf16" as flax's
+        Conv(dtype=bfloat16) runs them, the module note). The convs take
         views of the input: a batch's is channels-last; a frame's, with
         its unit batch dimension strided by C, is not, so the frame path's
         convs stay NCHW."""
-        c0, c1, c2, c3 = self.convs
+        if dtype not in UPSCALE_DTYPES:
+            raise ValueError(f"upscale dtype {dtype!r}: expected bf16 | f32")
         batched = x.dim() == 4
         h = x.float().movedim(-1, -3)
         if not batched:
             h = h[None]                                   # (1, C, h, w)
-        h = F.relu(c0(h))
-        h = F.relu(c1(h)) + h
-        h = F.relu(c2(h))
-        out = c3(h).movedim(-3, -1)
+        if dtype == "bf16":
+            h = h.to(torch.bfloat16)
+        conv = self._conv_bf16 if dtype == "bf16" else (
+            lambda i, t: self.convs[i](t))
+        h = F.relu(conv(0, h))
+        h = F.relu(conv(1, h)) + h
+        h = F.relu(conv(2, h))
+        out = conv(3, h).float().movedim(-3, -1)
         return out if batched else out[0]
 
-    def forward(self, x: Tensor) -> Tensor:
-        return torch.clamp(base_blocks(x[..., :3].float()) + self.head(x),
-                           0.0, 1.0)
+    def _conv_bf16(self, i: int, h: Tensor) -> Tensor:
+        """Conv i on a bf16 NCHW tensor as flax's bf16 Conv: bf16 kernel,
+        the product accumulated in f32 and rounded to bf16, then the bf16
+        bias added (a second rounding)."""
+        c = self.convs[i]
+        y = F.conv2d(h, c.weight.to(torch.bfloat16), None, padding=1)
+        return y + c.bias.to(torch.bfloat16)[:, None, None]
+
+    def forward(self, x: Tensor, dtype: str = "f32") -> Tensor:
+        return torch.clamp(base_blocks(x[..., :3].float())
+                           + self.head(x, dtype), 0.0, 1.0)
 
     def upscale(self, x: Tensor) -> Tensor:
         """The V1 forward, what training runs: (h, w, C) or (B, h, w, C)
@@ -301,29 +322,36 @@ def _warp_blocks(hh: int, ww2: int, cur_depth: Tensor, cur_vp_inv: Tensor,
 
 
 def warp_indices(prev_blocks: Tensor, cur_depth: Tensor, cur_vp_inv: Tensor,
-                 prev_vp: Tensor, full_width: int, full_height: int):
+                 prev_vp: Tensor, full_width: int, full_height: int,
+                 windowed: bool = True):
     """(by, bx, in_bounds, ok) of the V2 warp: each half-res pixel's source
     block in the (h, w, 12) history, whether it lies inside the history
-    in front of the previous camera on geometry, and whether it also fits
-    the band window (`band_ok_mask`)."""
+    in front of the previous camera on geometry, and whether it is
+    fetched: where it also fits the TPU kernel's band window
+    (`band_ok_mask`; the `warp_mxu` knob on), or wherever it is in bounds
+    (`windowed` False: the JAX package's XLA row gather,
+    trident_tpu/ai/upscaler.py:259-264)."""
     hh = prev_blocks.shape[0]
     by, bx, in_bounds = _warp_blocks(hh, prev_blocks.shape[1], cur_depth,
                                      cur_vp_inv, prev_vp, full_width,
                                      full_height)
-    ok = band_ok_mask(by, in_bounds, warp_hpad(hh))
+    ok = (band_ok_mask(by, in_bounds, warp_hpad(hh)) if windowed
+          else in_bounds)
     return by, bx, in_bounds, ok
 
 
 def warp_from_blocks(prev_blocks: Tensor, cur_depth: Tensor,
                      cur_vp_inv: Tensor, prev_vp: Tensor, full_width: int,
-                     full_height: int) -> Tensor:
+                     full_height: int, windowed: bool = True) -> Tensor:
     """V2 warp of the (h, w, 12) history into the current view → (h', w',
     13): the history at each half-res pixel's reprojected block, then the
     validity channel; 0 where invalid. A uint8 history (bytes / 255) goes
-    through the warp kernel, valid only inside the band window
-    (`warp_indices`); a float history is a plain clipped row gather,
-    valid wherever `in_bounds` holds (trident_tpu/ai/upscaler.py:259-264:
-    the JAX package's kernel takes only the uint8 history)."""
+    through the warp kernel, valid inside the band window, or with
+    `windowed` False (the `warp_mxu` knob off) wherever it is in bounds
+    (`warp_indices`), bit-equal to the JAX package's row gather then; a
+    float history is a plain clipped row gather, valid wherever
+    `in_bounds` holds (trident_tpu/ai/upscaler.py:259-264: the JAX
+    package's kernel takes only the uint8 history)."""
     if prev_blocks.dtype != torch.uint8:
         hh, ww2 = prev_blocks.shape[0], prev_blocks.shape[1]
         by, bx, in_bounds = _warp_blocks(hh, ww2, cur_depth, cur_vp_inv,
@@ -333,7 +361,8 @@ def warp_from_blocks(prev_blocks: Tensor, cur_depth: Tensor,
         valid = in_bounds[..., None].float()
         return torch.cat([block * valid, valid], dim=-1)
     by, bx, _in_bounds, ok = warp_indices(prev_blocks, cur_depth, cur_vp_inv,
-                                          prev_vp, full_width, full_height)
+                                          prev_vp, full_width, full_height,
+                                          windowed)
     fetched = warp_fetch(prev_blocks, torch.where(ok, by, -1).contiguous(),
                          torch.where(ok, bx, -1).contiguous())
     valid = ok[..., None].float()
@@ -363,11 +392,14 @@ def warp_previous(prev_rgb: Tensor, cur_depth: Tensor, cur_vp_inv: Tensor,
 
 
 def temporal_from_prev(net: UpscalerNet, prev, cur_depth: Tensor, camera,
-                       out_width: int, out_height: int) -> Optional[Tensor]:
+                       out_width: int, out_height: int,
+                       windowed: bool = True) -> Optional[Tensor]:
     """The temporal input: `prev` is (previous history, previous
     view·proj) or None. The history is the V2 (h, w, 12) uint8 blocks
-    (warp_from_blocks) or the V1 full-resolution frame, (H, W, ≥3) RGBA8
-    or f32, whose rgb warp_previous reprojects (uint8 scaled by 1/255).
+    (warp_from_blocks, `windowed` as it takes it) or the V1
+    full-resolution frame, (H, W, ≥3) RGBA8 or f32, whose rgb
+    warp_previous reprojects (uint8 scaled by 1/255): the channel count
+    decides, so the first frame after a change of path still warps.
     Returns the warp channels for a temporal net, or None without history
     or for a spatial-only net."""
     if prev is None or not upscaler_wants_temporal(net):
@@ -378,7 +410,7 @@ def temporal_from_prev(net: UpscalerNet, prev, cur_depth: Tensor, camera,
     vp_inv = torch.linalg.inv_ex(camera.proj @ camera.view).inverse
     if prev_hist.shape[-1] == 12:
         return warp_from_blocks(prev_hist, cur_depth, vp_inv, prev_vp,
-                                out_width, out_height)
+                                out_width, out_height, windowed)
     prev_rgb = prev_hist[..., :3]
     if prev_rgb.dtype == torch.uint8:
         prev_rgb = prev_rgb.float() * (1.0 / 255.0)
@@ -440,12 +472,15 @@ def apply_upscaler(net: UpscalerNet, image: Tensor,
 
 def apply_upscaler_v2(net: UpscalerNet, image: Tensor,
                       temporal: Optional[Tensor] = None,
-                      depth: Optional[Tensor] = None):
-    """(H, W, 3) [0,1] → (rgb (2H, 2W, 3) f32, blocks (H, W, 12) f32).
-    Inputs the net does not want are ignored; wanted-but-missing ones are
-    zeros (temporal: validity 0) or background depth 1."""
-    blocks = net(_assemble_inputs(net, image, temporal, depth))
-    return depth_to_space(blocks), blocks
+                      depth: Optional[Tensor] = None, dtype: str = "f32",
+                      d2s_mode: Optional[str] = None):
+    """(H, W, 3) [0,1] → (rgb (2H, 2W, 3) f32, blocks (H, W, 12) f32),
+    the convs in `dtype` (the `upscale_dtype` knob), the display frame
+    by depth_to_space(mode=d2s_mode). Inputs the net does not want are
+    ignored; wanted-but-missing ones are zeros (temporal: validity 0) or
+    background depth 1."""
+    blocks = net(_assemble_inputs(net, image, temporal, depth), dtype)
+    return depth_to_space(blocks, d2s_mode), blocks
 
 
 def upscaler_flops(base_channels: int, in_channels: int, height: int,

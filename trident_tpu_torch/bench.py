@@ -55,7 +55,7 @@ from trident_tpu_torch import resolve_device
 from trident_tpu_torch.ai import upscaler as up
 from trident_tpu_torch.ai.metrics import psnr
 from trident_tpu_torch.ai.model import DEFAULT_WEIGHTS, load_frame_generator
-from trident_tpu_torch.render.renderer import render_frame
+from trident_tpu_torch.render.renderer import render_frame, warp_history
 from trident_tpu_torch.tools_dev.scenes import build_scene, rotate
 
 INTERP_RES = 256                 # the reference's net resolution
@@ -178,7 +178,8 @@ class FrameBench:
             np.stack([b.i32 for b in self.bundles])).to(self.dev)
 
     def _next_prev(self, out):
-        return None if self.prev0 is None else (out.history, out.view_proj)
+        return (None if self.prev0 is None
+                else (warp_history(out), out.view_proj))
 
     def interactive_frame(self, k: int, prev):
         """Frame k from its host blobs: a graph replay after pinned

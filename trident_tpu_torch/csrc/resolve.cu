@@ -45,6 +45,12 @@
 // tile row (resolve_pallas.py:430, `ty = tile // ntx + band_ref[0]`). The
 // offset-free kernels take no offset and compile to the code they had
 // before the band instances existed.
+//
+// bf16 instances (*_bf16_kernel, kBf16; the `resolve_prec="bf16"` knob):
+// each instance above again, with every record word rounded to bf16 as it
+// is loaded (resolve_common.cuh), the TPU's one raw bf16 pass of the
+// winner select (resolve_pallas.py:100-102). The exact kernels keep their
+// code.
 
 #include "resolve_common.cuh"
 
@@ -69,7 +75,7 @@ __device__ __forceinline__ int stage_slot(int p, int q) {
 // (H, W) ids → (H, W, 16) attributes, the block's part; grid
 // (ceil(W/32), ceil(H/8)); `stage` is the block's shared staging buffer;
 // y_offset is read only by the band instance
-template <int kWidth, bool kBand>
+template <int kWidth, bool kBand, bool kBf16 = false>
 __device__ __forceinline__ void resolve_block(
     const int* __restrict__ tri, const float* __restrict__ records,
     int width, int height, float* __restrict__ out,
@@ -83,7 +89,8 @@ __device__ __forceinline__ void resolve_block(
   float4* s = stage[warp];
   if (lane < n) {
     float a[kChannels];
-    resolve_pixel<kWidth>(record_row<kWidth>(records, tri[p0 + lane]),
+    resolve_pixel<kWidth, kBf16>(record_row<kWidth>(records,
+                                                    tri[p0 + lane]),
                           static_cast<float>(x0 + lane) + 0.5f,
                           static_cast<float>(kBand ? y + y_offset : y) +
                               0.5f,
@@ -106,7 +113,7 @@ __device__ __forceinline__ void resolve_block(
 // tile-layout ids (n_tiles, 1024) → (n_tiles, 16, 1024), the block's part;
 // block b covers rows 8(b % 4) .. 8(b % 4) + 7 of tile b / 4, one warp per
 // row; tile_y_offset is read only by the band instance
-template <int kWidth, bool kBand>
+template <int kWidth, bool kBand, bool kBf16 = false>
 __device__ __forceinline__ void resolve_tiled_block(
     const int* __restrict__ tri, const float* __restrict__ records, int ntx,
     float* __restrict__ out, int tile_y_offset) {
@@ -114,7 +121,7 @@ __device__ __forceinline__ void resolve_tiled_block(
   const int tile = p / kTilePx, r = p % kTilePx;
   const int ty = kBand ? tile / ntx + tile_y_offset : tile / ntx;
   float a[kChannels];
-  resolve_pixel<kWidth>(
+  resolve_pixel<kWidth, kBf16>(
       record_row<kWidth>(records, tri[p]),
       static_cast<float>(tile % ntx * kTile + r % kTile) + 0.5f,
       static_cast<float>(ty * kTile + r / kTile) + 0.5f, a);
@@ -186,6 +193,76 @@ resolve_tiled_vc_band_kernel(const int* __restrict__ tri,
                              float* __restrict__ out, int tile_y_offset) {
   resolve_tiled_block<kRecWidthVColor, true>(tri, records, ntx, out,
                                              tile_y_offset);
+}
+
+// the bf16 instances of the eight kernels above
+__global__ void __launch_bounds__(kThreads)
+resolve_bf16_kernel(const int* __restrict__ tri,
+                    const float* __restrict__ records, int width, int height,
+                    float* __restrict__ out) {
+  __shared__ float4 stage[kBlockH][kBlockW * kQuads];
+  resolve_block<kRecWidth, false, true>(tri, records, width, height, out,
+                                        stage, 0);
+}
+
+__global__ void __launch_bounds__(kThreads)
+resolve_vc_bf16_kernel(const int* __restrict__ tri,
+                       const float* __restrict__ records, int width,
+                       int height, float* __restrict__ out) {
+  __shared__ float4 stage[kBlockH][kBlockW * kQuads];
+  resolve_block<kRecWidthVColor, false, true>(tri, records, width, height,
+                                              out, stage, 0);
+}
+
+__global__ void __launch_bounds__(kThreads)
+resolve_tiled_bf16_kernel(const int* __restrict__ tri,
+                          const float* __restrict__ records, int ntx,
+                          float* __restrict__ out) {
+  resolve_tiled_block<kRecWidth, false, true>(tri, records, ntx, out, 0);
+}
+
+__global__ void __launch_bounds__(kThreads)
+resolve_tiled_vc_bf16_kernel(const int* __restrict__ tri,
+                             const float* __restrict__ records, int ntx,
+                             float* __restrict__ out) {
+  resolve_tiled_block<kRecWidthVColor, false, true>(tri, records, ntx, out,
+                                                    0);
+}
+
+__global__ void __launch_bounds__(kThreads)
+resolve_band_bf16_kernel(const int* __restrict__ tri,
+                         const float* __restrict__ records, int width,
+                         int height, float* __restrict__ out, int y_offset) {
+  __shared__ float4 stage[kBlockH][kBlockW * kQuads];
+  resolve_block<kRecWidth, true, true>(tri, records, width, height, out,
+                                       stage, y_offset);
+}
+
+__global__ void __launch_bounds__(kThreads)
+resolve_vc_band_bf16_kernel(const int* __restrict__ tri,
+                            const float* __restrict__ records, int width,
+                            int height, float* __restrict__ out,
+                            int y_offset) {
+  __shared__ float4 stage[kBlockH][kBlockW * kQuads];
+  resolve_block<kRecWidthVColor, true, true>(tri, records, width, height,
+                                             out, stage, y_offset);
+}
+
+__global__ void __launch_bounds__(kThreads)
+resolve_tiled_band_bf16_kernel(const int* __restrict__ tri,
+                               const float* __restrict__ records, int ntx,
+                               float* __restrict__ out, int tile_y_offset) {
+  resolve_tiled_block<kRecWidth, true, true>(tri, records, ntx, out,
+                                             tile_y_offset);
+}
+
+__global__ void __launch_bounds__(kThreads)
+resolve_tiled_vc_band_bf16_kernel(const int* __restrict__ tri,
+                                  const float* __restrict__ records, int ntx,
+                                  float* __restrict__ out,
+                                  int tile_y_offset) {
+  resolve_tiled_block<kRecWidthVColor, true, true>(tri, records, ntx, out,
+                                                   tile_y_offset);
 }
 
 // the launches; `offset` is the band instances' trailing argument (none
@@ -277,4 +354,69 @@ extern "C" int trident_resolve_tiled_vc_band(const int* tri,
                                              cudaStream_t stream) {
   return launch_resolve_tiled(resolve_tiled_vc_band_kernel, tri, records,
                               ntx, n_tiles, out, stream, tile_y_offset);
+}
+
+// the bf16 instances' entry points, each the exact one's signature
+extern "C" int trident_resolve_bf16(const int* tri, const float* records,
+                                    int width, int height, float* out,
+                                    cudaStream_t stream) {
+  return launch_resolve(resolve_bf16_kernel, tri, records, width, height,
+                        out, stream);
+}
+
+extern "C" int trident_resolve_vc_bf16(const int* tri, const float* records,
+                                       int width, int height, float* out,
+                                       cudaStream_t stream) {
+  return launch_resolve(resolve_vc_bf16_kernel, tri, records, width, height,
+                        out, stream);
+}
+
+extern "C" int trident_resolve_tiled_bf16(const int* tri,
+                                          const float* records, int ntx,
+                                          int n_tiles, float* out,
+                                          cudaStream_t stream) {
+  return launch_resolve_tiled(resolve_tiled_bf16_kernel, tri, records, ntx,
+                              n_tiles, out, stream);
+}
+
+extern "C" int trident_resolve_tiled_vc_bf16(const int* tri,
+                                             const float* records, int ntx,
+                                             int n_tiles, float* out,
+                                             cudaStream_t stream) {
+  return launch_resolve_tiled(resolve_tiled_vc_bf16_kernel, tri, records,
+                              ntx, n_tiles, out, stream);
+}
+
+extern "C" int trident_resolve_band_bf16(const int* tri,
+                                         const float* records, int width,
+                                         int height, int y_offset,
+                                         float* out, cudaStream_t stream) {
+  return launch_resolve(resolve_band_bf16_kernel, tri, records, width,
+                        height, out, stream, y_offset);
+}
+
+extern "C" int trident_resolve_vc_band_bf16(const int* tri,
+                                            const float* records, int width,
+                                            int height, int y_offset,
+                                            float* out,
+                                            cudaStream_t stream) {
+  return launch_resolve(resolve_vc_band_bf16_kernel, tri, records, width,
+                        height, out, stream, y_offset);
+}
+
+extern "C" int trident_resolve_tiled_band_bf16(const int* tri,
+                                               const float* records, int ntx,
+                                               int n_tiles,
+                                               int tile_y_offset, float* out,
+                                               cudaStream_t stream) {
+  return launch_resolve_tiled(resolve_tiled_band_bf16_kernel, tri, records,
+                              ntx, n_tiles, out, stream, tile_y_offset);
+}
+
+extern "C" int trident_resolve_tiled_vc_band_bf16(
+    const int* tri, const float* records, int ntx, int n_tiles,
+    int tile_y_offset, float* out, cudaStream_t stream) {
+  return launch_resolve_tiled(resolve_tiled_vc_band_bf16_kernel, tri,
+                              records, ntx, n_tiles, out, stream,
+                              tile_y_offset);
 }

@@ -12,9 +12,19 @@
 // _eval_interpolants:231-234). Lanes of a warp that share a winner share
 // the row. Both widths are instances of one template: the 32-wide one is
 // the code of the table without colours, unchanged.
+//
+// kBf16 (the `resolve_prec="bf16"` knob) rounds each loaded record word to
+// bf16, nearest-even, before the interpolants are evaluated: on the TPU
+// that mode contracts the f32 records against the exact one-hot winner
+// select in one raw bf16 pass (resolve_pallas.py _winner_select), so each
+// pixel sees bf16(record) of its winner. Here that is the load plus a
+// round; the plain version rounds the whole table once (ops/resolve.py
+// bf16_records), which commutes with the select. The exact instances are
+// kBf16 = false and compile to the code they had before.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace trident {
@@ -48,9 +58,15 @@ __device__ __forceinline__ const float4* record_row(
                        static_cast<size_t>(tid) * (kWidth / 4);
 }
 
+// round-to-nearest-even to bf16 and back (the kBf16 instances)
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // The 16 shading channels at pixel centre (pxf, pyf) of the winner whose
 // record row is `row` (record_row<kWidth>); zeros where row is nullptr.
-template <int kWidth>
+// kBf16: every record word rounded to bf16 first.
+template <int kWidth, bool kBf16 = false>
 __device__ __forceinline__ void resolve_pixel(const float4* __restrict__ row,
                                               float pxf, float pyf,
                                               float (&o)[kChannels]) {
@@ -62,7 +78,11 @@ __device__ __forceinline__ void resolve_pixel(const float4* __restrict__ row,
   float rc[kWidth];
 #pragma unroll
   for (int q = 0; q < kWidth / 4; ++q) {
-    const float4 v = __ldg(row + q);
+    float4 v = __ldg(row + q);
+    if constexpr (kBf16) {
+      v = make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z),
+                      bf16_round(v.w));
+    }
     rc[4 * q] = v.x;
     rc[4 * q + 1] = v.y;
     rc[4 * q + 2] = v.z;

@@ -36,6 +36,11 @@
 // band_ref[0]`), so the walk's pixel centres, its region corners and the
 // resolve's centres are the full frame's. The offset-free kernels take no
 // offset and compile to the code they had before the band instances.
+// bf16 instances (*_bf16_kernel, kBf16; the `resolve_prec="bf16"` knob):
+// the four kernels again with every record word of the resolve rounded to
+// bf16 as it is loaded (resolve_common.cuh), the TPU's one raw bf16 pass of
+// the winner select (resolve_pallas.py:100-102); the walk is K1's, so depth
+// and ids are unchanged. The exact kernels keep their code.
 
 #include "resolve_common.cuh"
 #include "visibility_common.cuh"
@@ -46,7 +51,7 @@ using namespace trident;
 
 // one tile's walk and resolve (the block's work); `stage` is its shared
 // staging buffer; tile_y_offset is read only by the band instance
-template <int kWidth, bool kBand>
+template <int kWidth, bool kBand, bool kBf16 = false>
 __device__ __forceinline__ void visibility_resolve_block(
     const float* __restrict__ records, const int* __restrict__ pair_chunk,
     const int* __restrict__ pair_mask, const int* __restrict__ tile_start,
@@ -68,8 +73,8 @@ __device__ __forceinline__ void visibility_resolve_block(
     depth_out[o] = best_d[k];
     tri_out[o] = best_t[k];
     float a[kChannels];
-    resolve_pixel<kWidth>(record_row<kWidth>(res_records, best_t[k]), px[k],
-                          py[k], a);
+    resolve_pixel<kWidth, kBf16>(record_row<kWidth>(res_records, best_t[k]),
+                                 px[k], py[k], a);
     float* dst = attr_out + static_cast<size_t>(tile) * kChannels * kTilePx + r;
 #pragma unroll
     for (int c = 0; c < kChannels; ++c) dst[c * kTilePx] = a[c];
@@ -140,6 +145,61 @@ visibility_resolve_vc_band_kernel(const float* __restrict__ records,
       depth_out, tri_out, attr_out, stage, tile_y_offset);
 }
 
+// the bf16 instances of the four kernels above
+__global__ void __launch_bounds__(kVisThreads)
+visibility_resolve_bf16_kernel(
+    const float* __restrict__ records,
+    const int* __restrict__ pair_chunk, const int* __restrict__ pair_mask,
+    const int* __restrict__ tile_start, int ntx,
+    const float* __restrict__ res_records, float* __restrict__ depth_out,
+    int* __restrict__ tri_out, float* __restrict__ attr_out) {
+  __shared__ VisRegionStage stage;
+  visibility_resolve_block<kRecWidth, false, true>(
+      records, pair_chunk, pair_mask, tile_start, ntx, res_records,
+      depth_out, tri_out, attr_out, stage, 0);
+}
+
+__global__ void __launch_bounds__(kVisThreads)
+visibility_resolve_vc_bf16_kernel(
+    const float* __restrict__ records,
+    const int* __restrict__ pair_chunk, const int* __restrict__ pair_mask,
+    const int* __restrict__ tile_start, int ntx,
+    const float* __restrict__ res_records, float* __restrict__ depth_out,
+    int* __restrict__ tri_out, float* __restrict__ attr_out) {
+  __shared__ VisRegionStage stage;
+  visibility_resolve_block<kRecWidthVColor, false, true>(
+      records, pair_chunk, pair_mask, tile_start, ntx, res_records,
+      depth_out, tri_out, attr_out, stage, 0);
+}
+
+__global__ void __launch_bounds__(kVisThreads)
+visibility_resolve_band_bf16_kernel(
+    const float* __restrict__ records,
+    const int* __restrict__ pair_chunk, const int* __restrict__ pair_mask,
+    const int* __restrict__ tile_start, int ntx,
+    const float* __restrict__ res_records, float* __restrict__ depth_out,
+    int* __restrict__ tri_out, float* __restrict__ attr_out,
+    int tile_y_offset) {
+  __shared__ VisRegionStage stage;
+  visibility_resolve_block<kRecWidth, true, true>(
+      records, pair_chunk, pair_mask, tile_start, ntx, res_records,
+      depth_out, tri_out, attr_out, stage, tile_y_offset);
+}
+
+__global__ void __launch_bounds__(kVisThreads)
+visibility_resolve_vc_band_bf16_kernel(
+    const float* __restrict__ records,
+    const int* __restrict__ pair_chunk, const int* __restrict__ pair_mask,
+    const int* __restrict__ tile_start, int ntx,
+    const float* __restrict__ res_records, float* __restrict__ depth_out,
+    int* __restrict__ tri_out, float* __restrict__ attr_out,
+    int tile_y_offset) {
+  __shared__ VisRegionStage stage;
+  visibility_resolve_block<kRecWidthVColor, true, true>(
+      records, pair_chunk, pair_mask, tile_start, ntx, res_records,
+      depth_out, tri_out, attr_out, stage, tile_y_offset);
+}
+
 // the launch; `offset` is the band instances' trailing argument (none for
 // the offset-free kernels)
 template <typename... Offset>
@@ -198,4 +258,47 @@ extern "C" int trident_visibility_resolve_vc_band(
   return launch(visibility_resolve_vc_band_kernel, records, pair_chunk,
                 pair_mask, tile_start, n_tiles, ntx, res_records, depth_out,
                 tri_out, attr_out, stream, tile_y_offset);
+}
+
+// the bf16 instances' entry points, each the exact one's signature
+extern "C" int trident_visibility_resolve_bf16(
+    const float* records, const int* pair_chunk, const int* pair_mask,
+    const int* tile_start, int n_tiles, int ntx,
+    const float* res_records, float* depth_out, int* tri_out,
+    float* attr_out, cudaStream_t stream) {
+  return launch(visibility_resolve_bf16_kernel, records,
+                pair_chunk, pair_mask, tile_start, n_tiles, ntx,
+                res_records, depth_out, tri_out, attr_out, stream);
+}
+
+extern "C" int trident_visibility_resolve_vc_bf16(
+    const float* records, const int* pair_chunk, const int* pair_mask,
+    const int* tile_start, int n_tiles, int ntx,
+    const float* res_records, float* depth_out, int* tri_out,
+    float* attr_out, cudaStream_t stream) {
+  return launch(visibility_resolve_vc_bf16_kernel, records,
+                pair_chunk, pair_mask, tile_start, n_tiles, ntx,
+                res_records, depth_out, tri_out, attr_out, stream);
+}
+
+extern "C" int trident_visibility_resolve_band_bf16(
+    const float* records, const int* pair_chunk, const int* pair_mask,
+    const int* tile_start, int n_tiles, int ntx, int tile_y_offset,
+    const float* res_records, float* depth_out, int* tri_out,
+    float* attr_out, cudaStream_t stream) {
+  return launch(visibility_resolve_band_bf16_kernel,
+                records, pair_chunk, pair_mask, tile_start, n_tiles, ntx,
+                res_records, depth_out, tri_out, attr_out, stream,
+                tile_y_offset);
+}
+
+extern "C" int trident_visibility_resolve_vc_band_bf16(
+    const float* records, const int* pair_chunk, const int* pair_mask,
+    const int* tile_start, int n_tiles, int ntx, int tile_y_offset,
+    const float* res_records, float* depth_out, int* tri_out,
+    float* attr_out, cudaStream_t stream) {
+  return launch(visibility_resolve_vc_band_bf16_kernel,
+                records, pair_chunk, pair_mask, tile_start, n_tiles, ntx,
+                res_records, depth_out, tri_out, attr_out, stream,
+                tile_y_offset);
 }

@@ -126,6 +126,17 @@ def ortho_rh_zo(left, right, bottom, top, near, far,
     return m
 
 
+def vulkan_flip_y(proj):
+    """`proj[1][1] *= -1` on a copy of a projection built without the flip
+    (a torch tensor stays a tensor, anything else becomes an ndarray)."""
+    if hasattr(proj, "clone"):
+        proj = proj.clone()
+    else:
+        proj = np.array(proj)
+    proj[..., 1, 1] *= -1.0
+    return proj
+
+
 def normal_matrix(model) -> np.ndarray:
     """transpose(inverse(mat3(model))), batched."""
     return np.swapaxes(np.linalg.inv(np.asarray(model)[..., :3, :3]), -1, -2)

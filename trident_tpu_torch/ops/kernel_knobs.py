@@ -11,22 +11,42 @@ changes, so the same property holds without a cache key.
 A dict valid on one side is valid on the other: unknown names raise
 KeyError (the JAX `_KNOBS` names), and the JAX package's consistency rules
 raise ValueError (raster_pallas.recompute_derived, kernel_knobs
-._revalidate). What the port then runs:
+._revalidate). Every other dict renders, as the JAX Renderer renders it:
 
-  * fuse         — visibility + resolve in one kernel (csrc/visibility_resolve.cu)
-  * ckern, ck_bank — compact-bank visibility (csrc/visibility_ck.cu)
-  * tiled_shade  — channel-planar shading in the raster's tile layout
-                   (ops/deferred_tiled.py)
-  * dynhit, acc  — validated only: they select TPU kernel structures, and
-                   the port's visibility kernel serves every setting
-  * zskip, zorder — accepted as no-ops: bit-identical TPU scheduling (the
-                   JAX Renderer itself turns them on for shadowed scenes)
+  * fuse          — visibility + resolve in one kernel
+                    (csrc/visibility_resolve.cu)
+  * ckern, ck_bank — compact-bank visibility (csrc/visibility_ck.cu);
+                    pair_budget sets its pair cap (raster.CK_PAIR_BUDGET,
+                    the JAX CKERN budget), so both frames drop alike
+  * tiled_shade   — channel-planar shading in the raster's tile layout
+                    (ops/deferred_tiled.py), where the JAX gate admits the
+                    frame: texel_mxu, texel_max_pix and texel_max_q are
+                    its limits (trident_tpu/render/renderer.py:139-144)
+  * resolve_prec  — "bf16" runs the resolve kernels' bf16 instances, which
+                    round each record word to bf16 as the TPU's one raw
+                    bf16 pass of the winner select does; "split" and
+                    "fp32" are both exact on the card: the same instances
+  * upscale_v2, upscale_dtype, warp_mxu, d2s_mode — the 2× upscaler's V1
+                    or V2 path, its conv dtype, the warp's band window
+                    (ai/upscaler.py) and the depth-to-space relayout
 
-Every other knob runs only at the value the port implements — the JAX
-package's default, except `upscale_dtype`, whose port value is "f32" (the
-port's upscaler convs are f32; the JAX default "bf16" is not ported). Any
-other value raises NotImplementedError naming the knob. The JAX package's
-TRIDENT_* environment defaults are not read.
+No-ops on the card, accepted at every valid value: dynhit and acc (TPU
+visibility-kernel structures; validated only), zskip and zorder
+(bit-identical TPU scheduling), the branches that the JAX tests pin
+bit-exact to the default (qgate, recpad, rect, treset, exact_bins,
+sort_pad, cover_gate, resolve_skip, resolve_half, resolve_compact,
+resolve_tr, shadow_mxu; texel_mxu outside the tiled gate), and the TPU's
+layout and capacities that the port's own binning does not have
+(tile_h, tile_w, chunk, sub, span0, max_global, planar, texel_slab,
+texel_br, texel_bc; pair_budget outside ckern). A capacity under which
+the JAX frame drops geometry leaves the port's frame whole: a deliberate
+divergence (ROADMAP queue 3).
+
+Every default is the JAX package's env-less default, except
+`upscale_dtype`: the port's default is "f32" (f32 convs, held within the
+golden gate of the JAX "bf16" default frames); "bf16" is accepted and
+runs bf16 convs. The JAX package's TRIDENT_* environment defaults are not
+read.
 """
 
 from __future__ import annotations
@@ -50,51 +70,44 @@ JAX_DEFAULTS: Dict[str, Any] = {
     "upscale_v2": True, "d2s_mode": "convt", "upscale_dtype": "bf16",
 }
 
-# knobs the port runs at any valid value
-PORTED = ("fuse", "ckern", "ck_bank", "tiled_shade", "dynhit", "acc",
-          "zskip", "zorder")
-
-# the value the port implements, for every other knob
-PORT_VALUES: Dict[str, Any] = {**JAX_DEFAULTS, "upscale_dtype": "f32"}
-
-# the tiled-shade gate's limits (texel_max_pix, texel_max_q): TPU VMEM
-# sizes the JAX package routes on, kept so that both packages route alike
-TILED_MAX_PIX = JAX_DEFAULTS["texel_max_pix"]
-TILED_MAX_TABLE = JAX_DEFAULTS["texel_max_q"]
-
 
 @dataclasses.dataclass(frozen=True)
 class KernelKnobs:
-    """The knob set one Renderer renders with (the JAX env-less
-    defaults)."""
+    """The knobs one Renderer renders with: the fields the port reads, at
+    the JAX env-less defaults (upscale_dtype: the port's "f32")."""
 
     fuse: bool = False
     ckern: bool = False
     ck_bank: int = 8
+    pair_budget: Optional[int] = None
     tiled_shade: bool = False
-    dynhit: bool = True
-    acc: bool = True
+    texel_mxu: bool = True
+    texel_max_q: int = JAX_DEFAULTS["texel_max_q"]
+    texel_max_pix: int = JAX_DEFAULTS["texel_max_pix"]
+    resolve_prec: str = "split"
+    upscale_v2: bool = True
+    upscale_dtype: str = "f32"
+    warp_mxu: bool = True
+    d2s_mode: str = "convt"
 
     @staticmethod
     def from_config(kernel: Optional[Dict[str, Any]]) -> "KernelKnobs":
         """Validate `RenderConfig.kernel` (None = defaults) as the JAX
-        package does, refuse what the port does not run, and return the
-        knob set."""
+        package does and return the knob set."""
         kernel = dict(kernel or {})
         unknown = set(kernel) - set(JAX_DEFAULTS)
         if unknown:
             raise KeyError(f"unknown kernel knobs: {sorted(unknown)}; "
                            f"known: {sorted(JAX_DEFAULTS)}")
         _validate({**JAX_DEFAULTS, **kernel})
-        unported = sorted(name for name, value in kernel.items()
-                          if name not in PORTED
-                          and value != PORT_VALUES[name])
-        if unported:
-            raise NotImplementedError(
-                "kernel knobs not ported to trident_tpu_torch: "
-                + ", ".join(f"{n}={kernel[n]!r}" for n in unported))
         fields = {f.name for f in dataclasses.fields(KernelKnobs)}
         return KernelKnobs(**{k: v for k, v in kernel.items() if k in fields})
+
+    @property
+    def ck_pair_budget(self) -> Optional[int]:
+        """build_bins' pair cap under ckern: pair_budget, or None for the
+        default (raster.CK_PAIR_BUDGET)."""
+        return self.pair_budget if self.ckern else None
 
 
 def _validate(k: Dict[str, Any]) -> None:

@@ -24,6 +24,16 @@ framebuffer.py) resolves its rows at their global pixel centres: the
 and fused ones `tile_y_offset` (whole tiles); an offset, 0 included,
 launches the kernels' band instances (the `*_band` wrappers, each with
 its own launch count), None the offset-free ones.
+
+`prec` is the `resolve_prec` knob. "split" and "fp32" are the exact
+instances above (on the TPU they are two exact precision strategies of
+the winner select; on the card there is no select to be inexact). "bf16"
+takes the bf16 instance of the same layout, width and band form (the
+`*_bf16` wrappers, each with its own launch count): on the TPU that mode
+contracts the f32 records in one raw bf16 pass, so every record word the
+winner's pixels read is rounded to bf16; the kernels round each word as
+they load it, and the plain versions round the whole table once
+(bf16_records), which commutes with the select.
 """
 
 from __future__ import annotations
@@ -101,6 +111,13 @@ def eval_interpolants(sel: Tensor, pxf: Tensor, pyf: Tensor,
 
 
 WIDTHS = (P.RR_WIDTH, P.RR_WIDTH_VCOLOR)
+PRECS = ("split", "fp32", "bf16")      # the resolve_prec knob's values
+
+
+def bf16_records(records: Tensor) -> Tensor:
+    """The record table with every word rounded to bf16 (nearest-even)
+    and back to f32: what the bf16 instances read."""
+    return records.to(torch.bfloat16).float()
 
 
 def _check_records(records: Tensor, device, widths=WIDTHS) -> bool:
@@ -170,12 +187,18 @@ def _launch_resolve(name: str, tri_id: Tensor, records: Tensor,
 
 
 def resolve_attrs(tri_id: Tensor, records: Tensor,
-                  y_offset: Optional[int] = None) -> Tensor:
+                  y_offset: Optional[int] = None,
+                  prec: str = "split") -> Tensor:
     """(H, W, CHANNELS) attribute image: the CUDA kernel for tensors on
     the card (its 40-wide instance, resolve_attrs_vc, for a table with
     vertex colours), the plain version for tensors on the CPU. With a
-    y_offset, the ids are one band's (resolve_attrs_band)."""
-    if _check_records(records, tri_id.device):
+    y_offset, the ids are one band's (resolve_attrs_band); with prec
+    "bf16", the bf16 instance of that form (RESOLVE_BF16)."""
+    vc = _check_records(records, tri_id.device)
+    if prec == "bf16":
+        return RESOLVE_BF16[vc, y_offset is not None](tri_id, records,
+                                                      y_offset)
+    if vc:
         return resolve_attrs_vc(tri_id, records, y_offset)
     if y_offset is not None:
         return resolve_attrs_band(tri_id, records, y_offset)
@@ -288,14 +311,20 @@ def _launch_resolve_tiled(name: str, tri_tiles: Tensor, records: Tensor,
 
 
 def resolve_attrs_tiled(tri_tiles: Tensor, records: Tensor, ntx: int,
-                        tile_y_offset: Optional[int] = None) -> Tensor:
+                        tile_y_offset: Optional[int] = None,
+                        prec: str = "split") -> Tensor:
     """(n_tiles, CHANNELS, 1024) attributes of (n_tiles, 1024) tile-layout
     winner ids (resolve_attrs_pallas(tiled=True)): the CUDA kernel for
     tensors on the card (its 40-wide instance, resolve_attrs_tiled_vc, for
     a table with vertex colours), the plain version for tensors on the
     CPU. With a tile_y_offset, one band's tiles
-    (resolve_attrs_tiled_band)."""
-    if _check_records(records, tri_tiles.device):
+    (resolve_attrs_tiled_band); with prec "bf16", the bf16 instance of
+    that form (RESOLVE_TILED_BF16)."""
+    vc = _check_records(records, tri_tiles.device)
+    if prec == "bf16":
+        return RESOLVE_TILED_BF16[vc, tile_y_offset is not None](
+            tri_tiles, records, ntx, tile_y_offset)
+    if vc:
         return resolve_attrs_tiled_vc(tri_tiles, records, ntx, tile_y_offset)
     if tile_y_offset is not None:
         return resolve_attrs_tiled_band(tri_tiles, records, ntx,
@@ -411,15 +440,21 @@ def _launch_fused(name: str, bins: raster.Bins, records: Tensor, ntx: int,
 
 def fused_visibility_resolve(bins: raster.Bins, records: Tensor, ntx: int,
                              n_tiles: int,
-                             tile_y_offset: Optional[int] = None):
+                             tile_y_offset: Optional[int] = None,
+                             prec: str = "split"):
     """Visibility and resolve in one pass over the bins (the `fuse` knob,
     fused_visibility_resolve_pallas): (depth, tri) (n_tiles, 1024) and
     attrs (n_tiles, CHANNELS, 1024), equal to visibility_tiles followed by
     resolve_attrs_tiled. The CUDA kernel for tensors on the card (its
     40-wide instance, fused_visibility_resolve_vc, for a table with vertex
     colours), the plain version for tensors on the CPU. With a
-    tile_y_offset, one band (fused_visibility_resolve_band)."""
-    if _check_records(records, bins.records.device):
+    tile_y_offset, one band (fused_visibility_resolve_band); with prec
+    "bf16", the bf16 instance of that form (FUSED_BF16)."""
+    vc = _check_records(records, bins.records.device)
+    if prec == "bf16":
+        return FUSED_BF16[vc, tile_y_offset is not None](
+            bins, records, ntx, n_tiles, tile_y_offset)
+    if vc:
         return fused_visibility_resolve_vc(bins, records, ntx, n_tiles,
                                            tile_y_offset)
     if tile_y_offset is not None:
@@ -495,3 +530,120 @@ def fused_visibility_resolve_vc_band(bins: raster.Bins, records: Tensor,
 
 
 fused_visibility_resolve_vc_band.launches = 0
+
+
+# -- the bf16 instances (resolve_prec="bf16") --------------------------------
+# One wrapper per kernel instance, each with its own launch count, made by
+# the three factories below; RESOLVE_BF16, RESOLVE_TILED_BF16 and
+# FUSED_BF16 map (vertex colours, band) to them.
+
+def _instance_name(base: str, vc: bool, band: bool) -> str:
+    return base + "_vc" * vc + "_band" * band + "_bf16"
+
+
+def _resolve_bf16(vc: bool, band: bool):
+    entry = _instance_name("trident_resolve", vc, band)
+    width = P.RR_WIDTH_VCOLOR if vc else P.RR_WIDTH
+
+    def wrapper(tri_id: Tensor, records: Tensor,
+                y_offset: Optional[int] = None) -> Tensor:
+        _check_records(records, tri_id.device, (width,))
+        if tri_id.device.type == "cpu":
+            return resolve_attrs_plain(tri_id, bf16_records(records),
+                                       y_offset or 0)
+        out = _launch_resolve(entry, tri_id, records,
+                              (int(y_offset),) if band else ())
+        wrapper.launches += 1
+        return out
+
+    wrapper.__name__ = entry[len("trident_"):].replace("resolve",
+                                                      "resolve_attrs", 1)
+    wrapper.__doc__ = (
+        f"resolve_attrs with prec \"bf16\" on a (T, {width}) table"
+        + (", for one band whose first row is global row y_offset" if band
+           else "") + f": the kernel's {entry} on the card, the plain "
+        "version on the bf16-rounded table on the CPU.")
+    wrapper.launches = 0
+    return wrapper
+
+
+def _resolve_tiled_bf16(vc: bool, band: bool):
+    entry = _instance_name("trident_resolve_tiled", vc, band)
+    width = P.RR_WIDTH_VCOLOR if vc else P.RR_WIDTH
+
+    def wrapper(tri_tiles: Tensor, records: Tensor, ntx: int,
+                tile_y_offset: Optional[int] = None) -> Tensor:
+        _check_records(records, tri_tiles.device, (width,))
+        if tri_tiles.device.type == "cpu":
+            return resolve_attrs_tiled_plain(tri_tiles, bf16_records(records),
+                                             ntx, tile_y_offset or 0)
+        out = _launch_resolve_tiled(entry, tri_tiles, records, ntx,
+                                    (int(tile_y_offset),) if band else ())
+        wrapper.launches += 1
+        return out
+
+    wrapper.__name__ = entry[len("trident_"):].replace("resolve",
+                                                      "resolve_attrs", 1)
+    wrapper.__doc__ = (
+        f"resolve_attrs_tiled with prec \"bf16\" on a (T, {width}) table"
+        + (", for one band whose first tile row is global tile row "
+           "tile_y_offset" if band else "") + f": the kernel's {entry} on "
+        "the card, the plain version on the bf16-rounded table on the CPU.")
+    wrapper.launches = 0
+    return wrapper
+
+
+def _fused_bf16(vc: bool, band: bool):
+    entry = _instance_name("trident_visibility_resolve", vc, band)
+    width = P.RR_WIDTH_VCOLOR if vc else P.RR_WIDTH
+
+    def wrapper(bins: raster.Bins, records: Tensor, ntx: int, n_tiles: int,
+                tile_y_offset: Optional[int] = None):
+        _check_records(records, bins.records.device, (width,))
+        if bins.records.device.type == "cpu":
+            return fused_visibility_resolve_plain(
+                bins, bf16_records(records), ntx, n_tiles,
+                tile_y_offset or 0)
+        out = _launch_fused(entry, bins, records, ntx, n_tiles,
+                            (int(tile_y_offset),) if band else ())
+        wrapper.launches += 1
+        return out
+
+    wrapper.__name__ = "fused_" + entry[len("trident_"):]
+    wrapper.__doc__ = (
+        f"fused_visibility_resolve with prec \"bf16\" on a (T, {width}) "
+        "table" + (", for one band whose first tile row is global tile row "
+                   "tile_y_offset" if band else "")
+        + f": the kernel's {entry} on the card (depth and ids are K1's, the "
+        "attributes those of the bf16-rounded records), the plain version "
+        "on the bf16-rounded table on the CPU.")
+    wrapper.launches = 0
+    return wrapper
+
+
+resolve_attrs_bf16 = _resolve_bf16(False, False)
+resolve_attrs_vc_bf16 = _resolve_bf16(True, False)
+resolve_attrs_band_bf16 = _resolve_bf16(False, True)
+resolve_attrs_vc_band_bf16 = _resolve_bf16(True, True)
+resolve_attrs_tiled_bf16 = _resolve_tiled_bf16(False, False)
+resolve_attrs_tiled_vc_bf16 = _resolve_tiled_bf16(True, False)
+resolve_attrs_tiled_band_bf16 = _resolve_tiled_bf16(False, True)
+resolve_attrs_tiled_vc_band_bf16 = _resolve_tiled_bf16(True, True)
+fused_visibility_resolve_bf16 = _fused_bf16(False, False)
+fused_visibility_resolve_vc_bf16 = _fused_bf16(True, False)
+fused_visibility_resolve_band_bf16 = _fused_bf16(False, True)
+fused_visibility_resolve_vc_band_bf16 = _fused_bf16(True, True)
+
+# (vertex colours, band) → the bf16 wrapper
+RESOLVE_BF16 = {(False, False): resolve_attrs_bf16,
+                (True, False): resolve_attrs_vc_bf16,
+                (False, True): resolve_attrs_band_bf16,
+                (True, True): resolve_attrs_vc_band_bf16}
+RESOLVE_TILED_BF16 = {(False, False): resolve_attrs_tiled_bf16,
+                      (True, False): resolve_attrs_tiled_vc_bf16,
+                      (False, True): resolve_attrs_tiled_band_bf16,
+                      (True, True): resolve_attrs_tiled_vc_band_bf16}
+FUSED_BF16 = {(False, False): fused_visibility_resolve_bf16,
+              (True, False): fused_visibility_resolve_vc_bf16,
+              (False, True): fused_visibility_resolve_band_bf16,
+              (True, True): fused_visibility_resolve_vc_band_bf16}

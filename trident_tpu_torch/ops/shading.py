@@ -222,18 +222,23 @@ def sample_texture_mip(tex: TextureArrays, uv: Tensor, mip_level: Tensor,
 
 
 def sample_texture(tex: TextureArrays, uv: Tensor, mip_level: Tensor,
-                   mode: str = "bilinear", size_hint=None) -> Tensor:
+                   mode: str = "bilinear", size_hint=None,
+                   slot: Optional[Tensor] = None) -> Tensor:
     """Sample at the clamped mip level in `mode` (SAMPLING_MODES), plain
     PyTorch (trident_tpu/ops/shading.py:sample_texture): nearest and
     bilinear at the rounded level, trilinear between the two around it.
     `size_hint` is the per-pixel (w0, h0, base>>8, edge) i32 rows of the
-    resolved attributes."""
+    resolved attributes; without it, the per-pixel texture `slot` (an
+    integer tensor of uv's leading shape) gives them by one gather of
+    their tex.sizes rows, as the JAX function's _level_geom gathers."""
     if mode not in SAMPLING_MODES:
         raise ValueError(f"unknown sampling mode {mode!r}; expected one of "
                          f"{SAMPLING_MODES}")
     if size_hint is None:
-        raise NotImplementedError("per-slot size lookups are not ported; "
-                                  "pass the resolved size_hint rows")
+        if slot is None:
+            raise ValueError("sample_texture needs a size_hint or a slot")
+        row = tex.sizes[slot.long()]
+        size_hint = tuple(row[..., k] for k in range(4))
     mip = clamp_mip(tex, mip_level)
     if mode == "trilinear":
         return sample_texture_mip(tex, uv, mip, size_hint)

@@ -13,7 +13,7 @@ a 2×2 PCF footprint, fetched by the shadow-taps kernel
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,7 +93,8 @@ def scene_bounds(records, packed,
 
 def render_shadow_map(plan, params, light_cam: CameraParams, size: int, *,
                       corner_t, tri_draw, draw_stride: int = 0,
-                      real_draws: int = 0, ck_bank: int = 0, geometry=None,
+                      real_draws: int = 0, ck_bank: int = 0,
+                      pair_budget: Optional[int] = None, geometry=None,
                       palette=None, skinned: bool = False,
                       raster_mode: str = "pallas") -> Tuple[Tensor, Tensor]:
     """Depth-only render from the light → ((S, S) f32 depth in [0, 1],
@@ -108,7 +109,8 @@ def render_shadow_map(plan, params, light_cam: CameraParams, size: int, *,
     64); "pallas" bins and runs the depth-only kernel, or with ck_bank > 0
     (the ckern knob) the compact-bank kernel, its ids dropped as the JAX
     light pass drops them under CKERN (raster_pallas.py:1371: no
-    depth-only body); its depths equal the depth-only kernel's."""
+    depth-only body); its depths equal the depth-only kernel's.
+    `pair_budget` is build_bins' pair cap (the pair_budget knob)."""
     if corner_t is not None and tri_draw is not None and not skinned:
         draw_rows = build_draw_rows(params, light_cam, size, size)
         cs = corner_stage(corner_t, draw_rows, tri_draw, plan.tri_valid,
@@ -124,7 +126,7 @@ def render_shadow_map(plan, params, light_cam: CameraParams, size: int, *,
         gbuf = visibility_ref(setup, size, size)
         return gbuf.depth, gbuf.aux
     bins = raster.build_bins(setup, size, size, setup_cols=setup_cols,
-                             ck_bank=ck_bank)
+                             ck_bank=ck_bank, pair_budget=pair_budget)
     ntx = nty = -(-size // raster.TILE)
     if ck_bank:
         depth_t, _tri = raster.visibility_ck_tiles(bins, ntx, ntx * nty,
@@ -133,6 +135,17 @@ def render_shadow_map(plan, params, light_cam: CameraParams, size: int, *,
         depth_t = raster.visibility_tiles(bins, ntx, ntx * nty,
                                           depth_only=True)
     return raster.untile_frame(depth_t, ntx, nty)[:size, :size], bins.aux
+
+
+def null_shadow(size: int = 1, device=None) -> ShadowParams:
+    """A disabled shadow: an all-far size × size map, identity light
+    matrix, bias 2e-3 (trident_tpu/ops/shadow.py:195), on `device` (the
+    CPU unless given); shadow_factor is 1 everywhere under it."""
+    return ShadowParams(
+        depth=torch.ones((size, size), dtype=torch.float32, device=device),
+        light_vp=torch.eye(4, dtype=torch.float32, device=device),
+        enabled=torch.zeros((), dtype=torch.bool, device=device),
+        bias=torch.full((), 2e-3, dtype=torch.float32, device=device))
 
 
 def _light_space(shadow: ShadowParams, world: Tensor):

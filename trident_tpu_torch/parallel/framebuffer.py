@@ -203,7 +203,8 @@ def _light_depth(setup: TriangleSetup, cols: SetupCols, size: int,
         g = visibility_ref(setup, size, rows, y_offset=y0)
         return g.depth, g.aux
     ck = knobs.ck_bank if knobs.ckern else 0
-    bins = raster.build_bins(setup, size, rows, setup_cols=cols, ck_bank=ck)
+    bins = raster.build_bins(setup, size, rows, setup_cols=cols, ck_bank=ck,
+                             pair_budget=knobs.ck_pair_budget)
     ntx, nty = -(-size // raster.TILE), -(-rows // raster.TILE)
     tile_y = y0 // raster.TILE if band else None
     if ck:

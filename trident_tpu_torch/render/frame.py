@@ -235,6 +235,15 @@ def gather_sprite_batch(registry: Registry, quad_mesh_index: int,
         bone_matrices=_objects([None] * n))
 
 
+def gather_sprite_draws(registry: Registry, cache, quad_mesh_index: int,
+                        time_s: float = 0.0,
+                        texture_lookup=None) -> List[DrawRecord]:
+    """gather_sprite_batch's draws as a DrawRecord list (the JAX package's
+    form, trident_tpu/render/frame.py:81; `cache` is unused there too)."""
+    return list(gather_sprite_batch(registry, quad_mesh_index, time_s,
+                                    texture_lookup))
+
+
 def _mesh_indices(records) -> tuple:
     """The drawn mesh of each draw of a DrawBatch or a DrawRecord list."""
     if isinstance(records, DrawBatch):

@@ -92,7 +92,21 @@ def frame_kernels() -> Dict[str, Callable]:
             "resolve_band": resolve.resolve_attrs_band,
             "resolve_vc_band": resolve.resolve_attrs_vc_band,
             "resolve_tiled_band": resolve.resolve_attrs_tiled_band,
-            "resolve_tiled_vc_band": resolve.resolve_attrs_tiled_vc_band}
+            "resolve_tiled_vc_band": resolve.resolve_attrs_tiled_vc_band,
+            # the bf16 instances (resolve_prec="bf16"), by the same names
+            # with "_bf16" (the band ones run eagerly, as above)
+            **{_bf16_entry(fn): fn
+               for table in (resolve.RESOLVE_BF16, resolve.RESOLVE_TILED_BF16,
+                             resolve.FUSED_BF16)
+               for fn in table.values()}}
+
+
+def _bf16_entry(fn) -> str:
+    """The kernel name of a bf16 wrapper: resolve_attrs_tiled_vc_bf16 →
+    resolve_tiled_vc_bf16, fused_visibility_resolve_bf16 →
+    visibility_resolve_bf16."""
+    return fn.__name__.replace("resolve_attrs", "resolve", 1) \
+        .replace("fused_", "", 1)
 
 
 def _launch_counts() -> Dict[str, int]:

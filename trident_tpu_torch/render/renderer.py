@@ -46,8 +46,8 @@ interpolated AI frame into the display frame. Sprites are quads drawn
 with the meshes, `set_skybox` sets the background's cube map (with an
 optional mip chain, one level picked per viewport), `set_custom_shader`
 a user shading module (render/shader_hook.py), and `acquire_texture`
-takes a file mip chain. A kernel knob the port does not run raises
-NotImplementedError (ops/kernel_knobs.py).
+takes a file mip chain. Every kernel-knob dict that the JAX package
+accepts renders (ops/kernel_knobs.py).
 
 With RenderConfig.bands = n > 1 the viewport renders as n row bands
 (parallel/framebuffer.py::render_frame_banded_bundled) on cuda:0 ..
@@ -102,11 +102,7 @@ from trident_tpu_torch.ops.deferred import (
     pack_rgba8,
 )
 from trident_tpu_torch.ops.deferred_tiled import shade_attrs_tiled
-from trident_tpu_torch.ops.kernel_knobs import (
-    TILED_MAX_PIX,
-    TILED_MAX_TABLE,
-    KernelKnobs,
-)
+from trident_tpu_torch.ops.kernel_knobs import KernelKnobs
 from trident_tpu_torch.ops.planes import (
     build_planes_cols,
     build_resolve_cols_planar,
@@ -246,7 +242,8 @@ def shadow_params(plan, params, tri_draw, corner_t, light_cam: CameraParams,
     depth_map, aux = render_shadow_map(
         plan, params, light_cam, size, corner_t=corner_t, tri_draw=tri_draw,
         draw_stride=draw_stride, real_draws=real_draws,
-        ck_bank=knobs.ck_bank if knobs.ckern else 0, geometry=geometry,
+        ck_bank=knobs.ck_bank if knobs.ckern else 0,
+        pair_budget=knobs.ck_pair_budget, geometry=geometry,
         palette=palette, skinned=skinned, raster_mode=raster_mode)
     dev = depth_map.device
     shadow = ShadowParams(
@@ -276,7 +273,7 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
     resolve (or the fused attributes) and channel-planar shading in tile
     layout; else the (H, W) attribute image and deferred_shade_attrs. The
     records' width picks the resolve kernels' instance (vertex colours or
-    not).
+    not), knobs.resolve_prec their exact or bf16 instance.
 
     A band of a taller frame (the banded frame, parallel/framebuffer.py)
     passes its first global row as y_offset (whole tiles) with the frame's
@@ -293,8 +290,10 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
     ntx, nty = -(-width // raster.TILE), -(-height // raster.TILE)
     n_tiles = ntx * nty
     tile_y = None if y_offset is None else y_offset // raster.TILE
+    prec = knobs.resolve_prec
     bins = raster.build_bins(setup, width, height, setup_cols=setup_cols,
-                             ck_bank=knobs.ck_bank if knobs.ckern else 0)
+                             ck_bank=knobs.ck_bank if knobs.ckern else 0,
+                             pair_budget=knobs.ck_pair_budget)
     if profile_stop == "bins":
         probe = (bins.pair_tile.sum() + bins.pair_chunk.sum()
                  + bins.pair_mask.sum()).float()
@@ -309,7 +308,7 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
     attrs_t = None
     if knobs.fuse and not profile_stop:
         depth_t, tri_t, attrs_t = fused_visibility_resolve(
-            bins, records, ntx, n_tiles, tile_y)
+            bins, records, ntx, n_tiles, tile_y, prec)
     elif knobs.ckern:
         depth_t, tri_t = raster.visibility_ck_tiles(bins, ntx, n_tiles,
                                                     knobs.ck_bank, tile_y)
@@ -329,21 +328,23 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
                               device=gbuf.depth.device))
         return frame, gbuf
     if profile_stop == "resolve_tiled":
-        at = resolve_attrs_tiled(tri_t, records, ntx, tile_y)
+        at = resolve_attrs_tiled(tri_t, records, ntx, tile_y, prec)
         return torch.zeros((height, width, 4), dtype=torch.float32,
                            device=at.device) + at.sum() * 1e-20, gbuf
     # the JAX package's gate (renderer.py:139-144): bilinear sampling, no
-    # custom shader, and its TPU texel kernel's pixel and table limits at
-    # the full frame's size
+    # custom shader, its TPU texel kernel on (texel_mxu), and that
+    # kernel's pixel and table limits (texel_max_pix, texel_max_q) at the
+    # full frame's size
     fh = height if full_height is None else full_height
     use_tiled = (knobs.tiled_shade and sampling == "bilinear"
-                 and shader_fn is None and width * fh <= TILED_MAX_PIX
-                 and textures.quads.shape[0] <= TILED_MAX_TABLE
+                 and shader_fn is None and knobs.texel_mxu
+                 and width * fh <= knobs.texel_max_pix
+                 and textures.quads.shape[0] <= knobs.texel_max_q
                  and not profile_stop)
     y0 = 0 if y_offset is None else y_offset
     if use_tiled:
         if attrs_t is None:
-            attrs_t = resolve_attrs_tiled(tri_t, records, ntx, tile_y)
+            attrs_t = resolve_attrs_tiled(tri_t, records, ntx, tile_y, prec)
         rgba_t = shade_attrs_tiled(tri_t, depth_t, attrs_t, textures, camera,
                                    lights, width, height, shadow=shadow,
                                    shadow_pcf=shadow_pcf, tonemap=tonemap,
@@ -363,7 +364,7 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
         attrs = raster.untile_channels(attrs_t, ntx, nty)[:height, :width] \
             .contiguous()
     else:
-        attrs = resolve_attrs(gbuf.tri_id, records, y_offset)
+        attrs = resolve_attrs(gbuf.tri_id, records, y_offset, prec)
     if profile_stop == "resolve":
         return torch.zeros((height, width, 4), dtype=torch.float32,
                            device=attrs.device) + attrs.sum() * 1e-20, gbuf
@@ -391,6 +392,7 @@ def plane_visibility(setup, setup_cols, width: int, height: int,
     return raster.visibility(
         setup, width, height, setup_cols=setup_cols,
         ck_bank=knobs.ck_bank if knobs.ckern else 0,
+        pair_budget=knobs.ck_pair_budget,
         tile_y_offset=None if y_offset is None else y_offset // raster.TILE)
 
 
@@ -472,6 +474,10 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
     temporal input, alpha, depth and ids are repeated 2×2, and
     FrameOutput.history holds the net's blocks as uint8 for the next
     frame, with the view·proj it was seen through (FrameOutput.view_proj).
+    The upscaler knobs pick the path as trident_tpu/render/renderer.py:
+    384-403 does: upscale_v2 (else V1, apply_upscaler, history None: the
+    next frame warps this RGBA8 frame, `warp_history`), upscale_dtype (V2
+    convs), d2s_mode and warp_mxu (the band window of the warp).
     `ai` (an AiBlend) mixes the interpolated AI frame in once, at display
     resolution: after the supersample resolve and the upscale, before the
     clamp (trident_tpu/render/renderer.py:405); the shading keeps none.
@@ -565,16 +571,29 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
     if upscale_params is not None:
         view_proj = camera.proj @ camera.view
         temporal = up.temporal_from_prev(upscale_params, prev, depth_out,
-                                         camera, width * 2, height * 2)
-        rgb, blocks = up.apply_upscaler_v2(upscale_params, frame[..., :3],
-                                           temporal, depth=depth_out)
-        history = up.blocks_to_u8(blocks)
+                                         camera, width * 2, height * 2,
+                                         windowed=knobs.warp_mxu)
+        if knobs.upscale_v2:
+            rgb, blocks = up.apply_upscaler_v2(
+                upscale_params, frame[..., :3], temporal, depth=depth_out,
+                dtype=knobs.upscale_dtype, d2s_mode=knobs.d2s_mode)
+            history = up.blocks_to_u8(blocks)
+        else:
+            rgb = up.apply_upscaler(upscale_params, frame[..., :3],
+                                    temporal, depth=depth_out)
         frame = torch.cat([rgb, _repeat2(frame[..., 3:4])], dim=-1)
         depth_out, tri_out = _repeat2(depth_out), _repeat2(tri_out)
     frame = torch.clamp(apply_ai_blend(frame, ai), 0.0, 1.0)
     return FrameOutput(color=pack_rgba8(frame), depth=depth_out,
                        tri_id=tri_out, aux=gbuf.aux, shadow_aux=shadow_aux,
                        history=history, view_proj=view_proj)
+
+
+def warp_history(out: FrameOutput) -> Optional[torch.Tensor]:
+    """The history the next upscaled frame warps from `out`: the V2
+    blocks, or the V1 frame's RGBA8 colour (trident_tpu/render/renderer.py:
+    900)."""
+    return out.history if out.history is not None else out.color
 
 
 def _repeat2(a):
@@ -719,8 +738,8 @@ class Renderer:
     them.
 
     `render.kernel` is validated once here (ops/kernel_knobs.py: an
-    unknown knob raises KeyError, an inconsistent set ValueError, a knob
-    the port does not run NotImplementedError) and its KernelKnobs ride
+    unknown knob raises KeyError, an inconsistent set ValueError, as in
+    the JAX package; every other dict renders) and its KernelKnobs ride
     every frame explicitly, so Renderers with different knobs render
     their own frames side by side.
 
@@ -1296,7 +1315,7 @@ class Renderer:
             out = self.graphs.run(fb.key, fb.f32, fb.i32, fb.prev, fb.ai,
                                   fb.frame_fn, keep=fb.keep)
         if fb.upscaled:
-            ctx.prev_state = (out.history, out.view_proj)
+            ctx.prev_state = (warp_history(out), out.view_proj)
         ctx.last_frame, ctx.last_sig = out, fb.sig
         return out
 

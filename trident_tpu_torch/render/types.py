@@ -9,7 +9,7 @@ identical input can feed both packages.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,6 +74,11 @@ class LightParams(NamedTuple):
     point_count: Tensor        # () i32
 
 
+class MaterialTable(NamedTuple):
+    params: Tensor        # (M,8) f32: rgba, metallic, roughness, ambient, rsv
+    texture_slot: Tensor  # (M,) i32
+
+
 class TextureArrays(NamedTuple):
     """Per-slot mip pyramids of 2×2 texel quads in ONE flat table (layout:
     render/textures.py). quads holds the JAX package's uint32 RGBA8 words
@@ -115,6 +120,15 @@ class ShadowParams(NamedTuple):
     bias: Tensor          # () f32 depth bias
 
 
+class FramebufferConfig(NamedTuple):
+    """Static framebuffer config (hashable)."""
+
+    width: int
+    height: int
+    msaa: int = 1
+    clear_color: Tuple[float, float, float, float] = (0.05, 0.05, 0.08, 1.0)
+
+
 class FrameOutput(NamedTuple):
     color: Tensor         # (H,W,4) uint8
     depth: Tensor         # (H,W) f32
@@ -130,13 +144,28 @@ class FrameOutput(NamedTuple):
                                         # frame's `prev` (ai_upscale only)
 
 
+def zero_light_params(device=None) -> LightParams:
+    """No lights: zero ambient, no directional light (pointing down), no
+    point lights in the 8 slots (trident_tpu/render/types.py:170), on
+    `device` (the CPU unless given)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return LightParams(
+        ambient=torch.zeros(4, **f32),
+        dir_direction=torch.tensor([0.0, -1.0, 0.0], **f32),
+        dir_color=torch.zeros(4, **f32),
+        dir_count=torch.zeros((), dtype=torch.int32, device=device),
+        point_pos_range=torch.zeros((8, 4), **f32),
+        point_color_intensity=torch.zeros((8, 4), **f32),
+        point_count=torch.zeros((), dtype=torch.int32, device=device))
+
+
 def _twins() -> dict:
     from trident_tpu_torch.ops.corner import CornerCols, CornerStageOut
     from trident_tpu_torch.ops.vertex import SetupCols, TriangleSetup
 
     return {cls.__name__: cls for cls in (
         GeometryBuffers, DrawPlan, DrawParams, CameraParams, LightParams,
-        TextureArrays, GBuffer, SkyboxCube, AiBlend, ShadowParams,
+        MaterialTable, TextureArrays, GBuffer, SkyboxCube, AiBlend, ShadowParams,
         FrameOutput,
         TriangleSetup,
         SetupCols, CornerCols, CornerStageOut)}

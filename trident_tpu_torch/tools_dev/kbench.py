@@ -46,12 +46,14 @@ table's producer, the (T, 32) rows frame_geometry builds against the
 inside frame_geometry, in the order rows, columns, columns, rows. The
 three legs are plain PyTorch, no kernel.
 
-Deviation from the JAX script: it builds the bins through the indexed
-vertex_stage + triangle_setup (kbench.py:59-67); the port has no indexed
-rigid path (the JAX Renderer takes it only for skinned meshes,
-trident_tpu/render/renderer.py:258,284-292), so the bins here come as the
-port's frame builds them: frame_inputs → frame_geometry (corner stage) →
-raster.build_bins.
+The bins come as the JAX script builds them (kbench.py:59-67): the
+geometry through the indexed path, ops/vertex.py::vertex_stage over the
+geometry's device buffers, then the (T, 3, 16) corner gather and
+ops/vertex.py::triangle_setup_cols (frame_geometry with no corner table,
+the route the Renderer takes for skinned frames), then raster.build_bins.
+The frame's own route, the corner stage, rounds the clip coordinates in
+another order, so its setup and its frame can differ from these in the
+last bits (chip_smoke.py phase 21 counts the pixels).
 """
 
 from __future__ import annotations
@@ -78,18 +80,21 @@ SORT_LADDER = (8192, 16384, 24576, 32768, 49152, 65536, 73664, 81920, 98304,
 
 def frame_bins(r, ck_bank: int = 0):
     """(corner stage output, (T, RW) resolve records, bins, width, height)
-    of Renderer r's current frame, as its render_frame builds them
-    (chip_smoke.py phase 3); ck_bank > 0 adds the compact-bank table."""
+    of Renderer r's current frame with its geometry through the indexed
+    path (the module note: vertex_stage, then the corner gather and
+    triangle_setup_cols); ck_bank > 0 adds the compact-bank table."""
+    from trident_tpu_torch.render.frame import geometry_to_device
     from trident_tpu_torch.render.renderer import frame_geometry
 
     rc = r.config.render
     r.editor_camera.set_viewport_size(rc.width, rc.height)
     inp = r.frame_inputs()
     w, h = inp["width"], inp["height"]
+    geometry = geometry_to_device(r.geometry.packed(), r.device)
     cs, records = frame_geometry(
         inp["plan"], inp["tri_draw"], inp["params"], inp["shade_table"],
-        inp["camera"], inp["textures"], inp["corner_t"], width=w, height=h,
-        draw_stride=inp["draw_stride"], real_draws=inp["real_draws"])
+        inp["camera"], inp["textures"], None, width=w, height=h,
+        geometry=geometry, palette=inp["palette"])
     bins = raster.build_bins(cs.setup, w, h, setup_cols=cs.cols.setup,
                              ck_bank=ck_bank)
     return cs, records, bins, w, h

@@ -71,6 +71,11 @@ KERNEL_RECORDS = {
     "resolve_tiled_band": r"(?<!\w)resolve_tiled_band_kernel(?!\w)",
     "resolve_tiled_vc_band": r"(?<!\w)resolve_tiled_vc_band_kernel(?!\w)",
 }
+# the bf16 instances (resolve_prec="bf16"): each resolve kernel's name
+# with "_bf16" before "_kernel"
+KERNEL_RECORDS.update({
+    f"{name}_bf16": pattern.replace("_kernel", "_bf16_kernel")
+    for name, pattern in list(KERNEL_RECORDS.items()) if "resolve" in name})
 
 
 def record_counts(record_names) -> dict:
