@@ -1,0 +1,254 @@
+"""One run of one cell: build the configuration's scene on the program,
+set the traffic's loop up, measure the window, optionally profile a
+stretch, then compare what the window produced with the plain reference.
+
+Everything about a cell is found by name in files of its own:
+benchmark/cells/<cell>.json (configuration, traffic, chips, why),
+benchmark/configs/<config>.json (the scene's sizes and settings, and the
+limits of the comparison), benchmark/traffic/<traffic>.json (the loop, the
+frames it keeps queued, the cycle of the scene's motion),
+benchmark/loops/<loop>.py (the loop, its class `LOOP`),
+benchmark/scenes/<scene>.py (the scene on the program, its class `SCENE`,
+with its plain reference in benchmark/reference/), and
+benchmark/metrics/<metric>.py (one reader per metric).
+
+What a run compares and traces is the harness's own, the same for every
+traffic mix (the constants below).
+"""
+
+from __future__ import annotations
+
+import gc
+import importlib
+import json
+import pkgutil
+import re
+import shutil
+import sys
+import tempfile
+import time
+from pathlib import Path
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from benchmark import check, trace, work
+from benchmark.loops import Clock, frame_aux
+
+ROOT = Path(__file__).resolve().parent
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+AUX_ROWS = 1 << 17           # frames a window can log the drop counters of
+WORK_FRAMES = 4              # traced frames the raster work is counted on
+WARMUP = 8                   # frames each loop runs at the end of set-up
+SAMPLES = 4                  # window frames compared besides the last ...
+SAMPLE_SPAN = 240            # ... drawn from the seed among its first 240
+TRACE_FRAMES = 32            # frames in a traced run's profiled stretch
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def load(kind: str, name: str) -> dict:
+    """benchmark/<kind>/<name>.json."""
+    if not NAME.match(name):
+        raise ValueError(f"bad {kind} name {name!r}")
+    path = ROOT / kind / f"{name}.json"
+    if not path.is_file():
+        raise FileNotFoundError(f"no {kind} file {path}")
+    return json.loads(path.read_text())
+
+
+def cell(name: str) -> tuple:
+    """(cell, configuration, traffic) of a cell by name."""
+    c = load("cells", name)
+    return c, load("configs", c["config"]), load("traffic", c["traffic"])
+
+
+def _named(package: str, name: str, attr: str):
+    """benchmark/<package>/<name>.py's `attr`."""
+    if not NAME.match(name) or "." in name:
+        raise ValueError(f"bad {package} name {name!r}")
+    return getattr(importlib.import_module(f"benchmark.{package}.{name}"),
+                   attr)
+
+
+def scene_class(cfg: dict):
+    return _named("scenes", cfg["scene"], "SCENE")
+
+
+def loop_class(traffic: dict):
+    return _named("loops", traffic["loop"], "LOOP")
+
+
+def readers() -> dict:
+    """Every metric reader in benchmark/metrics/, by name."""
+    from benchmark import metrics
+
+    return {m.name: importlib.import_module(f"benchmark.metrics.{m.name}")
+            for m in pkgutil.iter_modules(metrics.__path__)}
+
+
+def sample_frames(seed: int) -> set:
+    """The window frames (by position in the window) whose output is kept
+    for the comparison, drawn from the seed; the last frame is kept too."""
+    rng = np.random.default_rng([seed, 1])
+    return set(rng.choice(SAMPLE_SPAN, SAMPLES, replace=False).tolist())
+
+
+class Window(NamedTuple):
+    frames: int
+    times_ms: list           # each frame's completion, from the start mark
+    failed: int              # frames whose drop counters are not [0, 0]
+
+
+class Run(NamedTuple):
+    setup_s: float
+    window: Window
+    spans: trace.Spans
+    stretch: Optional[trace.Stretch]
+    work: Optional[work.RasterWork]
+
+
+def _window(loop, clock: Clock, seconds: float, keep: set, dev):
+    """Frames back to back for `seconds` of host time (then drained): the
+    Window, the kept frames (reference step, RGBA8 frame, kept outputs)
+    and the next frame number."""
+    aux = torch.zeros((AUX_ROWS, 2), dtype=torch.int32, device=dev)
+    marks, kept = [], []
+    n, k = 0, loop.next
+    start = clock.mark()
+    t_end = time.perf_counter() + seconds
+    while n == 0 or time.perf_counter() < t_end:
+        if n >= AUX_ROWS:
+            raise RuntimeError(f"more than {AUX_ROWS} frames in a window")
+        if loop.throttle and n >= loop.throttle:
+            clock.wait(marks[n - loop.throttle])
+        out = loop.frame(k)
+        marks.append(clock.mark())
+        aux[n].copy_(frame_aux(out))
+        if n in keep:
+            kept.append((loop.ref_index(k), loop.colour(out),
+                         loop.scene_kept(k)))
+        n, k = n + 1, k + 1
+    kept.append((loop.ref_index(k - 1), loop.colour(out),
+                 loop.scene_kept(k - 1)))
+    clock.sync()
+    times = [clock.ms(start, m) for m in marks]
+    failed = int((aux[:n] != 0).any(dim=1).sum())
+    return Window(n, times, failed), kept, k
+
+
+def run_cell(name: str, seed: int, seconds: float, trace_on: bool,
+             device="cuda", t_start: Optional[float] = None,
+             hook: Optional[Callable] = None,
+             config: Optional[dict] = None) -> dict:
+    """One run of cell `name` → the result line (a dict). `config`
+    replaces the cell's configuration (the tests' small sizes); `hook`
+    (scene, loop) runs once both are built (the tests' planted faults)."""
+    t_start = time.perf_counter() if t_start is None else t_start
+    _c, cfg, traffic = cell(name)
+    cfg = config or cfg
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        from trident_tpu_torch import _build
+
+        _build.load_library()
+        log("kernels: " + ("built by nvcc in "
+                           f"{_build.build_seconds:.1f} s"
+                           if _build.build_seconds is not None
+                           else "cached library, nvcc not called"))
+    cls = scene_class(cfg)
+    workdir = tempfile.mkdtemp(prefix="benchmark-")
+    try:
+        scene = cls(cfg, seed, traffic["cycle"], dev, workdir)
+        loop = loop_class(traffic)(scene, traffic)
+        if hook is not None:
+            hook(scene, loop)
+        clock = Clock(dev)
+        keep = sample_frames(seed)
+        loop.setup(WARMUP)
+        clock.sync()
+        setup_s = time.perf_counter() - t_start
+        spans = trace.Spans()
+        if trace_on:
+            for obj, attr, span, drain in loop.span_targets():
+                spans.wrap(obj, attr, span, drain)
+        window, kept, nxt = _window(loop, clock, seconds, keep, dev)
+        stretch, traced = None, []
+        if trace_on and dev.type == "cuda":
+            def run_frames(count: int) -> None:
+                nonlocal nxt
+                for _ in range(count):
+                    loop.frame(nxt)
+                    traced.append(loop.ref_index(nxt))
+                    nxt += 1
+
+            stretch = trace.profile_stretch(run_frames, TRACE_FRAMES,
+                                            spans, loop.launch_list)
+            if stretch is None:
+                raise RuntimeError(f"no whole profiled stretch in "
+                                   f"{trace.ATTEMPTS} attempts: the device "
+                                   "metrics are not measured")
+            traced = traced[-TRACE_FRAMES:]
+        clock.sync()
+        memory = (torch.cuda.max_memory_allocated(dev)
+                  if dev.type == "cuda" else 0)
+        scene.close()
+        del loop, scene
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        numbers = check.compare(cls, cfg, cls.motion_of(
+            cfg, seed, traffic["cycle"]), kept, dev)
+        raster = None
+        if stretch is not None:
+            raster = _raster_work(cls, cfg, seed, traffic, traced, dev)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    run = Run(setup_s, window, spans, stretch, raster)
+    ok, checks = check.verdict(numbers, cfg["limits"])
+    metrics = {}
+    kind = "per_layer" if trace_on else "end_to_end"
+    for mname, mod in sorted(readers().items()):
+        if mod.KIND != kind:
+            continue
+        value = mod.read(run)
+        if value is not None:
+            metrics[mname] = {"value": value, "unit": mod.UNIT}
+    dev_info = {"platform": "gpu" if dev.type == "cuda" else "cpu",
+                "kind": (torch.cuda.get_device_name(dev)
+                         if dev.type == "cuda" else "cpu"),
+                "count": 1, "memory_peak_bytes": int(memory)}
+    out = {"correct": bool(ok and window.failed == 0),
+           "attempted": window.frames, "failed": window.failed,
+           "metrics": metrics, "device": dev_info}
+    if trace_on and stretch is not None:
+        busy, first, last = trace.busy_union(stretch.device)
+        dev_info["busy_s"] = busy * 1e-6
+        dev_info["window_s"] = (last - first) * 1e-6
+        out["breakdown"] = trace.breakdown(stretch)
+    out["checks"] = checks
+    return out
+
+
+def _raster_work(cls, cfg: dict, seed: int, traffic: dict, traced: list,
+                 dev) -> Optional[work.RasterWork]:
+    """The mean raster work of WORK_FRAMES of the traced frames, counted
+    on the reference's geometry and winners."""
+    if not traced:
+        return None
+    motion = cls.motion_of(cfg, seed, traffic["cycle"])
+    picks = [traced[i * len(traced) // WORK_FRAMES]
+             for i in range(min(WORK_FRAMES, len(traced)))]
+    works = []
+    for k in picks:
+        ref = cls.reference.reference_frame(cfg, motion, k, dev)
+        works.append(work.raster_work(ref["mesh"], ref["tri"], cfg["width"],
+                                      cfg["height"]))
+        del ref
+    mean = [float(np.mean([getattr(w, f) for w in works]))
+            for f in work.RasterWork._fields]
+    return work.RasterWork(*mean)
