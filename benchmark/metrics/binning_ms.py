@@ -1,0 +1,14 @@
+"""The binning stage (build_bins: the pairs of triangles and tiles the
+visibility kernel walks): device milliseconds per frame of the profiled
+stretch's records between each frame's `stage_mark_binning` and its next
+mark (benchmark/stages.py). Nothing to read without the program's
+marks."""
+
+from benchmark import stages
+
+KIND = "per_layer"
+UNIT = "ms/frame"
+
+
+def read(run):
+    return stages.stage_ms(run.stretch, "binning")

@@ -30,6 +30,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skips without one (on the "
+        "card: python3 -m pytest --noconftest -m card tests/<file>)")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(1234)

@@ -165,6 +165,15 @@ def test_console_and_ai_state(server):
     assert abs(server.app.config.ai.blend - 0.4) < 1e-6
 
 
+def test_state_reads_the_tracer(server):
+    """The status panel carries the tracer's reads: device ms per frame
+    stage (none off the card) and the host's waits on the card per
+    frame (None until a frame was traced)."""
+    state = json.loads(_get(server, "/api/state"))
+    assert state["stage_ms"] == {}
+    assert state["host_wait_ms"] is None or state["host_wait_ms"] >= 0.0
+
+
 def test_assets_browse_and_import(server, tmp_path):
     (tmp_path / "sub").mkdir()
     (tmp_path / "sub" / "tri.obj").write_text(

@@ -35,6 +35,7 @@ from trident_tpu_torch import resolve_device
 from trident_tpu_torch.anim.data import AnimationClip, Skeleton
 from trident_tpu_torch.anim.pose import Pose
 from trident_tpu_torch.mathx.quat import quat_normalize, quat_slerp, quat_to_mat3
+from trident_tpu_torch.utils.profiling import TRACER
 
 _FAR = 1e30  # finite "+inf" pad keeps (t - t_lo) / (pad - t_lo) == 0 exact
 
@@ -113,10 +114,20 @@ class BatchedClipSampler:
     def __call__(self, times: np.ndarray) -> np.ndarray:
         """times: (N,) seconds, already wrapped to the clip duration
         (loop/clamp policy is per-entity host state) → (N,B,4,4) f32 numpy
-        (palettes are consumed on the host: one device-to-host copy)."""
-        t = torch.from_numpy(np.asarray(times, np.float32).reshape(-1))
-        out = _sample_palettes(self._tables, self._walk, t.to(self.device))
-        return out.cpu().numpy()
+        (palettes are consumed on the host: one device-to-host copy). The
+        times go up in a copy from pageable memory, which waits for the
+        work queued on the stream before it. Traced as the spans
+        `anim.sample` (the upload, its wait `wait.upload`, and the
+        launches) and `anim.readback` (the copy, also the wait
+        `wait.readback`), utils/profiling.py."""
+        with TRACER.span("anim.sample"):
+            t = torch.from_numpy(np.asarray(times, np.float32).reshape(-1))
+            with TRACER.span("wait.upload"):
+                t = t.to(self.device)
+            out = _sample_palettes(self._tables, self._walk, t)
+        with TRACER.span("anim.readback"), TRACER.span("wait.readback"):
+            host = out.cpu()
+        return host.numpy()
 
 
 def _track(times_tab: torch.Tensor, vals_tab: torch.Tensor, t: torch.Tensor):

@@ -24,6 +24,7 @@ from trident_tpu_torch.anim.player import AnimationPlayer
 from trident_tpu_torch.anim.service import AnimationAssetService
 from trident_tpu_torch.ecs.components import AnimationComponent
 from trident_tpu_torch.ecs.registry import Registry
+from trident_tpu_torch.utils.profiling import TRACER
 
 
 class AnimationSystem:
@@ -116,14 +117,10 @@ class AnimationSystem:
                 player._palette = pal
 
     @classmethod
-    def update(cls, registry: Registry, dt: float, device=None) -> None:
-        """Advance every playing AnimationComponent. Clip-driven entities
-        are grouped by (skeleton, clip) and pose-sampled in ONE sampler
-        call per group on `device` (anim/batch.py) — time advance / loop
-        policy stays per-entity host state; only the state-machine path
-        walks entities individually (reference: AnimationSystem.cpp:120-165
-        is a per-entity loop for everything)."""
-        groups: Dict[tuple, list] = {}
+    def _walk(cls, registry: Registry, dt: float, groups: dict) -> None:
+        """update's host walk: advance each playing entity's time, pose
+        the state-machine and clip-less ones, and group the clip-driven
+        ones into `groups` by (skeleton, clip)."""
         for entity, (anim,) in registry.view(AnimationComponent):
             if not anim.playing:
                 continue
@@ -146,6 +143,19 @@ class AnimationSystem:
             anim.time = player.time
             key = (id(player.skeleton), id(player.clip))
             groups.setdefault(key, []).append((anim, player, anim.time))
+
+    @classmethod
+    def update(cls, registry: Registry, dt: float, device=None) -> None:
+        """Advance every playing AnimationComponent. Clip-driven entities
+        are grouped by (skeleton, clip) and pose-sampled in ONE sampler
+        call per group on `device` (anim/batch.py) — time advance / loop
+        policy stays per-entity host state; only the state-machine path
+        walks entities individually (reference: AnimationSystem.cpp:120-165
+        is a per-entity loop for everything). The per-entity walk is the
+        tracer's span `anim.walk` (utils/profiling.py)."""
+        groups: Dict[tuple, list] = {}
+        with TRACER.span("anim.walk"):
+            cls._walk(registry, dt, groups)
         cls._sample_groups(groups, device)
         # players are keyed by entity id: prune entries whose entity no
         # longer carries an AnimationComponent so destroy/re-spawn cycles

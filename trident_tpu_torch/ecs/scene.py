@@ -42,6 +42,7 @@ from trident_tpu_torch.ecs.components import (
 )
 from trident_tpu_torch.ecs.registry import Entity, Registry
 from trident_tpu_torch.geometry.primitives import PrimitiveType
+from trident_tpu_torch.utils.profiling import TRACER
 
 logger = get_logger("scene")
 
@@ -184,9 +185,14 @@ class Scene:
             self.renderer.runtime_camera_ready = False
 
     def update(self, dt: float) -> None:
-        """Per-frame runtime logic: scripts + skeletal animation."""
+        """Per-frame runtime logic: scripts + skeletal animation (the
+        tracer's span `anim`, utils/profiling.py)."""
         if not self.playing or self.paused:
             return
+        with TRACER.span("anim"):
+            self._update(dt)
+
+    def _update(self, dt: float) -> None:
         registry = self.runtime_registry
         # snapshot: a script destroying an entity mutates Registry._alive
         # mid-iteration and would silently skip the NEXT entity's update

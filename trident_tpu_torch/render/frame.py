@@ -30,6 +30,7 @@ from trident_tpu_torch.ecs.registry import Registry
 from trident_tpu_torch.geometry.mesh import GeometryCache, PackedGeometry
 from trident_tpu_torch import resolve_device
 from trident_tpu_torch.mathx.transforms import compose_trs
+from trident_tpu_torch.utils.profiling import TRACER
 from trident_tpu_torch.render.types import (
     DrawParams,
     DrawPlan,
@@ -261,7 +262,9 @@ class DrawPlanCache:
     """Caches the expanded index tensors keyed by (geometry version, mesh
     indices drawn), plus the corner table and the uniform-instancing
     layout: draw_stride > 0 when every draw is one mesh, so draw d owns
-    triangles [d·stride, (d+1)·stride) (ops/corner.py broadcast path)."""
+    triangles [d·stride, (d+1)·stride) (ops/corner.py broadcast path).
+    `triangles` is the plan's triangle count (the Renderer's
+    stats_triangles), counted once per plan."""
 
     def __init__(self, device=None) -> None:
         self.device = resolve_device(device)
@@ -274,6 +277,7 @@ class DrawPlanCache:
         self.version = 0
         self.draw_stride = 0
         self.real_draws = 0
+        self.triangles = 0
 
     def plan(self, packed: PackedGeometry, records: List[DrawRecord],
              geometry_version: int) -> Tuple[DrawPlan, torch.Tensor]:
@@ -281,11 +285,13 @@ class DrawPlanCache:
         if key == self._key and self._plan is not None:
             return self._plan, self._tri_draw
         plan, tri_draw = build_draw_plan(packed, records, self.device)
+        TRACER.count("upload.geometry")
         self._key, self._plan, self._tri_draw = key, plan, tri_draw
         self._corner_t = None
         self.version += 1
-        tri_counts = {packed.draw_infos[m].index_count // 3
-                      for m in key[1]}
+        per_draw = [packed.draw_infos[m].index_count // 3 for m in key[1]]
+        self.triangles = sum(per_draw)
+        tri_counts = set(per_draw)
         if records and len(tri_counts) == 1:
             self.draw_stride = tri_counts.pop()
             self.real_draws = len(records)
@@ -307,6 +313,7 @@ class DrawPlanCache:
             self._corner_t = torch.from_numpy(build_corner_table(
                 attr, self._plan.vtx_src.cpu().numpy(),
                 self._plan.tri_vtx.cpu().numpy())).to(self.device)
+            TRACER.count("upload.geometry")
         return self._corner_t
 
 

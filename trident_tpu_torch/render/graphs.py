@@ -41,6 +41,14 @@ captures recorded (`captured`) and its replays ran (`replayed`). A
 capture or replay that fails raises: there is no eager fallback on the
 card. At most `capacity` graphs are kept, least recently used first out;
 an evicted graph's pool is freed.
+
+The tracer (utils/profiling.py) times `run` and `run_rows` as the span
+`submit`, with `submit.stage` (the pinned copy and the copies in),
+`submit.capture` (a new key only), `submit.replay` and `submit.clone`;
+the blocking waits as `wait.slot` (a staging slot's last copies) and
+`wait.evict` (an evicted graph's last replay); `upload.bytes` counts the
+blob bytes staged, `captures` and `evictions` are read from here, and
+`run_rows` ticks a frame (`render_viewport` ticks `run`'s).
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ import torch
 from trident_tpu_torch.ops.kernel_knobs import KernelKnobs
 from trident_tpu_torch.render.bundle import BundleShape
 from trident_tpu_torch.render.types import FrameOutput
+from trident_tpu_torch.utils.profiling import TRACER, stage_ring
 
 
 def frame_kernels() -> Dict[str, Callable]:
@@ -175,6 +184,7 @@ class FrameGraphs:
         self._ring = [_Slot() for _ in range(staging)]
         self._next = 0
         self.captures = 0
+        self.evictions = 0
         self.replays = 0
         # kernel name → launches that captures recorded into graphs (a
         # wrapper's count ticks then, but nothing runs) / that replays ran
@@ -182,6 +192,7 @@ class FrameGraphs:
         self.replayed: Counter = Counter()
         self.last_key: Optional[tuple] = None
         self.last_launches: Dict[str, int] = {}
+        stage_ring(self.device)      # the stage marks' ring, before captures
         LIVE.add(self)
 
     def __len__(self) -> int:
@@ -197,7 +208,9 @@ class FrameGraphs:
         slot = self._ring[self._next]
         self._next = (self._next + 1) % len(self._ring)
         if slot.event is not None:
-            slot.event.synchronize()        # its last copies have run
+            with TRACER.span("wait.slot"):
+                slot.event.synchronize()    # its last copies have run
+        TRACER.count("upload.bytes", f32.nbytes + i32.nbytes)
         slot.f32 = _pinned(slot.f32, f32.size, torch.float32)
         slot.i32 = _pinned(slot.i32, i32.size, torch.int32)
         np.copyto(slot.f32[:f32.size].numpy(), f32)
@@ -256,7 +269,9 @@ class FrameGraphs:
         """Free least recently used graphs until `keep` are left."""
         while len(self._graphs) > keep:
             _key, old = self._graphs.popitem(last=False)
-            torch.cuda.synchronize(self.device)   # its last replay has run
+            with TRACER.span("wait.evict"):
+                torch.cuda.synchronize(self.device)  # its last replay ran
+            self.evictions += 1
             old.graph.reset()
             del old
             torch.cuda.empty_cache()              # its pool
@@ -269,16 +284,21 @@ class FrameGraphs:
                 prev, ai, frame_fn, keep: tuple) -> FrameGraph:
         """Fill the graph of `key` (capturing it first if it is new) with
         fill(graph) for the blobs, `prev` and `ai`, and replay it."""
+        span = TRACER.span
         g = self._graphs.get(key)
         if g is None:
-            self._evict(self.capacity - 1)
-            g = self._capture(fill, n_f32, n_i32, prev, ai, frame_fn, keep)
+            with span("submit.capture"):
+                self._evict(self.capacity - 1)
+                g = self._capture(fill, n_f32, n_i32, prev, ai, frame_fn,
+                                  keep)
             self._graphs[key] = g
         else:
             self._graphs.move_to_end(key)
-            fill(g)
-            self._copy_in(g, prev, ai)
-        g.graph.replay()
+            with span("submit.stage"):
+                fill(g)
+                self._copy_in(g, prev, ai)
+        with span("submit.replay"):
+            g.graph.replay()
         self.replayed.update(g.launches)
         self.replays += 1
         self.last_key = key
@@ -295,10 +315,12 @@ class FrameGraphs:
         tensors (render_frame_bundled with everything else bound); `keep`
         holds the device-resident tensors it reads, alive while the graph
         is."""
-        g = self._replay(key, lambda g: self.stage(g, f32, i32), f32.size,
-                         i32.size, prev, ai, frame_fn, keep)
-        return FrameOutput(*(None if t is None else t.clone()
-                             for t in g.out))
+        with TRACER.span("submit"):
+            g = self._replay(key, lambda g: self.stage(g, f32, i32),
+                             f32.size, i32.size, prev, ai, frame_fn, keep)
+            with TRACER.span("submit.clone"):
+                return FrameOutput(*(None if t is None else t.clone()
+                                     for t in g.out))
 
     def run_rows(self, key: tuple, f32_rows: torch.Tensor,
                  i32_rows: torch.Tensor, k: int, prev, ai, frame_fn,
@@ -312,5 +334,8 @@ class FrameGraphs:
             g.f32.copy_(f32_rows[k], non_blocking=True)
             g.i32.copy_(i32_rows[k], non_blocking=True)
 
-        return self._replay(key, fill, f32_rows.shape[1], i32_rows.shape[1],
-                            prev, ai, frame_fn, keep).out
+        TRACER.frame()
+        with TRACER.span("submit"):
+            return self._replay(key, fill, f32_rows.shape[1],
+                                i32_rows.shape[1], prev, ai, frame_fn,
+                                keep).out

@@ -140,6 +140,7 @@ from trident_tpu_torch.render.graphs import FrameGraphs, frame_key
 from trident_tpu_torch.render.lights import gather_lights_host
 from trident_tpu_torch.render.shader_hook import ShaderHook
 from trident_tpu_torch.render.textures import TextureSlots
+from trident_tpu_torch.utils.profiling import TRACER, stage_mark
 from trident_tpu_torch.render.types import (
     AiBlend,
     CameraParams,
@@ -254,6 +255,10 @@ def shadow_params(plan, params, tri_draw, corner_t, light_cam: CameraParams,
     return shadow, aux
 
 
+def _no_mark(stage: str) -> None:
+    """The stage mark of a frame that takes none."""
+
+
 def _visibility_and_shade(setup, setup_cols, records, textures, camera,
                           lights, *, width: int, height: int, clear_color,
                           shadow: Optional[ShadowParams] = None,
@@ -263,7 +268,7 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
                           sampling: str = "bilinear", shader_fn=None,
                           y_offset: Optional[int] = None,
                           full_height: Optional[int] = None,
-                          profile_stop: str = ""):
+                          profile_stop: str = "", marks: bool = False):
     """Rasterize + shade a frame from prebuilt per-triangle inputs →
     (frame (H,W,4) f32, GBuffer), routed by the kernel knobs as
     trident_tpu/render/renderer.py:99-193 routes them: visibility by the
@@ -286,18 +291,23 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
     `profile_stop` "bins", "vis", "resolve_tiled" or "resolve" ends the
     frame after that stage (trident_tpu/render/renderer.py:82-186): the
     fused kernel and the tiled shading are off, and the frame returned
-    is a probe of the stage's outputs (render_frame's ablation stops)."""
+    is a probe of the stage's outputs (render_frame's ablation stops).
+
+    `marks` stamps the start of binning, visibility, resolve and shading
+    (utils/profiling.py::stage_mark; render_frame's one-device frame)."""
     ntx, nty = -(-width // raster.TILE), -(-height // raster.TILE)
     n_tiles = ntx * nty
     tile_y = None if y_offset is None else y_offset // raster.TILE
     prec = knobs.resolve_prec
+    dev = setup.edge.device
+    mark = (lambda stage: stage_mark(stage, dev)) if marks else _no_mark
+    mark("binning")
     bins = raster.build_bins(setup, width, height, setup_cols=setup_cols,
                              ck_bank=knobs.ck_bank if knobs.ckern else 0,
                              pair_budget=knobs.ck_pair_budget)
     if profile_stop == "bins":
         probe = (bins.pair_tile.sum() + bins.pair_chunk.sum()
                  + bins.pair_mask.sum()).float()
-        dev = setup.edge.device
         frame = (torch.zeros((height, width, 4), dtype=torch.float32,
                              device=dev) + probe * 1e-20)
         return frame, GBuffer(
@@ -306,6 +316,7 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
             depth=torch.ones((height, width), dtype=torch.float32,
                              device=dev), aux=bins.aux)
     attrs_t = None
+    mark("visibility")
     if knobs.fuse and not profile_stop:
         depth_t, tri_t, attrs_t = fused_visibility_resolve(
             bins, records, ntx, n_tiles, tile_y, prec)
@@ -344,7 +355,9 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
     y0 = 0 if y_offset is None else y_offset
     if use_tiled:
         if attrs_t is None:
+            mark("resolve")
             attrs_t = resolve_attrs_tiled(tri_t, records, ntx, tile_y, prec)
+        mark("shading")
         rgba_t = shade_attrs_tiled(tri_t, depth_t, attrs_t, textures, camera,
                                    lights, width, height, shadow=shadow,
                                    shadow_pcf=shadow_pcf, tonemap=tonemap,
@@ -360,6 +373,7 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
         if tonemap:
             frame = torch.clamp(apply_ai_blend(frame, None), 0.0, 1.0)
         return frame, gbuf
+    mark("resolve")
     if attrs_t is not None:
         attrs = raster.untile_channels(attrs_t, ntx, nty)[:height, :width] \
             .contiguous()
@@ -368,6 +382,7 @@ def _visibility_and_shade(setup, setup_cols, records, textures, camera,
     if profile_stop == "resolve":
         return torch.zeros((height, width, 4), dtype=torch.float32,
                            device=attrs.device) + attrs.sum() * 1e-20, gbuf
+    mark("shading")
     frame = deferred_shade_attrs(gbuf, attrs, textures, camera, lights,
                                  width, height, clear_color=clear_color,
                                  shadow=shadow, shadow_pcf=shadow_pcf,
@@ -450,7 +465,8 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
                  skinned: bool = False,
                  geometry: Optional[GeometryBuffers] = None,
                  palette: Optional[torch.Tensor] = None,
-                 profile_stop: str = "") -> FrameOutput:
+                 profile_stop: str = "", frame_mark: bool = True
+                 ) -> FrameOutput:
     """One frame (the JAX `_render_frame_impl`): main-pass geometry at
     (W·ss, H·ss) → the light pass when `light_camera` and `shadow_size`
     are given → visibility, resolve and shading (linear HDR when
@@ -499,7 +515,14 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
     the light pass, which only shading reads. A stop the route does not
     have raises ValueError (the JAX frame returns the shaded frame
     there): the plane-gather routes have "geom" and the corner path's two
-    stops, the indexed path neither of those two."""
+    stops, the indexed path neither of those two.
+
+    On the card each stage's start is stamped on the device
+    (utils/profiling.py::stage_mark: frame, geometry, shadow, binning,
+    visibility, resolve, shading, post, end), also inside a captured
+    graph; an ablation stop stamps nothing. `frame_mark` False leaves the
+    frame mark to the caller (render_frame_bundled stamps it before
+    unpacking the blobs)."""
     if raster_mode not in RASTER_MODES:
         raise ValueError(f"unknown raster mode {raster_mode!r}; expected "
                          f"one of {RASTER_MODES}")
@@ -515,6 +538,11 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
     geo_kw = dict(width=rw, height=rh, draw_stride=draw_stride,
                   real_draws=real_draws, vertex_colors=vertex_colors,
                   geometry=geometry, palette=palette, skinned=skinned)
+    dev = tri_draw.device
+    marks = not profile_stop
+    mark = (lambda stage: stage_mark(stage, dev)) if marks else _no_mark
+    if frame_mark:
+        mark("frame")
     if profile_stop in ("draw_rows", "corner"):
         draw_consts = None
         if forward:
@@ -525,6 +553,7 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
                              height=rh, out_w=width, out_h=height,
                              draw_stride=draw_stride, real_draws=real_draws,
                              vertex_colors=vertex_colors)
+    mark("geometry")
     if forward:
         cs, records = frame_geometry(plan, tri_draw, params, shade_table,
                                      camera, textures, corner_t, **geo_kw)
@@ -539,6 +568,7 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
         return _probe_output(probe, width, height, probe.device)
     shadow = shadow_aux = None
     if shadow_size and light_camera is not None and not profile_stop:
+        mark("shadow")
         shadow, shadow_aux = shadow_params(
             plan, params, tri_draw, corner_t, light_camera, shadow_size,
             shadow_bias, draw_stride=draw_stride, real_draws=real_draws,
@@ -551,16 +581,19 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
         frame, gbuf = _visibility_and_shade(
             cs.setup, cs.cols.setup, records, textures, camera, lights,
             width=rw, height=rh, knobs=knobs, profile_stop=profile_stop,
-            **shade_kw)
+            marks=marks, **shade_kw)
         if profile_stop:
             return FrameOutput(color=pack_rgba8(torch.clamp(frame, 0.0, 1.0)),
                                depth=gbuf.depth, tri_id=gbuf.tri_id,
                                aux=gbuf.aux)
     else:
+        mark("visibility")
         gbuf = plane_visibility(cs.setup, cs.cols.setup, rw, rh,
                                 raster_mode, knobs)
+        mark("shading")
         frame = deferred_shade(gbuf, planes, textures, camera, lights, rw,
                                rh, **shade_kw)
+    mark("post")
     if bloom:
         hdr = post.bloom(frame[..., :3], bloom_threshold, bloom_strength)
         frame = torch.cat([tonemap_reinhard_gamma(hdr), frame[..., 3:4]],
@@ -584,7 +617,9 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
         frame = torch.cat([rgb, _repeat2(frame[..., 3:4])], dim=-1)
         depth_out, tri_out = _repeat2(depth_out), _repeat2(tri_out)
     frame = torch.clamp(apply_ai_blend(frame, ai), 0.0, 1.0)
-    return FrameOutput(color=pack_rgba8(frame), depth=depth_out,
+    color = pack_rgba8(frame)
+    mark("end")
+    return FrameOutput(color=color, depth=depth_out,
                        tri_id=tri_out, aux=gbuf.aux, shadow_aux=shadow_aux,
                        history=history, view_proj=view_proj)
 
@@ -628,7 +663,9 @@ def render_frame_bundled(plan, tri_draw, f32, i32, textures, corner_t,
     without an ai_image there is no mix; the bone palette rides it too.
     `skybox`, `vertex_colors`, `sampling`, `shader_fn`, the route
     (`raster_mode`, `forward_shading`, `plane_f16`), `skinned` and
-    `geometry` are render_frame's."""
+    `geometry` are render_frame's. The frame's stage marks start before
+    the blobs are unpacked."""
+    stage_mark("frame", f32.device)
     (params, palette, shade_table, camera, lights, light_cam, ai_blend,
      shadow_bias) = unpack_frame(f32, i32, shape)
     return render_frame(
@@ -644,7 +681,8 @@ def render_frame_bundled(plan, tri_draw, f32, i32, textures, corner_t,
         knobs=knobs, skybox=skybox, vertex_colors=vertex_colors,
         sampling=sampling, shader_fn=shader_fn, raster_mode=raster_mode,
         forward_shading=forward_shading, plane_f16=plane_f16,
-        skinned=skinned, geometry=geometry, palette=palette)
+        skinned=skinned, geometry=geometry, palette=palette,
+        frame_mark=False)
 
 
 def _banded_frame():
@@ -1036,29 +1074,35 @@ class Renderer:
         what is not ported)."""
         if self.registry is None:
             raise RuntimeError("no active registry — call set_active_registry")
+        span = TRACER.span
         sprites = any(True for _ in self.registry.view(SpriteComponent))
         quad = self.ensure_primitive(PrimitiveType.QUAD) if sprites else -1
         packed = self.geometry.packed()
         if self._vertex_colors_version != self.geometry.version:
             self._vertex_colors = bool((packed.colors != 1.0).any())
             self._vertex_colors_version = self.geometry.version
-        draws = gather_draw_batch(self.registry, self.geometry)
-        if sprites:
-            draws = draws.concat(gather_sprite_batch(
-                self.registry, quad, self.time.elapsed,
-                texture_lookup=self.textures.lookup))
-        plan, tri_draw = self._plan_cache.plan(packed, draws,
-                                               self.geometry.version)
+        with span("state.gather"):
+            draws = gather_draw_batch(self.registry, self.geometry)
+            if sprites:
+                draws = draws.concat(gather_sprite_batch(
+                    self.registry, quad, self.time.elapsed,
+                    texture_lookup=self.textures.lookup))
+        with span("state.plan"):
+            plan, tri_draw = self._plan_cache.plan(packed, draws,
+                                                   self.geometry.version)
         rc = self.config.render
-        params, shade = build_draw_params_host(
-            draws, plan.num_draws,
-            material_table=self.geometry.material_table(),
-            max_bones=rc.max_bones)
-        palette = bone_palette_host(draws, plan.num_draws, rc.max_bones)
-        light_cam, shadow_size = self._shadow_host(draws, packed)
+        with span("state.params"):
+            params, shade = build_draw_params_host(
+                draws, plan.num_draws,
+                material_table=self.geometry.material_table(),
+                max_bones=rc.max_bones)
+            palette = bone_palette_host(draws, plan.num_draws, rc.max_bones)
+        with span("state.lights"):
+            lights = gather_lights_host(self.registry)
+            light_cam, shadow_size = self._shadow_host(draws, packed)
         return _FrameState(packed, draws, plan, tri_draw, params, palette,
-                           shade, gather_lights_host(self.registry),
-                           light_cam, shadow_size, draws.skinned)
+                           shade, lights, light_cam, shadow_size,
+                           draws.skinned)
 
     def _raster_mode(self) -> str:
         """"ref" (the reference raster) when use_pallas is False, else
@@ -1095,6 +1139,7 @@ class Renderer:
             self._geometry_buffers = geometry_to_device(st.packed,
                                                         self.device)
             self._geometry_buffers_version = self.geometry.version
+            TRACER.count("upload.geometry")
         return self._geometry_buffers
 
     def _band_devices(self) -> Optional[list]:
@@ -1191,14 +1236,21 @@ class Renderer:
         the eager frame over device blobs (render_frame_bundled with
         everything else bound). `devices` (a list, one band each) makes it
         a banded frame over them whatever RenderConfig.bands says, with
-        the same fallback when its bands are not whole tiles."""
+        the same fallback when its bands are not whole tiles. The host
+        span `state` times it (utils/profiling.py)."""
+        with TRACER.span("state"):
+            return self._frame_bundle(viewport_id, devices)
+
+    def _frame_bundle(self, viewport_id: int,
+                      devices: Optional[list]) -> FrameBundle:
         ctx = self._viewport(viewport_id)
         cam = self._camera_for(ctx)
         st = self._frame_state()
         ai_image, ai_blend, ai_version = self._ai_input()
-        f32, i32, shape = pack_frame(st.params, st.palette, st.shade,
-                                     cam.host_params(), st.lights,
-                                     st.light_camera, ai_blend)
+        with TRACER.span("state.pack"):
+            f32, i32, shape = pack_frame(st.params, st.palette, st.shade,
+                                         cam.host_params(), st.lights,
+                                         st.light_camera, ai_blend)
         if devices is None:
             devices = self._band_devices()
         banded = (None if devices is None
@@ -1218,14 +1270,15 @@ class Renderer:
         sky = (None if skybox is None
                else (tuple(skybox.faces.shape), self._skybox_version))
         shader_fn, shader_version = self.shader_hook.fn, self.shader_hook.version
-        key = frame_key(shape, w_r, h_r, statics, self.knobs,
-                        prev is not None, versions, ai_image.shape, sky,
-                        shader_version)
-        # every input of the frame but `prev`, as the JAX signature (the AI
-        # frame by its version: a new one misses the cache)
-        sig = (f32.tobytes(), i32.tobytes(), shape, w_r, h_r, versions,
-               tuple(sorted(statics.items())), self.knobs, ai_version, sky,
-               shader_version)
+        with TRACER.span("state.key"):
+            key = frame_key(shape, w_r, h_r, statics, self.knobs,
+                            prev is not None, versions, ai_image.shape, sky,
+                            shader_version)
+            # every input of the frame but `prev`, as the JAX signature (the
+            # AI frame by its version: a new one misses the cache)
+            sig = (f32.tobytes(), i32.tobytes(), shape, w_r, h_r, versions,
+                   tuple(sorted(statics.items())), self.knobs, ai_version,
+                   sky, shader_version)
         textures = self.textures.device_arrays(self.device)
         geometry, corner_t = self._device_geometry(st)
         plan, tri_draw = st.plan, st.tri_draw
@@ -1281,24 +1334,31 @@ class Renderer:
         upscaled frame's (history, view·proj) becomes the viewport's next
         `prev`. The idle-frame
         signature is kept only once the frame is rendered, so a frame
-        that raises is rendered anew on the next call."""
+        that raises is rendered anew on the next call. Each call is one
+        of the tracer's frames; the eager frames (the CPU's, a banded one)
+        are its `submit` span as the graphs' run is on the card."""
+        TRACER.frame()
+        span = TRACER.span
         ctx = self._viewport(viewport_id)
         fb = self.frame_bundle(viewport_id, devices)
         st = fb.state
-        self.stats_models = len(st.draws)
-        self.stats_triangles = sum(
-            st.packed.draw_infos[m].index_count // 3
-            for m in st.draws.mesh_index.tolist())
-        self._last_draws = st.draws
-        self._last_tri_draw = st.tri_draw
+        with span("stats"):
+            self.stats_models = len(st.draws)
+            self.stats_triangles = self._plan_cache.triangles
+            TRACER.count("draw.triangles", self.stats_triangles)
+            self._last_draws = st.draws
+            self._last_tri_draw = st.tri_draw
         if fb.bands is not None:
             # the banded frame, eagerly; its (RGBA8 frame, view·proj) is
             # the next one's warp input, and its signature is none: a
             # later one-device frame must not match it
             dev0 = fb.bands[0]
-            out = fb.frame_fn(torch.from_numpy(fb.f32).to(dev0),
-                              torch.from_numpy(fb.i32).to(dev0), fb.prev,
-                              fb.ai)
+            with span("submit"):
+                with span("submit.stage"):
+                    f32 = torch.from_numpy(fb.f32).to(dev0)
+                    i32 = torch.from_numpy(fb.i32).to(dev0)
+                with span("submit.eager"):
+                    out = fb.frame_fn(f32, i32, fb.prev, fb.ai)
             if fb.upscaled:
                 ctx.prev_state = (out.color, out.view_proj)
             ctx.last_frame, ctx.last_sig = out, None
@@ -1307,10 +1367,12 @@ class Renderer:
         # previous frame of this viewport, skip the frame and reuse its
         # output (what an editor does while nothing moves)
         if ctx.last_frame is not None and ctx.last_sig == fb.sig:
+            TRACER.count("idle_cache.hits")
             return ctx.last_frame
         if self.graphs is None:
-            out = fb.frame_fn(torch.from_numpy(fb.f32),
-                              torch.from_numpy(fb.i32), fb.prev, fb.ai)
+            with span("submit"), span("submit.eager"):
+                out = fb.frame_fn(torch.from_numpy(fb.f32),
+                                  torch.from_numpy(fb.i32), fb.prev, fb.ai)
         else:
             out = self.graphs.run(fb.key, fb.f32, fb.i32, fb.prev, fb.ai,
                                   fb.frame_fn, keep=fb.keep)
@@ -1335,7 +1397,8 @@ class Renderer:
             done.record()
             self._inflight.append(done)
             if len(self._inflight) > self.max_inflight:
-                self._inflight.pop(0).synchronize()
+                with TRACER.span("wait.pace"):
+                    self._inflight.pop(0).synchronize()
         ctx = self.viewports[self.active_viewport]
         self.timing.accumulate(dt * 1000.0, (ctx.width, ctx.height))
         return out

@@ -19,6 +19,7 @@ import torch
 
 from trident_tpu_torch import resolve_device
 from trident_tpu_torch.render.types import TextureArrays
+from trident_tpu_torch.utils.profiling import TRACER
 
 
 def _box_downsample(img: np.ndarray) -> np.ndarray:
@@ -202,4 +203,5 @@ class TextureSlots:
             max_level=torch.tensor(max_level, dtype=torch.int32, device=dev),
         )
         self._device_key = key
+        TRACER.count("upload.textures")
         return self._device

@@ -484,6 +484,13 @@ class ViewerServer:
             return out
 
     def state(self):
+        """The status panel: frame rate, size, stats, the AI worker, and
+        the tracer's reads (utils/profiling.py): device ms per frame stage
+        over the last 16 frames stamped while tracing was on ({} off the
+        card or before such a frame) and the host's ms per frame waiting
+        on the card (None until a traced frame)."""
+        from trident_tpu_torch.utils.profiling import TRACER, stage_ms
+
         with self.lock:
             r = self.app.renderer
             ctx = r.viewports[r.active_viewport]
@@ -491,6 +498,8 @@ class ViewerServer:
             return {"fps": self._fps, "width": ctx.width, "height": ctx.height,
                     "playing": bool(self.app.scene.playing),
                     "models": r.stats_models, "triangles": r.stats_triangles,
+                    "stage_ms": stage_ms(device=r.device),
+                    "host_wait_ms": TRACER.host_wait_ms(),
                     "ai": {"enabled": ai.enabled,
                            "queue_depth": ai.queue_depth,
                            "completed_count": ai.completed_count,
