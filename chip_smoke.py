@@ -310,7 +310,15 @@ Phases (any failure exits non-zero before the final line is printed):
      windowless-warp Renderer's moving-camera frame, K8 on the windowless
      indices bit-equal to its plain version and the pixels whose validity
      differs from the windowed warp
-Then it prints the kernels as one JSON line (each entry with
+ 22. the skinned indexed geometry's kernel pair (phase_skinned_geometry,
+     csrc/skinned_geometry.cu) on phase 16's loaded crowd at 1920×1080:
+     bit-equal to its plain version with 40- and 32-wide records, the
+     call and each kernel timed beside its bound and the plain version;
+     the wrapper's launches and the tracer's geometry.kernel in 8 crowd
+     frames (two runs a capture, none a replay) and 4 spheres1080_1m
+     frames (none)
+Then it prints the kernels as one JSON line, phase 22's numbers beside
+them under `skinned_geometry` (each entry with
 `route_launches`: its launches in each of phase 15's, 16's and 17's
 route runs, in phase 19's pair rendering, `train_pairs`, and in phase
 20's application loop, `app_loop`; a band
@@ -2595,6 +2603,7 @@ def phase_routes(dev, card: str, kernel_fns: dict, drive, bench) -> dict:
         frame_geometry,
         plane_geometry,
         plane_visibility,
+        shading_consts,
     )
     from trident_tpu_torch.render.types import GBuffer
     from trident_tpu_torch.tools_dev.scenes import (
@@ -2807,6 +2816,13 @@ def phase_routes(dev, card: str, kernel_fns: dict, drive, bench) -> dict:
     sk_verts = vertex_stage(ski["geometry"], ski["plan"], ski["params"],
                             ski["camera"], ski["palette"], skinned=True)
     sk_attrs = resolve.resolve_attrs_vc(sk["tri"], sk["rec40"])
+    # the plain composition's corner columns (the kernel pair hands on the
+    # setup's alone), with the records' shading consts
+    sk_consts = shading_consts(ski["params"], ski["shade_table"],
+                               ski["textures"])
+    sk_cols = indexed_corner_stage(
+        sk_verts.packed, ski["plan"].tri_vtx, ski["plan"].tri_valid, w, h,
+        consts=sk_consts[ski["tri_draw"].long()], vertex_colors=True).cols
     shade_kw = dict(textures=sph_inp["textures"], camera=sph_inp["camera"],
                     lights=sph_inp["lights"], width=w, height=h,
                     clear_color=sph_inp["clear_color"])
@@ -2845,7 +2861,7 @@ def phase_routes(dev, card: str, kernel_fns: dict, drive, bench) -> dict:
             sk_verts.packed, ski["plan"].tri_vtx, ski["plan"].tri_valid, w,
             h, vertex_colors=True),
         "skinned_records": lambda: planes.build_resolve_cols_planar(
-            sk["cs"].cols),
+            sk_cols),
         "skinned_resolve_vc": lambda: resolve.resolve_attrs_vc(
             sk["tri"], sk["rec40"]),
         "skinned_shading": lambda: deferred.deferred_shade_attrs(
@@ -2853,7 +2869,8 @@ def phase_routes(dev, card: str, kernel_fns: dict, drive, bench) -> dict:
             camera=ski["camera"], lights=ski["lights"], width=w, height=h,
             clear_color=ski["clear_color"]),
     }, card)
-    del sk_stage, sk, ski, sk_verts, sk_attrs, pcs, pl16, pl32, pgbuf
+    del sk_stage, sk, ski, sk_verts, sk_attrs, sk_consts, sk_cols, pcs, pl16
+    del pl32, pgbuf
     del fgbuf, fattrs, ftri, ft, _fd, sk_r, sk_reg, inp, cs, rec40, tri
     torch.cuda.empty_cache()
     return launches
@@ -4889,6 +4906,165 @@ def hold_bf16_case(name: str, case: Bf16Case, results: dict,
           flush=True)
 
 
+SKGEO_REPS = 5            # profiled calls a kernel's busy time averages
+
+
+def phase_skinned_geometry(dev, card: str) -> dict:
+    """Phase 22: the skinned indexed geometry's kernel pair
+    (csrc/skinned_geometry.cu, ops/indexed.py::indexed_geometry) on the
+    loaded crowd's own frame (phase 16's loaded_crowd, posed by one
+    Scene.update: 1,048,576 vertices and 2,097,152 triangles in the plan's
+    buckets, 2,304 bones) at 1920×1080, 40- and 32-wide records: the setup,
+    its columns and the records bit-equal to indexed_geometry_plain; the
+    call (CUDA events, median of 10) and each kernel's busy time
+    (torch.profiler, mean of 5) beside its bound (each input read once,
+    each output written once) and the plain version's time; then the
+    crowd's frame graph captured and replayed with tracing on: the
+    wrapper's launches and the tracer's geometry.kernel count two runs a
+    capture (its eager warm-up and the capture) and none a replay, and
+    spheres1080_1m's frames count none.
+    Returns the phase's numbers."""
+    import tempfile
+
+    import torch
+
+    from trident_tpu_torch.ops import indexed
+    from trident_tpu_torch.render.renderer import shading_consts
+    from trident_tpu_torch.tools_dev import timing
+    from trident_tpu_torch.tools_dev.scenes import (
+        loaded_crowd,
+        write_tube_gltf,
+    )
+    from trident_tpu_torch.utils.profiling import TRACER, tracing
+
+    td = tempfile.TemporaryDirectory()
+    crowd = loaded_crowd(dev, write_tube_gltf(Path(td.name) / "tube.glb"))
+    scene, r = crowd.scene, crowd.renderer
+    scene.update(1 / 60)
+    inp = frame_inputs_at(r)
+    plan, w, h = inp["plan"], inp["width"], inp["height"]
+    if not inp["skinned"] or inp["corner_t"] is not None:
+        fail(f"loaded crowd: skinned {inp['skinned']}, corner table "
+             f"{inp['corner_t'] is not None}")
+    consts = shading_consts(inp["params"], inp["shade_table"],
+                            inp["textures"])
+    args = (plan, inp["tri_draw"], inp["params"], inp["camera"], consts,
+            inp["geometry"], inp["palette"])
+    tv, t = plan.vtx_src.shape[0], plan.tri_vtx.shape[0]
+    out = dict(vertices=tv, triangles=t, bones=int(
+        inp["params"].bone_count.clamp_min(0).sum()))
+
+    def bits(a):
+        return a.contiguous().view(torch.int32) if a.dtype == \
+            torch.float32 else a
+
+    for rw, vc in ((40, True), (32, False)):
+        kw = dict(width=w, height=h, skinned=True, vertex_colors=vc)
+        cs, rec = indexed.indexed_geometry(*args, **kw)
+        ref, rec_p = indexed.indexed_geometry_plain(*args, **kw)
+        torch.cuda.synchronize()
+        pairs = [("records", rec, rec_p)] + [
+            (f"setup.{f}", getattr(cs.setup, f), getattr(ref.setup, f))
+            for f in ("edge", "z", "w", "bbox", "valid")] + [
+            (f"cols.setup.{f}[{i}]", a, b) for f in ("e", "z", "w")
+            for i, (a, b) in enumerate(zip(getattr(cs.cols.setup, f),
+                                           getattr(ref.cols.setup, f)))]
+        bad = {name: int((bits(a) != bits(b)).sum()) for name, a, b in pairs}
+        bad = {k: v for k, v in bad.items() if v}
+        if bad:
+            fail(f"skinned geometry ({rw} wide): the kernel pair differs "
+                 f"from its plain version in {bad}")
+        g = inp["geometry"]
+        inputs_v = (plan.vtx_src.nbytes + plan.vtx_draw.nbytes
+                    + g.attr_table.nbytes + g.bone_indices.nbytes
+                    + g.bone_weights.nbytes + inp["palette"].nbytes)
+        packed_bytes = tv * 16 * 4
+        outputs_t = (indexed.SETUP_ROWS * t * 4 + cs.setup.bbox.nbytes
+                     + cs.setup.valid.nbytes + rec.nbytes)
+        inputs_t = (plan.tri_vtx.nbytes + plan.tri_valid.nbytes
+                    + inp["tri_draw"].nbytes + packed_bytes)
+        bounds = {"skinned_vertex_kernel": timing.bound(
+                      inputs_v + packed_bytes),
+                  f"skinned_triangle_kernel<{rw}>": timing.bound(
+                      inputs_t + outputs_t)}
+
+        def call(kw=kw):
+            return indexed.indexed_geometry(*args, **kw)
+
+        def plain(kw=kw):
+            return indexed.indexed_geometry_plain(*args, **kw)
+
+        events = timing._device_events(call, SKGEO_REPS)
+        busy = {}
+        for e in events or ():
+            for name in bounds:
+                if name in e.name:
+                    busy[name] = busy.get(name, 0.0) \
+                        + e.time_range.elapsed_us() / SKGEO_REPS / 1e3
+        res = dict(ms=cuda_ms(call), busy_ms=device_busy(call)[0],
+                   plain_ms=cuda_ms(plain), plain_busy_ms=device_busy(plain)[0],
+                   kernels={n: dict(busy_ms=busy.get(n, float("nan")),
+                                    bound_ms=b[0], bound_by=b[1],
+                                    share=b[0] / busy.get(n, float("nan")))
+                            for n, b in bounds.items()})
+        out[f"records{rw}"] = res
+        print(f"skinned geometry, {rw}-wide records ({tv} vertices, {t} "
+              f"triangles, {out['bones']} bones): bit-equal to the plain "
+              f"version; call {res['ms']:.4f} ms events / "
+              f"{res['busy_ms']:.4f} ms busy, plain {res['plain_ms']:.4f} / "
+              f"{res['plain_busy_ms']:.4f} ms; " + ", ".join(
+                  f"{n} {k['busy_ms']:.4f} ms busy, bound "
+                  f"{k['bound_ms']:.4f} ms ({k['bound_by']}), share "
+                  f"{100 * k['share']:.1f}%"
+                  for n, k in res["kernels"].items()) + f" ({card})",
+              flush=True)
+        del cs, rec, ref, rec_p, pairs
+    torch.cuda.empty_cache()
+
+    # the mechanism in the frame loop: the kernel path runs at each
+    # capture, and the replays run its kernels without Python
+    before = indexed.indexed_geometry.launches
+    tracing(True)
+    TRACER.reset()
+    try:
+        for _ in range(8):
+            scene.update(1 / 60)
+            r.render_viewport()
+        torch.cuda.synchronize()
+        crowd_counts = dict(launches=indexed.indexed_geometry.launches
+                            - before,
+                            geometry_kernel=TRACER.total("geometry.kernel"),
+                            captures=r.graphs.captures)
+        del scene, r, crowd
+        torch.cuda.empty_cache()
+        fr, freg = build_bench_scene(BENCH_GRID, dev)
+        before = indexed.indexed_geometry.launches
+        TRACER.reset()
+        for k in range(4):
+            rotate(freg, k)
+            fr.render_viewport()
+        torch.cuda.synchronize()
+        field_counts = dict(launches=indexed.indexed_geometry.launches
+                            - before,
+                            geometry_kernel=TRACER.total("geometry.kernel"),
+                            captures=fr.graphs.captures)
+    finally:
+        tracing(False)
+        TRACER.reset()
+    runs = 2 * crowd_counts["captures"]     # each capture's warm-up, itself
+    if crowd_counts["launches"] != runs \
+            or crowd_counts["geometry_kernel"] != runs \
+            or field_counts["launches"] or field_counts["geometry_kernel"]:
+        fail(f"skinned geometry's counts: crowd {crowd_counts}, field "
+             f"{field_counts}")
+    out.update(crowd_frames=crowd_counts, field_frames=field_counts)
+    print(f"skinned geometry in the frame loop: 8 crowd frames {crowd_counts}"
+          f", 4 spheres1080_1m frames {field_counts} ({card})", flush=True)
+    del fr, freg
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_knob_set(dev, card: str, kernel_fns: dict, drive,
                    results: dict) -> dict:
     """Phase 21 (module docstring): every kernel knob the JAX package
@@ -5683,6 +5859,9 @@ def main() -> None:
     # -- phase 21: every kernel knob --------------------------------------------
     launches21 = phase_knob_set(dev, card, kernel_fns, drive, results)
 
+    # -- phase 22: the skinned indexed geometry's kernel pair -------------------
+    skinned_geometry = phase_skinned_geometry(dev, card)
+
     # launches: each kernel's count in the main-path run of the frame it
     # was held on (phase 4 for the main pass, phase 6 for the shadow pass,
     # phase 9 for the warp, phase 10 for the knob kernels, phase 11 for
@@ -5713,7 +5892,8 @@ def main() -> None:
                                             {**launches15, **launches16,
                                              **launches17, **launches19,
                                              **launches20}.items()}))
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels,
+                      "skinned_geometry": skinned_geometry}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -86,6 +86,11 @@ def _skin(positions: Tensor, normals: Tensor, bone_indices: Tensor,
     return _matvec(skin, pos_h)[:, :3], _matvec(skin[:, :3, :3], normals)
 
 
+def view_projection(camera: CameraParams) -> Tensor:
+    """P·V (4, 4), each entry's sum taken as _matvec takes it."""
+    return _matvec(camera.proj, camera.view.T).T
+
+
 def vertex_stage(geometry: GeometryBuffers, plan: DrawPlan,
                  params: DrawParams, camera: CameraParams, palette: Tensor,
                  skinned: bool = True) -> VertexStageOut:
@@ -111,7 +116,7 @@ def vertex_stage(geometry: GeometryBuffers, plan: DrawPlan,
     nrm = _matvec(_cofactor3(model[:, :3, :3]), normals)
     n2 = nrm[:, 0] * nrm[:, 0] + nrm[:, 1] * nrm[:, 1] + nrm[:, 2] * nrm[:, 2]
     nrm = nrm * torch.rsqrt(torch.clamp_min(n2, 1e-16))[:, None]
-    vp = _matvec(camera.proj, camera.view.T).T                    # P·V
+    vp = view_projection(camera)
     # the (TV,4)·(4,4)ᵀ product summed pairwise, as XLA's dot sums it
     p = [world_h[:, k, None] * vp[:, k] for k in range(4)]
     clip = (p[0] + p[1]) + (p[2] + p[3])                          # (TV,4)

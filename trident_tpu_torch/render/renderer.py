@@ -7,7 +7,8 @@ the forward frame:
     geometry: rigid frames draw rows → corner stage (planar setup);
       frames with a skinned draw the indexed path: vertex stage (gather,
       linear-blend skinning from the bone palette, transforms) → one
-      (T, 3, 16) corner gather → triangle setup
+      (T, 3, 16) corner gather → triangle setup → resolve records, on the
+      card one vertex and one triangle kernel (ops/indexed.py)
     → resolve records
       (with vertex colours: the colour planes too, a (T, 40) table)
     [→ light pass: the same geometry path at the light camera → build_bins
@@ -102,6 +103,7 @@ from trident_tpu_torch.ops.deferred import (
     pack_rgba8,
 )
 from trident_tpu_torch.ops.deferred_tiled import shade_attrs_tiled
+from trident_tpu_torch.ops.indexed import indexed_geometry
 from trident_tpu_torch.ops.kernel_knobs import KernelKnobs
 from trident_tpu_torch.ops.planes import (
     build_planes_cols,
@@ -185,6 +187,13 @@ def _geometry(plan, tri_draw, params, camera, corner_t, draw_consts, *,
         vertex_colors=vertex_colors)
 
 
+def shading_consts(params, shade_table, textures) -> torch.Tensor:
+    """(D, 12) per-draw consts of the resolve records: the shade row + the
+    texture sizes row."""
+    tex_row = textures.sizes[params.texture_slot.long()].float()
+    return torch.cat([shade_table, tex_row], dim=1)
+
+
 def frame_geometry(plan, tri_draw, params, shade_table, camera, textures,
                    corner_t, *, width: int, height: int, draw_stride: int = 0,
                    real_draws: int = 0, vertex_colors: bool = False,
@@ -198,13 +207,18 @@ def frame_geometry(plan, tri_draw, params, shade_table, camera, textures,
     RR_WIDTH_VCOLOR), the colour planes added. The per-draw consts are the
     shade row + the texture sizes row, so the resolve kernel needs no
     per-pixel table lookups. `geometry`, `palette` and `skinned` select
-    the indexed path as _geometry says."""
-    tex_row = textures.sizes[params.texture_slot.long()].float()
-    draw_consts = torch.cat([shade_table, tex_row], dim=1)
+    the indexed path as _geometry says; it runs as one call,
+    ops/indexed.py::indexed_geometry (on the card a kernel pair, whose
+    corner columns are the setup's alone)."""
+    draw_consts = shading_consts(params, shade_table, textures)
+    if corner_t is None or skinned:
+        return indexed_geometry(plan, tri_draw, params, camera, draw_consts,
+                                geometry, palette, width=width,
+                                height=height, skinned=skinned,
+                                vertex_colors=vertex_colors)
     cs = _geometry(plan, tri_draw, params, camera, corner_t, draw_consts,
                    width=width, height=height, draw_stride=draw_stride,
-                   real_draws=real_draws, vertex_colors=vertex_colors,
-                   geometry=geometry, palette=palette, skinned=skinned)
+                   real_draws=real_draws, vertex_colors=vertex_colors)
     return cs, build_resolve_cols_planar(cs.cols)
 
 
@@ -544,10 +558,8 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
     if frame_mark:
         mark("frame")
     if profile_stop in ("draw_rows", "corner"):
-        draw_consts = None
-        if forward:
-            tex_row = textures.sizes[params.texture_slot.long()].float()
-            draw_consts = torch.cat([shade_table, tex_row], dim=1)
+        draw_consts = (shading_consts(params, shade_table, textures)
+                       if forward else None)
         return _corner_probe(profile_stop, params, camera, corner_t,
                              tri_draw, plan, draw_consts, width=rw,
                              height=rh, out_w=width, out_h=height,
