@@ -11,9 +11,22 @@ Numbers, each the largest over the compared frames:
   element (scenes that animate).
 Each number that a configuration sets a limit for is held to it; a
 configuration limits the numbers its control separates from sound runs.
+
+A frame may take in state from the program's earlier frames: the 2×
+upscaled frame warps in its predecessor's history. Its scene declares
+that state (`given(prev_out)`), the harness keeps it with the frame's
+outputs, and the reference renders the compared step from the same
+state. So the comparison is one step at a time: each frame is judged on
+what it did with the history it was given. A plain reference cannot
+re-render the thousands of frames before a window's last one, and its
+own rounded history would drift away from the program's. Each step runs
+at full precision, so this loosens nothing: a frame that ignores its
+history, or takes a stale one, still parts from the reference's step.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -44,18 +57,34 @@ def palette_numbers(program: list, reference: torch.Tensor) -> dict:
     return {"palette_err": float((p - reference).abs().max())}
 
 
+class Kept(NamedTuple):
+    """A compared frame: the traffic step its reference renders, the
+    program's RGBA8 frame, what the scene kept at that step, and the state
+    the frame took in from the frames before it (None: nothing)."""
+
+    step: int
+    colour: Optional[torch.Tensor]
+    outputs: dict
+    given: Optional[dict] = None
+
+
 def compare(scene_cls, cfg: dict, motion, frames: list, device,
             control: bool = False) -> dict:
-    """The numbers of `frames` — (reference step, RGBA8 frame, kept
-    outputs) — against the reference, each the largest over the frames.
-    With `control` the frames are ignored and the reference computed in
-    TF32 stands in the program's place (the control of the comparison)."""
+    """The numbers of `frames` (each a Kept or the tuple of its fields)
+    against the reference, each the largest over the frames; the
+    reference renders each step from the state that frame was given.
+    With `control` the program's frames are ignored and the reference
+    computed in TF32, given the same state, stands in the program's place
+    (the control of the comparison)."""
     ref = scene_cls.reference
     worst: dict = {}
-    for k, colour, kept in frames:
-        want = ref.reference_frame(cfg, motion, k, device)
+    for frame in frames:
+        k, colour, kept, given = Kept(*frame)
+        given = given or {}
+        want = ref.reference_frame(cfg, motion, k, device, given=given)
         if control:
-            got = ref.reference_frame(cfg, motion, k, device, control=True)
+            got = ref.reference_frame(cfg, motion, k, device, control=True,
+                                      given=given)
             colour = got["color"]
             kept = ({"palettes": list(got["palettes"].cpu().numpy())}
                     if "palettes" in got else {})

@@ -2,7 +2,16 @@
 reference computed in TF32 (the nearest precision below the float32 with
 TF32 off that the configurations state) put in the program's place, on
 the frames a run of each seed would compare. Its numbers are the upper
-readings the limits are set below; it does not run the program.
+readings the limits are set below.
+
+Where the configuration's frames take in nothing from earlier frames, it
+does not run the program. Where they do (the scene declares `given`, as
+the 2× upscaled frame does with its predecessor's history), that state
+comes from one run of the program at the cell's own size and load, a
+window of WINDOW_S seconds: each frame that run compares, its last one
+too, is stepped by the TF32 reference and by the float32 reference, both
+given the state the program's frame was given (harness.run_cell with
+`control`).
 
     python3 -m benchmark.control --workload <cell> --seeds <n> [<n> ...]
 
@@ -15,6 +24,10 @@ import argparse
 import json
 import sys
 
+# the program's window where the frames take given state: long enough to
+# hold the harness's SAMPLE_SPAN frames, among which the samples are drawn
+WINDOW_S = 5.0
+
 
 def frames(traffic: dict, seed: int) -> list:
     """The reference steps a run of `seed` compares, its last frame
@@ -26,12 +39,19 @@ def frames(traffic: dict, seed: int) -> list:
             for n in sorted(harness.sample_frames(seed))]
 
 
-def control_numbers(name: str, seed: int, device, config=None) -> dict:
+def control_numbers(name: str, seed: int, device, config=None,
+                    seconds: float = WINDOW_S) -> dict:
+    """The control's numbers for one seed; where the frames take given
+    state, from a run of the program of `seconds`."""
     from benchmark import check, harness
+    from benchmark.loops import takes_given
 
     _c, cfg, traffic = harness.cell(name)
     cfg = config or cfg
     cls = harness.scene_class(cfg)
+    if takes_given(cls):
+        return harness.run_cell(name, seed, seconds, False, device,
+                                config=config, control=True)["numbers"]
     motion = cls.motion_of(cfg, seed, traffic["cycle"])
     return check.compare(cls, cfg, motion,
                          [(k, None, {}) for k in frames(traffic, seed)],

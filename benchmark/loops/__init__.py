@@ -4,8 +4,13 @@ traffic file's "loop" key; a loop has its set-up (warm-up included) and
 runs one frame at a time. Frame k of a run (set-up's warm-up frames
 included) is the frame after the scene's step k.
 
+A scene whose frames take in state from the frames before them (the 2×
+upscaled frame warps its predecessor's history) declares it with
+`given(prev_out)`: the state that the frame after `prev_out` took in, as
+references to `prev_out`'s tensors (no copy, no launch).
+
 This module holds what the loops share: the frame completion marks, a
-frame's drop counters, and the base class.
+frame's drop counters, which scenes take given state, and the base class.
 """
 
 from __future__ import annotations
@@ -48,13 +53,21 @@ def frame_aux(out) -> torch.Tensor:
     return out.aux if out.shadow_aux is None else out.aux + out.shadow_aux
 
 
+def takes_given(scene) -> bool:
+    """Whether a scene (or its class) declares `given`: its frames take
+    in state from the frames before them."""
+    return callable(getattr(scene, "given", None))
+
+
 class Loop:
     """A traffic mix's loop over a scene. `throttle` is how many frames
     the harness lets stand queued on the card (0: the loop paces itself);
-    `submit` names the frame graphs' entry point the loop calls."""
+    `submit` names the frame graphs' entry point the loop calls; `last` is
+    the output of set-up's last frame, the window's first predecessor."""
 
     throttle = 0
     submit = "run"
+    last = None
 
     def __init__(self, scene, traffic: dict) -> None:
         self.scene = scene
@@ -68,6 +81,11 @@ class Loop:
 
     def ref_index(self, k: int) -> int:
         return self.ref_step(k, self.traffic)
+
+    def given(self, prev) -> dict:
+        """The state the frame after output `prev` took in from it, as the
+        scene declares it; {} for a scene that declares none."""
+        return self.scene.given(prev) if takes_given(self.scene) else {}
 
     def launch_list(self) -> dict:
         """The hand-written kernels' launches per replay of the frame graph

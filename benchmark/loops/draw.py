@@ -17,7 +17,7 @@ class DrawLoop(Loop):
     def setup(self, warmup: int) -> None:
         """Warm-up frames: the frame graph's capture and the caches."""
         for k in range(warmup):
-            self.frame(k)
+            self.last = self.frame(k)
         self.next = warmup
 
     def frame(self, k: int):

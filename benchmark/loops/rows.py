@@ -2,14 +2,18 @@
 stepped and `Renderer.frame_bundle()` taken for each), uploaded once, then
 replayed back to back from device rows through `FrameGraphs.run_rows`, the
 harness keeping `in_flight` frames queued: a dataset or video render of a
-recorded path. Frame k replays row k % cycle."""
+recorded path. Frame k replays row k % cycle.
+
+A scene whose frames take in state from the frames before them is
+refused: the rows are packed before any frame is drawn, so no row carries
+a history, and its frames would replay without their warp."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from benchmark.loops import Loop
+from benchmark.loops import Loop, takes_given
 
 
 class RowsLoop(Loop):
@@ -22,7 +26,13 @@ class RowsLoop(Loop):
     def setup(self, warmup: int) -> None:
         """Pack the cycle's frames (stepping the scene before each, keeping
         what the scene made at each step), upload their blobs once, warm
-        the replays up."""
+        the replays up. A scene that takes given state raises."""
+        if takes_given(self.scene):
+            raise ValueError(
+                f"{type(self.scene).__name__}: its frames take in state from "
+                "the frames before them (given), which packed rows cannot "
+                "carry: every row is packed before any frame is drawn. Run "
+                "it under a draw traffic")
         r = self.scene.renderer
         f32, i32, first = [], [], None
         self.kept = []

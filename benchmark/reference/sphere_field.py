@@ -31,9 +31,10 @@ def frame_mesh(cfg: dict, rotation, device, control: bool = False):
 
 
 def reference_frame(cfg: dict, motion, k: int, device,
-                    control: bool = False) -> dict:
+                    control: bool = False, given=None) -> dict:
     """render()'s frame after the traffic's step k (rotation row
-    k % cycle), and nothing else to compare."""
+    k % cycle), and nothing else to compare. The field's frames take in
+    nothing from earlier frames: `given` is empty."""
     mesh, shading = frame_mesh(cfg, motion[k % len(motion)], device, control)
     out = raster.render(mesh, shading, cfg["width"], cfg["height"])
     out["mesh"] = mesh

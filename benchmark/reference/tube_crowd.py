@@ -78,9 +78,11 @@ def frame_mesh(cfg: dict, times: np.ndarray, device, control: bool = False):
 
 
 def reference_frame(cfg: dict, motion, k: int, device,
-                    control: bool = False) -> dict:
+                    control: bool = False, given=None) -> dict:
     """render()'s frame after the traffic's step k (k + 1 animation
-    updates of the configuration's dt since play), with the palettes."""
+    updates of the configuration's dt since play), with the palettes.
+    The crowd's frames take in nothing from earlier frames: `given` is
+    empty."""
     phases, speeds = motion
     t = cfg["tube"]
     times = gen.clip_times(phases, speeds, cfg["motion"]["dt"],

@@ -10,22 +10,32 @@ import numpy as np
 
 from benchmark import gen
 
+# RenderConfig fields a configuration may set; absent, the program's own
+# defaults hold. ai_upscale loads the program's shipped 2× weights
+# (assets/upscaler_2x.npz); the convs' precision stays a kernel knob.
+RENDER_OPTIONAL = ("ai_upscale", "shadow_map_size", "shadow_pcf", "bloom")
+
+
+def render_config(cfg: dict):
+    """The configuration's RenderConfig: size, clear colour, shadows,
+    kernel knobs, and those of RENDER_OPTIONAL it names."""
+    from trident_tpu_torch.core.config import RenderConfig
+
+    return RenderConfig(width=cfg["width"], height=cfg["height"],
+                        clear_color=tuple(cfg["clear_color"]),
+                        shadows=cfg["shadows"], kernel=cfg["kernel"],
+                        **{k: cfg[k] for k in RENDER_OPTIONAL if k in cfg})
+
 
 def renderer(cfg: dict, device, workdir: str):
     """A Renderer at the configuration's size and settings; its frame-
     timing captures (`capture.perf_dir`) go under `workdir`, and it keeps
     no log file."""
-    from trident_tpu_torch.core.config import (
-        CaptureConfig,
-        EngineConfig,
-        RenderConfig,
-    )
+    from trident_tpu_torch.core.config import CaptureConfig, EngineConfig
     from trident_tpu_torch.render.renderer import Renderer
 
     return Renderer(EngineConfig(
-        render=RenderConfig(width=cfg["width"], height=cfg["height"],
-                            clear_color=tuple(cfg["clear_color"]),
-                            shadows=cfg["shadows"], kernel=cfg["kernel"]),
+        render=render_config(cfg),
         capture=CaptureConfig(perf_dir=os.path.join(workdir,
                                                     "PerformanceCaptures")),
         log_file=None), device=device)
@@ -49,7 +59,8 @@ def material(cfg: dict):
 
 
 def light(reg, cfg: dict) -> None:
-    """The configuration's directional light as an entity of `reg`."""
+    """The configuration's directional light as an entity of `reg`; it
+    casts shadows where the configuration's light says `cast_shadows`."""
     from trident_tpu_torch.ecs.components import (
         LightComponent,
         LightType,
@@ -63,7 +74,7 @@ def light(reg, cfg: dict) -> None:
         light_type=LightType.DIRECTIONAL,
         direction=np.array(li["direction"], np.float32),
         color=np.array(li["color"], np.float32), intensity=li["intensity"],
-        cast_shadows=False))
+        cast_shadows=bool(li.get("cast_shadows", False))))
 
 
 def camera(r, cfg: dict) -> None:
