@@ -4,14 +4,17 @@ TF32 off that the configurations state) put in the program's place, on
 the frames a run of each seed would compare. Its numbers are the upper
 readings the limits are set below.
 
-Where the configuration's frames take in nothing from earlier frames, it
-does not run the program. Where they do (the scene declares `given`, as
-the 2× upscaled frame does with its predecessor's history), that state
-comes from one run of the program at the cell's own size and load, a
-window of WINDOW_S seconds: each frame that run compares, its last one
-too, is stepped by the TF32 reference and by the float32 reference, both
-given the state the program's frame was given (harness.run_cell with
-`control`).
+Where the configuration's frames take in nothing from the program, it
+does not run the program. Where they do, that comes from one run of the
+program at the cell's own size and load, a window of WINDOW_S seconds:
+the state a frame took in from earlier frames (the scene declares
+`given`, as the 2× upscaled frame does with its predecessor's history),
+and the arrays the scene kept at each step where the reference computes
+each stage from the program's output of the stage before (its
+`reference_frame` takes `kept`, check.py). Each frame that run compares,
+its last one too, is stepped by the TF32 reference and by the float32
+reference, both given the same state and kept arrays; the TF32 one's
+stages stand in for the program's (harness.run_cell with `control`).
 
     python3 -m benchmark.control --workload <cell> --seeds <n> [<n> ...]
 
@@ -42,19 +45,22 @@ def frames(traffic: dict, seed: int) -> list:
 def control_numbers(name: str, seed: int, device, config=None,
                     seconds: float = WINDOW_S) -> dict:
     """The control's numbers for one seed; where the frames take given
-    state, from a run of the program of `seconds`."""
+    state or the reference steps from kept arrays, from a run of the
+    program of `seconds`. Otherwise no program runs: the frames carry only
+    the names of the arrays the scene keeps, which the control fills."""
     from benchmark import check, harness
     from benchmark.loops import takes_given
 
     _c, cfg, traffic = harness.cell(name)
     cfg = config or cfg
     cls = harness.scene_class(cfg)
-    if takes_given(cls):
+    if takes_given(cls) or check.takes_kept(cls.reference):
         return harness.run_cell(name, seed, seconds, False, device,
                                 config=config, control=True)["numbers"]
     motion = cls.motion_of(cfg, seed, traffic["cycle"])
+    names = dict.fromkeys(getattr(cls, "KEPT", ()))
     return check.compare(cls, cfg, motion,
-                         [(k, None, {}) for k in frames(traffic, seed)],
+                         [(k, None, names) for k in frames(traffic, seed)],
                          device, control=True)
 
 

@@ -9,8 +9,9 @@ limits of the comparison), benchmark/traffic/<traffic>.json (the loop, the
 frames it keeps queued, the cycle of the scene's motion),
 benchmark/loops/<loop>.py (the loop, its class `LOOP`),
 benchmark/scenes/<scene>.py (the scene on the program, its class `SCENE`,
-with its plain reference in benchmark/reference/, and `given` where its
-frames take in state from earlier frames: check.py), and
+with its plain reference in benchmark/reference/, `KEPT`, the arrays it
+keeps at each step, and `given` where its frames take in state from
+earlier frames: check.py), and
 benchmark/metrics/<metric>.py (one reader per metric, reported in the
 cells that BENCHMARK.json gives it).
 

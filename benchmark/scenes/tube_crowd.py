@@ -19,6 +19,7 @@ class TubeCrowd:
     `step(k)` and `kept(k)` (the palettes the animation system posed)."""
 
     reference = reference
+    KEPT = ("palettes",)             # what kept(k) holds (check.py)
 
     @staticmethod
     def motion_of(cfg: dict, seed: int, cycle: int):
