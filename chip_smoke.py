@@ -21,7 +21,9 @@ Phases (any failure exits non-zero before the final line is printed):
      them the record table's producer alone
   4. render that scene through the port's Renderer for 12 frames while
      rotating the entities as bench.py does: aux == [0, 0] every frame,
-     every kernel's launch count rose, the frame is not all clear color;
+     the visibility and resolve kernels' launch counts rose (the texel
+     kernel's did not: the shading kernel of phase 23 fetches the
+     texels), the frame is not all clear color;
      print the median frame time
   5. render the 256² cube of render_frame_entry() and hold it against the
      JAX package's frame (tests/goldens/torch_slice_cube256.npy) under the
@@ -317,8 +319,17 @@ Phases (any failure exits non-zero before the final line is printed):
      the wrapper's launches and the tracer's geometry.kernel in 8 crowd
      frames (two runs a capture, none a replay) and 4 spheres1080_1m
      frames (none)
+ 23. the shading kernel (phase_deferred_shade, csrc/deferred_shade.cu)
+     against the plain composition on both benchmark configurations'
+     1920×1080 shading inputs (spheres1080_1m's field, the loaded crowd):
+     the largest f32 difference and the uint8 pixels that differ (at most
+     1 LSB on under 0.1% of the covered pixels), the call, the kernel and
+     the plain composition timed beside the kernel's bound; the wrapper's
+     launches and the tracer's shading.kernel in 8 crowd and 4 field
+     frames (two runs a capture, none a replay), the texel kernel none
 Then it prints the kernels as one JSON line, phase 22's numbers beside
-them under `skinned_geometry` (each entry with
+them under `skinned_geometry` and phase 23's under `deferred_shade` (each
+kernel entry with
 `route_launches`: its launches in each of phase 15's, 16's and 17's
 route runs, in phase 19's pair rendering, `train_pairs`, and in phase
 20's application loop, `app_loop`; a band
@@ -647,15 +658,15 @@ def phase_ai(dev, card: str, kernel_fns: dict, drive, results: dict) -> dict:
                 fail(f"ai frame {k}: color {tuple(out.color.shape)} "
                      f"{out.color.dtype}, history "
                      f"{tuple(out.history.shape)} {out.history.dtype}")
-            if (min(ran[n] for n in ("visibility", "resolve", "texel")) < 1
+            if (min(ran[n] for n in ("visibility", "resolve")) < 1
                     or ran["warp"] != (0 if k == 0 else 1)):
                 fail(f"ai frame {k}: kernel launches {ran}")
             if not bool((out.color.float().cpu() != clear).any()):
                 fail(f"ai frame {k} is all clear color")
         return out
 
-    out, launches9 = drive(ai_frames, ("visibility", "resolve", "texel",
-                                       "warp"), (r,))
+    out, launches9 = drive(ai_frames, ("visibility", "resolve", "warp"),
+                           (r,))
     wall = statistics.median(frame_ms[2:])
     inp = r.frame_inputs()
     dev_ms = cuda_ms(lambda: render_frame(**inp))
@@ -974,7 +985,7 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
     # (b) 12 frames each of CKERN and FUSE_TILED, beside the default knobs
     frame_ms = {"default": [], "ckern": [], "fuse_tiled": []}
     expect = {"ckern": {"visibility_ck": 1, "visibility": 0, "resolve": 1,
-                        "texel": 1},
+                        "texel": 0},
               "fuse_tiled": {"visibility_resolve": 1, "texel_planar": 1,
                              "visibility": 0, "resolve": 0,
                              "resolve_tiled": 0, "texel": 0}}
@@ -1558,7 +1569,7 @@ def phase_frame_loop(dev, card: str, drive) -> None:
     from trident_tpu_torch.tools_dev.host_gather import gather_ab
     from trident_tpu_torch.tools_dev.timing import uploads_per_call
 
-    main_list = {"visibility": 1, "resolve": 1, "texel": 1}
+    main_list = {"visibility": 1, "resolve": 1}
     # (a) spheres1080_1m: 12 replays bit-equal to eager, one capture
     r, reg = build_bench_scene(BENCH_GRID, dev)
     w, h = r.config.render.width, r.config.render.height
@@ -2054,7 +2065,7 @@ def phase_bench(dev, card: str, drive) -> dict:
     w, h = r.config.render.width, r.config.render.height
     rotate(reg, 0)
     plain = r.render_viewport()
-    main_list = {"visibility": 1, "resolve": 1, "texel": 1}
+    main_list = {"visibility": 1, "resolve": 1}
     r.set_ai_frame(rng.random((h, w, 3), np.float32), 0.5)
     caps = r.graphs.captures
     replay_check(r, "spheres1080_1m with an AI frame at blend 0.5",
@@ -2751,7 +2762,7 @@ def phase_routes(dev, card: str, kernel_fns: dict, drive, bench) -> dict:
                             kinp))
 
     _none, launches["skinned"] = drive(
-        skinned_frames, ("visibility", "resolve_vc", "texel"), (sk_r,))
+        skinned_frames, ("visibility", "resolve_vc"), (sk_r,))
     for what, out, kinp in sk_held:
         same_as_eager(out, kinp, what)
     moved = [int((a[1].color != b[1].color).any(-1).sum())
@@ -2972,7 +2983,7 @@ def phase_loaded(dev, card: str, drive) -> dict:
                          np.stack([a.bone_matrices for a in anims])))
 
     _none, launches["loaded"] = drive(
-        loaded_frames, ("visibility", "resolve_vc", "texel"), (r,))
+        loaded_frames, ("visibility", "resolve_vc"), (r,))
     print(f"loaded crowd, {LOADED_FRAMES} frames (median / p90 ms): wall "
           f"{spread(wall_ms)} (Scene.update + render_viewport + "
           f"synchronize), Scene.update {spread(upd_ms)}; "
@@ -4439,7 +4450,7 @@ def phase_shell(dev, card: str, drive) -> dict:
         return {k: list(v) for k, v in split.items()}
 
     full, launches = drive(lambda: loop(SHELL_FRAMES),
-                           ("visibility", "resolve", "texel"), (r,))
+                           ("visibility", "resolve"), (r,))
     stats = app.frame_generator.stats
     if stats.completed_count < 1 or not any(blended):
         fail(f"no AI output reached the frame: {stats.completed_count} "
@@ -4492,8 +4503,7 @@ def phase_shell(dev, card: str, drive) -> dict:
           f"{ms_line(alone)} ms median / p90 ({card})", flush=True)
     print(f"app loop launches (route_launches app_loop): {launches}",
           flush=True)
-    if min(launches[n] for n in ("visibility", "resolve", "texel")) \
-            < SHELL_FRAMES:
+    if min(launches[n] for n in ("visibility", "resolve")) < SHELL_FRAMES:
         fail(f"the app loop replayed fewer than one frame a loop frame: "
              f"{launches}")
 
@@ -5065,6 +5075,163 @@ def phase_skinned_geometry(dev, card: str) -> dict:
     return out
 
 
+# the shading kernel's bytes: every pixel's id in and RGBA f32 out, and a
+# covered pixel's attribute row and depth in
+SHADE_BYTES_PX, SHADE_BYTES_COVERED = 4 + 16, 64 + 4
+SHADE_LSB_SHARE = 1e-3      # differing uint8 pixels over covered, at most
+
+
+def shading_inputs(r) -> tuple:
+    """(args, kwargs) of the deferred_shade_attrs call in Renderer `r`'s
+    eager render_frame at its viewport's size."""
+    import torch
+
+    from trident_tpu_torch.render import renderer as rmod
+
+    caught, real = [], rmod.deferred_shade_attrs
+
+    def catch(*args, **kw):
+        caught.append((args, kw))
+        return real(*args, **kw)
+
+    rmod.deferred_shade_attrs = catch
+    try:
+        rmod.render_frame(**frame_inputs_at(r))
+    finally:
+        rmod.deferred_shade_attrs = real
+    torch.cuda.synchronize()
+    return caught[-1]
+
+
+def phase_deferred_shade(dev, card: str) -> dict:
+    """Phase 23: the shading kernel (csrc/deferred_shade.cu,
+    ops/deferred.py::shade_attrs_kernel) against the plain composition
+    (deferred_shade_attrs_plain) on the shading inputs of both benchmark
+    configurations' 1920×1080 frames (spheres1080_1m's field, phase 16's
+    loaded crowd posed by one Scene.update): the largest f32 difference,
+    the uint8 pixels that differ (fails past 1 LSB or SHADE_LSB_SHARE of
+    the covered pixels); the call and the plain composition timed (CUDA
+    events, median of 10; busy, torch.profiler, mean of 5), the kernel's
+    own busy time beside its bound (SHADE_BYTES_PX a pixel and
+    SHADE_BYTES_COVERED more a covered one: an uncovered pixel reads only
+    its id), and beside the dense bound, every pixel's 88 bytes; then the
+    frame loop with tracing on: the wrapper's launches and the tracer's
+    shading.kernel count two runs a capture (its eager warm-up and the
+    capture) and none a replay, in 8 crowd and 4 field frames, and the
+    texel kernel never launches there. Returns the phase's numbers."""
+    import tempfile
+
+    import torch
+
+    from trident_tpu_torch.ops import deferred, texel
+    from trident_tpu_torch.tools_dev import timing
+    from trident_tpu_torch.tools_dev.scenes import (
+        loaded_crowd,
+        write_tube_gltf,
+    )
+    from trident_tpu_torch.utils.profiling import TRACER, tracing
+
+    td = tempfile.TemporaryDirectory()
+    crowd = loaded_crowd(dev, write_tube_gltf(Path(td.name) / "tube.glb"))
+    crowd.scene.update(1 / 60)
+    field, freg = build_bench_scene(BENCH_GRID, dev)
+    rotate(freg, 0)
+    out = {}
+    for name, r in (("field", field), ("crowd", crowd.renderer)):
+        args, kw = shading_inputs(r)
+        if not deferred.shades_by_kernel(
+                args[1], kw["sampling"], kw["shader_fn"], kw["skybox"],
+                kw["shadow"]):
+            fail(f"deferred shade: the {name} frame does not take the "
+                 f"kernel route")
+        gbuf, h, w = args[0], args[6], args[5]
+
+        def call(args=args, kw=kw):
+            return deferred.deferred_shade_attrs(*args, **kw)
+
+        def plain(args=args, kw=kw):
+            return deferred.deferred_shade_attrs_plain(*args, **kw)
+
+        k_out, p_out = call(), plain()
+        torch.cuda.synchronize()
+        covered = int((gbuf.tri_id >= 0).sum())
+        lsb = (deferred.pack_rgba8(k_out).int()
+               - deferred.pack_rgba8(p_out).int()).abs().amax(-1)
+        diff = dict(f32=float((k_out - p_out).abs().max()),
+                    bits=int((k_out.view(torch.int32)
+                              != p_out.view(torch.int32)).sum()),
+                    u8_pixels=int((lsb > 0).sum()), lsb=int(lsb.max()),
+                    covered=covered)
+        diff["u8_share"] = diff["u8_pixels"] / max(covered, 1)
+        if diff["lsb"] > 1 or diff["u8_share"] >= SHADE_LSB_SHARE:
+            fail(f"deferred shade ({name}): the kernel's frame is off the "
+                 f"plain composition's: {diff}")
+        events = timing._device_events(call, SKGEO_REPS)
+        kbusy = (sum(e.time_range.elapsed_us() for e in events
+                     if "deferred_shade_kernel" in e.name) / SKGEO_REPS / 1e3
+                 if events else float("nan"))
+        b_ms, b_by = timing.bound(SHADE_BYTES_PX * w * h
+                                  + SHADE_BYTES_COVERED * covered)
+        dense_ms = timing.bound((SHADE_BYTES_PX + SHADE_BYTES_COVERED)
+                                * w * h)[0]
+        res = dict(diff=diff, ms=cuda_ms(call), busy_ms=device_busy(call)[0],
+                   kernel_busy_ms=kbusy, bound_ms=b_ms, bound_by=b_by,
+                   share=b_ms / kbusy, dense_bound_ms=dense_ms,
+                   plain_ms=cuda_ms(plain),
+                   plain_busy_ms=device_busy(plain)[0])
+        out[name] = res
+        print(f"deferred shade, {name} {w}x{h} ({covered} covered): "
+              f"against the plain composition largest f32 difference "
+              f"{diff['f32']}, {diff['bits']} values not bit-equal, "
+              f"{diff['u8_pixels']} uint8 pixels differ (share "
+              f"{diff['u8_share']:.3g}, at most {diff['lsb']} LSB); call "
+              f"{res['ms']:.4f} ms events / {res['busy_ms']:.4f} ms busy, "
+              f"the kernel {kbusy:.4f} ms busy, bound {b_ms:.4f} ms ({b_by}),"
+              f" share {100 * res['share']:.1f}% (dense bound {dense_ms:.4f}"
+              f" ms); plain {res['plain_ms']:.4f}"
+              f" / {res['plain_busy_ms']:.4f} ms ({card})", flush=True)
+        del args, kw, gbuf, k_out, p_out, lsb
+    torch.cuda.empty_cache()
+
+    # the mechanism in the frame loop: the kernel path runs at each
+    # capture, the replays run the kernel without Python, and the texel
+    # kernel stays off these frames
+    counts = {}
+    tracing(True)
+    try:
+        for name, r, step in (
+                ("crowd", crowd.renderer,
+                 lambda k: crowd.scene.update(1 / 60)),
+                ("field", field, lambda k: rotate(freg, k))):
+            before = (deferred.shade_attrs_kernel.launches,
+                      texel.sample_bilinear.launches, r.graphs.captures)
+            TRACER.reset()
+            for k in range(8 if name == "crowd" else 4):
+                step(k)
+                r.render_viewport()
+            torch.cuda.synchronize()
+            counts[name] = dict(
+                launches=deferred.shade_attrs_kernel.launches - before[0],
+                shading_kernel=TRACER.total("shading.kernel"),
+                texel=texel.sample_bilinear.launches - before[1],
+                captures=r.graphs.captures - before[2])
+    finally:
+        tracing(False)
+        TRACER.reset()
+    for name, c in counts.items():
+        runs = 2 * c["captures"]    # each capture's warm-up, itself
+        if c["captures"] < 1 or c["launches"] != runs \
+                or c["shading_kernel"] != runs or c["texel"]:
+            fail(f"deferred shade's counts in the {name} frames: {c}")
+    out["frame_loop"] = counts
+    print(f"deferred shade in the frame loop: 8 crowd frames "
+          f"{counts['crowd']}, 4 spheres1080_1m frames {counts['field']} "
+          f"({card})", flush=True)
+    del crowd, field, freg
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_knob_set(dev, card: str, kernel_fns: dict, drive,
                    results: dict) -> dict:
     """Phase 21 (module docstring): every kernel knob the JAX package
@@ -5538,7 +5705,7 @@ def main() -> None:
             host_ms.append((time.perf_counter() - t0) * 1e3)
         return out
 
-    out, launches4 = drive(spheres_frames, ("visibility", "resolve", "texel"),
+    out, launches4 = drive(spheres_frames, ("visibility", "resolve"),
                            (r,))
     color = out.color
     if tuple(color.shape) != (1080, 1920, 4) or color.dtype != torch.uint8:
@@ -5784,7 +5951,7 @@ def main() -> None:
                      f"{out.aux.tolist()}")
         return out
 
-    out, launches7 = drive(ultra_frames, ("visibility", "resolve", "texel"),
+    out, launches7 = drive(ultra_frames, ("visibility", "resolve"),
                            (r,))
     if tuple(out.color.shape) != (2160, 3840, 4):
         fail(f"ultra4k frame shape {tuple(out.color.shape)}")
@@ -5862,13 +6029,18 @@ def main() -> None:
     # -- phase 22: the skinned indexed geometry's kernel pair -------------------
     skinned_geometry = phase_skinned_geometry(dev, card)
 
+    # -- phase 23: the shading kernel ----------------------------------------
+    deferred_shade = phase_deferred_shade(dev, card)
+
     # launches: each kernel's count in the main-path run of the frame it
-    # was held on (phase 4 for the main pass, phase 6 for the shadow pass,
+    # was held on (phase 4 for the main pass, phase 6 for the shadow pass
+    # and the texel kernel, which the shadowed frame's plain shading runs,
     # phase 9 for the warp, phase 10 for the knob kernels, phase 11 for
     # the probes, phase 14 for the vertex-colour instances, phase 18 for
     # the band instances, phase 21 for the bf16 instances)
     launches = {**launches4, "visibility_depth": launches6["visibility_depth"],
                 "shadow_taps": launches6["shadow_taps"],
+                "texel": launches6["texel"],
                 "warp": launches9["warp"],
                 **{n: launches10[n] for n in (
                     "visibility_ck", "visibility_resolve", "resolve_tiled",
@@ -5893,7 +6065,8 @@ def main() -> None:
                                              **launches17, **launches19,
                                              **launches20}.items()}))
     print(json.dumps({"kernels": kernels,
-                      "skinned_geometry": skinned_geometry}))
+                      "skinned_geometry": skinned_geometry,
+                      "deferred_shade": deferred_shade}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -136,6 +136,21 @@ def kernel(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     return known[1]
 
 
+def check_tensor(name: str, t, dtype, shape: tuple, dev,
+                 align: bool = False) -> None:
+    """Raise ValueError unless kernel argument `t` is on `dev`, of `dtype`
+    and `shape`, contiguous and, with `align`, 16-byte aligned."""
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, not {dev}")
+    if t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(f"{name} must be {dtype} {shape}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if align and t.data_ptr() % 16:
+        raise ValueError(f"{name} must start at a 16-byte aligned address")
+
+
 def check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

@@ -20,6 +20,12 @@ the clamp. `apply_ai_blend` is the frame's final mix with the
 interpolated AI frame, which render_frame applies once at display
 resolution.
 
+On the card deferred_shade_attrs runs one hand-written kernel instead
+(csrc/deferred_shade.cu, shade_attrs_kernel) when the frame takes the
+plain composition's common case: bilinear sampling, no shadow, no skybox
+and no custom shader. deferred_shade_attrs_plain is that composition: the
+CPU path, the card's oracle, and the card's path for every other frame.
+
 Every entry point shades a band of a taller frame as well (the banded
 frame, parallel/framebuffer.py): `y_offset` is the band's first global
 row and `full_height` the frame's height, so the pixel centres, the world
@@ -29,10 +35,12 @@ trident_tpu/ops/deferred.py:43-54,75-95,225-251.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
+from trident_tpu_torch import _build
 from trident_tpu_torch.ops import resolve as rp
 from trident_tpu_torch.ops import shading
 from trident_tpu_torch.ops.planes import AttributePlanes
@@ -47,6 +55,7 @@ from trident_tpu_torch.render.types import (
     SkyboxCube,
     TextureArrays,
 )
+from trident_tpu_torch.utils.profiling import TRACER
 
 Tensor = torch.Tensor
 
@@ -193,6 +202,40 @@ def deferred_shade_attrs(gbuffer: GBuffer, attrs: Tensor,
                          sampling: str = "bilinear",
                          shader_fn=None, y_offset: int = 0,
                          full_height: Optional[int] = None) -> Tensor:
+    """deferred_shade_attrs_plain's frame: the shading kernel
+    (shade_attrs_kernel) where shades_by_kernel holds, the plain
+    composition otherwise."""
+    if shades_by_kernel(attrs, sampling, shader_fn, skybox, shadow):
+        return shade_attrs_kernel(gbuffer, attrs, textures, camera, lights,
+                                  width, height, clear_color, tonemap,
+                                  y_offset, full_height)
+    return deferred_shade_attrs_plain(
+        gbuffer, attrs, textures, camera, lights, width, height,
+        clear_color=clear_color, shadow=shadow, shadow_pcf=shadow_pcf,
+        tonemap=tonemap, skybox=skybox, sampling=sampling,
+        shader_fn=shader_fn, y_offset=y_offset, full_height=full_height)
+
+
+def shades_by_kernel(attrs: Tensor, sampling: str = "bilinear",
+                     shader_fn=None, skybox: Optional[SkyboxCube] = None,
+                     shadow: Optional[ShadowParams] = None) -> bool:
+    """Whether deferred_shade_attrs takes the shading kernel: CUDA
+    tensors, bilinear sampling, and no custom shader, skybox or shadow."""
+    return (attrs.device.type == "cuda" and sampling == "bilinear"
+            and shader_fn is None and skybox is None and shadow is None)
+
+
+def deferred_shade_attrs_plain(gbuffer: GBuffer, attrs: Tensor,
+                               textures: TextureArrays, camera: CameraParams,
+                               lights: LightParams, width: int, height: int,
+                               clear_color=(0.05, 0.05, 0.08, 1.0),
+                               shadow: Optional[ShadowParams] = None,
+                               shadow_pcf: bool = False,
+                               tonemap: bool = True,
+                               skybox: Optional[SkyboxCube] = None,
+                               sampling: str = "bilinear",
+                               shader_fn=None, y_offset: int = 0,
+                               full_height: Optional[int] = None) -> Tensor:
     """Shade from the resolved attribute image (ops/resolve.py channel
     layout) → (H, W, 4) f32 display-space frame in [0, 1]. The texture is
     sampled in `sampling` mode (sample_texture_at). `shadow` (the light
@@ -211,6 +254,76 @@ def deferred_shade_attrs(gbuffer: GBuffer, attrs: Tensor,
         attrs[..., rp.CH_AMB:rp.CH_AMB + 1], textures, camera, lights,
         width, height, clear_color, shadow, shadow_pcf, tonemap, skybox,
         sampling, shader_fn, y_offset, full_height)
+
+
+def shade_attrs_kernel(gbuffer: GBuffer, attrs: Tensor,
+                       textures: TextureArrays, camera: CameraParams,
+                       lights: LightParams, width: int, height: int,
+                       clear_color=(0.05, 0.05, 0.08, 1.0),
+                       tonemap: bool = True, y_offset: int = 0,
+                       full_height: Optional[int] = None) -> Tensor:
+    """deferred_shade_attrs_plain's bilinear, unshadowed frame with the
+    PBR shader and the clear colour behind, in one launch of the shading
+    kernel (csrc/deferred_shade.cu). (P·V)⁻¹ is inverted here, as the
+    plain world_positions inverts it. Raises on inputs the kernel does not
+    take, CPU tensors among them."""
+    dev, q = attrs.device, textures.quads.shape[0]
+    n_point = lights.point_pos_range.shape[0]
+    for name, t, dtype, shape, align in (
+            ("attrs", attrs, torch.float32, (height, width, rp.CHANNELS),
+             True),
+            ("depth", gbuffer.depth, torch.float32, (height, width), False),
+            ("tri_id", gbuffer.tri_id, torch.int32, (height, width), False),
+            ("quads", textures.quads, torch.int32, (q, 4), True),
+            ("max_level", textures.max_level, torch.int32, (), False),
+            ("view", camera.view, torch.float32, (4, 4), False),
+            ("proj", camera.proj, torch.float32, (4, 4), False),
+            ("position", camera.position, torch.float32, (3,), False),
+            ("ambient", lights.ambient, torch.float32, (4,), False),
+            ("dir_direction", lights.dir_direction, torch.float32, (3,),
+             False),
+            ("dir_color", lights.dir_color, torch.float32, (4,), False),
+            ("dir_count", lights.dir_count, torch.int32, (), False),
+            ("point_pos_range", lights.point_pos_range, torch.float32,
+             (n_point, 4), False),
+            ("point_color_intensity", lights.point_color_intensity,
+             torch.float32, (n_point, 4), False),
+            ("point_count", lights.point_count, torch.int32, (), False)):
+        _build.check_tensor(name, t, dtype, shape, dev, align)
+    if dev.type != "cuda":
+        raise ValueError(f"the shading kernel's tensors are on {dev}, not "
+                         "on a CUDA device")
+    if width * height >= 2 ** 31 - 256:
+        raise ValueError(f"{width}×{height} pixels: beyond the kernel's "
+                         "32-bit thread indices")
+    fh = height if full_height is None else full_height
+    # world_positions' inverse: inv_ex, which neither syncs nor checks
+    vp_inv = torch.linalg.inv_ex(camera.proj @ camera.view).inverse \
+        .contiguous()
+    out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _build.kernel("trident_deferred_shade",
+                       [ptr] * 14 + [i32] + [f32] * 6 + [i32] * 4 + [ptr] * 2)
+    with torch.cuda.device(dev):
+        err = fn(attrs.data_ptr(), gbuffer.depth.data_ptr(),
+                 gbuffer.tri_id.data_ptr(), textures.quads.data_ptr(),
+                 textures.max_level.data_ptr(), vp_inv.data_ptr(),
+                 camera.position.data_ptr(), lights.ambient.data_ptr(),
+                 lights.dir_direction.data_ptr(), lights.dir_color.data_ptr(),
+                 lights.dir_count.data_ptr(),
+                 lights.point_pos_range.data_ptr(),
+                 lights.point_color_intensity.data_ptr(),
+                 lights.point_count.data_ptr(), n_point,
+                 *(float(c) for c in clear_color[:4]), 2.0 / width, 2.0 / fh,
+                 width, height, y_offset, int(tonemap), out.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("trident_deferred_shade", err)
+    shade_attrs_kernel.launches += 1
+    TRACER.count("shading.kernel")
+    return out
+
+
+shade_attrs_kernel.launches = 0
 
 
 def deferred_shade(gbuffer: GBuffer, planes: AttributePlanes,

@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from trident_tpu_torch import _build
+from trident_tpu_torch._build import check_tensor as _check
 from trident_tpu_torch.ops.corner import (
     CornerCols,
     CornerStageOut,
@@ -87,19 +88,6 @@ def setup_from_table(table: Tensor, bbox: Tensor,
                           z=table[9:12].T, w=table[12:15].T, bbox=bbox,
                           valid=valid),
             SetupCols(e=rows[0:9], z=rows[9:12], w=rows[12:15]))
-
-
-def _check(name: str, t: Tensor, dtype, shape: tuple, dev,
-           align: bool = False) -> None:
-    if t.device != dev:
-        raise ValueError(f"{name} is on {t.device}, not {dev}")
-    if t.dtype != dtype or tuple(t.shape) != shape:
-        raise ValueError(f"{name} must be {dtype} {shape}, got {t.dtype} "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if align and t.data_ptr() % 16:
-        raise ValueError(f"{name} must start at a 16-byte aligned address")
 
 
 def indexed_geometry(plan: DrawPlan, tri_draw: Tensor, params: DrawParams,
