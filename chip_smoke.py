@@ -316,17 +316,16 @@ Phases (any failure exits non-zero before the final line is printed):
      csrc/skinned_geometry.cu) on phase 16's loaded crowd at 1920×1080:
      bit-equal to its plain version with 40- and 32-wide records, the
      call and each kernel timed beside its bound and the plain version;
-     the wrapper's launches and the tracer's geometry.kernel in 8 crowd
-     frames (two runs a capture, none a replay) and 4 spheres1080_1m
-     frames (none)
+     each kernel's launches (_build.LAUNCHES) in 8 crowd frames (two runs
+     a capture, none a replay) and 4 spheres1080_1m frames (none)
  23. the shading kernel (phase_deferred_shade, csrc/deferred_shade.cu)
      against the plain composition on both benchmark configurations'
      1920×1080 shading inputs (spheres1080_1m's field, the loaded crowd):
      the largest f32 difference and the uint8 pixels that differ (at most
      1 LSB on under 0.1% of the covered pixels), the call, the kernel and
-     the plain composition timed beside the kernel's bound; the wrapper's
-     launches and the tracer's shading.kernel in 8 crowd and 4 field
-     frames (two runs a capture, none a replay), the texel kernel none
+     the plain composition timed beside the kernel's bound; its launches
+     (_build.LAUNCHES) in 8 crowd and 4 field frames (two runs a capture,
+     none a replay), the texel kernel none
 Then it prints the kernels as one JSON line, phase 22's numbers beside
 them under `skinned_geometry` and phase 23's under `deferred_shade` (each
 kernel entry with
@@ -524,11 +523,11 @@ def cold_line(what: str, fn, b_ms: float, flush, card: str) -> None:
           flush=True)
 
 
-def phase_ai(dev, card: str, kernel_fns: dict, drive, results: dict) -> dict:
+def phase_ai(dev, card: str, kernel_names: list, drive, results: dict) -> dict:
     """Phase 9, spheres1080_1m:ai: the warp kernel against its plain
     version, 12 upscaled frames through the Renderer, the stage times and
     the two 128² AI frames against the JAX package's; adds the warp to
-    `kernel_fns` and `results` and returns the 12 frames' launch counts."""
+    `kernel_names` and `results` and returns the 12 frames' launch counts."""
     import torch
 
     from trident_tpu_torch.ai import upscaler as up
@@ -536,7 +535,7 @@ def phase_ai(dev, card: str, kernel_fns: dict, drive, results: dict) -> dict:
     from trident_tpu_torch.ops.deferred import pack_rgba8
     from trident_tpu_torch.render.renderer import frame_geometry, render_frame
 
-    kernel_fns["warp"] = warp.warp_fetch
+    kernel_names.append("warp")
     r, reg = build_bench_scene(BENCH_GRID, dev, ai=True)
     w, h = r.config.render.width, r.config.render.height
     net = r._upscale_params()
@@ -648,7 +647,7 @@ def phase_ai(dev, card: str, kernel_fns: dict, drive, results: dict) -> dict:
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
             # the replayed graph's launch list (replays tick no counter)
-            ran = {n: r.graphs.last_launches.get(n, 0) for n in kernel_fns}
+            ran = {n: r.graphs.last_launches.get(n, 0) for n in kernel_names}
             if out.aux.tolist() != [0, 0]:
                 fail(f"ai frame {k}: raster overflow aux {out.aux.tolist()}")
             if (tuple(out.color.shape) != (h, w, 4)
@@ -732,13 +731,13 @@ def tiled_gate(frame, ref, what: str) -> None:
         fail(f"{what} outside the tiled-shading gate")
 
 
-def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
+def phase_knobs(dev, card: str, kernel_names: list, drive, results: dict):
     """Phase 10, the kernel-knob frame at spheres1080_1m: the four knob
     kernels against their plain versions and the default kernels they
     stand in for, their times and bounds, K1 against K1-CK on the same
     bins, 12 frames each of CKERN and FUSE_TILED through the Renderer, one
     shadows1080 PCF frame with tiled_shade and the 128² knob goldens; adds
-    the knob kernels to `kernel_fns` and `results` and returns the
+    the knob kernels to `kernel_names` and `results` and returns the
     main-path launch counts."""
     import torch
 
@@ -759,10 +758,8 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
     )
     from trident_tpu_torch.render.types import GBuffer
 
-    kernel_fns.update(visibility_ck=raster.visibility_ck_tiles,
-                      visibility_resolve=resolve.fused_visibility_resolve,
-                      resolve_tiled=resolve.resolve_attrs_tiled,
-                      texel_planar=texel.sample_bilinear_planar)
+    kernel_names.extend(("visibility_ck", "visibility_resolve",
+                         "resolve_tiled", "texel_planar"))
     bank = 8                                  # the JAX default ck_bank
 
     # (a) each knob kernel on the spheres1080_1m frame's intermediates
@@ -1033,7 +1030,7 @@ def phase_knobs(dev, card: str, kernel_fns: dict, drive, results: dict):
             rr.config.render.shadow_pcf = True
         ref, _ms = timed(rs)
         out, pcf_ms = timed(rt)
-        ran = {n: rt.graphs.last_launches.get(n, 0) for n in kernel_fns}
+        ran = {n: rt.graphs.last_launches.get(n, 0) for n in kernel_names}
         if (out.aux.tolist() != [0, 0] or out.shadow_aux.tolist() != [0, 0]
                 or ran["resolve_tiled"] != 1 or ran["texel_planar"] != 1
                 or ran["shadow_taps"] != 1):
@@ -1138,7 +1135,7 @@ def host_line(what: str, fn, lib_name, lib_fn, card: str) -> None:
           f", {text} ({card})", flush=True)
 
 
-def phase_probes(dev, card: str, kernel_fns: dict, drive, results: dict,
+def phase_probes(dev, card: str, kernel_names: list, drive, results: dict,
                  cs, records, bins, w: int, h: int) -> dict:
     """Phase 11, the tools_dev probes at spheres1080_1m on phase 3's bins:
     the visibility probes (dense, dual, reset) and K1 / K1-CK on doctored
@@ -1150,7 +1147,7 @@ def phase_probes(dev, card: str, kernel_fns: dict, drive, results: dict,
     then the tools' own runs (kbench's configs with
     and without ckern, its --bins and --sort legs, the gather and split
     probes) as the main path, with kbench's dflt through K1 against its
-    dflt through K1-CK. Adds the probe kernels to `kernel_fns` and
+    dflt through K1-CK. Adds the probe kernels to `kernel_names` and
     `results` and returns the main path's launch counts."""
     import torch
 
@@ -1160,11 +1157,8 @@ def phase_probes(dev, card: str, kernel_fns: dict, drive, results: dict,
     from trident_tpu_torch.tools_dev import gather_probe as gp
     from trident_tpu_torch.tools_dev import kbench as kb
 
-    kernel_fns.update(visibility_dense=kb.visibility_dense,
-                      visibility_dual=kb.visibility_dual,
-                      visibility_reset=kb.visibility_reset,
-                      lut_gather=gp.lut_gather,
-                      split_select=dsk.split_select)
+    kernel_names.extend(("visibility_dense", "visibility_dual",
+                         "visibility_reset", "lut_gather", "split_select"))
     ntx = -(-w // raster.TILE)
     n_tiles = ntx * -(-h // raster.TILE)
     n_real = int(bins.n_real)
@@ -1536,15 +1530,15 @@ def replay_line(r, what: str, card: str) -> None:
     held to its launch list, idle share; fails unless a window's kernel
     records are the launch list times the replays."""
     g = r.graphs.graph(r.graphs.last_key)
-    held_records(g.graph.replay, g.launches, what)
+    held_records(g.graph.replay, g.launch_list, what)
     dev_ms = cuda_ms(g.graph.replay)
-    busy, acts = device_busy(g.graph.replay, launch_list=g.launches)
+    busy, acts = device_busy(g.graph.replay, launch_list=g.launch_list)
     if busy != busy:
         fail(f"{what}: no profiling window of its replays was whole")
     print(f"{what}, its graph replayed alone: device frame {dev_ms:.4f} ms "
           f"(CUDA events), busy {busy:.4f} ms in {acts:.0f} device "
           f"activities, idle {1 - busy / dev_ms:.4f}; kernel records "
-          f"{g.launches} per replay ({card})", flush=True)
+          f"{g.launch_list} per replay ({card})", flush=True)
 
 
 def phase_frame_loop(dev, card: str, drive) -> None:
@@ -1927,7 +1921,7 @@ def throughput_busy(b, entry: str) -> tuple:
     step = iter(range(10 ** 6))
     busy, acts = device_busy(
         lambda: b.device_frame(next(step) % b.iters, b.prev0),
-        launch_list=g.launches)
+        launch_list=g.launch_list)
     if busy != busy:
         fail(f"bench {entry}: no profiling window of the throughput "
              "replays was whole")
@@ -2102,7 +2096,7 @@ RESOLVE_KERNELS = ("resolve_kernel", "resolve_vc_kernel",
                    "visibility_resolve_kernel", "visibility_resolve_vc_kernel")
 
 
-def phase_features(dev, card: str, kernel_fns: dict, drive, results: dict,
+def phase_features(dev, card: str, kernel_names: list, drive, results: dict,
                    bench) -> dict:
     """Phase 14: (a) on the feature frame's own ids and (T, 40) records,
     K2-vc against its plain version, tiled K2-vc against K2-vc permuted
@@ -2116,7 +2110,7 @@ def phase_features(dev, card: str, kernel_fns: dict, drive, results: dict,
     frame, aux [0, 0], the vc instance launched once a frame and the
     32-wide one never, the sky not the clear colour, the sprites covering
     pixels; (c) the 128² feature flavors against the JAX package's
-    frames. Adds the vc kernels to `kernel_fns` and `results` and returns
+    frames. Adds the vc kernels to `kernel_names` and `results` and returns
     the main-path launch counts."""
     import tempfile
 
@@ -2129,9 +2123,8 @@ def phase_features(dev, card: str, kernel_fns: dict, drive, results: dict,
     )
     from trident_tpu_torch.render.types import GBuffer
 
-    kernel_fns.update(resolve_vc=resolve.resolve_attrs_vc,
-                      resolve_tiled_vc=resolve.resolve_attrs_tiled_vc,
-                      visibility_resolve_vc=resolve.fused_visibility_resolve_vc)
+    kernel_names.extend(("resolve_vc", "resolve_tiled_vc",
+                         "visibility_resolve_vc"))
 
     # (a) the kernels on the feature frame's own intermediates
     r, reg = build_feature_scene(BENCH_GRID, dev)
@@ -2166,11 +2159,11 @@ def phase_features(dev, card: str, kernel_fns: dict, drive, results: dict,
              f"{bins.aux.tolist()}")
     d1, t1 = raster.visibility_tiles(bins, ntx, n_tiles)
     tri = raster.untile_frame(t1, ntx, nty)[:h, :w].contiguous()
-    a_k = resolve.resolve_attrs_vc(tri, records)
+    a_k = resolve.resolve_attrs(tri, records)
     a_p = resolve.resolve_attrs_plain(tri, records)
-    at = resolve.resolve_attrs_tiled_vc(t1, records, ntx)
+    at = resolve.resolve_attrs_tiled(t1, records, ntx)
     atp = resolve.resolve_attrs_tiled_plain(t1, records, ntx)
-    df, tf, af = resolve.fused_visibility_resolve_vc(bins, records, ntx,
+    df, tf, af = resolve.fused_visibility_resolve(bins, records, ntx,
                                                      n_tiles)
     dfp, tfp, afp = resolve.fused_visibility_resolve_plain(bins, records, ntx,
                                                            n_tiles)
@@ -2244,14 +2237,14 @@ def phase_features(dev, card: str, kernel_fns: dict, drive, results: dict,
             bound(w * h * (4 + 4 * resolve.CHANNELS) + n_winners * row_vc),
             "trident_tpu_torch/csrc/resolve.cu",
             "trident_tpu/ops/resolve_pallas.py:412", err["K2-vc vs plain"],
-            lambda: resolve.resolve_attrs_vc(tri, records),
+            lambda: resolve.resolve_attrs(tri, records),
             lambda: resolve.resolve_attrs_plain(tri, records)),
         "resolve_tiled_vc": (
             bound(n_px_t * 4 * (1 + resolve.CHANNELS) + n_winners * row_vc),
             "trident_tpu_torch/csrc/resolve.cu",
             "trident_tpu/ops/resolve_pallas.py:412",
             err["tiled K2-vc vs K2-vc"],
-            lambda: resolve.resolve_attrs_tiled_vc(t1, records, ntx),
+            lambda: resolve.resolve_attrs_tiled(t1, records, ntx),
             lambda: resolve.resolve_attrs_tiled_plain(t1, records, ntx)),
         "visibility_resolve_vc": (
             bound(vis.bytes + n_px_t * 4 * resolve.CHANNELS
@@ -2259,7 +2252,7 @@ def phase_features(dev, card: str, kernel_fns: dict, drive, results: dict,
             "trident_tpu_torch/csrc/visibility_resolve.cu",
             "trident_tpu/ops/resolve_pallas.py:281",
             err["K-FUSE-vc vs K2-vc"],
-            lambda: resolve.fused_visibility_resolve_vc(bins, records, ntx,
+            lambda: resolve.fused_visibility_resolve(bins, records, ntx,
                                                         n_tiles),
             lambda: resolve.fused_visibility_resolve_plain(bins, records, ntx,
                                                            n_tiles)),
@@ -2283,15 +2276,15 @@ def phase_features(dev, card: str, kernel_fns: dict, drive, results: dict,
     window = {
         "K2": lambda: resolve.resolve_attrs(tri32, rec32),
         "K2 (this frame)": lambda: resolve.resolve_attrs(tri, rec_f32),
-        "K2-vc": lambda: resolve.resolve_attrs_vc(tri, records),
+        "K2-vc": lambda: resolve.resolve_attrs(tri, records),
         "K1": lambda: raster.visibility_tiles(bins, ntx, n_tiles),
         "tiled K2 (this frame)": lambda: resolve.resolve_attrs_tiled(
             t1, rec_f32, ntx),
-        "tiled K2-vc": lambda: resolve.resolve_attrs_tiled_vc(t1, records,
+        "tiled K2-vc": lambda: resolve.resolve_attrs_tiled(t1, records,
                                                               ntx),
         "K-FUSE (this frame)": lambda: resolve.fused_visibility_resolve(
             bins, rec_f32, ntx, n_tiles),
-        "K-FUSE-vc": lambda: resolve.fused_visibility_resolve_vc(
+        "K-FUSE-vc": lambda: resolve.fused_visibility_resolve(
             bins, records, ntx, n_tiles),
     }
     smi_before = smi_sample()
@@ -2330,7 +2323,7 @@ def phase_features(dev, card: str, kernel_fns: dict, drive, results: dict,
         "binning": lambda: raster.build_bins(cs.setup, w, h,
                                              setup_cols=cs.cols.setup),
         "visibility": lambda: raster.visibility_tiles(bins, ntx, n_tiles),
-        "resolve": lambda: resolve.resolve_attrs_vc(tri, records),
+        "resolve": lambda: resolve.resolve_attrs(tri, records),
         "background": lambda: deferred._background(
             inp["camera"], inp["skybox"], w, h, inp["clear_color"], dev),
         "shading": lambda: deferred.deferred_shade_attrs(
@@ -2498,7 +2491,7 @@ def skinned_kernels(inp, what: str, w: int, h: int) -> dict:
                int((d_k.view(torch.int32) != d_p.view(torch.int32)).sum())]
     tri = raster.untile_frame(t_k, ntx, nty)[:h, :w].contiguous()
     err = {}
-    for name, rec, fn in (("K2-vc", rec40, resolve.resolve_attrs_vc),
+    for name, rec, fn in (("K2-vc", rec40, resolve.resolve_attrs),
                           ("K2", rec32, resolve.resolve_attrs)):
         a_k, a_p = fn(tri, rec), resolve.resolve_attrs_plain(tri, rec)
         torch.cuda.synchronize()
@@ -2506,7 +2499,7 @@ def skinned_kernels(inp, what: str, w: int, h: int) -> dict:
         if not bool(torch.isfinite(a_k).all()) or err[name] > RESOLVE_TOL:
             fail(f"{what} frame: {name} disagrees with its plain version "
                  f"by {err[name]}")
-    a_vc = resolve.resolve_attrs_vc(tri, rec40)
+    a_vc = resolve.resolve_attrs(tri, rec40)
     q = inp["textures"].quads
     idx, fx, fy = texel_lookup(a_vc, tri >= 0, inp["textures"].max_level)
     x_k = texel.sample_bilinear(q, idx, fx, fy)
@@ -2577,7 +2570,7 @@ def skinned_light_pass(sinp, what: str, w: int, h: int) -> None:
           f"and PCF) bit-equal to their plain versions", flush=True)
 
 
-def phase_routes(dev, card: str, kernel_fns: dict, drive, bench) -> dict:
+def phase_routes(dev, card: str, kernel_names: list, drive, bench) -> dict:
     """Phase 15: the routes of the reference raster, the plane-gather
     frame and the indexed, skinned geometry path on the card.
     (a) the nine 128² PNG goldens (scene_128, flavor_{shadows_pcf, ssaa,
@@ -2826,7 +2819,7 @@ def phase_routes(dev, card: str, kernel_fns: dict, drive, bench) -> dict:
     ski = sk["inp"]
     sk_verts = vertex_stage(ski["geometry"], ski["plan"], ski["params"],
                             ski["camera"], ski["palette"], skinned=True)
-    sk_attrs = resolve.resolve_attrs_vc(sk["tri"], sk["rec40"])
+    sk_attrs = resolve.resolve_attrs(sk["tri"], sk["rec40"])
     # the plain composition's corner columns (the kernel pair hands on the
     # setup's alone), with the records' shading consts
     sk_consts = shading_consts(ski["params"], ski["shade_table"],
@@ -2873,7 +2866,7 @@ def phase_routes(dev, card: str, kernel_fns: dict, drive, bench) -> dict:
             h, vertex_colors=True),
         "skinned_records": lambda: planes.build_resolve_cols_planar(
             sk_cols),
-        "skinned_resolve_vc": lambda: resolve.resolve_attrs_vc(
+        "skinned_resolve_vc": lambda: resolve.resolve_attrs(
             sk["tri"], sk["rec40"]),
         "skinned_shading": lambda: deferred.deferred_shade_attrs(
             sk["gbuf"], sk_attrs, textures=ski["textures"],
@@ -3542,7 +3535,7 @@ def band_cases(setup, cols, records, w: int, h: int, n: int, b: int,
     for bb in (bins, full):
         if bb.aux.tolist() != [0, 0]:
             fail(f"band binning overflow: aux {bb.aux.tolist()}")
-    _d, t_b = raster.visibility_tiles_band(bins, ntx, nt_b, ty)
+    _d, t_b = raster.visibility_tiles(bins, ntx, nt_b, tile_y_offset=ty)
     _d, t_f = raster.visibility_tiles(full, ntx, nt)
     tri_b = raster.untile_frame(t_b, ntx, bh // raster.TILE).contiguous()
     tri_f = raster.untile_frame(t_f, ntx, h // raster.TILE).contiguous()
@@ -3553,72 +3546,70 @@ def band_cases(setup, cols, records, w: int, h: int, n: int, b: int,
     res_bytes = px_t * 4 * (1 + resolve.CHANNELS) + n_win * row
     cases = {
         "visibility_band": lambda: BandCase(
-            lambda: raster.visibility_tiles_band(bins, ntx, nt_b, ty),
+            lambda: raster.visibility_tiles(bins, ntx, nt_b, tile_y_offset=ty),
             lambda: raster.visibility_tiles_plain(bins, ntx, nt_b,
                                                   tile_y_offset=ty),
             lambda: raster.visibility_tiles(full, ntx, nt),
-            lambda: raster.visibility_tiles_band(full, ntx, nt, 0),
+            lambda: raster.visibility_tiles(full, ntx, nt, tile_y_offset=0),
             (vis.bytes, vis.ops), False),
         "visibility_depth_band": lambda: BandCase(
-            lambda: raster.visibility_depth_tiles_band(bins, ntx, nt_b, ty),
+            lambda: raster.visibility_depth_tiles(bins, ntx, nt_b, ty),
             lambda: raster.visibility_tiles_plain(
                 bins, ntx, nt_b, depth_only=True, tile_y_offset=ty),
             lambda: raster.visibility_depth_tiles(full, ntx, nt),
-            lambda: raster.visibility_depth_tiles_band(full, ntx, nt, 0),
+            lambda: raster.visibility_depth_tiles(full, ntx, nt, 0),
             (vis.bytes - px_t * 4, vis.ops), False),
         "visibility_ck_band": lambda: BandCase(
-            lambda: raster.visibility_ck_tiles_band(bins, ntx, nt_b, 8, ty),
+            lambda: raster.visibility_ck_tiles(bins, ntx, nt_b, 8, ty),
             lambda: raster.visibility_ck_tiles_plain(bins, ntx, nt_b, 8,
                                                      tile_y_offset=ty),
             lambda: raster.visibility_ck_tiles(full, ntx, nt, 8),
-            lambda: raster.visibility_ck_tiles_band(full, ntx, nt, 8, 0),
+            lambda: raster.visibility_ck_tiles(full, ntx, nt, 8, 0),
             (int(bins.nhit.sum()) * raster.SUB * raster.REC * 4
              + bins.nhit.numel() * 4 + (nt_b + 1) * 4 + px_t * 8, vis.ops),
             False),
         "resolve_band": lambda: BandCase(
-            lambda: resolve.resolve_attrs_band(tri_b, records, y0),
+            lambda: resolve.resolve_attrs(tri_b, records, y0),
             lambda: resolve.resolve_attrs_plain(tri_b, records, y0),
             lambda: resolve.resolve_attrs(tri_f, records),
-            lambda: resolve.resolve_attrs_band(tri_f, records, 0),
+            lambda: resolve.resolve_attrs(tri_f, records, 0),
             (w * bh * 4 * (1 + resolve.CHANNELS) + n_win * row, 0), True),
         "resolve_vc_band": lambda: BandCase(
-            lambda: resolve.resolve_attrs_vc_band(tri_b, records, y0),
+            lambda: resolve.resolve_attrs(tri_b, records, y0),
             lambda: resolve.resolve_attrs_plain(tri_b, records, y0),
-            lambda: resolve.resolve_attrs_vc(tri_f, records),
-            lambda: resolve.resolve_attrs_vc_band(tri_f, records, 0),
+            lambda: resolve.resolve_attrs(tri_f, records),
+            lambda: resolve.resolve_attrs(tri_f, records, 0),
             (w * bh * 4 * (1 + resolve.CHANNELS) + n_win * row, 0), True),
         "resolve_tiled_band": lambda: BandCase(
-            lambda: resolve.resolve_attrs_tiled_band(t_b, records, ntx, ty),
+            lambda: resolve.resolve_attrs_tiled(t_b, records, ntx, ty),
             lambda: resolve.resolve_attrs_tiled_plain(t_b, records, ntx, ty),
             lambda: resolve.resolve_attrs_tiled(t_f, records, ntx),
-            lambda: resolve.resolve_attrs_tiled_band(t_f, records, ntx, 0),
+            lambda: resolve.resolve_attrs_tiled(t_f, records, ntx, 0),
             (res_bytes, 0), True),
         "resolve_tiled_vc_band": lambda: BandCase(
-            lambda: resolve.resolve_attrs_tiled_vc_band(t_b, records, ntx,
-                                                        ty),
+            lambda: resolve.resolve_attrs_tiled(t_b, records, ntx, ty),
             lambda: resolve.resolve_attrs_tiled_plain(t_b, records, ntx, ty),
-            lambda: resolve.resolve_attrs_tiled_vc(t_f, records, ntx),
-            lambda: resolve.resolve_attrs_tiled_vc_band(t_f, records, ntx,
-                                                        0),
+            lambda: resolve.resolve_attrs_tiled(t_f, records, ntx),
+            lambda: resolve.resolve_attrs_tiled(t_f, records, ntx, 0),
             (res_bytes, 0), True),
         "visibility_resolve_band": lambda: BandCase(
-            lambda: resolve.fused_visibility_resolve_band(bins, records, ntx,
-                                                          nt_b, ty),
+            lambda: resolve.fused_visibility_resolve(bins, records, ntx,
+                                                     nt_b, ty),
             lambda: resolve.fused_visibility_resolve_plain(bins, records,
                                                            ntx, nt_b, ty),
             lambda: resolve.fused_visibility_resolve(full, records, ntx, nt),
-            lambda: resolve.fused_visibility_resolve_band(full, records, ntx,
-                                                          nt, 0),
+            lambda: resolve.fused_visibility_resolve(full, records, ntx,
+                                                     nt, 0),
             (vis.bytes + px_t * 4 * resolve.CHANNELS + n_win * row, vis.ops),
             True),
         "visibility_resolve_vc_band": lambda: BandCase(
-            lambda: resolve.fused_visibility_resolve_vc_band(
+            lambda: resolve.fused_visibility_resolve(
                 bins, records, ntx, nt_b, ty),
             lambda: resolve.fused_visibility_resolve_plain(bins, records,
                                                            ntx, nt_b, ty),
-            lambda: resolve.fused_visibility_resolve_vc(full, records, ntx,
-                                                        nt),
-            lambda: resolve.fused_visibility_resolve_vc_band(
+            lambda: resolve.fused_visibility_resolve(full, records, ntx,
+                                                     nt),
+            lambda: resolve.fused_visibility_resolve(
                 full, records, ntx, nt, 0),
             (vis.bytes + px_t * 4 * resolve.CHANNELS + n_win * row, vis.ops),
             True),
@@ -3730,7 +3721,7 @@ class _WarnLog:
         self.log.removeHandler(self.handler)
 
 
-def phase_bands(dev, card: str, kernel_fns: dict, drive,
+def phase_bands(dev, card: str, kernel_names: list, drive,
                 results: dict) -> dict:
     """Phase 18 (module docstring): the banded frame on [dev] * n bands at
     1920×1024, held bit for bit to the one-device frame; the band kernel
@@ -3741,7 +3732,6 @@ def phase_bands(dev, card: str, kernel_fns: dict, drive,
 
     from trident_tpu_torch.ops.kernel_knobs import KernelKnobs
     from trident_tpu_torch.parallel.framebuffer import render_frame_banded
-    from trident_tpu_torch.render.graphs import frame_kernels
     from trident_tpu_torch.render.renderer import render_frame
     from trident_tpu_torch.tools_dev.banded import (
         banded_kwargs,
@@ -3755,8 +3745,7 @@ def phase_bands(dev, card: str, kernel_fns: dict, drive,
     from trident_tpu_torch.tools_dev.timing import uploads_per_call
 
     t18 = time.perf_counter()
-    kernel_fns.update({k: fn for k, fn in frame_kernels().items()
-                       if k.endswith("_band")})
+    kernel_names.extend(BAND_KERNELS)
     r, reg = build_bench_scene(BENCH_GRID, dev)
     rotate(reg, 0)
     sized(r)
@@ -4015,8 +4004,9 @@ def culled_cut_line(inp: dict, one, card: str) -> None:
             bins = raster.build_bins(
                 band_slice_setup(fcs.setup, b * bh, bh), BAND_W, bh,
                 setup_cols=fcs.cols.setup)
-            _d, t = raster.visibility_tiles_band(
-                bins, ntx, ntx * (bh // raster.TILE), b * bh // raster.TILE)
+            _d, t = raster.visibility_tiles(
+                bins, ntx, ntx * (bh // raster.TILE),
+                tile_y_offset=b * bh // raster.TILE)
             tri = raster.untile_frame(t, ntx, bh // raster.TILE)
             bad.append(int((tri != one.tri_id[b * bh:(b + 1) * bh]).sum()))
         counts[n] = bad
@@ -4917,6 +4907,8 @@ def hold_bf16_case(name: str, case: Bf16Case, results: dict,
 
 
 SKGEO_REPS = 5            # profiled calls a kernel's busy time averages
+# the kernel pair's entry points, vertices' then triangles'
+SKINNED_ENTRIES = ("trident_skinned_vertices", "trident_skinned_triangles")
 
 
 def phase_skinned_geometry(dev, card: str) -> dict:
@@ -4929,15 +4921,15 @@ def phase_skinned_geometry(dev, card: str) -> dict:
     call (CUDA events, median of 10) and each kernel's busy time
     (torch.profiler, mean of 5) beside its bound (each input read once,
     each output written once) and the plain version's time; then the
-    crowd's frame graph captured and replayed with tracing on: the
-    wrapper's launches and the tracer's geometry.kernel count two runs a
-    capture (its eager warm-up and the capture) and none a replay, and
-    spheres1080_1m's frames count none.
+    crowd's frame graph captured and replayed: each kernel's entry point
+    counts (_build.LAUNCHES) two runs a capture (its eager warm-up and the
+    capture) and none a replay, and spheres1080_1m's frames count none.
     Returns the phase's numbers."""
     import tempfile
 
     import torch
 
+    from trident_tpu_torch import _build
     from trident_tpu_torch.ops import indexed
     from trident_tpu_torch.render.renderer import shading_consts
     from trident_tpu_torch.tools_dev import timing
@@ -4945,7 +4937,6 @@ def phase_skinned_geometry(dev, card: str) -> dict:
         loaded_crowd,
         write_tube_gltf,
     )
-    from trident_tpu_torch.utils.profiling import TRACER, tracing
 
     td = tempfile.TemporaryDirectory()
     crowd = loaded_crowd(dev, write_tube_gltf(Path(td.name) / "tube.glb"))
@@ -5033,38 +5024,24 @@ def phase_skinned_geometry(dev, card: str) -> dict:
 
     # the mechanism in the frame loop: the kernel path runs at each
     # capture, and the replays run its kernels without Python
-    before = indexed.indexed_geometry.launches
-    tracing(True)
-    TRACER.reset()
-    try:
-        for _ in range(8):
-            scene.update(1 / 60)
-            r.render_viewport()
+    def pair_counts(frames, step, rr) -> dict:
+        before = [_build.LAUNCHES[n] for n in SKINNED_ENTRIES]
+        for k in range(frames):
+            step(k)
+            rr.render_viewport()
         torch.cuda.synchronize()
-        crowd_counts = dict(launches=indexed.indexed_geometry.launches
-                            - before,
-                            geometry_kernel=TRACER.total("geometry.kernel"),
-                            captures=r.graphs.captures)
-        del scene, r, crowd
-        torch.cuda.empty_cache()
-        fr, freg = build_bench_scene(BENCH_GRID, dev)
-        before = indexed.indexed_geometry.launches
-        TRACER.reset()
-        for k in range(4):
-            rotate(freg, k)
-            fr.render_viewport()
-        torch.cuda.synchronize()
-        field_counts = dict(launches=indexed.indexed_geometry.launches
-                            - before,
-                            geometry_kernel=TRACER.total("geometry.kernel"),
-                            captures=fr.graphs.captures)
-    finally:
-        tracing(False)
-        TRACER.reset()
+        return dict(vertices=_build.LAUNCHES[SKINNED_ENTRIES[0]] - before[0],
+                    triangles=_build.LAUNCHES[SKINNED_ENTRIES[1]] - before[1],
+                    captures=rr.graphs.captures)
+
+    crowd_counts = pair_counts(8, lambda k: scene.update(1 / 60), r)
+    del scene, r, crowd
+    torch.cuda.empty_cache()
+    fr, freg = build_bench_scene(BENCH_GRID, dev)
+    field_counts = pair_counts(4, lambda k: rotate(freg, k), fr)
     runs = 2 * crowd_counts["captures"]     # each capture's warm-up, itself
-    if crowd_counts["launches"] != runs \
-            or crowd_counts["geometry_kernel"] != runs \
-            or field_counts["launches"] or field_counts["geometry_kernel"]:
+    if crowd_counts["vertices"] != runs or crowd_counts["triangles"] != runs \
+            or field_counts["vertices"] or field_counts["triangles"]:
         fail(f"skinned geometry's counts: crowd {crowd_counts}, field "
              f"{field_counts}")
     out.update(crowd_frames=crowd_counts, field_frames=field_counts)
@@ -5115,21 +5092,21 @@ def phase_deferred_shade(dev, card: str) -> dict:
     own busy time beside its bound (SHADE_BYTES_PX a pixel and
     SHADE_BYTES_COVERED more a covered one: an uncovered pixel reads only
     its id), and beside the dense bound, every pixel's 88 bytes; then the
-    frame loop with tracing on: the wrapper's launches and the tracer's
-    shading.kernel count two runs a capture (its eager warm-up and the
-    capture) and none a replay, in 8 crowd and 4 field frames, and the
-    texel kernel never launches there. Returns the phase's numbers."""
+    frame loop: the kernel's entry point counts (_build.LAUNCHES) two runs
+    a capture (its eager warm-up and the capture) and none a replay, in 8
+    crowd and 4 field frames, and the texel kernel never launches there.
+    Returns the phase's numbers."""
     import tempfile
 
     import torch
 
-    from trident_tpu_torch.ops import deferred, texel
+    from trident_tpu_torch import _build
+    from trident_tpu_torch.ops import deferred
     from trident_tpu_torch.tools_dev import timing
     from trident_tpu_torch.tools_dev.scenes import (
         loaded_crowd,
         write_tube_gltf,
     )
-    from trident_tpu_torch.utils.profiling import TRACER, tracing
 
     td = tempfile.TemporaryDirectory()
     crowd = loaded_crowd(dev, write_tube_gltf(Path(td.name) / "tube.glb"))
@@ -5197,31 +5174,22 @@ def phase_deferred_shade(dev, card: str) -> dict:
     # capture, the replays run the kernel without Python, and the texel
     # kernel stays off these frames
     counts = {}
-    tracing(True)
-    try:
-        for name, r, step in (
-                ("crowd", crowd.renderer,
-                 lambda k: crowd.scene.update(1 / 60)),
-                ("field", field, lambda k: rotate(freg, k))):
-            before = (deferred.shade_attrs_kernel.launches,
-                      texel.sample_bilinear.launches, r.graphs.captures)
-            TRACER.reset()
-            for k in range(8 if name == "crowd" else 4):
-                step(k)
-                r.render_viewport()
-            torch.cuda.synchronize()
-            counts[name] = dict(
-                launches=deferred.shade_attrs_kernel.launches - before[0],
-                shading_kernel=TRACER.total("shading.kernel"),
-                texel=texel.sample_bilinear.launches - before[1],
-                captures=r.graphs.captures - before[2])
-    finally:
-        tracing(False)
-        TRACER.reset()
+    for name, r, step in (
+            ("crowd", crowd.renderer, lambda k: crowd.scene.update(1 / 60)),
+            ("field", field, lambda k: rotate(freg, k))):
+        before = (_build.LAUNCHES["trident_deferred_shade"],
+                  _build.LAUNCHES["trident_texel"], r.graphs.captures)
+        for k in range(8 if name == "crowd" else 4):
+            step(k)
+            r.render_viewport()
+        torch.cuda.synchronize()
+        counts[name] = dict(
+            launches=_build.LAUNCHES["trident_deferred_shade"] - before[0],
+            texel=_build.LAUNCHES["trident_texel"] - before[1],
+            captures=r.graphs.captures - before[2])
     for name, c in counts.items():
         runs = 2 * c["captures"]    # each capture's warm-up, itself
-        if c["captures"] < 1 or c["launches"] != runs \
-                or c["shading_kernel"] != runs or c["texel"]:
+        if c["captures"] < 1 or c["launches"] != runs or c["texel"]:
             fail(f"deferred shade's counts in the {name} frames: {c}")
     out["frame_loop"] = counts
     print(f"deferred shade in the frame loop: 8 crowd frames "
@@ -5232,23 +5200,20 @@ def phase_deferred_shade(dev, card: str) -> dict:
     return out
 
 
-def phase_knob_set(dev, card: str, kernel_fns: dict, drive,
+def phase_knob_set(dev, card: str, kernel_names: list, drive,
                    results: dict) -> dict:
     """Phase 21 (module docstring): every kernel knob the JAX package
-    accepts. Adds the bf16 instances to `kernel_fns` and `results` and
+    accepts. Adds the bf16 instances to `kernel_names` and `results` and
     returns the main path's launch counts."""
     import torch
 
     from trident_tpu_torch.ai import upscaler as up
     from trident_tpu_torch.ops import raster, resolve, warp
-    from trident_tpu_torch.render.graphs import frame_kernels
     from trident_tpu_torch.render.renderer import frame_geometry
     from trident_tpu_torch.tools_dev import kbench as kb
 
     t21 = time.perf_counter()
-    kernel_fns.update({k: fn for k, fn in frame_kernels().items()
-                       if k.endswith("_bf16")})
-    kernel_fns["warp"] = warp.warp_fetch
+    kernel_names.extend(BF16_KERNELS)
 
     # (a) the bf16 instances on spheres1080_1m's bins and records (1920 ×
     # 1080), the band ones on band 2 of 4 of phase 18's field (1920 × 1024)
@@ -5528,29 +5493,27 @@ def main() -> None:
     )
     from trident_tpu_torch.render.types import GBuffer
 
-    kernel_fns = {"visibility": raster.visibility_tiles,
-                  "visibility_depth": raster.visibility_depth_tiles,
-                  "resolve": resolve.resolve_attrs,
-                  "texel": texel.sample_bilinear,
-                  "shadow_taps": shadow_taps.shadow_tap_bits}
+    # the kernels held so far, by entry point without "trident_"
+    kernel_names = ["visibility", "visibility_depth", "resolve", "texel",
+                    "shadow_taps"]
 
     def drive(path, needed, renderers=()):
-        """Run `path` with every launch count set to 0 just before; the
-        counts just after, failing if a kernel in `needed` never ran. A
-        count is the kernel's runs: its wrapper's launches, less those the
-        graph captures of `renderers` (every Renderer whose frames `path`
-        renders) recorded, plus those their replays ran."""
-        for fn in kernel_fns.values():
-            fn.launches = 0
+        """Run `path`; each kernel's runs in it, failing if a kernel in
+        `needed` never ran. A kernel's runs are its entry point's launches
+        (_build.LAUNCHES), less those the graph captures of `renderers`
+        (every Renderer whose frames `path` renders) recorded, plus those
+        their replays ran."""
+        before = dict(_build.LAUNCHES)
         for rr in renderers:
             rr.graphs.captured.clear()
             rr.graphs.replayed.clear()
         out = path()
         torch.cuda.synchronize()
-        counts = {name: fn.launches
+        counts = {name: _build.LAUNCHES["trident_" + name]
+                  - before.get("trident_" + name, 0)
                   - sum(rr.graphs.captured[name] for rr in renderers)
                   + sum(rr.graphs.replayed[name] for rr in renderers)
-                  for name, fn in kernel_fns.items()}
+                  for name in kernel_names}
         for name in needed:
             if counts[name] < 1:
                 fail(f"the main path never launched the {name} kernel")
@@ -5907,7 +5870,7 @@ def main() -> None:
                  f"pass aux {pcf_out.shadow_aux.tolist()}")
         return out, pcf_ms
 
-    (out, pcf_ms), launches6 = drive(shadow_frames, kernel_fns, (r,))
+    (out, pcf_ms), launches6 = drive(shadow_frames, kernel_names, (r,))
     # the last hard frame's shadow factor: the share of its covered pixels
     # in shadow
     inp = r.frame_inputs()
@@ -5977,13 +5940,13 @@ def main() -> None:
                     np.load(GOLDENS / f"torch_slice_{name}.npy"), name)
 
     # -- phase 9: spheres1080_1m:ai ------------------------------------------
-    launches9 = phase_ai(dev, card, kernel_fns, drive, results)
+    launches9 = phase_ai(dev, card, kernel_names, drive, results)
 
     # -- phase 10: the kernel-knob frame --------------------------------------
-    launches10 = phase_knobs(dev, card, kernel_fns, drive, results)
+    launches10 = phase_knobs(dev, card, kernel_names, drive, results)
 
     # -- phase 11: the tools_dev probes ---------------------------------------
-    launches11 = phase_probes(dev, card, kernel_fns, drive, results, *bench,
+    launches11 = phase_probes(dev, card, kernel_names, drive, results, *bench,
                               w=1920, h=1080)
 
     # -- phase 12: the interactive frame loop ----------------------------------
@@ -5994,10 +5957,10 @@ def main() -> None:
     print(f"bench sweep's launches {launches13}", flush=True)
 
     # -- phase 14: the forward frame's features --------------------------------
-    launches14 = phase_features(dev, card, kernel_fns, drive, results, bench)
+    launches14 = phase_features(dev, card, kernel_names, drive, results, bench)
 
     # -- phase 15: the reference raster, planes and the skinned path --------
-    launches15 = phase_routes(dev, card, kernel_fns, drive, bench)
+    launches15 = phase_routes(dev, card, kernel_names, drive, bench)
     print(f"route launches {launches15}", flush=True)
     del bench
     torch.cuda.empty_cache()
@@ -6015,7 +5978,7 @@ def main() -> None:
           f"launches {launches17} ({card})", flush=True)
 
     # -- phase 18: the banded frame, n bands on this card -------------------
-    launches18 = phase_bands(dev, card, kernel_fns, drive, results)
+    launches18 = phase_bands(dev, card, kernel_names, drive, results)
 
     # -- phase 19: training ----------------------------------------------------
     launches19 = phase_training(dev, card, drive)
@@ -6024,7 +5987,7 @@ def main() -> None:
     launches20 = phase_shell(dev, card, drive)
 
     # -- phase 21: every kernel knob --------------------------------------------
-    launches21 = phase_knob_set(dev, card, kernel_fns, drive, results)
+    launches21 = phase_knob_set(dev, card, kernel_names, drive, results)
 
     # -- phase 22: the skinned indexed geometry's kernel pair -------------------
     skinned_geometry = phase_skinned_geometry(dev, card)
@@ -6054,7 +6017,7 @@ def main() -> None:
                 **{n: launches18[n] for n in BAND_KERNELS},
                 **{n: launches21[n] for n in BF16_KERNELS}}
     kernels = []
-    for name in kernel_fns:
+    for name in kernel_names:
         res = {k: v for k, v in results[name].items() if k != "colour_ms"}
         # the launches of each of phase 15's, 16's and 17's route runs,
         # of phase 19's pair rendering and of phase 20's application loop

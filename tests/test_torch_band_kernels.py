@@ -43,6 +43,7 @@ from trident_tpu.ops.corner import build_draw_rows, corner_stage
 from trident_tpu.ops.vertex import TriangleSetup as JTriangleSetup
 from trident_tpu.ops.vertex import band_slice_setup as j_band_slice
 
+from trident_tpu_torch import _build
 from trident_tpu_torch.ops import raster, resolve
 from trident_tpu_torch.ops.planes import records_from_reference
 from trident_tpu_torch.ops.vertex import TriangleSetup, band_slice_setup
@@ -312,15 +313,10 @@ def test_band_vc_resolve_and_fused_match_jax(vc_side, b):
 
 
 def test_band_wrappers_count_only_on_the_card():
-    """On CPU tensors every band wrapper takes its plain version and ticks
-    no launch count; the offset-free call stays the offset-free wrapper."""
-    wrappers = (raster.visibility_tiles_band, raster.visibility_depth_tiles_band,
-                raster.visibility_ck_tiles_band, resolve.resolve_attrs_band,
-                resolve.resolve_attrs_vc_band, resolve.resolve_attrs_tiled_band,
-                resolve.resolve_attrs_tiled_vc_band,
-                resolve.fused_visibility_resolve_band,
-                resolve.fused_visibility_resolve_vc_band)
-    before = [w.launches for w in wrappers]
+    """On CPU tensors the visibility and resolve entry points take their
+    plain versions with a band's offset, vertex colours and bf16 alike,
+    and count no launch."""
+    before = dict(_build.LAUNCHES)
     ps = TriangleSetup(edge=torch.zeros(16, 3, 3), z=torch.zeros(16, 3),
                        w=torch.ones(16, 3),
                        bbox=torch.zeros(16, 4, dtype=torch.int32),
@@ -329,7 +325,16 @@ def test_band_wrappers_count_only_on_the_card():
     raster.visibility_tiles(bins, 2, 2, tile_y_offset=3)
     raster.visibility_depth_tiles(bins, 2, 2, tile_y_offset=3)
     raster.visibility_ck_tiles(bins, 2, 2, 8, tile_y_offset=3)
-    assert [w.launches for w in wrappers] == before
+    rec40 = torch.zeros((16, 40))
+    ids = torch.full((32, 64), -1, dtype=torch.int32)
+    ids_t = torch.full((2, raster.TILE_PX), -1, dtype=torch.int32)
+    for prec in ("split", "bf16"):
+        resolve.resolve_attrs(ids, rec40, y_offset=96, prec=prec)
+        resolve.resolve_attrs_tiled(ids_t, rec40, 2, tile_y_offset=3,
+                                    prec=prec)
+        resolve.fused_visibility_resolve(bins, rec40, 2, 2, tile_y_offset=3,
+                                         prec=prec)
+    assert dict(_build.LAUNCHES) == before
     d, t = raster.visibility_tiles(bins, 2, 2, tile_y_offset=3)
     assert (t == -1).all() and (d == 1.0).all()
 

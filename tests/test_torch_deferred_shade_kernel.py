@@ -7,7 +7,7 @@ On the CPU: the plain composition is the shading body it always was
 (_shade_common on the attribute channels), bit for bit, on seeded frames
 with P ∈ {0, 2, 4, 8} point-light rows and counts below the bucket, tonemap
 on and off, a band of a taller frame and uncovered pixels; CPU tensors take
-it with no launch and no `shading.kernel` count; shadow, skybox, custom
+it with no launch counted; shadow, skybox, custom
 shader, trilinear and nearest frames route to it; the wrapper's input
 checks raise.
 
@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from trident_tpu_torch import _build
 from trident_tpu_torch.ops import deferred, shading
 from trident_tpu_torch.ops import resolve as rp
 from trident_tpu_torch.render.camera import Camera
@@ -38,7 +39,6 @@ from trident_tpu_torch.render.types import (
     ShadowParams,
     SkyboxCube,
 )
-from trident_tpu_torch.utils.profiling import TRACER, tracing
 
 BUCKETS = (0, 2, 4, 8)
 TEX_SIZES = ((128, 128), (64, 32), (16, 16))
@@ -184,17 +184,9 @@ def test_band_rows_are_the_full_frames():
 
 def test_cpu_tensors_take_the_plain_path():
     f = make_frame(16, 24, 2, 1, seed=3)
-    before = deferred.shade_attrs_kernel.launches
-    tracing(True)
-    TRACER.reset()
-    try:
-        out = deferred.deferred_shade_attrs(*f.args(), **f.kw())
-        kernel_runs = TRACER.total("shading.kernel")
-    finally:
-        tracing(False)
-        TRACER.reset()
-    assert deferred.shade_attrs_kernel.launches == before
-    assert kernel_runs == 0
+    before = dict(_build.LAUNCHES)
+    out = deferred.deferred_shade_attrs(*f.args(), **f.kw())
+    assert dict(_build.LAUNCHES) == before
     assert torch.equal(bits(out), bits(parent_composition(f)))
 
 
@@ -273,16 +265,17 @@ REFUSALS = ("attrs dtype", "attrs shape", "attrs contiguous",
 def test_wrapper_refuses_what_the_kernel_does_not_take(case):
     f = make_frame(8, 8, 2, 1, seed=6)
     g = Frame(**{**vars(f), **_refusals(f)[case]})
-    before = deferred.shade_attrs_kernel.launches
+    before = dict(_build.LAUNCHES)
     with pytest.raises(ValueError):
         deferred.shade_attrs_kernel(*g.args(), CLEAR, True, g.y_offset,
                                     g.full_height)
-    assert deferred.shade_attrs_kernel.launches == before
+    assert dict(_build.LAUNCHES) == before
 
 
 # -- on the card -------------------------------------------------------------
 
 W, H = 1920, 1080
+SHADE = "trident_deferred_shade"    # the kernel's entry point
 
 
 @pytest.fixture(scope="module")
@@ -291,8 +284,6 @@ def card():
         pytest.skip("needs a CUDA card; where there is one: python3 -m "
                     "pytest --noconftest -m card "
                     "tests/test_torch_deferred_shade_kernel.py")
-    from trident_tpu_torch import _build
-
     _build.load_library()
     return torch.device("cuda", 0)
 
@@ -365,11 +356,11 @@ def test_card_kernel_on_the_configurations_frames(card, config_frames, name,
     kw = {**kw, "tonemap": tonemap}
     gbuf = args[0]
     assert kw.get("shadow") is None and kw.get("skybox") is None
-    before = deferred.shade_attrs_kernel.launches
+    before = _build.LAUNCHES[SHADE]
     out = deferred.deferred_shade_attrs(*args, **kw)
     plain = deferred.deferred_shade_attrs_plain(*args, **kw)
     torch.cuda.synchronize()
-    assert deferred.shade_attrs_kernel.launches == before + 1
+    assert _build.LAUNCHES[SHADE] == before + 1
     assert_equal_frames(out, plain, gbuf.tri_id >= 0,
                         f"{name} 1080p {'tonemapped' if tonemap else 'HDR'}")
 
@@ -410,24 +401,16 @@ def test_card_capture_and_replay_with_new_camera_and_lights(card):
                         target=(0.5, 0.0, 0.0))
     deferred.deferred_shade_attrs(*f.args(), **f.kw())      # warm-up
     torch.cuda.synchronize()
-    before = deferred.shade_attrs_kernel.launches
+    before = _build.LAUNCHES[SHADE]
     graph = torch.cuda.CUDAGraph()
-    tracing(True)
-    TRACER.reset()
-    try:
-        with torch.cuda.graph(graph):
-            out = deferred.deferred_shade_attrs(*f.args(), **f.kw())
-        captured = TRACER.total("shading.kernel")
-        for dst, src in zip((*f.camera, *f.lights),
-                            (*moved_cam, *moved.lights)):
-            dst.copy_(src)
-        graph.replay()
-        torch.cuda.synchronize()
-        replayed = TRACER.total("shading.kernel") - captured
-    finally:
-        tracing(False)
-        TRACER.reset()
-    assert deferred.shade_attrs_kernel.launches == before + 1
+    with torch.cuda.graph(graph):
+        out = deferred.deferred_shade_attrs(*f.args(), **f.kw())
+    captured = _build.LAUNCHES[SHADE] - before
+    for dst, src in zip((*f.camera, *f.lights), (*moved_cam, *moved.lights)):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    replayed = _build.LAUNCHES[SHADE] - before - captured
     assert captured == 1 and replayed == 0
     plain = deferred.deferred_shade_attrs_plain(*f.args(), **f.kw())
     assert_equal_frames(out, plain, f.gbuffer.tri_id >= 0, "replay")
@@ -441,10 +424,10 @@ def test_card_capture_and_replay_with_new_camera_and_lights(card):
 def test_card_other_frames_take_the_plain_path(card, route):
     f = make_frame(64, 96, 2, 2, seed=51, device=card)
     kw = _route_cases(f)[route]
-    before = deferred.shade_attrs_kernel.launches
+    before = _build.LAUNCHES[SHADE]
     routed = deferred.deferred_shade_attrs(*f.args(), **f.kw(**kw))
     plain = deferred.deferred_shade_attrs_plain(*f.args(), **f.kw(**kw))
-    assert deferred.shade_attrs_kernel.launches == before
+    assert _build.LAUNCHES[SHADE] == before
     assert torch.equal(bits(routed), bits(plain))
 
 

@@ -38,7 +38,7 @@ from trident_tpu.geometry.primitives import PrimitiveType
 from trident_tpu.io.image import checkerboard
 from trident_tpu.render.renderer import Renderer as JRenderer
 
-from trident_tpu_torch.ops import raster, resolve, texel
+from trident_tpu_torch import _build
 from trident_tpu_torch.render.renderer import render_frame_entry
 
 from test_torch_host import carry_renderer
@@ -176,8 +176,7 @@ def test_sphere_grid_matches_jax_frame():
     jr = _sphere_grid()
     tr = carry_renderer(jr)
     jout = _jax_frame_op_by_op(jr)
-    counts = [raster.visibility_tiles.launches, resolve.resolve_attrs.launches,
-              texel.sample_bilinear.launches]
+    counts = dict(_build.LAUNCHES)
     out = tr.render_viewport()
     assert out.aux.tolist() == [0, 0]
     assert np.asarray(jout.aux).tolist() == [0, 0]
@@ -186,9 +185,7 @@ def test_sphere_grid_matches_jax_frame():
     assert (out.tri_id.numpy() == np.asarray(jout.tri_id)).all()
     _assert_golden_gate(tr.read_frame(out), np.asarray(jout.color))
     # CPU tensors take the plain versions: no kernel launch is counted
-    assert counts == [raster.visibility_tiles.launches,
-                      resolve.resolve_attrs.launches,
-                      texel.sample_bilinear.launches]
+    assert dict(_build.LAUNCHES) == counts
 
 
 # The post and shadow flavors of test_golden_flavors.py's `_base` scene

@@ -612,17 +612,17 @@ KERNEL_SOURCES = {
 def test_kernel_records_name_one_kernel(name):
     """record_counts gives a device function's profiler record to its own
     kernel and to no other; the function is a kernel of its source; every
-    render-path kernel wrapper has a record pattern."""
+    entry point a capture lists has a record pattern, and no other."""
     import pathlib
     import re
 
-    from trident_tpu_torch.render.graphs import frame_kernels
+    from trident_tpu_torch.render.graphs import LISTED
     from trident_tpu_torch.tools_dev.timing import (
         KERNEL_RECORDS,
         record_counts,
     )
 
-    assert sorted(KERNEL_RECORDS) == sorted(frame_kernels())
+    assert sorted(KERNEL_RECORDS) == sorted(LISTED)
     src, fn, targ = KERNEL_SOURCES[name]
     text = (pathlib.Path(__file__).parents[1] / "trident_tpu_torch" / "csrc"
             / src).read_text()

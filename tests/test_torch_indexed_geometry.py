@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from trident_tpu_torch import _build
 from trident_tpu_torch.ops import indexed
 from trident_tpu_torch.ops.corner import indexed_corner_stage
 from trident_tpu_torch.ops.planes import build_resolve_cols_planar
@@ -36,7 +37,6 @@ from trident_tpu_torch.render.types import (
     GeometryBuffers,
 )
 from trident_tpu_torch.tools_dev import scenes
-from trident_tpu_torch.utils.profiling import TRACER, tracing
 
 SCENES = ("skinned128", "hand")
 CASES = [(scene, skinned, vc) for scene in SCENES for skinned in (True, False)
@@ -253,17 +253,9 @@ def test_cpu_tensors_take_the_plain_version(scene_inputs, scene, skinned,
                                             vc):
     inp = scene_inputs[scene]
     args, kw = call_args(inp, skinned, vc)
-    before = indexed.indexed_geometry.launches
-    tracing(True)
-    TRACER.reset()
-    try:
-        cs, rec = indexed.indexed_geometry(*args, **kw)
-        kernel_runs = TRACER.total("geometry.kernel")
-    finally:
-        tracing(False)
-        TRACER.reset()
-    assert indexed.indexed_geometry.launches == before == 0
-    assert kernel_runs == 0
+    before = dict(_build.LAUNCHES)
+    cs, rec = indexed.indexed_geometry(*args, **kw)
+    assert dict(_build.LAUNCHES) == before
     cs_ref, rec_ref = indexed.indexed_geometry_plain(*args, **kw)
     assert differing(cs, rec, cs_ref, rec_ref) == []
 
@@ -335,8 +327,6 @@ def card():
         pytest.skip("needs a CUDA card; where there is one: python3 -m "
                     "pytest --noconftest -m card "
                     "tests/test_torch_indexed_geometry.py")
-    from trident_tpu_torch import _build
-
     _build.load_library()
     return torch.device("cuda")
 
@@ -407,6 +397,12 @@ def crowd_inputs(dev, seed: int = 5) -> dict:
         height=cfg["height"])
 
 
+def pair_launches() -> list:
+    """The kernel pair's launches so far, vertices' then triangles'."""
+    return [_build.LAUNCHES["trident_skinned_vertices"],
+            _build.LAUNCHES["trident_skinned_triangles"]]
+
+
 def kernel_against_plain(inp, skinned: bool, vc: bool) -> list:
     args, kw = call_args(inp, skinned, vc)
     cs, rec = indexed.indexed_geometry(*args, **kw)
@@ -423,9 +419,9 @@ def test_card_kernel_pair_bit_equal_at_the_crowds_shapes(card, skinned, vc):
     assert inp["plan"].vtx_src.shape[0] == 1 << 20
     assert inp["plan"].tri_vtx.shape[0] == 1 << 21
     assert int(inp["params"].bone_count.sum()) == 2304
-    before = indexed.indexed_geometry.launches
+    before = pair_launches()
     assert kernel_against_plain(inp, skinned, vc) == []
-    assert indexed.indexed_geometry.launches == before + 1
+    assert pair_launches() == [n + 1 for n in before]
 
 
 @pytest.mark.card
@@ -446,17 +442,11 @@ def test_card_capture_and_replay_with_new_palette_and_camera(card):
         indexed.indexed_geometry(*args, **kw)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    before = indexed.indexed_geometry.launches
-    tracing(True)
-    TRACER.reset()
-    try:
-        with torch.cuda.graph(graph):
-            cs, rec = indexed.indexed_geometry(*args, **kw)
-        captured = TRACER.total("geometry.kernel")
-    finally:
-        tracing(False)
-        TRACER.reset()
-    assert captured == 1 and indexed.indexed_geometry.launches == before + 1
+    before = pair_launches()
+    with torch.cuda.graph(graph):
+        cs, rec = indexed.indexed_geometry(*args, **kw)
+    captured = [n - b for n, b in zip(pair_launches(), before)]
+    assert captured == [1, 1]
     moved = crowd_inputs(card, seed=11)
     inp["palette"].copy_(moved["palette"])
     other = _camera([1.5, 2.0, 13.0], [0.2, -0.3, 0.0], inp["width"],
@@ -466,7 +456,7 @@ def test_card_capture_and_replay_with_new_palette_and_camera(card):
     graph.replay()
     cs_ref, rec_ref = indexed.indexed_geometry_plain(*args, **kw)
     torch.cuda.synchronize()
-    assert indexed.indexed_geometry.launches == before + 1
+    assert pair_launches() == [n + 1 for n in before]
     assert differing(cs, rec, cs_ref, rec_ref, corner_cols=False) == []
     assert not same(rec, indexed.indexed_geometry_plain(
         *call_args(crowd_inputs(card), True, True)[0], **kw)[1])

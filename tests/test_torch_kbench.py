@@ -39,6 +39,7 @@ import jax.numpy as jnp
 from trident_tpu.ops.raster_pallas import visibility_pallas
 from trident_tpu.ops.vertex import TriangleSetup as JTriangleSetup
 
+from trident_tpu_torch import _build
 from trident_tpu_torch.ops import planes, raster
 from trident_tpu_torch.tools_dev import diag_split_kernel, gather_probe
 from trident_tpu_torch.tools_dev import kbench as kb
@@ -131,16 +132,13 @@ def test_config_matches_jax_k1(side, kind):
     against the JAX kernel's dflt frame, or background."""
     _cs, bins, jt, jd = side
     assert int((jt >= 0).sum()) > 2000
-    launches = (kb.visibility_dense.launches, kb.visibility_dual.launches,
-                kb.visibility_reset.launches)
+    launches = dict(_build.LAUNCHES)
     depth, tri = kb.config_fn(bins, kind, NTX, N_TILES)()
     _assert_frame(depth, tri, jt, jd, kind)
     plain = kb.config_fn(bins, kind, NTX, N_TILES, plain=True)()
     assert (plain[1] == tri).all()
     assert (plain[0].view(torch.int32) == depth.view(torch.int32)).all()
-    assert launches == (kb.visibility_dense.launches,
-                        kb.visibility_dual.launches,
-                        kb.visibility_reset.launches)
+    assert dict(_build.LAUNCHES) == launches
 
 
 @pytest.mark.parametrize("kind", ("zero", "dflt", "full"))

@@ -219,8 +219,8 @@ def _check_attrs(p, j, covered):
 
 
 def test_vcolor_resolve_matches_pallas(jax_side):
-    """The plain vc resolve (what the wrappers run on CPU tensors), untiled
-    and tiled, on the JAX winners and records, against
+    """The plain vc resolve (what the entry points run on CPU tensors),
+    untiled and tiled, on the JAX winners and records, against
     resolve_attrs_pallas(vertex_colors=True). The colour factor really
     varies: the sphere's colours are not all one."""
     records = pplanes.records_from_reference(jax_side["cols"])
@@ -229,14 +229,13 @@ def test_vcolor_resolve_matches_pallas(jax_side):
     assert covered.sum() > 3000
     p = resolve.resolve_attrs(tri, records).numpy()
     assert (p == resolve.resolve_attrs_plain(tri, records).numpy()).all()
-    assert (p == resolve.resolve_attrs_vc(tri, records).numpy()).all()
     _check_attrs(p.reshape(-1, 16), jax_side["attrs"].reshape(-1, 16),
                  covered.reshape(-1))
     cf = p[covered][:, resolve.CH_CF:resolve.CH_CF + 3]
     assert cf.std(axis=0).min() > 0.05 and cf.max() <= 1.0 + 1e-5
     tri_t = torch.from_numpy(jax_side["tri_t"])
     pt = resolve.resolve_attrs_tiled(tri_t, records, NTX).numpy()
-    assert (pt == resolve.resolve_attrs_tiled_vc(tri_t, records, NTX)
+    assert (pt == resolve.resolve_attrs_tiled_plain(tri_t, records, NTX)
             .numpy()).all()
     _check_attrs(pt.transpose(0, 2, 1).reshape(-1, 16),
                  jax_side["attrs_t"].transpose(0, 2, 1).reshape(-1, 16),
@@ -254,8 +253,8 @@ def test_vcolor_fused_matches_pallas(jax_side):
     assert bins.aux.tolist() == [0, 0]
     records = pplanes.records_from_reference(jax_side["cols"])
     d, t, a = resolve.fused_visibility_resolve(bins, records, NTX, NTX * NTY)
-    d2, t2, a2 = resolve.fused_visibility_resolve_vc(bins, records, NTX,
-                                                     NTX * NTY)
+    d2, t2, a2 = resolve.fused_visibility_resolve_plain(bins, records, NTX,
+                                                        NTX * NTY)
     assert all((x == y).all() for x, y in ((d, d2), (t, t2), (a, a2)))
     from test_torch_fused import _image
     from test_torch_raster import _classify
@@ -317,9 +316,8 @@ def test_vcolor_resolve_bitwise_without_fma(tmp_path):
 
 @pytest.mark.parametrize("wrapper", ["resolve", "tiled", "fused"])
 def test_table_width_picks_the_instance(wrapper):
-    """Each 40-wide instance's wrapper raises on a 32-wide table, the
-    32-wide instances' check on a 40-wide one, and every wrapper on any
-    other width."""
+    """Each entry point takes a 32- and a 40-wide table and raises on any
+    other width; the 32-wide instances' check raises on a 40-wide one."""
     from test_torch_resolve_rows import SCENES
 
     (_js, ps), w = SCENES["random"](np.random.default_rng(1234))
@@ -331,19 +329,12 @@ def test_table_width_picks_the_instance(wrapper):
     rec36 = torch.zeros((t, 36))
     ids = torch.zeros((H, w), dtype=torch.int32)
     ids_t = torch.zeros((ntx * nty, raster.TILE_PX), dtype=torch.int32)
-    vc, both = {
-        "resolve": (lambda rec: resolve.resolve_attrs_vc(ids, rec),
-                    lambda rec: resolve.resolve_attrs(ids, rec)),
-        "tiled": (lambda rec: resolve.resolve_attrs_tiled_vc(ids_t, rec, ntx),
-                  lambda rec: resolve.resolve_attrs_tiled(ids_t, rec, ntx)),
-        "fused": (lambda rec: resolve.fused_visibility_resolve_vc(
-                      bins, rec, ntx, ntx * nty),
-                  lambda rec: resolve.fused_visibility_resolve(
-                      bins, rec, ntx, ntx * nty)),
+    both = {
+        "resolve": lambda rec: resolve.resolve_attrs(ids, rec),
+        "tiled": lambda rec: resolve.resolve_attrs_tiled(ids_t, rec, ntx),
+        "fused": lambda rec: resolve.fused_visibility_resolve(
+            bins, rec, ntx, ntx * nty),
     }[wrapper]
-    with pytest.raises(ValueError, match="records must be"):
-        vc(rec32)
-    vc(rec40)
     both(rec32)
     both(rec40)
     with pytest.raises(ValueError, match="records must be"):

@@ -22,8 +22,11 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from pathlib import Path
 from typing import Optional, Sequence
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -35,6 +38,9 @@ LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 
 _lib: Optional[ctypes.CDLL] = None
 _kernels: dict = {}      # name → (argtypes, declared entry point)
+# C entry point name → launches since the process started (launch's count;
+# a captured launch counts once, a graph replay not at all)
+LAUNCHES: Counter = Counter()
 build_seconds: Optional[float] = None   # wall time of the last build
 
 
@@ -154,3 +160,15 @@ def check_tensor(name: str, t, dtype, shape: tuple, dev,
 def check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def launch(name: str, argtypes: Sequence, device, *args) -> None:
+    """Launch entry point `name`, whose arguments before the stream are
+    `args` of `argtypes`, on `device` (made current for the call) and on
+    its current stream; raise if the launch failed, else count it in
+    LAUNCHES[name]."""
+    fn = kernel(name, (*argtypes, ctypes.c_void_p))
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check_launch(name, err)
+    LAUNCHES[name] += 1

@@ -55,7 +55,6 @@ from trident_tpu_torch.render.types import (
     SkyboxCube,
     TextureArrays,
 )
-from trident_tpu_torch.utils.profiling import TRACER
 
 Tensor = torch.Tensor
 
@@ -302,28 +301,20 @@ def shade_attrs_kernel(gbuffer: GBuffer, attrs: Tensor,
         .contiguous()
     out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = _build.kernel("trident_deferred_shade",
-                       [ptr] * 14 + [i32] + [f32] * 6 + [i32] * 4 + [ptr] * 2)
-    with torch.cuda.device(dev):
-        err = fn(attrs.data_ptr(), gbuffer.depth.data_ptr(),
-                 gbuffer.tri_id.data_ptr(), textures.quads.data_ptr(),
-                 textures.max_level.data_ptr(), vp_inv.data_ptr(),
-                 camera.position.data_ptr(), lights.ambient.data_ptr(),
-                 lights.dir_direction.data_ptr(), lights.dir_color.data_ptr(),
-                 lights.dir_count.data_ptr(),
-                 lights.point_pos_range.data_ptr(),
-                 lights.point_color_intensity.data_ptr(),
-                 lights.point_count.data_ptr(), n_point,
-                 *(float(c) for c in clear_color[:4]), 2.0 / width, 2.0 / fh,
-                 width, height, y_offset, int(tonemap), out.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch("trident_deferred_shade", err)
-    shade_attrs_kernel.launches += 1
-    TRACER.count("shading.kernel")
+    _build.launch("trident_deferred_shade",
+                  [ptr] * 14 + [i32] + [f32] * 6 + [i32] * 4 + [ptr], dev,
+                  attrs.data_ptr(), gbuffer.depth.data_ptr(),
+                  gbuffer.tri_id.data_ptr(), textures.quads.data_ptr(),
+                  textures.max_level.data_ptr(), vp_inv.data_ptr(),
+                  camera.position.data_ptr(), lights.ambient.data_ptr(),
+                  lights.dir_direction.data_ptr(), lights.dir_color.data_ptr(),
+                  lights.dir_count.data_ptr(),
+                  lights.point_pos_range.data_ptr(),
+                  lights.point_color_intensity.data_ptr(),
+                  lights.point_count.data_ptr(), n_point,
+                  *(float(c) for c in clear_color[:4]), 2.0 / width, 2.0 / fh,
+                  width, height, y_offset, int(tonemap), out.data_ptr())
     return out
-
-
-shade_attrs_kernel.launches = 0
 
 
 def deferred_shade(gbuffer: GBuffer, planes: AttributePlanes,

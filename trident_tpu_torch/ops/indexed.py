@@ -52,7 +52,6 @@ from trident_tpu_torch.render.types import (
     DrawPlan,
     GeometryBuffers,
 )
-from trident_tpu_torch.utils.profiling import TRACER
 
 Tensor = torch.Tensor
 
@@ -148,35 +147,25 @@ def indexed_geometry(plan: DrawPlan, tri_draw: Tensor, params: DrawParams,
     valid = torch.empty((t,), dtype=torch.bool, device=dev)
     records = torch.empty((t, rw), **f32)
     ptr = ctypes.c_void_p
-    vert_fn = _build.kernel("trident_skinned_vertices",
-                            [ptr] * 11 + [ctypes.c_int] * 2 + [ptr]
-                            + [ctypes.c_int] + [ptr] * 2)
-    tri_fn = _build.kernel("trident_skinned_triangles",
-                           [ptr] * 5 + [ctypes.c_int] * 4 + [ptr] * 5)
     bones = ((geometry.bone_indices.data_ptr(),
               geometry.bone_weights.data_ptr(), params.bone_offset.data_ptr(),
               params.bone_count.data_ptr(), palette.data_ptr())
              if skinned else (None,) * 5)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = vert_fn(plan.vtx_src.data_ptr(), plan.vtx_draw.data_ptr(),
-                      geometry.attr_table.data_ptr(), bones[0], bones[1],
-                      params.xform_a.data_ptr(), params.xform_b.data_ptr(),
-                      cof.data_ptr(), bones[2], bones[3], bones[4],
-                      n_palette, int(skinned), vp.data_ptr(), tv,
-                      packed.data_ptr(), stream)
-        _build.check_launch("trident_skinned_vertices", err)
-        err = tri_fn(plan.tri_vtx.data_ptr(), plan.tri_valid.data_ptr(),
-                     tri_draw.data_ptr(), packed.data_ptr(),
-                     draw_consts.data_ptr(), t, width, height, rw,
-                     table.data_ptr(), bbox.data_ptr(), valid.data_ptr(),
-                     records.data_ptr(), stream)
-        _build.check_launch("trident_skinned_triangles", err)
-    indexed_geometry.launches += 1
-    TRACER.count("geometry.kernel")
+    _build.launch("trident_skinned_vertices",
+                  [ptr] * 11 + [ctypes.c_int] * 2 + [ptr] + [ctypes.c_int]
+                  + [ptr], dev,
+                  plan.vtx_src.data_ptr(), plan.vtx_draw.data_ptr(),
+                  geometry.attr_table.data_ptr(), bones[0], bones[1],
+                  params.xform_a.data_ptr(), params.xform_b.data_ptr(),
+                  cof.data_ptr(), bones[2], bones[3], bones[4], n_palette,
+                  int(skinned), vp.data_ptr(), tv, packed.data_ptr())
+    _build.launch("trident_skinned_triangles",
+                  [ptr] * 5 + [ctypes.c_int] * 4 + [ptr] * 4, dev,
+                  plan.tri_vtx.data_ptr(), plan.tri_valid.data_ptr(),
+                  tri_draw.data_ptr(), packed.data_ptr(),
+                  draw_consts.data_ptr(), t, width, height, rw,
+                  table.data_ptr(), bbox.data_ptr(), valid.data_ptr(),
+                  records.data_ptr())
     setup, cols = setup_from_table(table, bbox, valid)
     return (CornerStageOut(setup=setup, cols=CornerCols(
         setup=cols, nrm=(), uv=(), consts=())), records)
-
-
-indexed_geometry.launches = 0

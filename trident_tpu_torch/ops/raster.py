@@ -31,7 +31,7 @@ A band of a taller frame (the banded multi-device frame, parallel/
 framebuffer.py) bins its band-local bboxes (ops/vertex.py::
 band_slice_setup) as any frame, and its visibility takes the band's first
 global tile row, `tile_y_offset` (whole tiles): the kernels' band
-instances (`*_band`, their own launch counts) and the plain versions then
+instances (entry points `*_band`) and the plain versions then
 evaluate every pixel centre at its row of the full frame, so a band's
 depths and ids are the one-device frame's rows bit for bit. The
 offset-free call (tile_y_offset None) launches the offset-free instance.
@@ -449,26 +449,24 @@ def check_bins(bins: Bins, n_tiles: int) -> None:
 
 
 def _launch_vis(name: str, bins: Bins, ntx: int, n_tiles: int,
-                band: tuple, depth_only: bool):
-    """Entry point `name` of csrc/visibility.cu (band: (tile_y_offset,)
-    for a band instance, () for the offset-free one) on the records'
-    device, made current for the launch → depth, or (depth, tri)."""
+                tile_y_offset: Optional[int], depth_only: bool):
+    """Entry point `name` of csrc/visibility.cu, its band instance
+    (`name` + "_band") given a tile_y_offset, on the records' device →
+    depth, or (depth, tri)."""
     rec = bins.records
     check_bins(bins, n_tiles)
+    band = () if tile_y_offset is None else (int(tile_y_offset),)
     depth = torch.empty((n_tiles, TILE_PX), dtype=torch.float32,
                         device=rec.device)
     tri = None if depth_only else torch.empty(
         (n_tiles, TILE_PX), dtype=torch.int32, device=rec.device)
-    fn = _build.kernel(name, [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * (2 + len(band))
-                       + [ctypes.c_void_p] * (2 if depth_only else 3))
     outs = (depth.data_ptr(),) + (() if depth_only else (tri.data_ptr(),))
-    with torch.cuda.device(rec.device):
-        err = fn(rec.data_ptr(), bins.pair_chunk.data_ptr(),
-                 bins.pair_mask.data_ptr(), bins.tile_start.data_ptr(),
-                 n_tiles, ntx, *band, *outs,
-                 torch.cuda.current_stream(rec.device).cuda_stream)
-    _build.check_launch(name, err)
+    _build.launch(name + "_band" * bool(band),
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * (2 + len(band))
+                  + [ctypes.c_void_p] * len(outs), rec.device,
+                  rec.data_ptr(), bins.pair_chunk.data_ptr(),
+                  bins.pair_mask.data_ptr(), bins.tile_start.data_ptr(),
+                  n_tiles, ntx, *band, *outs)
     return depth if depth_only else (depth, tri)
 
 
@@ -480,80 +478,49 @@ def visibility_tiles(bins: Bins, ntx: int, n_tiles: int,
     depth_only returns the light pass's depth alone (visibility_depth_tiles,
     the kernel's depth-only instance). tile_y_offset (whole tiles, 0
     included) renders one band of a taller frame through the band
-    instance (visibility_tiles_band); None is the one-device frame's
-    offset-free instance."""
+    instance; None is the one-device frame's offset-free instance."""
     if depth_only:
         return visibility_depth_tiles(bins, ntx, n_tiles, tile_y_offset)
-    if tile_y_offset is not None:
-        return visibility_tiles_band(bins, ntx, n_tiles, tile_y_offset)
-    if bins.records.device.type == "cpu":
-        return visibility_tiles_plain(bins, ntx, n_tiles)
-    out = _launch_vis("trident_visibility", bins, ntx, n_tiles, (), False)
-    visibility_tiles.launches += 1
-    return out
-
-
-visibility_tiles.launches = 0
-
-
-def visibility_tiles_band(bins: Bins, ntx: int, n_tiles: int,
-                          tile_y_offset: int):
-    """visibility_tiles for one band whose first tile row is global tile
-    row tile_y_offset: the kernel's band instance for tensors on the card,
-    the plain version with the offset for tensors on the CPU."""
     if bins.records.device.type == "cpu":
         return visibility_tiles_plain(bins, ntx, n_tiles,
-                                      tile_y_offset=tile_y_offset)
-    out = _launch_vis("trident_visibility_band", bins, ntx, n_tiles,
-                      (int(tile_y_offset),), False)
-    visibility_tiles_band.launches += 1
-    return out
-
-
-visibility_tiles_band.launches = 0
+                                      tile_y_offset=tile_y_offset or 0)
+    return _launch_vis("trident_visibility", bins, ntx, n_tiles,
+                       tile_y_offset, False)
 
 
 def visibility_depth_tiles(bins: Bins, ntx: int, n_tiles: int,
                            tile_y_offset: Optional[int] = None) -> Tensor:
     """Per-tile min depth (n_tiles, 1024) f32 of binned triangles, the
     shadow map's light pass: the depth-only CUDA kernel for tensors on the
-    card, the plain version for tensors on the CPU; with a tile_y_offset,
-    one band of the map (visibility_depth_tiles_band)."""
-    if tile_y_offset is not None:
-        return visibility_depth_tiles_band(bins, ntx, n_tiles, tile_y_offset)
-    if bins.records.device.type == "cpu":
-        return visibility_tiles_plain(bins, ntx, n_tiles, depth_only=True)
-    out = _launch_vis("trident_visibility_depth", bins, ntx, n_tiles, (),
-                      True)
-    visibility_depth_tiles.launches += 1
-    return out
-
-
-visibility_depth_tiles.launches = 0
-
-
-def visibility_depth_tiles_band(bins: Bins, ntx: int, n_tiles: int,
-                                tile_y_offset: int) -> Tensor:
-    """visibility_depth_tiles for one band of the light pass's map whose
-    first tile row is global tile row tile_y_offset: the depth-only band
-    instance on the card, the plain version on the CPU."""
+    card (its band instance given a tile_y_offset: one band of the map),
+    the plain version for tensors on the CPU."""
     if bins.records.device.type == "cpu":
         return visibility_tiles_plain(bins, ntx, n_tiles, depth_only=True,
-                                      tile_y_offset=tile_y_offset)
-    out = _launch_vis("trident_visibility_depth_band", bins, ntx, n_tiles,
-                      (int(tile_y_offset),), True)
-    visibility_depth_tiles_band.launches += 1
-    return out
+                                      tile_y_offset=tile_y_offset or 0)
+    return _launch_vis("trident_visibility_depth", bins, ntx, n_tiles,
+                       tile_y_offset, True)
 
 
-visibility_depth_tiles_band.launches = 0
+def _ck_table(bins: Bins) -> Tensor:
+    if bins.banks is None or bins.nhit is None:
+        raise ValueError("bins carry no compact-bank table: build them with "
+                         "build_bins(ck_bank=...)")
+    return bins.banks
 
 
-def _launch_ck(name: str, bins: Bins, ntx: int, n_tiles: int, ck_bank: int,
-               band: tuple):
-    """Entry point `name` of csrc/visibility_ck.cu (band as _launch_vis's)
-    on the banks' device, made current for the launch."""
-    banks = bins.banks
+def visibility_ck_tiles(bins: Bins, ntx: int, n_tiles: int, ck_bank: int,
+                        tile_y_offset: Optional[int] = None):
+    """Per-tile (depth, tri) from the compact-bank table of
+    build_bins(ck_bank=...): the CUDA kernel (csrc/visibility_ck.cu) for
+    tensors on the card, the plain version for tensors on the CPU. Equal
+    to visibility_tiles on the same scene, bit for bit. The kernel stages
+    each pair's first min(nhit, 16) slots whatever ck_bank, which shapes
+    the table (and the plain version's TPU bank schedule) only. With a
+    tile_y_offset, one band (the kernel's band instance)."""
+    banks = _ck_table(bins)
+    if banks.device.type == "cpu":
+        return visibility_ck_tiles_plain(bins, ntx, n_tiles, ck_bank,
+                                         tile_y_offset=tile_y_offset or 0)
     _require(banks.device.type == "cuda", f"unsupported device {banks.device}")
     nbank = -(-NSUB // ck_bank) * ck_bank
     _require(banks.dtype == torch.float32 and banks.dim() == 3
@@ -567,67 +534,18 @@ def _launch_ck(name: str, bins: Bins, ntx: int, n_tiles: int, ck_bank: int,
     _require(bins.nhit.shape[0] == banks.shape[0]
              and bins.tile_start.shape[0] == n_tiles + 1,
              "nhit must have one entry per pair, tile_start n_tiles + 1")
+    band = () if tile_y_offset is None else (int(tile_y_offset),)
     depth = torch.empty((n_tiles, TILE_PX), dtype=torch.float32,
                         device=banks.device)
     tri = torch.empty((n_tiles, TILE_PX), dtype=torch.int32,
                       device=banks.device)
-    fn = _build.kernel(name, [ctypes.c_void_p] * 3
-                       + [ctypes.c_int] * (4 + len(band))
-                       + [ctypes.c_void_p] * 3)
-    with torch.cuda.device(banks.device):
-        err = fn(banks.data_ptr(), bins.nhit.data_ptr(),
-                 bins.tile_start.data_ptr(), n_tiles, ntx, ck_bank, nbank,
-                 *band, depth.data_ptr(), tri.data_ptr(),
-                 torch.cuda.current_stream(banks.device).cuda_stream)
-    _build.check_launch(name, err)
+    _build.launch("trident_visibility_ck" + "_band" * bool(band),
+                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * (4 + len(band))
+                  + [ctypes.c_void_p] * 2, banks.device,
+                  banks.data_ptr(), bins.nhit.data_ptr(),
+                  bins.tile_start.data_ptr(), n_tiles, ntx, ck_bank, nbank,
+                  *band, depth.data_ptr(), tri.data_ptr())
     return depth, tri
-
-
-def _ck_table(bins: Bins) -> Tensor:
-    if bins.banks is None or bins.nhit is None:
-        raise ValueError("bins carry no compact-bank table: build them with "
-                         "build_bins(ck_bank=...)")
-    return bins.banks
-
-
-def visibility_ck_tiles(bins: Bins, ntx: int, n_tiles: int, ck_bank: int,
-                        tile_y_offset: Optional[int] = None):
-    """Per-tile (depth, tri) from the compact-bank table of
-    build_bins(ck_bank=...): the CUDA kernel for tensors on the card, the
-    plain version for tensors on the CPU. Equal to visibility_tiles on the
-    same scene, bit for bit. The kernel stages each pair's first
-    min(nhit, 16) slots whatever ck_bank, which shapes the table (and the
-    plain version's TPU bank schedule) only. With a tile_y_offset, one
-    band (visibility_ck_tiles_band)."""
-    if tile_y_offset is not None:
-        return visibility_ck_tiles_band(bins, ntx, n_tiles, ck_bank,
-                                        tile_y_offset)
-    if _ck_table(bins).device.type == "cpu":
-        return visibility_ck_tiles_plain(bins, ntx, n_tiles, ck_bank)
-    out = _launch_ck("trident_visibility_ck", bins, ntx, n_tiles, ck_bank,
-                     ())
-    visibility_ck_tiles.launches += 1
-    return out
-
-
-visibility_ck_tiles.launches = 0
-
-
-def visibility_ck_tiles_band(bins: Bins, ntx: int, n_tiles: int,
-                             ck_bank: int, tile_y_offset: int):
-    """visibility_ck_tiles for one band whose first tile row is global
-    tile row tile_y_offset: the compact-bank band instance on the card,
-    the plain version on the CPU."""
-    if _ck_table(bins).device.type == "cpu":
-        return visibility_ck_tiles_plain(bins, ntx, n_tiles, ck_bank,
-                                         tile_y_offset=tile_y_offset)
-    out = _launch_ck("trident_visibility_ck_band", bins, ntx, n_tiles,
-                     ck_bank, (int(tile_y_offset),))
-    visibility_ck_tiles_band.launches += 1
-    return out
-
-
-visibility_ck_tiles_band.launches = 0
 
 
 def untile_frame(flat: Tensor, ntx: int, nty: int) -> Tensor:

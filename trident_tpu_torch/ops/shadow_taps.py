@@ -68,17 +68,10 @@ def shadow_tap_bits(depth_map: Tensor, y0: Tensor, x0: Tensor,
     h, w = y0.shape
     ntaps = 4 if pcf else 1
     out = torch.empty((h, w, ntaps), dtype=torch.int32, device=dev)
-    fn = _build.kernel("trident_shadow_taps",
-                       [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        err = fn(depth_map.data_ptr(), depth_map.shape[0], y0.data_ptr(),
-                 x0.data_ptr(), y1.data_ptr() if pcf else None,
-                 x1.data_ptr() if pcf else None, h * w, out.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch("trident_shadow_taps", err)
-    shadow_tap_bits.launches += 1
+    _build.launch("trident_shadow_taps",
+                  [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                  + [ctypes.c_int, ctypes.c_void_p], dev,
+                  depth_map.data_ptr(), depth_map.shape[0], y0.data_ptr(),
+                  x0.data_ptr(), y1.data_ptr() if pcf else None,
+                  x1.data_ptr() if pcf else None, h * w, out.data_ptr())
     return out
-
-
-shadow_tap_bits.launches = 0

@@ -66,19 +66,11 @@ def sample_bilinear(quads: Tensor, idx: Tensor, fx: Tensor,
         return sample_bilinear_plain(quads, idx, fx, fy)
     _check_inputs(quads, idx, fx, fy)
     out = torch.empty((*idx.shape, 4), dtype=torch.float32, device=idx.device)
-    fn = _build.kernel("trident_texel",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 2)
-    with torch.cuda.device(idx.device):
-        err = fn(idx.data_ptr(), fx.data_ptr(), fy.data_ptr(),
-                 quads.data_ptr(), idx.numel(), out.data_ptr(),
-                 torch.cuda.current_stream(idx.device).cuda_stream)
-    _build.check_launch("trident_texel", err)
-    sample_bilinear.launches += 1
+    _build.launch("trident_texel",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p],
+                  idx.device, idx.data_ptr(), fx.data_ptr(), fy.data_ptr(),
+                  quads.data_ptr(), idx.numel(), out.data_ptr())
     return out
-
-
-sample_bilinear.launches = 0
 
 
 def sample_bilinear_planar_plain(quads: Tensor, idx: Tensor, fx: Tensor,
@@ -103,16 +95,9 @@ def sample_bilinear_planar(quads: Tensor, idx: Tensor, fx: Tensor,
         raise ValueError("idx must be a (rows, npx) plane")
     rows, npx = idx.shape
     out = torch.empty((rows, 4, npx), dtype=torch.float32, device=idx.device)
-    fn = _build.kernel("trident_texel_planar",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * 2)
-    with torch.cuda.device(idx.device):
-        err = fn(idx.data_ptr(), fx.data_ptr(), fy.data_ptr(),
-                 quads.data_ptr(), rows, npx, out.data_ptr(),
-                 torch.cuda.current_stream(idx.device).cuda_stream)
-    _build.check_launch("trident_texel_planar", err)
-    sample_bilinear_planar.launches += 1
+    _build.launch("trident_texel_planar",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                  + [ctypes.c_void_p], idx.device,
+                  idx.data_ptr(), fx.data_ptr(), fy.data_ptr(),
+                  quads.data_ptr(), rows, npx, out.data_ptr())
     return out
-
-
-sample_bilinear_planar.launches = 0

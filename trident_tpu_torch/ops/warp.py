@@ -79,17 +79,9 @@ def warp_fetch(hist: Tensor, by: Tensor, bx: Tensor) -> Tensor:
                 or not a.is_contiguous()):
             raise ValueError("by/bx must be contiguous (H, W) i32 of one shape")
     out = torch.empty((*by.shape, 12), dtype=torch.float32, device=by.device)
-    fn = _build.kernel("trident_warp",
-                       [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 2)
-    with torch.cuda.device(by.device):
-        err = fn(hist.data_ptr(), hist.shape[0], hist.shape[1],
-                 by.data_ptr(), bx.data_ptr(), by.numel(), out.data_ptr(),
-                 torch.cuda.current_stream(by.device).cuda_stream)
-    _build.check_launch("trident_warp", err)
-    warp_fetch.launches += 1
+    _build.launch("trident_warp",
+                  [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                  + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p],
+                  by.device, hist.data_ptr(), hist.shape[0], hist.shape[1],
+                  by.data_ptr(), bx.data_ptr(), by.numel(), out.data_ptr())
     return out
-
-
-warp_fetch.launches = 0

@@ -28,7 +28,7 @@ virtual CPU devices. The frame runs in three phases:
      says how), and the port's bands must be the full frame bit for bit.
   3. band raster and shade: the frame's kernels run per band at
      y_offset = b·band_h with the frame's full height, through their band
-     instances (the `*_band` wrappers), which evaluate every pixel at its
+     instances (the `*_band` entry points), which evaluate every pixel at its
      global centre; the bands' rows are the one-device frame's, bit for
      bit, and they concatenate on devices[0].
 

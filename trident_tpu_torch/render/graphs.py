@@ -34,13 +34,13 @@ A new key captures: one eager warm-up run on a side stream (the kernel
 library loads, the allocator and cuDNN settle outside the capture), then
 the capture, in the thread-local error mode: another thread's CUDA work
 (the FrameGenerator's worker, on its own stream) neither fails nor
-invalidates it. The kernel wrappers' `.launches` ticks during the capture
-are the graph's launch list; replays tick no wrapper's count (they launch
-one graph, not kernels), so each FrameGraphs tallies the launches its
-captures recorded (`captured`) and its replays ran (`replayed`). A
-capture or replay that fails raises: there is no eager fallback on the
-card. At most `capacity` graphs are kept, least recently used first out;
-an evicted graph's pool is freed.
+invalidates it. The launches that _build.LAUNCHES counts during the
+capture, of the entry points in LISTED, are the graph's launch list;
+replays count none (they launch one graph, not kernels), so each
+FrameGraphs tallies the launches its captures recorded (`captured`) and
+its replays ran (`replayed`). A capture or replay that fails raises:
+there is no eager fallback on the card. At most `capacity` graphs are
+kept, least recently used first out; an evicted graph's pool is freed.
 
 The tracer (utils/profiling.py) times `run` and `run_rows` as the span
 `submit`, with `submit.stage` (the pinned copy and the copies in),
@@ -60,66 +60,31 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from trident_tpu_torch import _build
 from trident_tpu_torch.ops.kernel_knobs import KernelKnobs
 from trident_tpu_torch.render.bundle import BundleShape
 from trident_tpu_torch.render.types import FrameOutput
 from trident_tpu_torch.utils.profiling import TRACER, stage_ring
 
 
-def frame_kernels() -> Dict[str, Callable]:
-    """The render path's kernel wrappers by name, each with its
-    `.launches` counter."""
-    from trident_tpu_torch.ops import (
-        raster,
-        resolve,
-        shadow_taps,
-        texel,
-        warp,
-    )
-
-    return {"visibility": raster.visibility_tiles,
-            "visibility_depth": raster.visibility_depth_tiles,
-            "visibility_ck": raster.visibility_ck_tiles,
-            "visibility_resolve": resolve.fused_visibility_resolve,
-            "visibility_resolve_vc": resolve.fused_visibility_resolve_vc,
-            "resolve": resolve.resolve_attrs,
-            "resolve_vc": resolve.resolve_attrs_vc,
-            "resolve_tiled": resolve.resolve_attrs_tiled,
-            "resolve_tiled_vc": resolve.resolve_attrs_tiled_vc,
-            "texel": texel.sample_bilinear,
-            "texel_planar": texel.sample_bilinear_planar,
-            "shadow_taps": shadow_taps.shadow_tap_bits,
-            "warp": warp.warp_fetch,
-            # the band instances: the banded frame runs eagerly, so no
-            # capture records them; they are here to be counted by name
-            "visibility_band": raster.visibility_tiles_band,
-            "visibility_depth_band": raster.visibility_depth_tiles_band,
-            "visibility_ck_band": raster.visibility_ck_tiles_band,
-            "visibility_resolve_band": resolve.fused_visibility_resolve_band,
-            "visibility_resolve_vc_band":
-                resolve.fused_visibility_resolve_vc_band,
-            "resolve_band": resolve.resolve_attrs_band,
-            "resolve_vc_band": resolve.resolve_attrs_vc_band,
-            "resolve_tiled_band": resolve.resolve_attrs_tiled_band,
-            "resolve_tiled_vc_band": resolve.resolve_attrs_tiled_vc_band,
-            # the bf16 instances (resolve_prec="bf16"), by the same names
-            # with "_bf16" (the band ones run eagerly, as above)
-            **{_bf16_entry(fn): fn
-               for table in (resolve.RESOLVE_BF16, resolve.RESOLVE_TILED_BF16,
-                             resolve.FUSED_BF16)
-               for fn in table.values()}}
+# The entry points a capture lists (render-path kernels, without
+# "trident_"): those whose device records benchmark/trace.py::
+# KERNEL_RECORDS names, because its whole() holds every launch-list key to
+# its own record pattern, and a key it lacks would make no traced stretch
+# whole. So the skinned pair (trident_skinned_*), the shading kernel
+# (trident_deferred_shade) and the stage marks (trident_stage_mark) launch
+# in captures but stay off the list until that table names them.
+_RESOLVE_KERNELS = ("visibility_resolve", "resolve", "resolve_tiled")
+LISTED = frozenset(
+    ["texel", "texel_planar", "shadow_taps", "warp"]
+    + [k + band for k in ("visibility", "visibility_depth", "visibility_ck")
+       for band in ("", "_band")]
+    + [k + vc + band + prec for k in _RESOLVE_KERNELS for vc in ("", "_vc")
+       for band in ("", "_band") for prec in ("", "_bf16")])
 
 
-def _bf16_entry(fn) -> str:
-    """The kernel name of a bf16 wrapper: resolve_attrs_tiled_vc_bf16 →
-    resolve_tiled_vc_bf16, fused_visibility_resolve_bf16 →
-    visibility_resolve_bf16."""
-    return fn.__name__.replace("resolve_attrs", "resolve", 1) \
-        .replace("fused_", "", 1)
-
-
-def _launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in frame_kernels().items()}
+def _listed_launches() -> Counter:
+    return Counter({n: _build.LAUNCHES["trident_" + n] for n in LISTED})
 
 
 def frame_key(shape: BundleShape, width: int, height: int, statics: dict,
@@ -150,7 +115,7 @@ class FrameGraph(NamedTuple):
     prev: Optional[Tuple[torch.Tensor, torch.Tensor]]
     ai: torch.Tensor                  # the AI image's buffer
     out: FrameOutput                  # outputs in the graph's pool
-    launches: Dict[str, int]          # kernel launches per replay
+    launch_list: Dict[str, int]       # kernel launches per replay
     keep: tuple                       # the device-resident inputs it reads
 
 
@@ -186,8 +151,8 @@ class FrameGraphs:
         self.captures = 0
         self.evictions = 0
         self.replays = 0
-        # kernel name → launches that captures recorded into graphs (a
-        # wrapper's count ticks then, but nothing runs) / that replays ran
+        # kernel name → launches that captures recorded into graphs
+        # (_build.LAUNCHES counts them, but nothing runs) / that replays ran
         self.captured: Counter = Counter()
         self.replayed: Counter = Counter()
         self.last_key: Optional[tuple] = None
@@ -231,7 +196,7 @@ class FrameGraphs:
                                           device=dev),
                           prev=(None if prev is None else
                                 tuple(torch.empty_like(t) for t in prev)),
-                          ai=torch.empty_like(ai), out=None, launches={},
+                          ai=torch.empty_like(ai), out=None, launch_list={},
                           keep=keep)
         fill(bufs)
         self._copy_in(bufs, prev, ai)
@@ -243,18 +208,16 @@ class FrameGraphs:
         with torch.cuda.stream(side):
             frame_fn(bufs.f32, bufs.i32, bufs.prev, bufs.ai)
         stream.wait_stream(side)
-        before = _launch_counts()
+        before = _listed_launches()
         # thread_local: only this thread's unsafe calls end the capture;
         # the FrameGenerator's worker may run its convs on its own stream
         # meanwhile (the default, global, invalidates both)
         with torch.cuda.graph(bufs.graph, capture_error_mode="thread_local"):
             out = frame_fn(bufs.f32, bufs.i32, bufs.prev, bufs.ai)
-        after = _launch_counts()
-        launches = {n: after[n] - before[n] for n in after
-                    if after[n] != before[n]}
+        launches = dict(_listed_launches() - before)
         self.captured.update(launches)
         self.captures += 1
-        return bufs._replace(out=out, launches=launches)
+        return bufs._replace(out=out, launch_list=launches)
 
     @staticmethod
     def _copy_in(g: FrameGraph, prev, ai) -> None:
@@ -299,10 +262,10 @@ class FrameGraphs:
                 self._copy_in(g, prev, ai)
         with span("submit.replay"):
             g.graph.replay()
-        self.replayed.update(g.launches)
+        self.replayed.update(g.launch_list)
         self.replays += 1
         self.last_key = key
-        self.last_launches = dict(g.launches)
+        self.last_launches = dict(g.launch_list)
         return g
 
     def run(self, key: tuple, f32: np.ndarray, i32: np.ndarray, prev, ai,

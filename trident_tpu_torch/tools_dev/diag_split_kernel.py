@@ -83,7 +83,7 @@ def split_select_plain(planes, win: Tensor, off: int = 0,
 SMEM_MAX_BYTES = 48 * 1024
 _SELECT_ARGS = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2
                 + (ctypes.c_longlong, ctypes.c_int) + (ctypes.c_void_p,) * 2
-                + (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 3)
+                + (ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 2)
 
 
 def plane_pitch(span: int) -> int:
@@ -167,18 +167,12 @@ def split_select(planes, win: Tensor, off: int = 0, chunk: Tensor = None,
     out_parts = (torch.empty((3, rows, n_win), dtype=torch.float32,
                              device=dev) if parts else None)
     out_sum = torch.empty((rows, n_win), dtype=torch.float32, device=dev)
-    err = _build.kernel("trident_split_select", _SELECT_ARGS)(
-        *ptrs, rows, cols, stride, off,
-        chunk.data_ptr() if chunk is not None else None,
-        win.data_ptr(), n_win, lo, hi,
-        out_parts.data_ptr() if parts else None, out_sum.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch("trident_split_select", err)
-    split_select.launches += 1
+    _build.launch("trident_split_select", _SELECT_ARGS, dev,
+                  *ptrs, rows, cols, stride, off,
+                  chunk.data_ptr() if chunk is not None else None,
+                  win.data_ptr(), n_win, lo, hi,
+                  out_parts.data_ptr() if parts else None, out_sum.data_ptr())
     return out_parts, out_sum
-
-
-split_select.launches = 0
 
 
 def form_inputs(form: str, planes: Tensor, oh: np.ndarray, device):

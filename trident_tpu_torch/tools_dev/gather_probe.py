@@ -85,8 +85,8 @@ I32_MAX = 2**31 - 1
 
 _GATHER_ARGS = ((ctypes.c_void_p,) + (ctypes.c_int,) * 3
                 + (ctypes.c_void_p,) + (ctypes.c_int,) * 2
-                + (ctypes.c_void_p,) * 2)
-_GATHER_PATH_ARGS = _GATHER_ARGS[:-1] + (ctypes.c_int, ctypes.c_void_p)
+                + (ctypes.c_void_p,))
+_GATHER_PATH_ARGS = _GATHER_ARGS + (ctypes.c_int,)
 
 
 def staged_splits(k: int, lanes: int, g: int, n: int) -> int:
@@ -144,18 +144,13 @@ def _launch(tabs: Tensor, idx: Tensor, staged=None) -> Tensor:
     k, rows, lanes = tabs.shape
     g, n, _ = idx.shape
     out = torch.empty((g, k, n, lanes), dtype=torch.int32, device=tabs.device)
-    stream = torch.cuda.current_stream(tabs.device).cuda_stream
+    args = (tabs.data_ptr(), k, rows, lanes, idx.data_ptr(), g, n,
+            out.data_ptr())
     if staged is None:
-        name = "trident_lut_gather"
-        err = _build.kernel(name, _GATHER_ARGS)(
-            tabs.data_ptr(), k, rows, lanes, idx.data_ptr(), g, n,
-            out.data_ptr(), stream)
+        _build.launch("trident_lut_gather", _GATHER_ARGS, tabs.device, *args)
     else:
-        name = "trident_lut_gather_path"
-        err = _build.kernel(name, _GATHER_PATH_ARGS)(
-            tabs.data_ptr(), k, rows, lanes, idx.data_ptr(), g, n,
-            out.data_ptr(), int(staged), stream)
-    _build.check_launch(name, err)
+        _build.launch("trident_lut_gather_path", _GATHER_PATH_ARGS,
+                      tabs.device, *args, int(staged))
     return out
 
 
@@ -166,18 +161,13 @@ def lut_gather(tabs: Tensor, idx: Tensor) -> Tensor:
     tensors on the card, the plain version for tensors on the CPU."""
     if tabs.device.type == "cpu":
         return lut_gather_plain(tabs, idx)
-    out = _launch(tabs, idx)
-    lut_gather.launches += 1
-    return out
-
-
-lut_gather.launches = 0
+    return _launch(tabs, idx)
 
 
 def lut_gather_path(tabs: Tensor, idx: Tensor, staged: bool) -> Tensor:
     """lut_gather through one named path of the kernel, whatever
     gather_path says: the A/B of the two paths on one shape (card only;
-    not counted in lut_gather.launches)."""
+    counted under trident_lut_gather_path)."""
     return _launch(tabs, idx, staged)
 
 

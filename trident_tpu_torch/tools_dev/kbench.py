@@ -202,10 +202,6 @@ def _tile_outputs(n_tiles: int, dev):
                         device=dev))
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def visibility_dense(bins: raster.Bins, ntx: int, n_tiles: int):
     """Per-tile (depth, tri) with every sub-block of every kept pair
     evaluated ("nobranch"): the CUDA kernel for tensors on the card, the
@@ -217,18 +213,13 @@ def visibility_dense(bins: raster.Bins, ntx: int, n_tiles: int):
         return raster.visibility_tiles_plain(bins, ntx, n_tiles, dense=True)
     raster.check_bins(bins, n_tiles)
     depth, tri = _tile_outputs(n_tiles, rec.device)
-    fn = _build.kernel("trident_visibility_dense",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * 3)
-    err = fn(rec.data_ptr(), bins.pair_chunk.data_ptr(),
-             bins.pair_mask.data_ptr(), bins.tile_start.data_ptr(), n_tiles,
-             ntx, depth.data_ptr(), tri.data_ptr(), _stream(rec.device))
-    _build.check_launch("trident_visibility_dense", err)
-    visibility_dense.launches += 1
+    _build.launch("trident_visibility_dense",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                  + [ctypes.c_void_p] * 2, rec.device,
+                  rec.data_ptr(), bins.pair_chunk.data_ptr(),
+                  bins.pair_mask.data_ptr(), bins.tile_start.data_ptr(),
+                  n_tiles, ntx, depth.data_ptr(), tri.data_ptr())
     return depth, tri
-
-
-visibility_dense.launches = 0
 
 
 def dual_table(bins: raster.Bins) -> Tensor:
@@ -272,20 +263,15 @@ def visibility_dual(bins: raster.Bins, table2: Tensor, ntx: int,
                     "table2 must be a contiguous (≤ 32, Tpad) f32 table on "
                     "the records' device")
     depth, tri = _tile_outputs(n_tiles, rec.device)
-    fn = _build.kernel("trident_visibility_dual",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 3)
-    err = fn(rec.data_ptr(), bins.pair_chunk.data_ptr(),
-             bins.pair_mask.data_ptr(), bins.tile_start.data_ptr(), n_tiles,
-             ntx, table2.data_ptr(), table2.shape[0], table2.shape[1],
-             depth.data_ptr(), tri.data_ptr(), _stream(rec.device))
-    _build.check_launch("trident_visibility_dual", err)
-    visibility_dual.launches += 1
+    _build.launch("trident_visibility_dual",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                  + [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong]
+                  + [ctypes.c_void_p] * 2, rec.device,
+                  rec.data_ptr(), bins.pair_chunk.data_ptr(),
+                  bins.pair_mask.data_ptr(), bins.tile_start.data_ptr(),
+                  n_tiles, ntx, table2.data_ptr(), table2.shape[0],
+                  table2.shape[1], depth.data_ptr(), tri.data_ptr())
     return depth, tri
-
-
-visibility_dual.launches = 0
 
 
 def probe_table(bins: raster.Bins, tiny: bool):
@@ -329,18 +315,13 @@ def visibility_reset(bins: raster.Bins, table: Tensor, block_floats: int,
                     "device with a block of block_floats (a multiple of 4) "
                     "per chunk")
     depth, tri = _tile_outputs(n_tiles, rec.device)
-    fn = _build.kernel("trident_visibility_reset",
-                       [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
-                       + [ctypes.c_int] + [ctypes.c_void_p] * 3)
-    err = fn(table.data_ptr(), block_floats, bins.pair_chunk.data_ptr(),
-             bins.tile_start.data_ptr(), n_tiles, depth.data_ptr(),
-             tri.data_ptr(), _stream(rec.device))
-    _build.check_launch("trident_visibility_reset", err)
-    visibility_reset.launches += 1
+    _build.launch("trident_visibility_reset",
+                  [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+                  + [ctypes.c_int] + [ctypes.c_void_p] * 2, rec.device,
+                  table.data_ptr(), block_floats, bins.pair_chunk.data_ptr(),
+                  bins.tile_start.data_ptr(), n_tiles, depth.data_ptr(),
+                  tri.data_ptr())
     return depth, tri
-
-
-visibility_reset.launches = 0
 
 
 def config_fn(bins: raster.Bins, kind: str, ntx: int, n_tiles: int,

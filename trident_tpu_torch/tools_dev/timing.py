@@ -41,8 +41,8 @@ GRAPH_LAUNCH = "cudaGraphLaunch"
 SENTINEL = "spin_kernel"
 SENTINEL_CYCLES = 2000
 SENTINELS_BEFORE = 32
-# each render-path kernel (by its wrapper's name in
-# render/graphs.py::frame_kernels) as torch.profiler names its device
+# each render-path kernel (by its entry point's name without "trident_",
+# render/graphs.py::LISTED) as torch.profiler names its device
 # records (csrc/*.cu; "void (anonymous namespace)::visibility_kernel<false>(…)")
 KERNEL_RECORDS = {
     "visibility": r"(?<!\w)visibility_kernel<false>",

@@ -248,12 +248,8 @@ def stage_mark(stage: str, device) -> None:
         ring = stage_ring(device)
     from trident_tpu_torch import _build
 
-    fn = _build.kernel("trident_stage_mark",
-                       [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    with torch.cuda.device(idx):
-        err = fn(STAGES.index(stage), ring.data_ptr(),
-                 torch.cuda.current_stream(idx).cuda_stream)
-    _build.check_launch("trident_stage_mark", err)
+    _build.launch("trident_stage_mark", [ctypes.c_int, ctypes.c_void_p], idx,
+                  STAGES.index(stage), ring.data_ptr())
 
 
 def stage_rows(ring, last: int) -> list:
