@@ -326,8 +326,16 @@ Phases (any failure exits non-zero before the final line is printed):
      the plain composition timed beside the kernel's bound; its launches
      (_build.LAUNCHES) in 8 crowd and 4 field frames (two runs a capture,
      none a replay), the texel kernel none
+ 24. the binning kernels (phase_bin_tiles, csrc/bin_tiles.cu) against
+     build_bins_plain on both benchmark configurations' 1920×1080 setups
+     (spheres1080_1m's field, the loaded crowd's padded bucket): every
+     field of the Bins bit-equal; the call (its four kernels, the cumsums
+     and the sort), each kernel and the plain version timed beside the
+     stage's byte bound; the entry points' launches (_build.LAUNCHES) in 8
+     crowd and 4 field frames (two runs a capture, none a replay)
 Then it prints the kernels as one JSON line, phase 22's numbers beside
-them under `skinned_geometry` and phase 23's under `deferred_shade` (each
+them under `skinned_geometry`, phase 23's under `deferred_shade` and
+phase 24's under `bin_tiles` (each
 kernel entry with
 `route_launches`: its launches in each of phase 15's, 16's and 17's
 route runs, in phase 19's pair rendering, `train_pairs`, and in phase
@@ -5200,6 +5208,165 @@ def phase_deferred_shade(dev, card: str) -> dict:
     return out
 
 
+BIN_BYTES_TRI = 60 + 1 + 16 + 64   # a valid triangle: setup columns, valid,
+                                   # bbox read; its row written
+BIN_BYTES_INVALID = 1 + 64         # an invalid one: valid read, row written
+BIN_BYTES_PAD = 64                 # a padding row past T, written
+BIN_BYTES_SLOT = 40                # a pool slot: keys written, sorted, merged
+BIN_KERNELS = ("bin_records_kernel", "bin_claims_kernel", "bin_heads_kernel",
+               "bin_pairs_kernel")
+BIN_ENTRY_POINTS = ("trident_bin_records", "trident_bin_claims",
+                    "trident_bin_heads", "trident_bin_pairs")
+BIN_FIELDS = ("records", "pair_tile", "pair_chunk", "pair_mask", "tile_start",
+              "n_real", "aux")
+
+
+def binning_inputs(r) -> tuple:
+    """(setup, setup_cols, width, height) of the build_bins call in
+    Renderer `r`'s eager render_frame at its viewport's size."""
+    import torch
+
+    from trident_tpu_torch.ops import raster
+    from trident_tpu_torch.render import renderer as rmod
+
+    caught, real = [], raster.build_bins
+
+    def catch(setup, width, height, setup_cols=None, **kw):
+        caught.append((setup, setup_cols, width, height))
+        return real(setup, width, height, setup_cols=setup_cols, **kw)
+
+    raster.build_bins = catch
+    try:
+        rmod.render_frame(**frame_inputs_at(r))
+    finally:
+        raster.build_bins = real
+    torch.cuda.synchronize()
+    return caught[0]
+
+
+def phase_bin_tiles(dev, card: str) -> dict:
+    """Phase 24: the binning kernels (csrc/bin_tiles.cu,
+    ops/raster.py::bin_tiles_kernel) against build_bins_plain on the
+    binning inputs of both benchmark configurations' 1920×1080 frames
+    (spheres1080_1m's field, phase 16's loaded crowd posed by one
+    Scene.update, whose bucket pads its triangles to 2,097,152): every
+    field of the Bins bit-equal (fails otherwise, or on aux not [0, 0]);
+    the call (four kernels, two cumsums and the sort) timed (CUDA events,
+    median of 10; busy, torch.profiler, mean of 5), each kernel's busy
+    time, the stage's bound (BIN_BYTES_TRI a valid triangle,
+    BIN_BYTES_INVALID an invalid one, BIN_BYTES_PAD a padding row,
+    BIN_BYTES_SLOT a pool slot; beside it the dense bound, every triangle
+    read whole) and the plain version's times; then the frame loop: each entry point counts
+    (_build.LAUNCHES) two runs a capture (its eager warm-up and the
+    capture) and none a replay, in 8 crowd and 4 field frames. Returns
+    the phase's numbers."""
+    import tempfile
+
+    import torch
+
+    from trident_tpu_torch import _build
+    from trident_tpu_torch.ops import raster
+    from trident_tpu_torch.tools_dev import timing
+    from trident_tpu_torch.tools_dev.scenes import (
+        loaded_crowd,
+        write_tube_gltf,
+    )
+
+    td = tempfile.TemporaryDirectory()
+    crowd = loaded_crowd(dev, write_tube_gltf(Path(td.name) / "tube.glb"))
+    crowd.scene.update(1 / 60)
+    field, freg = build_bench_scene(BENCH_GRID, dev)
+    rotate(freg, 0)
+    out = {}
+    for name, r in (("field", field), ("crowd", crowd.renderer)):
+        setup, cols, w, h = binning_inputs(r)
+        shape = raster.bin_shape(setup.valid.shape[0], w, h)
+
+        def call(setup=setup, cols=cols, w=w, h=h):
+            return raster.build_bins(setup, w, h, setup_cols=cols)
+
+        def plain(setup=setup, cols=cols, w=w, h=h):
+            return raster.build_bins_plain(setup, w, h, setup_cols=cols)
+
+        before = {n: _build.LAUNCHES[n] for n in BIN_ENTRY_POINTS}
+        k_bins = call()
+        launched = {n: _build.LAUNCHES[n] - before[n]
+                    for n in BIN_ENTRY_POINTS}
+        p_bins = plain()
+        torch.cuda.synchronize()
+        differ = {}
+        for f in BIN_FIELDS:
+            a, b = getattr(k_bins, f), getattr(p_bins, f)
+            if a.is_floating_point():
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if a.shape != b.shape or a.dtype != b.dtype:
+                differ[f] = "shape or dtype"
+            elif not torch.equal(a, b):
+                differ[f] = int((a != b).sum())
+        if differ or launched != {n: 1 for n in BIN_ENTRY_POINTS}:
+            fail(f"bin tiles ({name}): the kernels' Bins differ from the "
+                 f"plain version's in {differ}; launches {launched}")
+        if k_bins.aux.tolist() != [0, 0]:
+            fail(f"bin tiles ({name}): aux {k_bins.aux.tolist()}")
+        events = timing._device_events(call, SKGEO_REPS)
+        per_kernel = {k: (sum(e.time_range.elapsed_us() for e in events
+                              if k in e.name) / SKGEO_REPS / 1e3
+                          if events else float("nan"))
+                      for k in BIN_KERNELS}
+        n_valid = int(setup.valid.sum())
+        rest = (BIN_BYTES_PAD * (shape.tpad - shape.t)
+                + BIN_BYTES_SLOT * shape.pool)
+        b_ms, b_by = timing.bound(BIN_BYTES_TRI * n_valid + BIN_BYTES_INVALID
+                                  * (shape.t - n_valid) + rest)
+        dense_ms = timing.bound(BIN_BYTES_TRI * shape.t + rest)[0]
+        res = dict(t=shape.t, tpad=shape.tpad, valid=n_valid,
+                   pool=shape.pool, n_real=int(k_bins.n_real),
+                   ms=cuda_ms(call), busy_ms=device_busy(call)[0],
+                   kernel_busy_ms=per_kernel, bound_ms=b_ms, bound_by=b_by,
+                   dense_bound_ms=dense_ms, plain_ms=cuda_ms(plain),
+                   plain_busy_ms=device_busy(plain)[0])
+        res["share"] = b_ms / res["busy_ms"]
+        out[name] = res
+        kernels = ", ".join(f"{k} {v:.4f}" for k, v in per_kernel.items())
+        print(f"bin tiles, {name} {w}x{h} ({shape.t} triangles, {n_valid} "
+              f"valid, {shape.tpad} rows, pool {shape.pool}, "
+              f"{res['n_real']} pairs): bit-equal to the plain version in "
+              f"{', '.join(BIN_FIELDS)}; call {res['ms']:.4f} ms events / "
+              f"{res['busy_ms']:.4f} ms busy (kernels {kernels}), bound "
+              f"{b_ms:.4f} ms ({b_by}), share {100 * res['share']:.1f}% "
+              f"(dense bound {dense_ms:.4f} ms); plain {res['plain_ms']:.4f}"
+              f" / {res['plain_busy_ms']:.4f} ms ({card})", flush=True)
+        del setup, cols, k_bins, p_bins
+    torch.cuda.empty_cache()
+
+    # the frame loop: each capture runs the entry points twice (its eager
+    # warm-up and the capture), a replay none
+    counts = {}
+    for name, r, step in (
+            ("crowd", crowd.renderer, lambda k: crowd.scene.update(1 / 60)),
+            ("field", field, lambda k: rotate(freg, k))):
+        before = ({n: _build.LAUNCHES[n] for n in BIN_ENTRY_POINTS},
+                  r.graphs.captures)
+        for k in range(8 if name == "crowd" else 4):
+            step(k)
+            r.render_viewport()
+        torch.cuda.synchronize()
+        counts[name] = dict(
+            launches={n: _build.LAUNCHES[n] - before[0][n]
+                      for n in BIN_ENTRY_POINTS},
+            captures=r.graphs.captures - before[1])
+    for name, c in counts.items():
+        runs = 2 * c["captures"]
+        if c["captures"] < 1 or set(c["launches"].values()) != {runs}:
+            fail(f"bin tiles' counts in the {name} frames: {c}")
+    out["frame_loop"] = counts
+    print(f"bin tiles in the frame loop: 8 crowd frames {counts['crowd']}, "
+          f"4 spheres1080_1m frames {counts['field']} ({card})", flush=True)
+    del crowd, field, freg
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_knob_set(dev, card: str, kernel_names: list, drive,
                    results: dict) -> dict:
     """Phase 21 (module docstring): every kernel knob the JAX package
@@ -5995,6 +6162,9 @@ def main() -> None:
     # -- phase 23: the shading kernel ----------------------------------------
     deferred_shade = phase_deferred_shade(dev, card)
 
+    # -- phase 24: the binning kernels -------------------------------------
+    bin_tiles = phase_bin_tiles(dev, card)
+
     # launches: each kernel's count in the main-path run of the frame it
     # was held on (phase 4 for the main pass, phase 6 for the shadow pass
     # and the texel kernel, which the shadowed frame's plain shading runs,
@@ -6029,7 +6199,8 @@ def main() -> None:
                                              **launches20}.items()}))
     print(json.dumps({"kernels": kernels,
                       "skinned_geometry": skinned_geometry,
-                      "deferred_shade": deferred_shade}))
+                      "deferred_shade": deferred_shade,
+                      "bin_tiles": bin_tiles}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

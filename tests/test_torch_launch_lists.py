@@ -10,8 +10,9 @@ golden base scene (tools_dev/scenes.py::golden_base_scene) at the
 default knobs, under `fuse`, `ckern` and `tiled_shade`, each of those
 three kinds of resolve with resolve_prec "bf16", and the vertex-coloured
 skinned crowd (scenes.SKINNED_128) posed anew each frame, at the default
-knobs, under `fuse` and with bf16. The skinned pair, the shading kernel
-and the stage marks launch in these captures too and are on no list.
+knobs, under `fuse` and with bf16. The skinned pair, the shading kernel,
+the binning kernels and the stage marks launch in these captures too and
+are on no list.
 
 On the CPU: every instance name the resolve entry points form
 (ops/resolve.py::_instance) and every name on the lists is a C entry
@@ -114,6 +115,8 @@ def test_listed_names_are_entry_points():
     entries = _entry_points()
     assert {"trident_" + n for n in graphs.LISTED} <= entries
     unlisted = {"trident_skinned_vertices", "trident_skinned_triangles",
-                "trident_deferred_shade", "trident_stage_mark"}
+                "trident_deferred_shade", "trident_stage_mark",
+                "trident_bin_records", "trident_bin_claims",
+                "trident_bin_heads", "trident_bin_pairs"}
     assert unlisted <= entries
     assert not {n[len("trident_"):] for n in unlisted} & graphs.LISTED

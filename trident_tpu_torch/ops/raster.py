@@ -13,7 +13,11 @@ conservative binning gives the same image; this one is chosen for the card:
      ONE flat pool of `pool` slots (a cumsum over sub-block tile areas; a
      searchsorted maps slots back). Keys (tile, chunk) sort once; equal
      keys merge into one pair whose 16-bit mask has a bit per hit
-     sub-block. Shapes are static: no host sync on the frame path.
+     sub-block. Shapes are static: no host sync on the frame path. On the
+     card the binning kernels (csrc/bin_tiles.cu) build the same bins bit
+     for bit: each sub-block writes its own slots, a key carries its
+     sub-block's bit, and each run of equal (tile, chunk) keys merges at
+     its head. build_bins_plain is the CPU path and the kernels' twin.
   3. The kernel (csrc/visibility.cu) runs one CTA per tile over that
      tile's contiguous pair range (tile_start, from a searchsorted). Its
      depth-only instance renders the shadow map's light pass. Each of its
@@ -92,32 +96,35 @@ def default_pool(n_sub: int, n_tiles: int) -> int:
     return min(n_sub * n_tiles, 4 * n_sub + 16 * n_tiles + 65536)
 
 
+# a record row's values for an invalid or padding triangle, column by
+# column: e ≡ (0, 0, −1), z 0, w 1, column 15 zero
+_EMPTY_ROW = (0.0, 0.0, -1.0) * 3 + (0.0,) * 3 + (1.0,) * 3 + (0.0,)
+
+
+def _setup_columns(setup: TriangleSetup,
+                   setup_cols: Optional[SetupCols]) -> tuple:
+    """The 15 (T,) setup columns the records take, e[3k + c], z[k], w[k]:
+    setup_cols' own, else views of the stacked setup."""
+    if setup_cols is not None:
+        return (*setup_cols.e, *setup_cols.z, *setup_cols.w)
+    return (*(setup.edge[:, k, c] for k in range(3) for c in range(3)),
+            *(setup.z[:, k] for k in range(3)),
+            *(setup.w[:, k] for k in range(3)))
+
+
 def _build_records(setup: TriangleSetup, tpad: int,
                    setup_cols: Optional[SetupCols]) -> Tensor:
     """(tpad, 16) rows; invalid and padding triangles get e ≡ −1 (never
     cover). Triangle ids are the row index, so they stay exact at any T."""
     valid = setup.valid
     t = valid.shape[0]
-    if setup_cols is not None:
-        ecol = lambda k, c: setup_cols.e[3 * k + c]          # noqa: E731
-        zcol = lambda k: setup_cols.z[k]                     # noqa: E731
-        wcol = lambda k: setup_cols.w[k]                     # noqa: E731
-    else:
-        ecol = lambda k, c: setup.edge[:, k, c]              # noqa: E731
-        zcol = lambda k: setup.z[:, k]                       # noqa: E731
-        wcol = lambda k: setup.w[:, k]                       # noqa: E731
-    cols = []
-    for k in range(3):
-        cols += [torch.where(valid, ecol(k, 0), 0.0),
-                 torch.where(valid, ecol(k, 1), 0.0),
-                 torch.where(valid, ecol(k, 2), -1.0)]
-    cols += [torch.where(valid, zcol(k), 0.0) for k in range(3)]
-    cols += [torch.where(valid, wcol(k), 1.0) for k in range(3)]
+    cols = [torch.where(valid, col, fill) for col, fill in
+            zip(_setup_columns(setup, setup_cols), _EMPTY_ROW)]
     cols.append(torch.zeros_like(cols[0]))
     rec = torch.stack(cols, dim=1)
     if tpad != t:
-        # e ≡ (0, 0, −1), z 0, w 1: filled on the device (a host-to-device
-        # copy could not be captured in a CUDA graph)
+        # filled on the device (a host-to-device copy could not be
+        # captured in a CUDA graph)
         empty = rec.new_zeros((tpad - t, REC))
         empty[:, 2:9:3] = -1.0
         empty[:, 12:15] = 1.0
@@ -125,17 +132,25 @@ def _build_records(setup: TriangleSetup, tpad: int,
     return rec.contiguous()
 
 
-def build_bins(setup: TriangleSetup, width: int, height: int,
-               setup_cols: Optional[SetupCols] = None,
-               pool: Optional[int] = None,
-               pair_budget: Optional[int] = None, ck_bank: int = 0) -> Bins:
-    """Bin triangles to 32×32 tiles for a width × height target. `pool`
-    (emission slots) and `pair_budget` (kept pairs) are capacities;
-    overflow is counted in aux, see the module note. ck_bank > 0 (the
-    ckern knob) also builds the compact-bank table, with pair_budget
-    defaulting to CK_PAIR_BUDGET."""
-    dev = setup.valid.device
-    t = setup.valid.shape[0]
+class BinShape(NamedTuple):
+    """build_bins' static sizes for T triangles on a width × height
+    target."""
+    t: int
+    n_chunks: int
+    tpad: int            # n_chunks · CHUNK record rows
+    n_sub: int
+    ntx: int
+    nty: int
+    n_tiles: int
+    pool: int            # emission slots
+    budget: int          # pairs kept at most
+
+
+def bin_shape(t: int, width: int, height: int, pool: Optional[int] = None,
+              pair_budget: Optional[int] = None,
+              ck_bank: int = 0) -> BinShape:
+    """build_bins' sizes (pool and budget as build_bins defaults them);
+    raises where ck_bank's ids would not be exact."""
     n_chunks = max(1, -(-t // CHUNK))
     tpad = n_chunks * CHUNK
     if ck_bank and tpad >= CK_MAX_TRIANGLES:
@@ -150,6 +165,52 @@ def build_bins(setup: TriangleSetup, width: int, height: int,
     if ck_bank and pair_budget is None:
         pair_budget = CK_PAIR_BUDGET
     budget = pool if pair_budget is None else min(pair_budget, pool)
+    return BinShape(t, n_chunks, tpad, n_sub, ntx, nty, n_tiles, pool,
+                    budget)
+
+
+def build_bins(setup: TriangleSetup, width: int, height: int,
+               setup_cols: Optional[SetupCols] = None,
+               pool: Optional[int] = None,
+               pair_budget: Optional[int] = None, ck_bank: int = 0) -> Bins:
+    """Bin triangles to 32×32 tiles for a width × height target: the
+    binning kernels (csrc/bin_tiles.cu, bin_tiles_kernel) for tensors on
+    the card, build_bins_plain for tensors on the CPU; the same Bins, bit
+    for bit. `pool` (emission slots) and `pair_budget` (kept pairs) are
+    capacities; overflow is counted in aux, see the module note. ck_bank
+    > 0 (the ckern knob) also builds the compact-bank table, with
+    pair_budget defaulting to CK_PAIR_BUDGET."""
+    shape = bin_shape(setup.valid.shape[0], width, height, pool,
+                      pair_budget, ck_bank)
+    bin_fn = (_bins_plain if setup.valid.device.type == "cpu"
+              else bin_tiles_kernel)
+    return _with_banks(bin_fn(setup, shape, setup_cols), ck_bank)
+
+
+def build_bins_plain(setup: TriangleSetup, width: int, height: int,
+                     setup_cols: Optional[SetupCols] = None,
+                     pool: Optional[int] = None,
+                     pair_budget: Optional[int] = None,
+                     ck_bank: int = 0) -> Bins:
+    """build_bins in plain PyTorch on any device: the CPU path, and the
+    kernels' twin on the card."""
+    shape = bin_shape(setup.valid.shape[0], width, height, pool,
+                      pair_budget, ck_bank)
+    return _with_banks(_bins_plain(setup, shape, setup_cols), ck_bank)
+
+
+def _with_banks(bins: Bins, ck_bank: int) -> Bins:
+    if not ck_bank:
+        return bins
+    banks, nhit = _ck_banks(bins.records, bins.pair_chunk, bins.pair_mask,
+                            ck_bank)
+    return bins._replace(banks=banks, nhit=nhit)
+
+
+def _bins_plain(setup: TriangleSetup, shape: BinShape,
+                setup_cols: Optional[SetupCols]) -> Bins:
+    dev = setup.valid.device
+    t, n_chunks, tpad, n_sub, ntx, nty, n_tiles, pool, budget = shape
 
     records = _build_records(setup, tpad, setup_cols)
 
@@ -208,19 +269,92 @@ def build_bins(setup: TriangleSetup, width: int, height: int,
         pair_tile, torch.arange(n_tiles + 1, device=dev))
 
     n_dropped = (q_nonempty & (ends > pool)).view(n_chunks, NSUB).any(1).sum()
-    pair_chunk = (pair_key % n_chunks).to(torch.int32)
-    pair_mask = pair_mask.to(torch.int32)
-    banks = nhit = None
-    if ck_bank:
-        banks, nhit = _ck_banks(records, pair_chunk, pair_mask, ck_bank)
     return Bins(records=records,
                 pair_tile=pair_tile.to(torch.int32),
-                pair_chunk=pair_chunk, pair_mask=pair_mask,
+                pair_chunk=(pair_key % n_chunks).to(torch.int32),
+                pair_mask=pair_mask.to(torch.int32),
                 tile_start=tile_start.to(torch.int32),
                 n_real=n_real,
                 aux=torch.stack([n_real_total - n_real,
-                                 n_dropped]).to(torch.int32),
-                banks=banks, nhit=nhit)
+                                 n_dropped]).to(torch.int32))
+
+
+# the largest thread index the binning kernels take, and the largest key
+# space their int32 keys hold
+_BIN_MAX_THREADS = 2 ** 31 - 1 - 256
+_KEY32_MAX = 2 ** 31 - 1
+
+
+def bin_tiles_kernel(setup: TriangleSetup, shape: BinShape,
+                     setup_cols: Optional[SetupCols] = None) -> Bins:
+    """_bins_plain's Bins (no compact banks) in four launches of
+    csrc/bin_tiles.cu with a cumsum, a sort and a cumsum between them (the
+    kernels' note). Raises on inputs the kernels do not take, CPU tensors
+    among them: each setup column a (T,) f32 of any element stride, bbox a
+    contiguous (T, 4) int32, valid a contiguous (T,) bool, all on one
+    device; thread indices below 2^31."""
+    t, n_chunks, tpad, n_sub, ntx, nty, n_tiles, pool, budget = shape
+    if max(tpad, pool) > _BIN_MAX_THREADS:
+        raise ValueError(f"{tpad} record rows or {pool} pool slots: beyond "
+                         "the binning kernels' 32-bit thread indices")
+    dev = setup.valid.device
+    _build.check_tensor("valid", setup.valid, torch.bool, (t,), dev)
+    _build.check_tensor("bbox", setup.bbox, torch.int32, (t, 4), dev)
+    cols = _setup_columns(setup, setup_cols)
+    for k, col in enumerate(cols):
+        if (col.device != dev or col.dtype != torch.float32
+                or tuple(col.shape) != (t,)):
+            raise ValueError(f"setup column {k} must be f32 ({t},) on {dev},"
+                             f" got {col.dtype} {tuple(col.shape)} on "
+                             f"{col.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"the binning kernels' tensors are on {dev}, not on "
+                         "a CUDA device")
+    sentinel_pair = n_tiles * n_chunks
+    wide = (sentinel_pair + 1) * NSUB > _KEY32_MAX
+    key_dtype = torch.int64 if wide else torch.int32
+    i32, i64 = dict(dtype=torch.int32, device=dev), dict(dtype=torch.int64,
+                                                         device=dev)
+    records = torch.empty((tpad, REC), dtype=torch.float32, device=dev)
+    area = torch.empty(n_sub, **i64)
+    sub = torch.empty((n_sub, 4), **i32)
+    aux = torch.empty(2, **i32)
+    ptr, i32c, i64c = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    table = (ctypes.c_longlong * 30)(*(c.data_ptr() for c in cols),
+                                     *(c.stride(0) for c in cols))
+    _build.launch("trident_bin_records", [ptr] * 3 + [i32c] * 4 + [ptr] * 4,
+                  dev, ctypes.addressof(table), setup.valid.data_ptr(),
+                  setup.bbox.data_ptr(), t, tpad, ntx, nty,
+                  records.data_ptr(), area.data_ptr(), sub.data_ptr(),
+                  aux.data_ptr())
+    ends = torch.cumsum(area, 0)
+    keys = torch.empty(pool, dtype=key_dtype, device=dev)
+    _build.launch("trident_bin_claims",
+                  [ptr] * 3 + [i32c, i64c, i32c, i32c, i64c, i32c]
+                  + [ptr] * 2, dev, area.data_ptr(), ends.data_ptr(),
+                  sub.data_ptr(), n_sub, pool, ntx, n_chunks,
+                  sentinel_pair << 4, int(wide), keys.data_ptr(),
+                  aux.data_ptr())
+    keys = torch.sort(keys).values
+    heads = torch.empty(pool, **i32)
+    _build.launch("trident_bin_heads", [ptr, i64c, i64c, i32c, ptr], dev,
+                  keys.data_ptr(), pool, sentinel_pair, int(wide),
+                  heads.data_ptr())
+    pair_no = torch.cumsum(heads, 0, dtype=torch.int32)
+    pair_tile, pair_chunk, pair_mask = (torch.empty(budget, **i32)
+                                        for _ in range(3))
+    tile_start = torch.empty(n_tiles + 1, **i32)
+    n_real = torch.empty((), **i64)
+    _build.launch("trident_bin_pairs",
+                  [ptr] * 2 + [i64c, i64c, i32c, i32c, i64c, i32c]
+                  + [ptr] * 6, dev, keys.data_ptr(), pair_no.data_ptr(), pool,
+                  budget, n_chunks, n_tiles, sentinel_pair, int(wide),
+                  pair_tile.data_ptr(), pair_chunk.data_ptr(),
+                  pair_mask.data_ptr(), tile_start.data_ptr(),
+                  n_real.data_ptr(), aux.data_ptr())
+    return Bins(records=records, pair_tile=pair_tile, pair_chunk=pair_chunk,
+                pair_mask=pair_mask, tile_start=tile_start, n_real=n_real,
+                aux=aux)
 
 
 def _ck_banks(records: Tensor, pair_chunk: Tensor, pair_mask: Tensor,
