@@ -327,6 +327,63 @@ def test_stage_split_runs_each_stage_to_the_next_mark():
     assert profiling.stage_split([]) == {}
 
 
+def test_stages_end_with_the_upscalers_two_before_end():
+    assert STAGES == ("frame", "geometry", "shadow", "binning", "visibility",
+                      "resolve", "shading", "post", "warp", "upscale", "end")
+    assert STAGES.index("end") < SEQ_SLOT < RING_SLOTS
+
+
+def test_stage_split_runs_post_to_warp_and_upscale_to_end():
+    """An upscaled frame's post stage ends at its warp mark, the warp at
+    the upscale mark, the upscale at the end mark; a frame without the two
+    marks runs post to end, as before."""
+    up = dict(whole(1_000), end=1_000 + 4_110_000, warp=1_000 + 1_610_000,
+              upscale=1_000 + 1_710_000)
+    rows = profiling.stage_rows(ring_of({1: up, 2: whole(9_000_000)}, 2), 2)
+    got = profiling.stage_split(rows[1:])
+    assert got["post"] == pytest.approx(0.1)
+    assert got["warp"] == pytest.approx(0.1)
+    assert got["upscale"] == pytest.approx(2.4)
+    assert got["frame_total"] == pytest.approx(4.11)
+    both = profiling.stage_split(rows)
+    assert both["post"] == pytest.approx(0.1)
+    assert both["upscale"] == pytest.approx(1.2)
+    assert "warp" not in profiling.stage_split(rows[:1])
+
+
+def upscaled_field(device="cpu", size=64):
+    """The 3×3 sphere grid at size², rendered at half size and rebuilt by
+    the shipped 2× net."""
+    r, reg = scenes.build_bench_scene(3, device, ai=True)
+    r.set_viewport(0, size, size)
+    return r, reg
+
+
+def test_upscale_counters_tick_once_a_frame_and_no_history_on_a_reset():
+    r, reg = upscaled_field()
+    tracing(True)
+    for k in range(3):
+        scenes.rotate(reg, k)
+        r.render_viewport()
+    r.render_viewport()                        # unchanged: the idle cache
+    counters = TRACER.snapshot()["counters"]
+    assert counters["upscale.frames"] == 3
+    assert counters["upscale.no_history"] == 1
+    r.prev_state = None                        # a temporal reset
+    scenes.rotate(reg, 3)
+    r.render_viewport()
+    scenes.rotate(reg, 4)
+    r.render_viewport()
+    counters = TRACER.snapshot()["counters"]
+    assert counters["upscale.frames"] == 5
+    assert counters["upscale.no_history"] == 2
+    plain, preg = field()
+    TRACER.reset()
+    plain.render_viewport()
+    assert not {"upscale.frames", "upscale.no_history"} & set(
+        TRACER.snapshot()["counters"])
+
+
 # -- on the card -------------------------------------------------------------
 
 @pytest.mark.card
@@ -351,13 +408,39 @@ def test_marks_stamp_every_stage_of_each_replay_in_order(card):
     rows = profiling.stage_rows(ring.cpu().tolist(), 5)
     assert [row[SEQ_SLOT] for row in rows] == list(range(seq0 + 8,
                                                          seq0 + 3, -1))
+    unstamped = ("shadow", "warp", "upscale")
     for row in rows:
-        stamps = [row[STAGES.index(s)] for s in STAGES if s != "shadow"]
+        stamps = [row[STAGES.index(s)] for s in STAGES if s not in unstamped]
         assert all(stamps) and stamps == sorted(stamps), row
-        assert row[STAGES.index("shadow")] == 0
+        assert not [s for s in unstamped if row[STAGES.index(s)]]
     got = profiling.stage_ms(last=4, device=card)
     assert set(got) == {"frame", "geometry", "binning", "visibility",
                         "resolve", "shading", "post", "frame_total"}
+    assert sum(v for k, v in got.items() if k != "frame_total") == \
+        pytest.approx(got["frame_total"])
+
+
+@pytest.mark.card
+def test_an_upscaled_replay_stamps_warp_and_upscale_before_end(card):
+    """The upscaled frame's replays stamp every stage but the light pass's
+    in order, post then warp, upscale and end; the warp and upscale stages
+    take time and the stages sum to the frame."""
+    r, reg = upscaled_field(card)
+    ring = profiling.stage_ring(card)
+    r.render_viewport()                       # no history: its own graph
+    scenes.rotate(reg, 1)
+    r.render_viewport()                       # the warping frame's capture
+    tracing(True)
+    for k in range(2, 6):
+        scenes.rotate(reg, k)
+        r.render_viewport()
+    rows = profiling.stage_rows(ring.cpu().tolist(), 4)
+    assert len(rows) == 4
+    for row in rows:
+        stamps = [row[STAGES.index(s)] for s in STAGES if s != "shadow"]
+        assert all(stamps) and stamps == sorted(stamps), row
+    got = profiling.stage_ms(last=4, device=card)
+    assert got["warp"] > 0 and got["upscale"] > 0
     assert sum(v for k, v in got.items() if k != "frame_total") == \
         pytest.approx(got["frame_total"])
 

@@ -61,7 +61,9 @@ STAGE_MARK(visibility, 4)
 STAGE_MARK(resolve, 5)
 STAGE_MARK(shading, 6)
 STAGE_MARK(post, 7)
-STAGE_MARK(end, 8)
+STAGE_MARK(warp, 8)
+STAGE_MARK(upscale, 9)
+STAGE_MARK(end, 10)
 
 #undef STAGE_MARK
 
@@ -79,7 +81,9 @@ extern "C" int trident_stage_mark(int stage, unsigned long long* ring,
     case 5: stage_mark_resolve<<<1, 1, 0, stream>>>(ring); break;
     case 6: stage_mark_shading<<<1, 1, 0, stream>>>(ring); break;
     case 7: stage_mark_post<<<1, 1, 0, stream>>>(ring); break;
-    case 8: stage_mark_end<<<1, 1, 0, stream>>>(ring); break;
+    case 8: stage_mark_warp<<<1, 1, 0, stream>>>(ring); break;
+    case 9: stage_mark_upscale<<<1, 1, 0, stream>>>(ring); break;
+    case 10: stage_mark_end<<<1, 1, 0, stream>>>(ring); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -383,19 +383,21 @@ def render_frame_banded(devices, geometry, plan, tri_draw, params, palette,
                           dim=-1)
     frame = post.resolve_supersample(frame, ss)
     depth_out, tri_out = depth[::ss, ::ss], tri_id[::ss, ::ss]
-    view_proj = None
+    view_proj = net_color = None
     if upscale_params is not None:
         view_proj = cam0.proj @ cam0.view
         temporal = up.temporal_from_prev(upscale_params, prev, depth_out,
                                          cam0, width * 2, height * 2)
-        rgb = up.apply_upscaler(upscale_params, frame[..., :3], temporal,
+        net_color = frame[..., :3]
+        rgb = up.apply_upscaler(upscale_params, net_color, temporal,
                                 depth=depth_out)
         frame = torch.cat([rgb, _repeat2(frame[..., 3:4])], dim=-1)
         depth_out, tri_out = _repeat2(depth_out), _repeat2(tri_out)
     frame = torch.clamp(apply_ai_blend(frame, _to(ai, dev0)), 0.0, 1.0)
     return FrameOutput(color=pack_rgba8(frame), depth=depth_out,
                        tri_id=tri_out, aux=aux, shadow_aux=shadow_aux,
-                       history=None, view_proj=view_proj)
+                       history=None, view_proj=view_proj,
+                       net_color=net_color)
 
 
 def render_frame_banded_bundled(devices, geometry, plan, tri_draw, f32, i32,

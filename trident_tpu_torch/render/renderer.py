@@ -503,7 +503,8 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
     the half-res depth, the net rebuilds the full frame from rgb and that
     temporal input, alpha, depth and ids are repeated 2×2, and
     FrameOutput.history holds the net's blocks as uint8 for the next
-    frame, with the view·proj it was seen through (FrameOutput.view_proj).
+    frame, with the view·proj it was seen through (FrameOutput.view_proj),
+    and FrameOutput.net_color the half-size colour the net read.
     The upscaler knobs pick the path as trident_tpu/render/renderer.py:
     384-403 does: upscale_v2 (else V1, apply_upscaler, history None: the
     next frame warps this RGBA8 frame, `warp_history`), upscale_dtype (V2
@@ -533,8 +534,9 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
 
     On the card each stage's start is stamped on the device
     (utils/profiling.py::stage_mark: frame, geometry, shadow, binning,
-    visibility, resolve, shading, post, end), also inside a captured
-    graph; an ablation stop stamps nothing. `frame_mark` False leaves the
+    visibility, resolve, shading, post, end; an upscaled frame also warp
+    and upscale), also inside a captured graph; an ablation stop stamps
+    nothing. `frame_mark` False leaves the
     frame mark to the caller (render_frame_bundled stamps it before
     unpacking the blobs)."""
     if raster_mode not in RASTER_MODES:
@@ -612,20 +614,23 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
                           dim=-1)
     frame = post.resolve_supersample(frame, ss)
     depth_out, tri_out = gbuf.depth[::ss, ::ss], gbuf.tri_id[::ss, ::ss]
-    history = view_proj = None
+    history = view_proj = net_color = None
     if upscale_params is not None:
+        mark("warp")
         view_proj = camera.proj @ camera.view
         temporal = up.temporal_from_prev(upscale_params, prev, depth_out,
                                          camera, width * 2, height * 2,
                                          windowed=knobs.warp_mxu)
+        mark("upscale")
+        net_color = frame[..., :3]
         if knobs.upscale_v2:
             rgb, blocks = up.apply_upscaler_v2(
-                upscale_params, frame[..., :3], temporal, depth=depth_out,
+                upscale_params, net_color, temporal, depth=depth_out,
                 dtype=knobs.upscale_dtype, d2s_mode=knobs.d2s_mode)
             history = up.blocks_to_u8(blocks)
         else:
-            rgb = up.apply_upscaler(upscale_params, frame[..., :3],
-                                    temporal, depth=depth_out)
+            rgb = up.apply_upscaler(upscale_params, net_color, temporal,
+                                    depth=depth_out)
         frame = torch.cat([rgb, _repeat2(frame[..., 3:4])], dim=-1)
         depth_out, tri_out = _repeat2(depth_out), _repeat2(tri_out)
     frame = torch.clamp(apply_ai_blend(frame, ai), 0.0, 1.0)
@@ -633,7 +638,8 @@ def render_frame(plan, tri_draw, params, shade_table, camera, lights,
     mark("end")
     return FrameOutput(color=color, depth=depth_out,
                        tri_id=tri_out, aux=gbuf.aux, shadow_aux=shadow_aux,
-                       history=history, view_proj=view_proj)
+                       history=history, view_proj=view_proj,
+                       net_color=net_color)
 
 
 def warp_history(out: FrameOutput) -> Optional[torch.Tensor]:
@@ -1364,6 +1370,7 @@ class Renderer:
             # the banded frame, eagerly; its (RGBA8 frame, view·proj) is
             # the next one's warp input, and its signature is none: a
             # later one-device frame must not match it
+            self._count_upscale(fb)
             dev0 = fb.bands[0]
             with span("submit"):
                 with span("submit.stage"):
@@ -1381,6 +1388,7 @@ class Renderer:
         if ctx.last_frame is not None and ctx.last_sig == fb.sig:
             TRACER.count("idle_cache.hits")
             return ctx.last_frame
+        self._count_upscale(fb)
         if self.graphs is None:
             with span("submit"), span("submit.eager"):
                 out = fb.frame_fn(torch.from_numpy(fb.f32),
@@ -1392,6 +1400,17 @@ class Renderer:
             ctx.prev_state = (warp_history(out), out.view_proj)
         ctx.last_frame, ctx.last_sig = out, fb.sig
         return out
+
+    @staticmethod
+    def _count_upscale(fb: FrameBundle) -> None:
+        """The tracer's `upscale.frames` and, for an upscaled frame with no
+        history to warp (the first, or after a reset), `upscale.no_history`;
+        counted on the host, as code inside a captured frame runs only at
+        its capture."""
+        if fb.upscaled:
+            TRACER.count("upscale.frames")
+            if fb.prev is None:
+                TRACER.count("upscale.no_history")
 
     def draw_frame(self) -> FrameOutput:
         """Render all viewports (active last), with frames-in-flight pacing

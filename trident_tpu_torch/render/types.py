@@ -142,6 +142,9 @@ class FrameOutput(NamedTuple):
     view_proj: Optional[Tensor] = None  # (4,4) f32 the camera's proj @
                                         # view: with history, the next
                                         # frame's `prev` (ai_upscale only)
+    net_color: Optional[Tensor] = None  # (h,w,3) f32 the half-size colour
+                                        # the upscaler net read (ai_upscale
+                                        # only)
 
 
 def zero_light_params(device=None) -> LightParams:

@@ -201,9 +201,10 @@ def tracing(on: bool = True) -> None:
 # -- device stage marks ----------------------------------------------------
 
 # the frame's stages in order, as the marks name them; a mark is launched
-# at the start of its stage, `end` after the frame's last work
+# at the start of its stage, `end` after the frame's last work; only an
+# upscaled frame stamps `warp` and `upscale`
 STAGES = ("frame", "geometry", "shadow", "binning", "visibility", "resolve",
-          "shading", "post", "end")
+          "shading", "post", "warp", "upscale", "end")
 RING_HEADER = 2           # the frame counter, the stamping switch
 RING_FRAMES = 64          # frames the ring keeps (rows)
 RING_SLOTS = 16           # stamps per row: one per stage, the frame's
