@@ -333,9 +333,18 @@ Phases (any failure exits non-zero before the final line is printed):
      and the sort), each kernel and the plain version timed beside the
      stage's byte bound; the entry points' launches (_build.LAUNCHES) in 8
      crowd and 4 field frames (two runs a capture, none a replay)
+ 25. the rigid geometry kernel (phase_rigid_geometry,
+     csrc/rigid_geometry.cu) against rigid_geometry_plain on
+     spheres1080_1m's field at 1920×1080 and 960×540, under the uniform
+     layout and the tri_draw gather, 32- and 40-wide records: the setup,
+     its columns and the records bit-equal; the call, the kernel and the
+     plain version timed beside the kernel's byte bound, phase 22's
+     skinned triangle kernel beside (the tail they share); its launches
+     (_build.LAUNCHES) in 4 field frames (two runs a capture, none a
+     replay) and 8 crowd frames (none)
 Then it prints the kernels as one JSON line, phase 22's numbers beside
-them under `skinned_geometry`, phase 23's under `deferred_shade` and
-phase 24's under `bin_tiles` (each
+them under `skinned_geometry`, phase 23's under `deferred_shade`,
+phase 24's under `bin_tiles` and phase 25's under `rigid_geometry` (each
 kernel entry with
 `route_launches`: its launches in each of phase 15's, 16's and 17's
 route runs, in phase 19's pair rendering, `train_pairs`, and in phase
@@ -2322,10 +2331,11 @@ def phase_features(dev, card: str, kernel_names: list, drive, results: dict,
                     clear_color=inp["clear_color"])
     a32 = resolve.resolve_attrs(tri32, rec32)
     gbuf32 = GBuffer(tri_id=tri32, depth=gbuf.depth, aux=bins32.aux)
+    pcols = plain_corner_stage(inp, vertex_colors=True, **geo_kw).cols
     print_stages("feature stages (spheres1080_1m's beside)", {
         "geometry": lambda: frame_geometry(*geo_args, vertex_colors=True,
                                            **geo_kw),
-        "records": lambda: planes.build_resolve_cols_planar(cs.cols),
+        "records": lambda: planes.build_resolve_cols_planar(pcols),
         "records_spheres1080_1m": lambda: planes.build_resolve_cols_planar(
             cs32.cols),
         "binning": lambda: raster.build_bins(cs.setup, w, h,
@@ -2460,6 +2470,25 @@ def frame_inputs_at(r) -> dict:
     ctx = r.viewports[0]
     r.editor_camera.set_viewport_size(ctx.width, ctx.height)
     return r.frame_inputs()
+
+
+def plain_corner_stage(inp: dict, **kw):
+    """The corner path's plain corner stage output on render_frame inputs
+    `inp` (ops/rigid.py::rigid_geometry_plain's): the full corner columns
+    the records' producer reads, where the kernel route hands on the
+    setup's alone. `kw` overrides the size, the layout or
+    vertex_colors."""
+    from trident_tpu_torch.ops.rigid import rigid_geometry_plain
+    from trident_tpu_torch.render.renderer import shading_consts
+
+    geo = dict(width=inp["width"], height=inp["height"],
+               draw_stride=inp["draw_stride"], real_draws=inp["real_draws"])
+    geo.update(kw)
+    consts = shading_consts(inp["params"], inp["shade_table"],
+                            inp["textures"])
+    return rigid_geometry_plain(inp["plan"], inp["tri_draw"], inp["params"],
+                                inp["camera"], consts, inp["corner_t"],
+                                **geo)[0]
 
 
 def skinned_kernels(inp, what: str, w: int, h: int) -> dict:
@@ -5367,6 +5396,157 @@ def phase_bin_tiles(dev, card: str) -> dict:
     return out
 
 
+RIGID_ENTRY = "trident_rigid_geometry"
+# the corner-table rows the kernel reads a triangle, by record width: each
+# corner's position, normal and UV, with vertex colours its colour too
+RIGID_ROWS = {32: 24, 40: 33}
+RIGID_SIZES = ((1920, 1080), (960, 540))    # the field's, full and :ai
+
+
+def phase_rigid_geometry(dev, card: str, skinned: dict) -> dict:
+    """Phase 25: the rigid geometry kernel (csrc/rigid_geometry.cu,
+    ops/rigid.py::rigid_geometry) on spheres1080_1m's field (1,296 spheres
+    of 768 triangles in the plan's 1,048,576-triangle bucket) at 1920×1080
+    and 960×540, under the uniform layout (draw_stride) and the tri_draw
+    gather, with 32- and 40-wide records: the setup, its columns and the
+    records bit-equal to rigid_geometry_plain (fails otherwise, or unless
+    the call launched the entry point once); the call (CUDA events, median
+    of 10; busy, torch.profiler, mean of 5), the kernel's busy time beside
+    its bound (each input read once, each output written once: the corner
+    rows it reads, tri_valid, tri_draw on the gather path, the draw rows,
+    the 15 setup columns, bbox, valid and the records) and the plain
+    version's times; then the frame loop: the entry point counts
+    (_build.LAUNCHES) two runs a capture (its eager warm-up and the
+    capture) and none a replay in 4 field frames, none in 8 crowd frames.
+    `skinned` is phase 22's result: its triangle kernel's busy times are
+    printed beside, the tail the two kernels share
+    (geometry_common.cuh). Returns the phase's numbers."""
+    import tempfile
+
+    import torch
+
+    from trident_tpu_torch import _build
+    from trident_tpu_torch.ops import indexed, rigid
+    from trident_tpu_torch.render.renderer import shading_consts
+    from trident_tpu_torch.tools_dev import timing
+    from trident_tpu_torch.tools_dev.scenes import (
+        loaded_crowd,
+        write_tube_gltf,
+    )
+
+    fr, freg = build_bench_scene(BENCH_GRID, dev)
+    rotate(freg, 0)
+    inp = frame_inputs_at(fr)
+    if inp["corner_t"] is None or inp["skinned"] or inp["draw_stride"] <= 0:
+        fail(f"spheres1080_1m: corner table {inp['corner_t'] is not None}, "
+             f"skinned {inp['skinned']}, draw_stride {inp['draw_stride']}")
+    plan, tri_draw = inp["plan"], inp["tri_draw"]
+    t = inp["corner_t"].shape[1]
+    consts = shading_consts(inp["params"], inp["shade_table"],
+                            inp["textures"])
+    args = (plan, tri_draw, inp["params"], inp["camera"], consts,
+            inp["corner_t"])
+    layouts = {"stride": dict(draw_stride=inp["draw_stride"],
+                              real_draws=inp["real_draws"]),
+               "gather": dict(draw_stride=0, real_draws=0)}
+    out = dict(triangles=t, drawn=int(plan.tri_valid.sum()),
+               draws=inp["real_draws"], draw_stride=inp["draw_stride"])
+    draw_bytes = consts.shape[0] * 48 * 4
+
+    def bits(a):
+        return a.contiguous().view(torch.int32) if a.dtype == \
+            torch.float32 else a
+
+    for (w, h), layout, vc in [(size, layout, vc) for size in RIGID_SIZES
+                               for layout in layouts for vc in (False, True)]:
+        kw = dict(width=w, height=h, vertex_colors=vc, **layouts[layout])
+        before = _build.LAUNCHES[RIGID_ENTRY]
+        cs, rec = rigid.rigid_geometry(*args, **kw)
+        launched = _build.LAUNCHES[RIGID_ENTRY] - before
+        ref, rec_p = rigid.rigid_geometry_plain(*args, **kw)
+        torch.cuda.synchronize()
+        pairs = [("records", rec, rec_p)] + [
+            (f"setup.{f}", getattr(cs.setup, f), getattr(ref.setup, f))
+            for f in ("edge", "z", "w", "bbox", "valid")] + [
+            (f"cols.setup.{f}[{i}]", a, b) for f in ("e", "z", "w")
+            for i, (a, b) in enumerate(zip(getattr(cs.cols.setup, f),
+                                           getattr(ref.cols.setup, f)))]
+        bad = {name: (int((bits(a) != bits(b)).sum())
+                      if a.shape == b.shape and a.dtype == b.dtype
+                      else "shape or dtype") for name, a, b in pairs}
+        bad = {k: v for k, v in bad.items() if v}
+        rw = rec.shape[1]
+        name = f"{w}x{h}.{layout}.{rw}"
+        if bad or launched != 1:
+            fail(f"rigid geometry ({name}): the kernel differs from its "
+                 f"plain version in {bad}; launches {launched}")
+        n_bytes = (RIGID_ROWS[rw] * 4 * t + plan.tri_valid.nbytes
+                   + (tri_draw.nbytes if layout == "gather" else 0)
+                   + draw_bytes + indexed.SETUP_ROWS * t * 4
+                   + cs.setup.bbox.nbytes + cs.setup.valid.nbytes
+                   + rec.nbytes)
+        b_ms, b_by = timing.bound(n_bytes)
+
+        def call(kw=kw):
+            return rigid.rigid_geometry(*args, **kw)
+
+        def plain(kw=kw):
+            return rigid.rigid_geometry_plain(*args, **kw)
+
+        events = timing._device_events(call, SKGEO_REPS)
+        k_busy = (sum(e.time_range.elapsed_us() for e in events
+                      if "rigid_geometry_kernel" in e.name)
+                  / SKGEO_REPS / 1e3 if events else float("nan"))
+        res = dict(ms=cuda_ms(call), busy_ms=device_busy(call)[0],
+                   kernel_busy_ms=k_busy, bound_ms=b_ms, bound_by=b_by,
+                   bytes=n_bytes, share=b_ms / k_busy,
+                   plain_ms=cuda_ms(plain),
+                   plain_busy_ms=device_busy(plain)[0])
+        out[name] = res
+        print(f"rigid geometry {name} ({t} triangles, {out['drawn']} drawn): "
+              f"bit-equal to the plain version; call {res['ms']:.4f} ms "
+              f"events / {res['busy_ms']:.4f} ms busy, kernel "
+              f"{k_busy:.4f} ms busy, bound {b_ms:.4f} ms ({b_by}, "
+              f"{n_bytes / t:.1f} B a triangle), share "
+              f"{100 * res['share']:.1f}%; plain {res['plain_ms']:.4f} / "
+              f"{res['plain_busy_ms']:.4f} ms ({card})", flush=True)
+        del cs, rec, ref, rec_p, pairs
+    torch.cuda.empty_cache()
+    tri_busy = {rw: skinned[f"records{rw}"]["kernels"][
+        f"skinned_triangle_kernel<{rw}>"]["busy_ms"] for rw in (40, 32)}
+    out["skinned_triangle_busy_ms"] = tri_busy
+    print(f"the shared tail's other kernel (phase 22): "
+          f"skinned_triangle_kernel<40> {tri_busy[40]:.4f} ms busy, <32> "
+          f"{tri_busy[32]:.4f} ms busy ({card})", flush=True)
+
+    # the frame loop: each capture runs the entry point twice (its eager
+    # warm-up and the capture), a replay none; the crowd's frames none
+    td = tempfile.TemporaryDirectory()
+    crowd = loaded_crowd(dev, write_tube_gltf(Path(td.name) / "tube.glb"))
+    counts = {}
+    for name, r, step, frames in (
+            ("field", fr, lambda k: rotate(freg, k + 1), 4),
+            ("crowd", crowd.renderer, lambda k: crowd.scene.update(1 / 60),
+             8)):
+        before = (_build.LAUNCHES[RIGID_ENTRY], r.graphs.captures)
+        for k in range(frames):
+            step(k)
+            r.render_viewport()
+        torch.cuda.synchronize()
+        counts[name] = dict(launches=_build.LAUNCHES[RIGID_ENTRY] - before[0],
+                            captures=r.graphs.captures - before[1])
+    field, crowd_c = counts["field"], counts["crowd"]
+    if field["captures"] < 1 or field["launches"] != 2 * field["captures"] \
+            or crowd_c["captures"] < 1 or crowd_c["launches"]:
+        fail(f"rigid geometry's counts: {counts}")
+    out["frame_loop"] = counts
+    print(f"rigid geometry in the frame loop: 4 spheres1080_1m frames "
+          f"{field}, 8 crowd frames {crowd_c} ({card})", flush=True)
+    del fr, freg, crowd
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_knob_set(dev, card: str, kernel_names: list, drive,
                    results: dict) -> dict:
     """Phase 21 (module docstring): every kernel knob the JAX package
@@ -5791,14 +5971,18 @@ def main() -> None:
     # on this frame's intermediates
     gbuf = GBuffer(tri_id=tri, depth=raster.untile_frame(
         d_k, ntx, nty)[:h, :w].contiguous(), aux=bins.aux)
+    # the plain corner stage's full columns (the kernel route hands on the
+    # setup's alone): the record producer alone reads them, and so do
+    # phases 14 and 15 through `bench`
+    ccs = plain_corner_stage(inp)
     stages = {
         "geometry": lambda: frame_geometry(
             inp["plan"], inp["tri_draw"], inp["params"], inp["shade_table"],
             inp["camera"], inp["textures"], inp["corner_t"], width=w,
             height=h, draw_stride=inp["draw_stride"],
             real_draws=inp["real_draws"]),
-        # the (T, 32) record table alone, as frame_geometry builds it
-        "records": lambda: planes.build_resolve_cols_planar(cs.cols),
+        # the (T, 32) record table alone, as the plain geometry builds it
+        "records": lambda: planes.build_resolve_cols_planar(ccs.cols),
         "binning": lambda: raster.build_bins(cs.setup, w, h,
                                              setup_cols=cs.cols.setup),
         "visibility": lambda: raster.visibility_tiles(bins, ntx, n_tiles),
@@ -5853,8 +6037,9 @@ def main() -> None:
           f"{busy_ms:.3f} ms of it busy in {n_launch:.0f} device "
           f"activities (idle {1 - busy_ms / dev_ms:.3f}); {n_fg} non-clear "
           f"pixels, launches {launches4} ({card})", flush=True)
-    bench = (cs, records, bins)              # phase 11 reuses them
-    del r, reg, inp, cs, records, bins, d_k, t_k, d_p, t_p, tri, a_k, a_p
+    bench = (ccs, records, bins)             # phase 11 reuses them
+    del r, reg, inp, cs, ccs, records, bins, d_k, t_k, d_p, t_p, tri, a_k
+    del a_p
     del gbuf, idx, fx, fy, x_k, x_p, stages, vis
     torch.cuda.empty_cache()
 
@@ -6165,6 +6350,9 @@ def main() -> None:
     # -- phase 24: the binning kernels -------------------------------------
     bin_tiles = phase_bin_tiles(dev, card)
 
+    # -- phase 25: the rigid geometry kernel ----------------------------------
+    rigid_geometry = phase_rigid_geometry(dev, card, skinned_geometry)
+
     # launches: each kernel's count in the main-path run of the frame it
     # was held on (phase 4 for the main pass, phase 6 for the shadow pass
     # and the texel kernel, which the shadowed frame's plain shading runs,
@@ -6200,7 +6388,8 @@ def main() -> None:
     print(json.dumps({"kernels": kernels,
                       "skinned_geometry": skinned_geometry,
                       "deferred_shade": deferred_shade,
-                      "bin_tiles": bin_tiles}))
+                      "bin_tiles": bin_tiles,
+                      "rigid_geometry": rigid_geometry}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

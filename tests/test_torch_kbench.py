@@ -238,9 +238,8 @@ def test_kbench_records_leg_on_cpu(capsys):
     assert legs == ["records_rows", "records_columns", "records_columns",
                     "records_rows"]
     assert all("not measured" in line for line in out[2:-1])
-    from trident_tpu_torch.render import renderer
-    assert (renderer.build_resolve_cols_planar
-            is planes.build_resolve_cols_planar)
+    from trident_tpu_torch.ops import rigid
+    assert rigid.build_resolve_cols_planar is planes.build_resolve_cols_planar
     r, reg = build_bench_scene(1, torch.device("cpu"))
     rotate(reg, 0)
     cs = kb.frame_bins(r)[0]

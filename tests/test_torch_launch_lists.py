@@ -115,6 +115,7 @@ def test_listed_names_are_entry_points():
     entries = _entry_points()
     assert {"trident_" + n for n in graphs.LISTED} <= entries
     unlisted = {"trident_skinned_vertices", "trident_skinned_triangles",
+                "trident_rigid_geometry",
                 "trident_deferred_shade", "trident_stage_mark",
                 "trident_bin_records", "trident_bin_claims",
                 "trident_bin_heads", "trident_bin_pairs"}

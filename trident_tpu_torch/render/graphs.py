@@ -71,10 +71,10 @@ from trident_tpu_torch.utils.profiling import TRACER, stage_ring
 # "trident_"): those whose device records benchmark/trace.py::
 # KERNEL_RECORDS names, because its whole() holds every launch-list key to
 # its own record pattern, and a key it lacks would make no traced stretch
-# whole. So the skinned pair (trident_skinned_*), the shading kernel
-# (trident_deferred_shade), the binning kernels (trident_bin_*) and the
-# stage marks (trident_stage_mark) launch in captures but stay off the
-# list until that table names them.
+# whole. So the geometry kernels (trident_skinned_*,
+# trident_rigid_geometry), the shading kernel (trident_deferred_shade), the
+# binning kernels (trident_bin_*) and the stage marks (trident_stage_mark)
+# launch in captures but stay off the list until that table names them.
 _RESOLVE_KERNELS = ("visibility_resolve", "resolve", "resolve_tiled")
 LISTED = frozenset(
     ["texel", "texel_planar", "shadow_taps", "warp"]

@@ -4,12 +4,12 @@ The frame as the JAX package's `_render_frame_impl` runs it, on three
 routes. The default (use_pallas None or True, forward_shading True) is
 the forward frame:
 
-    geometry: rigid frames draw rows → corner stage (planar setup);
+    geometry: rigid frames draw rows → corner stage (planar setup) →
+      resolve records, on the card one kernel (ops/rigid.py);
       frames with a skinned draw the indexed path: vertex stage (gather,
       linear-blend skinning from the bone palette, transforms) → one
       (T, 3, 16) corner gather → triangle setup → resolve records, on the
       card one vertex and one triangle kernel (ops/indexed.py)
-    → resolve records
       (with vertex colours: the colour planes too, a (T, 40) table)
     [→ light pass: the same geometry path at the light camera → build_bins
        → depth-only visibility kernel → shadow map]
@@ -105,11 +105,9 @@ from trident_tpu_torch.ops.deferred import (
 from trident_tpu_torch.ops.deferred_tiled import shade_attrs_tiled
 from trident_tpu_torch.ops.indexed import indexed_geometry
 from trident_tpu_torch.ops.kernel_knobs import KernelKnobs
-from trident_tpu_torch.ops.planes import (
-    build_planes_cols,
-    build_resolve_cols_planar,
-)
+from trident_tpu_torch.ops.planes import build_planes_cols
 from trident_tpu_torch.ops.raster_ref import visibility_ref
+from trident_tpu_torch.ops.rigid import rigid_geometry
 from trident_tpu_torch.ops.shading import SAMPLING_MODES
 from trident_tpu_torch.ops.resolve import (
     fused_visibility_resolve,
@@ -160,31 +158,29 @@ logger = get_logger("renderer_torch")
 RASTER_MODES = ("pallas", "ref")
 
 
-def _geometry(plan, tri_draw, params, camera, corner_t, draw_consts, *,
-              width: int, height: int, draw_stride: int = 0,
-              real_draws: int = 0, vertex_colors: bool = False,
+def _geometry(plan, tri_draw, params, camera, corner_t, *, width: int,
+              height: int, draw_stride: int = 0, real_draws: int = 0,
+              vertex_colors: bool = False,
               geometry: Optional[GeometryBuffers] = None,
               palette: Optional[torch.Tensor] = None,
               skinned: bool = False) -> CornerStageOut:
-    """The frame's setup and planar corner columns: the corner stage when
-    `corner_t` is given and the frame is not `skinned`, else the indexed
-    path (trident_tpu/render/renderer.py:284-297): the vertex stage over
-    `geometry` (skinning from `palette` when `skinned`), one (T, 3, 16)
-    corner gather, the triangle setup. `draw_consts` (D, 12) or None ride
-    the columns as the records' shading consts."""
+    """The plane-gather routes' setup and planar corner columns: the
+    corner stage when `corner_t` is given and the frame is not `skinned`,
+    else the indexed path (trident_tpu/render/renderer.py:284-297): the
+    vertex stage over `geometry` (skinning from `palette` when `skinned`),
+    one (T, 3, 16) corner gather, the triangle setup. No shading consts
+    ride the columns (the plane tables take theirs from the shade
+    table)."""
     if corner_t is not None and not skinned:
-        draw_rows = build_draw_rows(params, camera, width, height,
-                                    draw_consts=draw_consts)
+        draw_rows = build_draw_rows(params, camera, width, height)
         return corner_stage(corner_t, draw_rows, tri_draw, plan.tri_valid,
                             width, height, draw_stride=draw_stride,
                             real_draws=real_draws,
                             vertex_colors=vertex_colors)
     verts = vertex_stage(geometry, plan, params, camera, palette,
                          skinned=skinned)
-    return indexed_corner_stage(
-        verts.packed, plan.tri_vtx, plan.tri_valid, width, height,
-        consts=None if draw_consts is None else draw_consts[tri_draw.long()],
-        vertex_colors=vertex_colors)
+    return indexed_corner_stage(verts.packed, plan.tri_vtx, plan.tri_valid,
+                                width, height, vertex_colors=vertex_colors)
 
 
 def shading_consts(params, shade_table, textures) -> torch.Tensor:
@@ -207,19 +203,20 @@ def frame_geometry(plan, tri_draw, params, shade_table, camera, textures,
     RR_WIDTH_VCOLOR), the colour planes added. The per-draw consts are the
     shade row + the texture sizes row, so the resolve kernel needs no
     per-pixel table lookups. `geometry`, `palette` and `skinned` select
-    the indexed path as _geometry says; it runs as one call,
-    ops/indexed.py::indexed_geometry (on the card a kernel pair, whose
-    corner columns are the setup's alone)."""
+    the indexed path as _geometry says; each path runs as one call,
+    ops/rigid.py::rigid_geometry or ops/indexed.py::indexed_geometry (on
+    the card one kernel or a kernel pair, whose corner columns are the
+    setup's alone)."""
     draw_consts = shading_consts(params, shade_table, textures)
     if corner_t is None or skinned:
         return indexed_geometry(plan, tri_draw, params, camera, draw_consts,
                                 geometry, palette, width=width,
                                 height=height, skinned=skinned,
                                 vertex_colors=vertex_colors)
-    cs = _geometry(plan, tri_draw, params, camera, corner_t, draw_consts,
-                   width=width, height=height, draw_stride=draw_stride,
-                   real_draws=real_draws, vertex_colors=vertex_colors)
-    return cs, build_resolve_cols_planar(cs.cols)
+    return rigid_geometry(plan, tri_draw, params, camera, draw_consts,
+                          corner_t, width=width, height=height,
+                          draw_stride=draw_stride, real_draws=real_draws,
+                          vertex_colors=vertex_colors)
 
 
 def plane_geometry(plan, tri_draw, params, shade_table, camera, corner_t, *,
@@ -233,7 +230,7 @@ def plane_geometry(plan, tri_draw, params, shade_table, camera, corner_t, *,
     output, AttributePlanes), f16 tables with `plane_f16`
     (trident_tpu/render/renderer.py:345-351); the geometry path as
     frame_geometry's."""
-    cs = _geometry(plan, tri_draw, params, camera, corner_t, None,
+    cs = _geometry(plan, tri_draw, params, camera, corner_t,
                    width=width, height=height, draw_stride=draw_stride,
                    real_draws=real_draws, vertex_colors=vertex_colors,
                    geometry=geometry, palette=palette, skinned=skinned)

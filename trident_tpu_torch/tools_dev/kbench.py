@@ -41,10 +41,11 @@ ck_bank 8, the bank table rebuilt from the doctored masks, and skips
 nobranch and dual, as the JAX script does under CKERN. --bins splits
 build_bins' time (records, emission + sort, one pool-sized sort) and
 --sort runs a ladder of torch.sort sizes; --records times the resolve
-table's producer, the (T, 32) rows frame_geometry builds against the
-(32, T) column layout the port built before (stack, then pad), alone and
-inside frame_geometry, in the order rows, columns, columns, rows. The
-three legs are plain PyTorch, no kernel.
+table's producer, the (T, 32) rows of the corner path's plain geometry
+(ops/rigid.py::rigid_geometry_plain) against the (32, T) column layout the
+port built before (stack, then pad), alone and inside that geometry, in
+the order rows, columns, columns, rows. The three legs are plain PyTorch,
+no kernel.
 
 The bins come as the JAX script builds them (kbench.py:59-67): the
 geometry through the indexed path, ops/vertex.py::vertex_stage over the
@@ -438,34 +439,36 @@ def records_leg(r, iters: int = 30, card_line: str = "cpu") -> None:
     """The resolve table's producer, A/B on Renderer r's current frame:
     build_resolve_cols_planar (rows) against records_columns (columns),
     each alone on the frame's corner-stage columns and inside
-    frame_geometry with its producer swapped, in the order rows, columns,
-    columns, rows (one window; order effects show as the two readings of
-    one producer differing)."""
-    from trident_tpu_torch.render import renderer
+    rigid_geometry_plain with its producer swapped, in the order rows,
+    columns, columns, rows (one window; order effects show as the two
+    readings of one producer differing)."""
+    from trident_tpu_torch.ops import rigid
+    from trident_tpu_torch.render.renderer import shading_consts
 
     inp = r.frame_inputs()
     dev = r.device
+    consts = shading_consts(inp["params"], inp["shade_table"],
+                            inp["textures"])
 
     def geometry():
-        return renderer.frame_geometry(
-            inp["plan"], inp["tri_draw"], inp["params"], inp["shade_table"],
-            inp["camera"], inp["textures"], inp["corner_t"],
-            width=inp["width"], height=inp["height"],
-            draw_stride=inp["draw_stride"], real_draws=inp["real_draws"])
+        return rigid.rigid_geometry_plain(
+            inp["plan"], inp["tri_draw"], inp["params"], inp["camera"],
+            consts, inp["corner_t"], width=inp["width"],
+            height=inp["height"], draw_stride=inp["draw_stride"],
+            real_draws=inp["real_draws"])
 
     cc = geometry()[0].cols
     producers = {"rows": planes.build_resolve_cols_planar,
                  "columns": records_columns}
     for which in ("rows", "columns", "columns", "rows"):
         make = producers[which]
-        renderer.build_resolve_cols_planar = make
+        rigid.build_resolve_cols_planar = make
         try:
             print(f"records_{which}: {timed(lambda: make(cc), dev, iters)}; "
                   f"geometry_{which}: {timed(geometry, dev, iters)} "
                   f"({card_line})", flush=True)
         finally:
-            renderer.build_resolve_cols_planar = (
-                planes.build_resolve_cols_planar)
+            rigid.build_resolve_cols_planar = planes.build_resolve_cols_planar
 
 
 def main(argv=None) -> None:
